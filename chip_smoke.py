@@ -1,0 +1,355 @@
+#!/usr/bin/env python3
+"""On-card smoke run of the PyTorch port (``src/repro_torch``).
+
+    python3 chip_smoke.py
+
+run from the root of a checkout, on a machine with one NVIDIA H100.  It
+imports no JAX and nothing of the JAX package, and runs in phases; any
+failure exits non-zero, and no phase catches an error and carries on:
+
+1. environment: the card's name and power limit; TF32 off everywhere
+   (``cudnn.allow_tf32`` defaults to True, which would put the CRDNN
+   convolutions in TF32);
+2. build: both CUDA kernels from the checkout's sources, one ``nvcc``
+   per source, all started together;
+3. kernels: each kernel against its plain PyTorch version on the same
+   card tensors, at the main path's shapes and at ragged edge shapes,
+   with times (CUDA events), the plain version's time, a PyTorch library
+   call's time where one computes the same function, and the least time
+   the card could take (bytes over 3.35 TB/s, operations over the fp32
+   67 TFLOP/s of an H100 SXM);
+4. agreement: one full-width ``rnnt-crdnn`` unit through the kernels on
+   the card against the same unit through the plain versions on the CPU
+   (per-example loss and the joint-head gradient of stage A);
+5. main path: ``train_with_selection(method="pgm")`` at the full width
+   of ``rnnt-crdnn`` on a synthetic corpus — warm start, then a PGM
+   round (stage A + stage B) before each subset epoch — with both
+   kernels' launch counters set to 0 just before and read just after;
+6. profile: one training step under ``torch.profiler`` (host wall time,
+   device busy time, the kernels that take the most of it).
+
+It ends with a JSON line of per-kernel numbers, the card's name and
+power limit as ``nvidia-smi`` prints them, and the line
+``{"ok": true, "device": {...}}``.
+"""
+from __future__ import annotations
+
+import json
+import math
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent
+SRC = ROOT / "src"
+
+HBM_BYTES_PER_S = 3.35e12          # H100 SXM device memory
+FP32_FLOP_PER_S = 67e12            # H100 SXM fp32 outside the tensor cores
+NEG = -1e30
+
+# main-path corpus: T = 32 * 16 = 512 frames -> T' = 128, U + 1 = 33
+CORPUS = dict(n_examples=64, n_feats=80, vocab_size=1000, min_tokens=16,
+              max_tokens=32, frames_per_token=16, noise_fraction=0.25,
+              snr_db=5.0)
+N_VAL = 16
+UNIT_SIZE = 4
+
+
+def fail(msg: str) -> None:
+    print(f"chip_smoke: FAIL: {msg}", file=sys.stderr)
+    sys.exit(1)
+
+
+def require(cond: bool, msg: str) -> None:
+    if not cond:
+        fail(msg)
+
+
+def cuda_ms(torch, fn, reps: int, warmup: int = 2) -> float:
+    """Mean time of one call on the card (CUDA events over ``reps``)."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def bound(n_bytes: float, n_ops: float):
+    """(least ms, what bounds it) for the card's published peaks."""
+    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    t_ops = n_ops / FP32_FLOP_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def lattice_inputs(torch, T, B, U1, seed, dev):
+    g = torch.Generator().manual_seed(seed)
+    mult = torch.randn(T, B, U1, generator=g)
+    add = torch.where(torch.rand(T, B, U1, generator=g) < 0.3,
+                      torch.randn(T, B, U1, generator=g),
+                      torch.tensor(NEG))
+    emit = torch.randn(T, B, U1, generator=g)
+    emit[:, :, 0] = NEG
+    return [x.to(dev).contiguous() for x in (mult, add, emit)]
+
+
+def lattice_err(torch, got, want):
+    """Hold the kernel at atol 1e-4 / rtol 1e-5 (cells that stay at NEG
+    agree to fp32 rounding at 1e30); the reported error is over the
+    reachable cells (> NEG / 2)."""
+    torch.testing.assert_close(got, want, atol=1e-4, rtol=1e-5)
+    live = want > NEG / 2
+    require(bool(torch.equal(live, got > NEG / 2)),
+            "rnnt_lattice: reachable cells differ")
+    return float((got - want)[live].abs().max()) if bool(live.any()) else 0.0
+
+
+def gram_err(torch, got, want):
+    """Two fp32 summation orders over D: held at 1e-4 of max |K|."""
+    err = float((got - want).abs().max())
+    scale = float(want.abs().max())
+    require(err <= 1e-4 * scale, f"omp_gram: max abs err {err} > 1e-4 * "
+                                 f"{scale}")
+    return err
+
+
+def profile_step(torch, bundle, tc, units, dev) -> None:
+    """One training step on one unit under ``torch.profiler``: host wall
+    time, summed kernel time (device busy share), and the kernels that
+    take the most device time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.train.engine import make_step_core, to_device
+    from repro_torch.train.optim import make_update_for
+
+    params = bundle.init_params(torch.Generator().manual_seed(1), dev)
+    opt_state = make_update_for(tc)[0](params)
+    step = make_step_core(bundle, tc)
+    batch = to_device({k: v[0] for k, v in units.items()}, dev)
+    step(params, opt_state, batch, tc.lr)               # warm up
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.time()
+        step(params, opt_state, batch, tc.lr)
+        torch.cuda.synchronize()
+        wall_ms = (time.time() - t0) * 1e3
+    rows = []
+    for ev in prof.key_averages():
+        if ev.device_type != DeviceType.CUDA:
+            continue                            # host-side op records
+        dt = getattr(ev, "self_device_time_total", None)
+        if dt is None:
+            dt = ev.self_cuda_time_total
+        rows.append((dt / 1e3, ev.count, ev.key))
+    busy_ms = sum(r[0] for r in rows)
+    n_kernels = sum(r[1] for r in rows)
+    print(f"[profile] one training step (B={UNIT_SIZE}): wall {wall_ms:.1f} "
+          f"ms, device busy {busy_ms:.1f} ms "
+          f"({100 * busy_ms / wall_ms:.1f}%), {n_kernels} device ops",
+          flush=True)
+    for dt, count, key in sorted(rows, reverse=True)[:8]:
+        print(f"[profile]   {dt:8.3f} ms  x{count:<6d} {key[:80]}",
+              flush=True)
+
+
+def main() -> None:
+    require((SRC / "repro_torch" / "kernels" / "backend.py").is_file(),
+            f"the port's sources are not beside this script ({SRC})")
+    sys.path.insert(0, str(SRC))
+    import numpy as np
+    import torch
+
+    require(torch.cuda.is_available(), "torch.cuda.is_available() is False")
+
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import PGMConfig, TrainConfig
+    from repro_torch.core.lastlayer import rnnt_joint_grad
+    from repro_torch.data.pipeline import asr_units
+    from repro_torch.data.synthetic import make_asr_corpus
+    from repro_torch.kernels import backend
+    from repro_torch.kernels.omp_gram.ops import omp_gram_batched_op
+    from repro_torch.kernels.omp_gram.ref import omp_gram_batched_ref
+    from repro_torch.kernels.rnnt_lattice.ops import rnnt_lattice_op
+    from repro_torch.kernels.rnnt_lattice.ref import rnnt_lattice_ref
+    from repro_torch.models.api import build_model
+    from repro_torch.train.loop import train_with_selection
+
+    # -- 1. environment -------------------------------------------------
+    dev = backend.resolve_device("cuda")
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
+    backend.fp32_numerics()
+    require(not torch.backends.cudnn.allow_tf32
+            and not torch.backends.cuda.matmul.allow_tf32,
+            "TF32 still on")
+    print(f"[env] {torch.cuda.get_device_name(0)} | {card} | torch "
+          f"{torch.__version__} cuda {torch.version.cuda} | TF32 off "
+          f"(matmul, cuDNN), matmul precision "
+          f"{torch.get_float32_matmul_precision()}", flush=True)
+
+    # -- 2. build -------------------------------------------------------
+    t0 = time.time()
+    paths = backend.build()
+    print(f"[build] {len(paths)} kernels in {time.time() - t0:.1f} s "
+          f"(nvcc sm_90a)", flush=True)
+    for name, log in backend.BUILD_LOG.items():
+        regs = [ln.strip() for ln in log.splitlines() if "registers" in ln]
+        print(f"[build] {name}: {'; '.join(regs)}", flush=True)
+
+    # -- 3. kernels against their plain versions ------------------------
+    cfg = get_config("rnnt-crdnn")
+    r = cfg.rnnt
+    T_main = CORPUS["max_tokens"] * CORPUS["frames_per_token"] // 4
+    U1_main = CORPUS["max_tokens"] + 1
+    lat_shape = (T_main, UNIT_SIZE, U1_main)
+    for T in (1, 9):
+        for U1 in (1, 2, 5, 17, 33, 65, 129):
+            ins = lattice_inputs(torch, T, 3, U1, seed=U1, dev=dev)
+            got = rnnt_lattice_op(*ins)
+            torch.cuda.synchronize()
+            lattice_err(torch, got, rnnt_lattice_ref(*ins))
+    print("[kernels] rnnt_lattice edge shapes T in (1, 9), U1 in "
+          "(1, 2, 5, 17, 33, 65, 129): ok", flush=True)
+    ins = lattice_inputs(torch, *lat_shape, seed=0, dev=dev)
+    lat_err = lattice_err(torch, rnnt_lattice_op(*ins),
+                          rnnt_lattice_ref(*ins))
+    lat_ms = cuda_ms(torch, lambda: rnnt_lattice_op(*ins), reps=200)
+    lat_plain = cuda_ms(torch, lambda: rnnt_lattice_ref(*ins), reps=5)
+    cells = math.prod(lat_shape)
+    # per cell: 2 adds and 2 logaddexps of 6 ops (max, sub, abs, exp,
+    # log1p, add); 3 inputs read, 1 output written
+    lat_bound, lat_by = bound(16 * cells, 14 * cells)
+    print(f"[kernels] rnnt_lattice {lat_shape}: max_abs_err {lat_err:.3e} "
+          f"kernel_ms {lat_ms:.4f} plain_ms {lat_plain:.4f} bound_ms "
+          f"{lat_bound:.6f} ({lat_by})", flush=True)
+
+    n_units = CORPUS["n_examples"] // UNIT_SIZE
+    P_main = 4
+    D_sk = 64 * 64
+    gram_rows = {}
+    for shape in ((P_main, n_units // P_main, D_sk), (8, 512, 4096)):
+        g = torch.randn(*shape, generator=torch.Generator().manual_seed(1)
+                        ).to(dev)
+        err = gram_err(torch, omp_gram_batched_op(g),
+                       omp_gram_batched_ref(g))
+        P, n, D = shape
+        reps = 50 if n >= 256 else 500
+        k_ms = cuda_ms(torch, lambda: omp_gram_batched_op(g), reps)
+        p_ms = cuda_ms(torch, lambda: omp_gram_batched_ref(g), reps)
+        gt = g.transpose(1, 2)
+        l_ms = cuda_ms(torch, lambda: torch.bmm(g, gt), reps)
+        b_ms, b_by = bound(4 * (P * n * D + P * n * n), 2 * P * n * n * D)
+        gram_rows[shape] = (err, k_ms, p_ms, l_ms, b_ms, b_by)
+        print(f"[kernels] omp_gram {shape}: max_abs_err {err:.3e} kernel_ms "
+              f"{k_ms:.4f} plain_ms {p_ms:.4f} library_ms (torch.bmm) "
+              f"{l_ms:.4f} bound_ms {b_ms:.6f} ({b_by}) achieved "
+              f"{2 * P * n * n * D / k_ms / 1e9:.2f} TFLOP/s", flush=True)
+
+    # -- 4. agreement: one full-width unit, card kernels vs CPU plain ----
+    bundle = build_model(cfg)
+    corpus = make_asr_corpus(0, **CORPUS)
+    val_corpus = make_asr_corpus(7, N_VAL, **{
+        k: v for k, v in CORPUS.items()
+        if k not in ("n_examples", "noise_fraction", "snr_db")})
+    units = asr_units(corpus, UNIT_SIZE)
+    val_units = asr_units(val_corpus, UNIT_SIZE)
+    params_cpu = bundle.init_params(torch.Generator().manual_seed(0),
+                                    torch.device("cpu"))
+    params_dev = {k: {kk: vv.to(dev) for kk, vv in v.items()}
+                  for k, v in params_cpu.items()}
+    unit = {k: torch.as_tensor(v[0]) for k, v in units.items()}
+    out = {}
+    for where, p in (("cpu", params_cpu), ("cuda", params_dev)):
+        u = {k: v.to(p["joint"]["w_out"].device) for k, v in unit.items()}
+        with torch.no_grad():
+            loss = bundle.per_example_loss(p, u)
+        out[where] = (loss.cpu(), rnnt_joint_grad(bundle, p, u).cpu())
+    require(out["cuda"][0].shape == (UNIT_SIZE,)
+            and bool(torch.isfinite(out["cuda"][0]).all())
+            and bool(torch.isfinite(out["cuda"][1]).all()),
+            "non-finite full-width loss or gradient on the card")
+    loss_rel = float(((out["cuda"][0] - out["cpu"][0]).abs()
+                      / out["cpu"][0].abs()).max())
+    grad_rel = float((out["cuda"][1] - out["cpu"][1]).abs().max()
+                     / out["cpu"][1].abs().max())
+    print(f"[agree] rnnt-crdnn unit (B={UNIT_SIZE}, T'={T_main}, "
+          f"U+1={U1_main}, V={r.vocab_size}): loss rel err {loss_rel:.2e}, "
+          f"dw_out rel err {grad_rel:.2e} (card kernels vs CPU plain)",
+          flush=True)
+    require(loss_rel < 1e-4 and grad_rel < 1e-3,
+            "card and CPU disagree on the full-width unit")
+
+    # -- 5. main path ---------------------------------------------------
+    tc = TrainConfig(lr=0.5, optimizer="sgd", epochs=3, seed=0,
+                     pgm=PGMConfig(subset_fraction=0.5, n_partitions=P_main,
+                                   select_every=1, warm_start_epochs=1,
+                                   val_matching=True))
+    print(f"[main] rnnt-crdnn ({cfg.n_params() / 1e6:.1f}M params) on "
+          f"{n_units} units of {UNIT_SIZE} utterances (T={CORPUS['max_tokens'] * CORPUS['frames_per_token']}, "
+          f"U<={CORPUS['max_tokens']}), {N_VAL} validation utterances, "
+          f"{tc.epochs} epochs, warm start {tc.pgm.warm_start_epochs}, "
+          f"{P_main} partitions, subset {tc.pgm.subset_fraction}", flush=True)
+    rnnt_lattice_op.launches = 0
+    omp_gram_batched_op.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.time()
+    hist = train_with_selection(
+        bundle, units, tc, method="pgm", val_units=val_units, device="cuda",
+        log_fn=lambda s: print(f"[main +{time.time() - t0:.1f}s] {s}",
+                               flush=True))
+    torch.cuda.synchronize()
+    main_s = time.time() - t0
+    launches = {"rnnt_lattice": rnnt_lattice_op.launches,
+                "omp_gram": omp_gram_batched_op.launches}
+    for s in hist.selections:
+        print(f"[main] selection at epoch {s['epoch']}: indices "
+              f"{s['indices']} weights "
+              f"{[round(w, 4) for w in s['weights']]}", flush=True)
+    print(f"[main] {main_s:.1f} s; launches {launches}", flush=True)
+    require(all(n > 0 for n in launches.values()),
+            f"a kernel of the main path was never launched: {launches}")
+    require(len(hist.selections) == 2 and len(hist.train_loss) == tc.epochs,
+            "the main path did not run its selection rounds and epochs")
+    require(all(np.isfinite(hist.train_loss))
+            and all(np.isfinite(hist.val_loss)), "non-finite loss")
+    require(all(len(s["indices"]) == n_units // 2 for s in hist.selections),
+            "selection budget")
+
+    # -- 6. where a training step's time goes (outside the counted run) --
+    profile_step(torch, bundle, tc, units, dev)
+
+    g_err, g_ms, g_plain, g_lib, g_bound, g_by = \
+        gram_rows[(P_main, n_units // P_main, D_sk)]
+    kernels = [
+        {"name": "rnnt_lattice", "route": "cuda",
+         "source": "src/repro_torch/kernels/rnnt_lattice/csrc/rnnt_lattice.cu",
+         "replaces": "src/repro/kernels/rnnt_lattice/kernel.py:71",
+         "launches": launches["rnnt_lattice"], "max_abs_err": lat_err,
+         "ms": lat_ms, "plain_ms": lat_plain, "bound_ms": lat_bound,
+         "bound_by": lat_by, "library_ms": None},
+        {"name": "omp_gram_batched", "route": "cuda",
+         "source": "src/repro_torch/kernels/omp_gram/csrc/omp_gram.cu",
+         "replaces": "src/repro/kernels/omp_gram/kernel.py:54",
+         "launches": launches["omp_gram"], "max_abs_err": g_err,
+         "ms": g_ms, "plain_ms": g_plain, "bound_ms": g_bound,
+         "bound_by": g_by, "library_ms": g_lib},
+    ]
+    print(json.dumps({"kernels": kernels}))
+    print(card)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+
+
+if __name__ == "__main__":
+    main()

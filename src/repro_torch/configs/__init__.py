@@ -1,0 +1,24 @@
+"""Config registry of the port: ``get_config(name)``."""
+from __future__ import annotations
+
+from repro_torch.configs.base import (  # noqa: F401 (public re-exports)
+    ModelConfig,
+    PGMConfig,
+    RNNTConfig,
+    TrainConfig,
+    reduce_for_smoke,
+)
+from repro_torch.configs.rnnt_crdnn import CONFIG as RNNT_CRDNN
+
+_ARCHS = {"rnnt-crdnn": RNNT_CRDNN}
+
+
+def get_config(name: str) -> ModelConfig:
+    """``rnnt-crdnn`` or its ``-smoke`` reduction."""
+    smoke = name.endswith("-smoke")
+    base = name[: -len("-smoke")] if smoke else name
+    if base not in _ARCHS:
+        raise KeyError(f"unknown arch {name!r}; the port knows "
+                       f"{sorted(_ARCHS)} (and their -smoke variants)")
+    cfg = _ARCHS[base]
+    return reduce_for_smoke(cfg) if smoke else cfg

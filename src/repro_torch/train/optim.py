@@ -1,0 +1,118 @@
+"""Optimizers of the port: SGD(+momentum), AdamW, gradient clipping and
+the paper's "newbob" scheduler (the reference's ``train/optim.py``).
+
+Params, grads and optimizer states are nested dicts of tensors; updates
+are functional (they return new trees and leave their inputs as they
+were), like the reference's, so a parity test can hold the state before
+and after one step side by side.
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+from repro_torch.models.common import tree_leaves, tree_map
+
+
+def global_norm(tree) -> torch.Tensor:
+    return torch.sqrt(sum(torch.sum(torch.square(l.to(torch.float32)))
+                          for l in tree_leaves(tree)))
+
+
+def clip_by_global_norm(grads, max_norm: float):
+    n = global_norm(grads)
+    scale = torch.clamp(max_norm / torch.clamp(n, min=1e-9), max=1.0)
+    return tree_map(lambda g: g * scale, grads), n
+
+
+# SGD (+ momentum) — the paper trains with plain SGD at lr 1-2
+
+def sgd_init(params, momentum: float = 0.0):
+    dev = tree_leaves(params)[0].device
+    state = {"step": torch.zeros((), dtype=torch.int32, device=dev)}
+    if momentum:
+        state["mu"] = tree_map(torch.zeros_like, params)
+    return state
+
+
+def sgd_update(params, grads, state, lr, momentum: float = 0.0,
+               weight_decay: float = 0.0):
+    step = state["step"] + 1
+    if weight_decay:
+        grads = tree_map(lambda g, p: g + weight_decay * p, grads, params)
+    if momentum:
+        mu = tree_map(lambda m, g: momentum * m + g, state["mu"], grads)
+        upd, new_state = mu, {"step": step, "mu": mu}
+    else:
+        upd, new_state = grads, {"step": step}
+    return tree_map(lambda p, u: p - lr * u, params, upd), new_state
+
+
+# AdamW
+
+def adamw_init(params):
+    dev = tree_leaves(params)[0].device
+    z = lambda p: torch.zeros(p.shape, dtype=torch.float32, device=dev)
+    return {"step": torch.zeros((), dtype=torch.int32, device=dev),
+            "m": tree_map(z, params), "v": tree_map(z, params)}
+
+
+def adamw_update(params, grads, state, lr, b1=0.9, b2=0.95, eps=1e-8,
+                 weight_decay: float = 0.0):
+    step = state["step"] + 1
+    t = step.to(torch.float32)
+    m = tree_map(lambda m_, g: b1 * m_ + (1 - b1) * g, state["m"], grads)
+    v = tree_map(lambda v_, g: b2 * v_ + (1 - b2) * torch.square(g),
+                 state["v"], grads)
+    bc1 = 1 - torch.pow(b1, t)
+    bc2 = 1 - torch.pow(b2, t)
+
+    def upd(p, m_, v_):
+        u = (m_ / bc1) / (torch.sqrt(v_ / bc2) + eps)
+        if weight_decay:
+            u = u + weight_decay * p
+        return p - lr * u
+
+    return tree_map(upd, params, m, v), {"step": step, "m": m, "v": v}
+
+
+def make_optimizer(name: str):
+    if name == "sgd":
+        return sgd_init, sgd_update
+    if name == "adamw":
+        return adamw_init, adamw_update
+    raise ValueError(name)
+
+
+def make_update_for(cfg):
+    """Bind a TrainConfig's optimizer hyper-parameters once:
+    ``init(params) -> state``; ``update(params, grads, state, lr)``."""
+    init, update = make_optimizer(cfg.optimizer)
+    kw = {"momentum": cfg.momentum} if cfg.optimizer == "sgd" else {}
+
+    def init_fn(params):
+        return init(params, cfg.momentum) if cfg.optimizer == "sgd" \
+            else init(params)
+
+    def update_fn(params, grads, state, lr):
+        return update(params, grads, state, lr,
+                      weight_decay=cfg.weight_decay, **kw)
+
+    return init_fn, update_fn
+
+
+# newbob scheduler (paper: lr 2.0, anneal 0.8 on rel. improvement < 0.0025)
+
+@dataclasses.dataclass
+class NewbobState:
+    lr: float
+    prev_loss: float = float("inf")
+
+    def update(self, val_loss: float, anneal_factor: float = 0.8,
+               improvement_threshold: float = 0.0025) -> "NewbobState":
+        if self.prev_loss != float("inf"):
+            rel = (self.prev_loss - val_loss) / max(abs(self.prev_loss), 1e-9)
+            if rel < improvement_threshold:
+                return NewbobState(self.lr * anneal_factor, val_loss)
+        return NewbobState(self.lr, val_loss)

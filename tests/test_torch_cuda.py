@@ -1,0 +1,105 @@
+"""PyTorch port on the card (marker ``cuda``; skipped without an NVIDIA
+GPU, since a CUDA kernel has no CPU mode).  Imports no JAX, so it runs on
+a machine that has only PyTorch:
+
+  PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
+
+Each Hopper kernel is held against its plain PyTorch version on the same
+card tensors (which the CPU tests hold against the JAX reference), at
+ragged edge shapes; the fused loss is held against the same loss on the
+CPU.  TF32 is off throughout (``backend.fp32_numerics``).
+"""
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from repro_torch.core.rnnt_loss import rnnt_loss_fused  # noqa: E402
+from repro_torch.kernels import backend  # noqa: E402
+from repro_torch.kernels.omp_gram.ops import omp_gram_batched_op  # noqa: E402
+from repro_torch.kernels.omp_gram.ref import omp_gram_batched_ref  # noqa: E402
+from repro_torch.kernels.rnnt_lattice.ops import rnnt_lattice_op  # noqa: E402
+from repro_torch.kernels.rnnt_lattice.ref import (  # noqa: E402
+    NEG, rnnt_lattice_ref)
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (the CUDA kernels have no CPU mode)")
+    backend.fp32_numerics()
+    return torch.device("cuda")
+
+
+def _lattice_inputs(T, B, U1, seed):
+    rng = np.random.default_rng(seed)
+    mult = rng.normal(size=(T, B, U1)).astype(np.float32)
+    add = np.where(rng.uniform(size=(T, B, U1)) < 0.3,
+                   rng.normal(size=(T, B, U1)), NEG).astype(np.float32)
+    emit = rng.normal(size=(T, B, U1)).astype(np.float32)
+    emit[:, :, 0] = NEG
+    return mult, add, emit
+
+
+@pytest.mark.parametrize("U1", [1, 2, 5, 17, 33, 65, 129])
+@pytest.mark.parametrize("T", [1, 9])
+def test_lattice_kernel_matches_plain(card, T, U1):
+    ins = [torch.from_numpy(x).to(card)
+           for x in _lattice_inputs(T, 3, U1, seed=U1)]
+    n0 = rnnt_lattice_op.launches
+    got = rnnt_lattice_op(*ins)
+    torch.cuda.synchronize()
+    assert rnnt_lattice_op.launches == n0 + 1
+    torch.testing.assert_close(got, rnnt_lattice_ref(*ins),
+                               atol=1e-4, rtol=1e-5)
+
+
+@pytest.mark.parametrize("P,n,D", [(1, 1, 1), (4, 4, 4096), (3, 65, 130),
+                                   (2, 130, 4099)])
+def test_gram_kernel_matches_plain(card, P, n, D):
+    g = torch.randn(P, n, D, generator=torch.Generator().manual_seed(n)
+                    ).to(card)
+    n0 = omp_gram_batched_op.launches
+    got = omp_gram_batched_op(g)
+    torch.cuda.synchronize()
+    assert omp_gram_batched_op.launches == n0 + 1
+    want = omp_gram_batched_ref(g)
+    torch.testing.assert_close(got, want, rtol=0,
+                               atol=1e-4 * float(want.abs().max()))
+
+
+def test_wrappers_refuse_what_the_kernels_do_not_take(card):
+    x = torch.zeros(2, 3, 4, device=card)
+    with pytest.raises(TypeError):
+        rnnt_lattice_op(x.double(), x.double(), x.double())
+    with pytest.raises(ValueError):
+        rnnt_lattice_op(x.transpose(0, 1), x.transpose(0, 1),
+                        x.transpose(0, 1))
+    with pytest.raises(ValueError):
+        omp_gram_batched_op(x[0])
+
+
+def test_fused_loss_on_card_matches_cpu(card):
+    """The fused loss and its factor gradients through the lattice
+    kernel, against the same loss on the CPU (plain lattice)."""
+    rng = np.random.default_rng(0)
+    B, T, U, J, V = 3, 16, 5, 8, 29
+    ze = rng.normal(size=(B, T, J)).astype(np.float32)
+    zp = rng.normal(size=(B, U + 1, J)).astype(np.float32)
+    w = (rng.normal(size=(J, V)) * 0.5).astype(np.float32)
+    labels = rng.integers(1, V, (B, U))
+    t_lens, u_lens = np.array([16, 1, 9]), np.array([5, 0, 3])
+    out = {}
+    for dev in ("cpu", card):
+        xs = [torch.tensor(a, device=dev, requires_grad=True)
+              for a in (ze, zp, w)]
+        nll = rnnt_loss_fused(*xs, torch.tensor(labels, device=dev),
+                              torch.tensor(t_lens, device=dev),
+                              torch.tensor(u_lens, device=dev),
+                              vocab_chunk=8)
+        nll.sum().backward()
+        out[str(dev)] = [nll.detach().cpu()] + [x.grad.cpu() for x in xs]
+    for a, b in zip(out["cpu"], out["cuda"]):
+        torch.testing.assert_close(b, a, rtol=1e-4, atol=1e-5)

@@ -1,0 +1,124 @@
+"""PyTorch port, RNN-T loss: the fused ``autograd.Function`` loss and the
+dense oracle against the JAX fused loss and dense oracle — NLL and the
+three factor gradients (dze, dzp, dw_out) at rtol 1e-4 (the
+``tests/test_rnnt_loss.py`` bar) over the edge lengths t_len 1, u_len 0,
+u_len U and ragged rows, with one vocab chunk and with chunks that pad
+the vocab.  The JAX lattice runs as its Pallas kernel in interpret mode
+in one case and through its XLA reference in the others."""
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax  # noqa: E402
+import jax.numpy as jnp  # noqa: E402
+
+from repro.core import rnnt_loss as jax_loss  # noqa: E402
+from repro_torch.core import rnnt_loss  # noqa: E402
+from repro_torch.core.chunking import (auto_vocab_chunk,  # noqa: E402
+                                       vocab_chunks)
+from repro_torch.kernels.backend import fp32_numerics  # noqa: E402
+
+B, T, U, J, V = 3, 7, 4, 6, 13
+EDGE_LENS = [
+    ("full", [7, 7, 7], [4, 4, 4]),
+    ("t_len_1", [1, 7, 1], [4, 2, 0]),
+    ("u_len_0", [7, 5, 3], [0, 0, 0]),
+    ("u_len_U", [7, 6, 5], [4, 4, 4]),
+    ("ragged", [7, 1, 4], [4, 0, 2]),
+]
+
+
+def _case(seed, t_lens, u_lens):
+    rng = np.random.default_rng(seed)
+    ze = rng.normal(size=(B, T, J)).astype(np.float32)
+    zp = rng.normal(size=(B, U + 1, J)).astype(np.float32)
+    w = (rng.normal(size=(J, V)) * 0.5).astype(np.float32)
+    labels = rng.integers(1, V, (B, U)).astype(np.int32)
+    wgt = rng.uniform(0.5, 1.5, B).astype(np.float32)
+    return (ze, zp, w, labels, np.asarray(t_lens, np.int32),
+            np.asarray(u_lens, np.int32), wgt)
+
+
+def _rel(a, b):
+    return float(np.abs(a - b).max() / (np.abs(b).max() + 1e-9))
+
+
+def _jax_fused(ze, zp, w, labels, tl, ul, wgt, chunk, impl):
+    f = lambda ze, zp, w: jnp.sum(jax_loss.rnnt_loss_fused(
+        ze, zp, w, labels, tl, ul, vocab_chunk=chunk, lattice_impl=impl)
+        * wgt)
+    nll = jax_loss.rnnt_loss_fused(jnp.asarray(ze), jnp.asarray(zp),
+                                   jnp.asarray(w), labels, tl, ul,
+                                   vocab_chunk=chunk, lattice_impl=impl)
+    grads = jax.grad(f, argnums=(0, 1, 2))(jnp.asarray(ze), jnp.asarray(zp),
+                                          jnp.asarray(w))
+    return [np.asarray(nll)] + [np.asarray(g) for g in grads]
+
+
+def _jax_dense(ze, zp, w, labels, tl, ul, wgt):
+    def nll_of(ze, zp, w):
+        logits = jnp.tanh(ze[:, :, None, :] + zp[:, None, :, :]) @ w
+        return jax_loss.rnnt_loss_from_logits(logits, labels, tl, ul)
+    grads = jax.grad(lambda *a: jnp.sum(nll_of(*a) * wgt),
+                     argnums=(0, 1, 2))(jnp.asarray(ze), jnp.asarray(zp),
+                                        jnp.asarray(w))
+    nll = nll_of(jnp.asarray(ze), jnp.asarray(zp), jnp.asarray(w))
+    return [np.asarray(nll)] + [np.asarray(g) for g in grads]
+
+
+def _torch(fn, ze, zp, w, labels, tl, ul, wgt):
+    xs = [torch.tensor(a, requires_grad=True) for a in (ze, zp, w)]
+    nll = fn(*xs, torch.from_numpy(labels), torch.from_numpy(tl),
+             torch.from_numpy(ul))
+    (nll * torch.from_numpy(wgt)).sum().backward()
+    return [nll.detach().numpy()] + [x.grad.numpy() for x in xs]
+
+
+@pytest.mark.parametrize("name,t_lens,u_lens", EDGE_LENS,
+                         ids=[e[0] for e in EDGE_LENS])
+@pytest.mark.parametrize("vocab_chunk", [0, 5])
+def test_fused_loss_and_grads_match_reference(name, t_lens, u_lens,
+                                              vocab_chunk):
+    fp32_numerics()
+    case = _case(1, t_lens, u_lens)
+    impl = "interpret" if (name, vocab_chunk) == ("ragged", 5) else "ref"
+    want_fused = _jax_fused(*case, vocab_chunk, impl)
+    want_dense = _jax_dense(*case)
+    got = _torch(lambda *a: rnnt_loss.rnnt_loss_fused(
+        *a, vocab_chunk=vocab_chunk), *case)
+    for what, g, wf, wd in zip(("nll", "dze", "dzp", "dw_out"), got,
+                               want_fused, want_dense):
+        assert g.shape == wf.shape, what
+        assert _rel(g, wf) < 1e-4, (what, _rel(g, wf))
+        assert _rel(g, wd) < 1e-4, (what, _rel(g, wd))
+
+
+@pytest.mark.parametrize("name,t_lens,u_lens", EDGE_LENS[::2],
+                         ids=[e[0] for e in EDGE_LENS[::2]])
+def test_dense_oracle_matches_reference(name, t_lens, u_lens):
+    """The port's dense oracle (autograd through the plain lattice)."""
+    case = _case(2, t_lens, u_lens)
+    want = _jax_dense(*case)
+
+    def dense(ze, zp, w, labels, tl, ul):
+        logits = torch.tanh(ze[:, :, None, :] + zp[:, None, :, :]) @ w
+        return rnnt_loss.rnnt_loss_from_logits(logits, labels, tl, ul)
+
+    got = _torch(dense, *case)
+    for what, g, wd in zip(("nll", "dze", "dzp", "dw_out"), got, want):
+        assert _rel(g, wd) < 1e-4, (what, _rel(g, wd))
+
+
+def test_chunk_layout_and_auto_chunk_match_reference():
+    from repro.core import chunking as jax_chunking
+    w = np.random.default_rng(0).normal(size=(6, 13)).astype(np.float32)
+    for chunk in (13, 5, 4):
+        got_x, got_m = vocab_chunks(torch.from_numpy(w), chunk, axis=1)
+        want_x, want_m = jax_chunking.vocab_chunks(jnp.asarray(w), chunk,
+                                                   axis=1)
+        np.testing.assert_array_equal(got_x.numpy(), np.asarray(want_x))
+        np.testing.assert_array_equal(got_m.numpy(), np.asarray(want_m))
+    for rows, v in ((1156, 1000), (5000, 1000), (40000, 32000), (10, 37)):
+        assert auto_vocab_chunk(rows, v) == \
+            jax_chunking.auto_vocab_chunk(rows, v)
