@@ -10,30 +10,40 @@ failure exits non-zero, and no phase catches an error and carries on:
 1. environment: the card's name and power limit; TF32 off everywhere
    (``cudnn.allow_tf32`` defaults to True, which would put the CRDNN
    convolutions in TF32);
-2. build: both CUDA kernels from the checkout's sources, one ``nvcc``
-   per source, all started together;
+2. build: the three CUDA kernels from the checkout's sources, one
+   ``nvcc`` per source, all started together;
 3. kernels: each kernel against its plain PyTorch version on the same
-   card tensors, at the main path's shapes and at ragged edge shapes,
+   card tensors, at the main paths' shapes and at ragged edge shapes,
    with times (CUDA events), the plain version's time, a PyTorch library
    call's time where one computes the same function, and the least time
    the card could take (bytes over 3.35 TB/s, operations over the fp32
-   67 TFLOP/s of an H100 SXM);
-4. agreement: one full-width ``rnnt-crdnn`` unit through the kernels on
-   the card against the same unit through the plain versions on the CPU
-   (per-example loss and the joint-head gradient of stage A);
-5. main path: ``train_with_selection(method="pgm")`` at the full width
-   of ``rnnt-crdnn`` on a synthetic corpus — warm start, then a PGM
-   round (stage A + stage B) before each subset epoch — with both
-   kernels' launch counters set to 0 just before and read just after;
-6. profile: one training step under ``torch.profiler`` (host wall time,
-   device busy time, the kernels that take the most of it).
+   67 TFLOP/s of an H100 SXM); the grad-sketch kernel also launched twice
+   on the same inputs, which must agree bit for bit;
+4. agreement: one full-width ``rnnt-crdnn`` unit, and one unit of
+   ``starcoder2-3b`` at full width with 2 layers in fp32, through the
+   kernels on the card against the same unit through the plain versions
+   on the CPU (per-example loss and the stage-A gradient or sketch);
+5. main path, RNN-T: ``train_with_selection(method="pgm")`` at the full
+   width of ``rnnt-crdnn`` on a synthetic corpus — warm start, then a PGM
+   round (stage A + stage B) before each subset epoch;
+6. profile, RNN-T: one training step under ``torch.profiler`` (host wall
+   time, device busy time, the kernels that take the most of it);
+7. main path, LM: the same loop on ``starcoder2-3b`` at full width and
+   depth (30 layers, d_model 3072, vocab 49152, bf16 compute, fp32 master
+   weights) on a synthetic corpus of 512-token examples, with the peak of
+   device memory;
+8. profile, LM: one training step of that model, as in 6.
 
-It ends with a JSON line of per-kernel numbers, the card's name and
-power limit as ``nvidia-smi`` prints them, and the line
+Each main path runs with its kernels' launch counters set to 0 just
+before and read just after, and fails if a kernel of the path was never
+launched.  The script ends with a JSON line of per-kernel numbers (one
+row per kernel and main path, so the Gram, which both paths run, has
+two), the card's name and power limit as ``nvidia-smi`` prints them, and the line
 ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import math
 import subprocess
@@ -54,6 +64,18 @@ CORPUS = dict(n_examples=64, n_feats=80, vocab_size=1000, min_tokens=16,
               snr_db=5.0)
 N_VAL = 16
 UNIT_SIZE = 4
+# LM main path: make_lm_corpus(0, 64, 512, 49152) in units of 4 (16 units),
+# validation make_lm_corpus(7, 16, 512, 49152) (4 units), as the launcher
+# builds them for --n 64 --seq 512
+LM_N = 64
+LM_SEQ = 512
+# grad-sketch shapes: the LM main path's stage-A unit (U, n, d, V, k1, k2)
+# with n = 4 * 511 tokens, and ragged ones (n and V off every tile, k1 !=
+# k2, several units, an all-zero scale row set in unit 1)
+SKETCH_MAIN = (1, UNIT_SIZE * (LM_SEQ - 1), 3072, 49152, 64, 64)
+SKETCH_EDGES = ((1, 1, 1, 1, 1, 1), (1, 17, 16, 64, 8, 8),
+                (3, 130, 72, 1001, 24, 40), (2, 65, 33, 4099, 64, 100),
+                (4, 511, 256, 8195, 70, 64))
 
 
 def fail(msg: str) -> None:
@@ -119,7 +141,54 @@ def gram_err(torch, got, want):
     return err
 
 
-def profile_step(torch, bundle, tc, units, dev) -> None:
+def sketch_inputs(torch, U, n, d, V, k1, k2, seed, dev):
+    """Logits of std 4 (the head scaled by 4/sqrt(d)), so the softmax is
+    peaked and its p.R2 term carries a good part of the sketch; the head
+    is passed as the (d, V) view of a contiguous (V, d) tensor, as the
+    tied embedding gives it; unit 1 (when there is one) has scale 0."""
+    g = torch.Generator().manual_seed(seed)
+    h = torch.randn(U, n, d, generator=g)
+    wt = torch.randn(V, d, generator=g) * (4 / math.sqrt(d))
+    rh = torch.randn(d, k1, generator=g)
+    rv = torch.randn(V, k2, generator=g)
+    t = torch.randint(0, V, (U, n), generator=g, dtype=torch.int32)
+    s = torch.rand(U, n, generator=g) + 0.5
+    if U > 1:
+        s[1] = 0.0
+    h, wt, rh, rv, t, s = (x.to(dev) for x in (h, wt, rh, rv, t, s))
+    return [h, wt.t(), rh, rv, t, s]
+
+
+def sketch_err(torch, op, ref, ins):
+    """Two launches on the same inputs agree bitwise; the kernel agrees
+    with the plain version within 1e-4 of its largest entry, and within
+    1e-4 of the largest entry of the vocab pass's own part hr^T (p R2)
+    scale (the target term R2[t], indexed outside the kernel, can dwarf
+    it).  -> (max abs err, err / largest entry, err / largest vocab-part
+    entry)."""
+    got = op(*ins)
+    again = op(*ins)
+    torch.cuda.synchronize()
+    require(bool(torch.equal(got, again)),
+            "grad_sketch: two launches on the same inputs differ")
+    want = ref(*ins)
+    h, _, rh, rv, t, s = ins
+    vocab = want + torch.einsum("unk,unl->ukl", h @ rh,
+                                rv[t.long()] * s[..., None])
+    err = float((got - want).abs().max())
+    scale = float(want.abs().max())
+    v_scale = float(vocab.abs().max())
+    require(err <= 1e-4 * scale and err <= 1e-4 * v_scale,
+            f"grad_sketch {tuple(ins[0].shape)}: max abs err {err} > 1e-4 "
+            f"* {scale} (sketch) or 1e-4 * {v_scale} (vocab part)")
+    if ins[0].shape[0] > 1:
+        require(not bool(got[1].any()), "grad_sketch: a zero-scale unit "
+                                        "has a non-zero sketch")
+    return (err, err / scale if scale else 0.0,
+            err / v_scale if v_scale else 0.0)
+
+
+def profile_step(torch, bundle, tc, units, dev, params, tag) -> None:
     """One training step on one unit under ``torch.profiler``: host wall
     time, summed kernel time (device busy share), and the kernels that
     take the most device time."""
@@ -129,7 +198,6 @@ def profile_step(torch, bundle, tc, units, dev) -> None:
     from repro_torch.train.engine import make_step_core, to_device
     from repro_torch.train.optim import make_update_for
 
-    params = bundle.init_params(torch.Generator().manual_seed(1), dev)
     opt_state = make_update_for(tc)[0](params)
     step = make_step_core(bundle, tc)
     batch = to_device({k: v[0] for k, v in units.items()}, dev)
@@ -151,16 +219,23 @@ def profile_step(torch, bundle, tc, units, dev) -> None:
         rows.append((dt / 1e3, ev.count, ev.key))
     busy_ms = sum(r[0] for r in rows)
     n_kernels = sum(r[1] for r in rows)
-    print(f"[profile] one training step (B={UNIT_SIZE}): wall {wall_ms:.1f} "
-          f"ms, device busy {busy_ms:.1f} ms "
+    print(f"[profile {tag}] one training step (B={UNIT_SIZE}): wall "
+          f"{wall_ms:.1f} ms, device busy {busy_ms:.1f} ms "
           f"({100 * busy_ms / wall_ms:.1f}%), {n_kernels} device ops",
           flush=True)
     for dt, count, key in sorted(rows, reverse=True)[:8]:
-        print(f"[profile]   {dt:8.3f} ms  x{count:<6d} {key[:80]}",
+        print(f"[profile {tag}]   {dt:8.3f} ms  x{count:<6d} {key[:80]}",
               flush=True)
 
 
 def main() -> None:
+    clock = [time.time()]
+
+    def mark(phase: str) -> None:
+        now = time.time()
+        print(f"[time] {phase}: {now - clock[0]:.1f} s", flush=True)
+        clock[0] = now
+
     require((SRC / "repro_torch" / "kernels" / "backend.py").is_file(),
             f"the port's sources are not beside this script ({SRC})")
     sys.path.insert(0, str(SRC))
@@ -171,10 +246,15 @@ def main() -> None:
 
     from repro_torch.configs import get_config
     from repro_torch.configs.base import PGMConfig, TrainConfig
-    from repro_torch.core.lastlayer import rnnt_joint_grad
+    from repro_torch.core.lastlayer import rnnt_joint_grad, units_gradients
+    from repro_torch.core.sketch import make_projections
     from repro_torch.data.pipeline import asr_units
     from repro_torch.data.synthetic import make_asr_corpus
     from repro_torch.kernels import backend
+    from repro_torch.kernels.grad_sketch.ops import grad_sketch_units_op
+    from repro_torch.kernels.grad_sketch.ref import grad_sketch_units_ref
+    from repro_torch.launch.train import make_units_for
+    from repro_torch.models.common import tree_map
     from repro_torch.kernels.omp_gram.ops import omp_gram_batched_op
     from repro_torch.kernels.omp_gram.ref import omp_gram_batched_ref
     from repro_torch.kernels.rnnt_lattice.ops import rnnt_lattice_op
@@ -197,6 +277,8 @@ def main() -> None:
           f"(matmul, cuDNN), matmul precision "
           f"{torch.get_float32_matmul_precision()}", flush=True)
 
+    mark("environment")
+
     # -- 2. build -------------------------------------------------------
     t0 = time.time()
     paths = backend.build()
@@ -205,6 +287,8 @@ def main() -> None:
     for name, log in backend.BUILD_LOG.items():
         regs = [ln.strip() for ln in log.splitlines() if "registers" in ln]
         print(f"[build] {name}: {'; '.join(regs)}", flush=True)
+
+    mark("build")
 
     # -- 3. kernels against their plain versions ------------------------
     cfg = get_config("rnnt-crdnn")
@@ -255,6 +339,35 @@ def main() -> None:
               f"{l_ms:.4f} bound_ms {b_ms:.6f} ({b_by}) achieved "
               f"{2 * P * n * n * D / k_ms / 1e9:.2f} TFLOP/s", flush=True)
 
+    for shape in SKETCH_EDGES:
+        sketch_err(torch, grad_sketch_units_op, grad_sketch_units_ref,
+                   sketch_inputs(torch, *shape, seed=sum(shape), dev=dev))
+    print(f"[kernels] grad_sketch edge shapes (U, n, d, V, k1, k2) in "
+          f"{SKETCH_EDGES}: ok, two launches bitwise equal", flush=True)
+    ins = sketch_inputs(torch, *SKETCH_MAIN, seed=0, dev=dev)
+    sk_err, sk_rel, sk_vrel = sketch_err(torch, grad_sketch_units_op,
+                                         grad_sketch_units_ref, ins)
+    sk_ms = cuda_ms(torch, lambda: grad_sketch_units_op(*ins), reps=10)
+    sk_plain = cuda_ms(torch, lambda: grad_sketch_units_ref(*ins), reps=5)
+    U, n, d, V, k1, k2 = SKETCH_MAIN
+    # inputs h, w, r_h, r_v, targets, scale read once, the sketch written
+    # once; what the function needs: one h.W product, p.R2, h.R1 and
+    # hr^T.er2
+    sk_ops = 2 * U * n * d * V + 2 * U * n * V * k2 + 2 * U * n * d * k1 \
+        + 2 * U * n * k1 * k2
+    sk_bound, sk_by = bound(
+        4 * (U * n * d + d * V + d * k1 + V * k2 + 2 * U * n + U * k1 * k2),
+        sk_ops)
+    print(f"[kernels] grad_sketch {SKETCH_MAIN}: max_abs_err {sk_err:.3e} "
+          f"({sk_rel:.1e} of the largest entry, {sk_vrel:.1e} of the "
+          f"vocab part's) "
+          f"kernel_ms {sk_ms:.4f} plain_ms {sk_plain:.4f} library_ms none "
+          f"bound_ms {sk_bound:.4f} ({sk_by}) achieved "
+          f"{sk_ops / sk_ms / 1e9:.2f} TFLOP/s", flush=True)
+    del ins
+
+    mark("kernels")
+
     # -- 4. agreement: one full-width unit, card kernels vs CPU plain ----
     bundle = build_model(cfg)
     corpus = make_asr_corpus(0, **CORPUS)
@@ -289,6 +402,44 @@ def main() -> None:
     require(loss_rel < 1e-4 and grad_rel < 1e-3,
             "card and CPU disagree on the full-width unit")
 
+    lm_cfg = get_config("starcoder2-3b")
+    cfg2 = dataclasses.replace(lm_cfg, n_layers=2, compute_dtype="float32")
+    lm2 = build_model(cfg2)
+    lm_units, lm_val = make_units_for(lm_cfg, n=LM_N, seq=LM_SEQ, noise=0.0)
+    gen = torch.Generator().manual_seed(0)
+    p_cpu = lm2.init_params(gen, torch.device("cpu"))
+    proj_cpu = make_projections(gen, lm_cfg.d_model, lm_cfg.vocab_size)
+    unit = {k: torch.as_tensor(v[:1]) for k, v in lm_units.items()}
+    out = {}
+    for where in ("cpu", "cuda"):
+        on = torch.device("cpu") if where == "cpu" else dev
+        p = tree_map(lambda x: x.to(on), p_cpu)
+        pr = type(proj_cpu)(*(x.to(on) for x in proj_cpu))
+        u = {k: v.to(on) for k, v in unit.items()}
+        t_a = time.time()
+        with torch.no_grad():
+            loss = lm2.per_example_loss(p, {k: v[0] for k, v in u.items()})
+        sk = units_gradients(lm2, p, u, pr)
+        out[where] = (loss.cpu(), sk.cpu(), time.time() - t_a)
+        del p
+    require(bool(torch.isfinite(out["cuda"][0]).all())
+            and bool(torch.isfinite(out["cuda"][1]).all()),
+            "non-finite LM loss or sketch on the card")
+    loss_rel = float(((out["cuda"][0] - out["cpu"][0]).abs()
+                      / out["cpu"][0].abs()).max())
+    unit_rel = float((out["cuda"][1] - out["cpu"][1]).abs().max()
+                   / out["cpu"][1].abs().max())
+    print(f"[agree] starcoder2-3b unit at full width, 2 layers, fp32 "
+          f"(B={UNIT_SIZE}, S={LM_SEQ}, V={lm_cfg.vocab_size}): loss rel "
+          f"err {loss_rel:.2e}, stage-A sketch err {unit_rel:.2e} of its "
+          f"largest entry (card {out['cuda'][2]:.1f} s vs CPU "
+          f"{out['cpu'][2]:.1f} s)", flush=True)
+    require(loss_rel < 1e-4 and unit_rel < 1e-3,
+            "card and CPU disagree on the full-width LM unit")
+    del p_cpu, lm2
+
+    mark("agreement")
+
     # -- 5. main path ---------------------------------------------------
     tc = TrainConfig(lr=0.5, optimizer="sgd", epochs=3, seed=0,
                      pgm=PGMConfig(subset_fraction=0.5, n_partitions=P_main,
@@ -301,6 +452,7 @@ def main() -> None:
           f"{P_main} partitions, subset {tc.pgm.subset_fraction}", flush=True)
     rnnt_lattice_op.launches = 0
     omp_gram_batched_op.launches = 0
+    grad_sketch_units_op.launches = 0
     torch.cuda.synchronize()
     t0 = time.time()
     hist = train_with_selection(
@@ -311,6 +463,8 @@ def main() -> None:
     main_s = time.time() - t0
     launches = {"rnnt_lattice": rnnt_lattice_op.launches,
                 "omp_gram": omp_gram_batched_op.launches}
+    require(grad_sketch_units_op.launches == 0,
+            "the RNN-T path launched the LM grad-sketch kernel")
     for s in hist.selections:
         print(f"[main] selection at epoch {s['epoch']}: indices "
               f"{s['indices']} weights "
@@ -325,24 +479,99 @@ def main() -> None:
     require(all(len(s["indices"]) == n_units // 2 for s in hist.selections),
             "selection budget")
 
-    # -- 6. where a training step's time goes (outside the counted run) --
-    profile_step(torch, bundle, tc, units, dev)
+    mark("main path, RNN-T")
 
+    # -- 6. where a training step's time goes (outside the counted run) --
+    profile_step(torch, bundle, tc, units, dev, hist.final_params, "rnnt")
+    del hist
+
+    mark("profile, RNN-T")
+
+    # -- 7. main path, LM: starcoder2-3b at full width and depth ---------
+    lm = build_model(lm_cfg)
+    n_lm = LM_N // UNIT_SIZE
+    # lr 0.05, not the launcher's 0.5: from this random init (embedding
+    # std 1, tied head) SGD at 0.5 raised the validation loss at full
+    # depth on the card (PERF.md, section 6)
+    tc_lm = TrainConfig(lr=0.05, optimizer="sgd", epochs=3, seed=0,
+                        pgm=PGMConfig(subset_fraction=0.5,
+                                      n_partitions=P_main, select_every=1,
+                                      warm_start_epochs=1,
+                                      val_matching=True))
+    print(f"[main lm] starcoder2-3b ({lm_cfg.n_params() / 1e9:.2f}B params, "
+          f"{lm_cfg.n_layers} layers, d_model {lm_cfg.d_model}, "
+          f"{lm_cfg.compute_dtype} compute, fp32 master weights) on {n_lm} "
+          f"units of {UNIT_SIZE} x {LM_SEQ} tokens, "
+          f"{lm_val['tokens'].shape[0] * UNIT_SIZE} validation examples, "
+          f"{tc_lm.epochs} epochs, warm start 1, {P_main} partitions, "
+          f"subset 0.5", flush=True)
+    omp_gram_batched_op.launches = 0
+    grad_sketch_units_op.launches = 0
+    rnnt_lattice_op.launches = 0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.time()
+    hist = train_with_selection(
+        lm, lm_units, tc_lm, method="pgm", val_units=lm_val, device="cuda",
+        log_fn=lambda s: print(f"[main lm +{time.time() - t0:.1f}s] {s}",
+                               flush=True))
+    torch.cuda.synchronize()
+    lm_s = time.time() - t0
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    lm_launches = {"grad_sketch": grad_sketch_units_op.launches,
+                   "omp_gram": omp_gram_batched_op.launches}
+    for s in hist.selections:
+        print(f"[main lm] selection at epoch {s['epoch']}: indices "
+              f"{s['indices']} weights "
+              f"{[round(w, 4) for w in s['weights']]}", flush=True)
+    print(f"[main lm] {lm_s:.1f} s, of which {hist.wall_time:.1f} s after "
+          f"the init; launches {lm_launches}; "
+          f"peak device memory {peak_gb:.2f} GB "
+          f"(torch.cuda.max_memory_allocated)", flush=True)
+    require(all(v > 0 for v in lm_launches.values()),
+            f"a kernel of the LM path was never launched: {lm_launches}")
+    require(rnnt_lattice_op.launches == 0,
+            "the LM path launched the RNN-T lattice kernel")
+    require(len(hist.selections) == 2 and len(hist.train_loss) == 3,
+            "the LM path did not run its selection rounds and epochs")
+    require(all(np.isfinite(hist.train_loss))
+            and all(np.isfinite(hist.val_loss)), "non-finite LM loss")
+    require(all(len(s["indices"]) == n_lm // 2 for s in hist.selections),
+            "LM selection budget")
+
+    mark("main path, LM")
+
+    # -- 8. where an LM training step's time goes ------------------------
+    profile_step(torch, lm, tc_lm, lm_units, dev, hist.final_params, "lm")
+    del hist
+
+    mark("profile, LM")
     g_err, g_ms, g_plain, g_lib, g_bound, g_by = \
         gram_rows[(P_main, n_units // P_main, D_sk)]
+    print(f"[launches] RNN-T path {launches}, LM path {lm_launches}",
+          flush=True)
+    # one row per kernel and main path, "launches" from that path's run;
+    # the Gram's stage-B shape (4, 4, 4096) is the same on both paths
+    gram = {"name": "omp_gram_batched", "route": "cuda",
+            "source": "src/repro_torch/kernels/omp_gram/csrc/omp_gram.cu",
+            "replaces": "src/repro/kernels/omp_gram/kernel.py:54",
+            "max_abs_err": g_err, "ms": g_ms, "plain_ms": g_plain,
+            "bound_ms": g_bound, "bound_by": g_by, "library_ms": g_lib}
     kernels = [
-        {"name": "rnnt_lattice", "route": "cuda",
+        {"name": "rnnt_lattice", "path": "rnnt", "route": "cuda",
          "source": "src/repro_torch/kernels/rnnt_lattice/csrc/rnnt_lattice.cu",
          "replaces": "src/repro/kernels/rnnt_lattice/kernel.py:71",
          "launches": launches["rnnt_lattice"], "max_abs_err": lat_err,
          "ms": lat_ms, "plain_ms": lat_plain, "bound_ms": lat_bound,
          "bound_by": lat_by, "library_ms": None},
-        {"name": "omp_gram_batched", "route": "cuda",
-         "source": "src/repro_torch/kernels/omp_gram/csrc/omp_gram.cu",
-         "replaces": "src/repro/kernels/omp_gram/kernel.py:54",
-         "launches": launches["omp_gram"], "max_abs_err": g_err,
-         "ms": g_ms, "plain_ms": g_plain, "bound_ms": g_bound,
-         "bound_by": g_by, "library_ms": g_lib},
+        dict(gram, path="rnnt", launches=launches["omp_gram"]),
+        dict(gram, path="lm", launches=lm_launches["omp_gram"]),
+        {"name": "grad_sketch_units", "path": "lm", "route": "cuda",
+         "source": "src/repro_torch/kernels/grad_sketch/csrc/grad_sketch.cu",
+         "replaces": "src/repro/kernels/grad_sketch/kernel.py:128",
+         "launches": lm_launches["grad_sketch"], "max_abs_err": sk_err,
+         "ms": sk_ms, "plain_ms": sk_plain, "bound_ms": sk_bound,
+         "bound_by": sk_by, "library_ms": None},
     ]
     print(json.dumps({"kernels": kernels}))
     print(card)

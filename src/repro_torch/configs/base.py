@@ -1,16 +1,26 @@
 """Config dataclasses of the PyTorch port.
 
 A copy of the reference's ``repro/configs/base.py`` restricted to what
-the RNN-T training + PGM selection path reads: the field names, defaults
-and the smoke reduction are the reference's, so a config built here and
-one built there describe the same model and run.  Fields of later slices
-(mesh, compression, fault guard, MoE/LM extras) are not carried yet.
+the ported paths read (RNN-T and dense decoder-LM training + PGM
+selection): the field names, defaults and the smoke reduction are the
+reference's, so a config built here and one built there describe the
+same model and run.  Fields of later slices (MoE, recurrent, encdec and
+VLM extras, mesh, compression, fault guard) are not carried: the
+families that need them are refused by ``models/api.py:build_model``.
 """
 from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass, field
 from typing import Optional, Tuple
+
+# Layer-stack patterns: ``pattern * (n_layers // len(pattern))`` followed
+# by ``pattern[:n_layers % len(pattern)]``.
+BLOCK_ATTN = "attn"          # full causal attention
+BLOCK_LOCAL = "local"        # sliding-window attention
+BLOCK_GLOBAL = "global"      # full attention inside a hybrid stack
+# the reference's other kinds, "rec" (RG-LRU) and "rwkv", are not ported
+ATTN_KINDS = (BLOCK_ATTN, BLOCK_LOCAL, BLOCK_GLOBAL)
 
 
 @dataclass(frozen=True)
@@ -57,10 +67,11 @@ class RNNTConfig:
 
 @dataclass(frozen=True)
 class ModelConfig:
-    """Architecture description (the RNN-T family only in this slice)."""
+    """Architecture description (RNN-T and dense decoder LMs)."""
 
     name: str
-    family: str
+    family: str                      # dense | rnnt (moe | ssm | hybrid |
+                                     # encdec | vlm are not ported)
     n_layers: int
     d_model: int
     n_heads: int
@@ -68,13 +79,46 @@ class ModelConfig:
     head_dim: int
     d_ff: int
     vocab_size: int
+    ffn_type: str = "swiglu"         # swiglu | geglu | gelu | sq_relu
+    pattern: Tuple[str, ...] = (BLOCK_ATTN,)
+    window: int = 0                  # sliding window of local blocks (0 = none)
+    rope_theta: float = 10000.0
+    qk_norm: bool = False
+    tie_embeddings: bool = False
+    embed_scale: bool = False        # gemma-style sqrt(d_model) embedding scale
+    norm_eps: float = 1e-6
     rnnt: Optional[RNNTConfig] = None
+    # numerics
+    param_dtype: str = "float32"
+    compute_dtype: str = "bfloat16"
+
+    @property
+    def q_dim(self) -> int:
+        return self.n_heads * self.head_dim
+
+    @property
+    def kv_dim(self) -> int:
+        return self.n_kv_heads * self.head_dim
+
+    def layer_kinds(self) -> Tuple[str, ...]:
+        reps = self.n_layers // len(self.pattern)
+        rem = self.n_layers % len(self.pattern)
+        return tuple(self.pattern) * reps + tuple(self.pattern[:rem])
 
     def n_params(self) -> int:
-        if self.rnnt is None:
+        """Analytic parameter count (embedding + stack + head), the
+        reference's formula for RNN-T and dense attention stacks."""
+        if self.rnnt is not None:
+            return self.rnnt.n_params()
+        if self.family != "dense" or set(self.layer_kinds()) - set(ATTN_KINDS):
             raise NotImplementedError(
-                f"{self.name}: only the rnnt family is ported")
-        return self.rnnt.n_params()
+                f"{self.name}: n_params is ported for dense attention "
+                f"stacks and RNN-T only")
+        d, ff, V = self.d_model, self.d_ff, self.vocab_size
+        n = V * d * (1 if self.tie_embeddings else 2)
+        mult = 3 if self.ffn_type in ("swiglu", "geglu") else 2
+        attn = d * self.q_dim + 2 * d * self.kv_dim + self.q_dim * d
+        return n + self.n_layers * (attn + mult * d * ff)
 
 
 @dataclass(frozen=True)
@@ -112,10 +156,14 @@ class TrainConfig:
 
 
 def reduce_for_smoke(cfg: ModelConfig) -> ModelConfig:
-    """The reference's tiny same-family variant (CPU tests)."""
-    kw = dict(n_layers=min(cfg.n_layers, 2), d_model=64, n_heads=4,
+    """The reference's tiny same-family variant (CPU tests): few layers,
+    small widths and vocab, a window of at most 16, fp32 compute."""
+    kw = dict(n_layers=min(cfg.n_layers, 2 * max(1, len(cfg.pattern))),
+              d_model=64, n_heads=4,
               n_kv_heads=min(cfg.n_kv_heads, 4) if cfg.n_kv_heads > 1 else 1,
-              head_dim=16, d_ff=128, vocab_size=277)
+              head_dim=16, d_ff=128, vocab_size=277,
+              window=min(cfg.window, 16) if cfg.window else 0,
+              compute_dtype="float32")
     if cfg.rnnt is not None:
         kw["rnnt"] = RNNTConfig(
             n_feats=8, cnn_channels=(4, 8), lstm_layers=1, lstm_hidden=16,

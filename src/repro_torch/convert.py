@@ -1,29 +1,35 @@
 """Weights across the two packages.
 
-The reference's params are a nested dict of arrays (``rnnt.init_params``
-output, turned into numpy by the caller); the port's are a nested dict of
-tensors with the same keys and the same (in, out) layouts, so the
-conversion is a leafwise copy through numpy and nothing is transposed.
-The round trip is bit-exact.
+The reference's params are a pytree of arrays: nested dicts, and for the
+decoder LMs tuples too (``stack.groups`` is a tuple of dicts stacked on a
+leading layer axis, ``stack.tail`` a tuple of per-layer dicts).  The
+port's params are the same tree of tensors, with the same keys, the same
+sequences, the same stacked layout and the same (in, out) weight layouts,
+so the conversion is a leafwise copy through numpy and nothing is
+transposed.  The round trip is bit-exact.
 """
 from __future__ import annotations
 
-from typing import Any, Dict
+from typing import Any
 
 import numpy as np
 import torch
 
 
-def from_numpy(tree: Dict[str, Any], device="cpu") -> Dict[str, Any]:
-    """Nested dict of numpy arrays -> nested dict of tensors on
-    ``device`` (dtypes kept)."""
+def from_numpy(tree: Any, device="cpu") -> Any:
+    """Tree of numpy arrays -> the same tree of tensors on ``device``
+    (dtypes kept)."""
     if isinstance(tree, dict):
         return {k: from_numpy(v, device) for k, v in tree.items()}
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(from_numpy(v, device) for v in tree)
     return torch.from_numpy(np.array(tree, copy=True)).to(device)
 
 
-def to_numpy(tree: Dict[str, Any]) -> Dict[str, Any]:
-    """Nested dict of tensors -> nested dict of numpy arrays."""
+def to_numpy(tree: Any) -> Any:
+    """Tree of tensors -> the same tree of numpy arrays."""
     if isinstance(tree, dict):
         return {k: to_numpy(v) for k, v in tree.items()}
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(to_numpy(v) for v in tree)
     return tree.detach().cpu().numpy()

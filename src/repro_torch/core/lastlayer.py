@@ -1,5 +1,5 @@
-"""Per-unit last-layer gradients for PGM stage A, RNN-T family (the
-reference's ``core/lastlayer.py``).
+"""Per-unit last-layer gradients for PGM stage A (the reference's
+``core/lastlayer.py``): the RNN-T family and dense decoder LMs.
 
 For RNN-T the last layer is the joint network's output head.  Its
 gradient G = dL/dW_out is exactly the ``dw_out`` of the fused loss's
@@ -9,6 +9,13 @@ streamed joint), so no ``(B,T,U+1,V)`` logits, gradient or
 G flattened (exact, paper-faithful) or its two-sided sketch R1^T G R2.
 The per-unit scaling matches the training loss: per-example NLL over
 ``max(u_len, 1)``, mean over the unit's examples.
+
+For a decoder LM the last layer is the (tied) LM head.  Its gradient is
+``H^T E`` with E = diag(scale) (softmax(H W) - onehot(targets)) over the
+unit's tokens, scale = mask / (max(sum mask, 1) * B) (the training loss's
+per-example token mean, then the mean over examples).  The sketch
+``(H R1)^T (E R2)`` goes through the fused ``grad_sketch`` kernel on the
+card and through ``streamed_er2`` on the CPU; neither forms E or G.
 """
 from __future__ import annotations
 
@@ -16,10 +23,84 @@ from typing import Optional
 
 import torch
 
+from repro_torch.core.chunking import (chunk_vocab_axis, resolve_vocab_chunk,
+                                       vocab_chunk_mask)
 from repro_torch.core.rnnt_loss import rnnt_loss_fused
-from repro_torch.core.sketch import Projections, make_projections
+from repro_torch.core.sketch import (Projections, exact_from_factors,
+                                     make_projections)
 from repro_torch.models import rnnt as rnnt_mod
 
+
+# ---------------------------------------------------------------------------
+# decoder LMs
+# ---------------------------------------------------------------------------
+
+def lm_unit_factors(bundle, params, batch):
+    """-> (h (N,d) fp32, targets (N,), scale (N,) fp32), N = B*(S-1)."""
+    with torch.no_grad():
+        h, targets, mask = bundle.final_hidden(params, batch)
+    B = h.shape[0]
+    denom = torch.clamp(mask.sum(dim=-1, keepdim=True), min=1.0)
+    scale = (mask / (denom * B)).to(torch.float32)
+    d = h.shape[-1]
+    return (h.reshape(-1, d).to(torch.float32), targets.reshape(-1),
+            scale.reshape(-1))
+
+
+def streamed_er2(h, w_head, targets, scale, r_v, chunk: int = 8192
+                 ) -> torch.Tensor:
+    """``E @ R2`` without materializing E, streaming vocab chunks with a
+    flash-style online softmax (the accumulator is rescaled as the
+    running max moves).  h (N,d) fp32; w_head (d,V); targets (N,);
+    scale (N,); r_v (V,k2) -> (N,k2) fp32."""
+    N = h.shape[0]
+    V = w_head.shape[1]
+    k2 = r_v.shape[1]
+    chunk = resolve_vocab_chunk(V, chunk)
+    w = chunk_vocab_axis(w_head.to(torch.float32), chunk, axis=1)
+    rv = chunk_vocab_axis(r_v.to(torch.float32), chunk, axis=0)
+    valid = vocab_chunk_mask(V, chunk, h.device)
+    m = torch.full((N,), float("-inf"), device=h.device)
+    s = torch.zeros((N,), device=h.device)
+    acc = torch.zeros((N, k2), device=h.device)
+    for wc, rc, vc in zip(w, rv, valid):
+        lg = torch.where(vc, h @ wc, float("-inf"))             # (N, chunk)
+        m_new = torch.maximum(m, lg.max(dim=-1).values)
+        alpha = torch.exp(m - m_new)
+        p = torch.exp(lg - m_new[:, None])
+        s = s * alpha + p.sum(dim=-1)
+        acc = acc * alpha[:, None] + p @ rc
+        m = m_new
+    er2 = acc / torch.clamp(s, min=1e-30)[:, None]
+    er2 = er2 - r_v.to(torch.float32)[targets.long()]
+    return er2 * scale[:, None]
+
+
+def lm_unit_sketch(bundle, params, batch, proj: Projections
+                   ) -> torch.Tensor:
+    # ops imports streamed_er2 from here for its CPU path
+    from repro_torch.kernels.grad_sketch.ops import grad_sketch_op
+    h, targets, scale = lm_unit_factors(bundle, params, batch)
+    # the kernel reads the head as contiguous (V, d) rows: the tied
+    # embedding already is (no copy); an untied (d, V) head is copied
+    w = bundle.head_weight(params).detach().t().contiguous().t()
+    return grad_sketch_op(h, w, proj.r_h, proj.r_v, targets,
+                          scale).reshape(-1)
+
+
+def lm_unit_exact(bundle, params, batch) -> torch.Tensor:
+    """Paper-faithful: the full flattened LM-head gradient (small models
+    only: it forms the (N, V) error)."""
+    h, targets, scale = lm_unit_factors(bundle, params, batch)
+    w = bundle.head_weight(params).detach().to(torch.float32)
+    e = torch.softmax(h @ w, dim=-1)
+    e[torch.arange(e.shape[0], device=e.device), targets.long()] -= 1.0
+    return exact_from_factors(h, e * scale[:, None])
+
+
+# ---------------------------------------------------------------------------
+# RNN-T
+# ---------------------------------------------------------------------------
 
 def rnnt_joint_grad(bundle, params, batch) -> torch.Tensor:
     """(J, V) joint-head gradient of the unit's training loss: ``dw_out``
@@ -52,11 +133,18 @@ def rnnt_unit_exact(bundle, params, batch) -> torch.Tensor:
     return rnnt_joint_grad(bundle, params, batch).reshape(-1)
 
 
+# ---------------------------------------------------------------------------
+# entry points
+# ---------------------------------------------------------------------------
+
 def unit_gradient(bundle, params, batch, proj: Optional[Projections],
                   exact: bool = False) -> torch.Tensor:
     """One selection unit -> gradient representation vector."""
-    return (rnnt_unit_exact(bundle, params, batch) if exact
-            else rnnt_unit_sketch(bundle, params, batch, proj))
+    if bundle.cfg.family == "rnnt":
+        return (rnnt_unit_exact(bundle, params, batch) if exact
+                else rnnt_unit_sketch(bundle, params, batch, proj))
+    return (lm_unit_exact(bundle, params, batch) if exact
+            else lm_unit_sketch(bundle, params, batch, proj))
 
 
 def units_gradients(bundle, params, units, proj: Optional[Projections],
@@ -73,5 +161,11 @@ def units_gradients(bundle, params, units, proj: Optional[Projections],
 
 def make_proj_for(bundle, gen: torch.Generator, k1: int = 64, k2: int = 64,
                   device: torch.device = torch.device("cpu")) -> Projections:
-    r = bundle.cfg.rnnt
-    return make_projections(gen, r.joint_dim, r.vocab_size, k1, k2, device)
+    """Sketch projections over the family's last layer: (joint_dim, k1)
+    and (rnnt vocab, k2) for RNN-T, (d_model, k1) and (vocab, k2) for an
+    LM."""
+    cfg = bundle.cfg
+    if cfg.family == "rnnt":
+        return make_projections(gen, cfg.rnnt.joint_dim, cfg.rnnt.vocab_size,
+                                k1, k2, device)
+    return make_projections(gen, cfg.d_model, cfg.vocab_size, k1, k2, device)

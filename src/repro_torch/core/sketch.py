@@ -33,3 +33,9 @@ def sketch_from_factors(h: torch.Tensor, e: torch.Tensor,
     """h: (N, d_h) fp32; e: (N, d_v) fp32 -> flattened sketch (k1*k2,),
     computed as ``(H R1)^T (E R2)`` so G is never formed."""
     return ((h @ proj.r_h).t() @ (e @ proj.r_v)).reshape(-1)
+
+
+def exact_from_factors(h: torch.Tensor, e: torch.Tensor) -> torch.Tensor:
+    """Paper-faithful path: the full flattened last-layer gradient
+    ``H^T E`` (d_h * d_v,)."""
+    return (h.t() @ e).reshape(-1)

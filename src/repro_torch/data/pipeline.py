@@ -1,6 +1,6 @@
 """Selection units and (seed, epoch)-keyed batch plans.
 
-A copy of the reference's numpy pipeline (``asr_units``,
+A copy of the reference's numpy pipeline (``lm_units``, ``asr_units``,
 ``unit_durations``, ``epoch_plan``, ``subset_epoch_plan``): units are
 fixed mini-batches (the paper's PerBatch granularity) stacked as
 ``(n_units, unit_size, ...)`` arrays, and every plan is a pure function
@@ -12,7 +12,22 @@ from typing import Dict, Optional, Tuple
 
 import numpy as np
 
-from repro_torch.data.synthetic import ASRCorpus
+from repro_torch.data.synthetic import ASRCorpus, LMCorpus
+
+
+def lm_units(corpus: LMCorpus, unit_size: int) -> Dict[str, np.ndarray]:
+    """-> dict with leading (n_units, unit_size, ...) arrays."""
+    n = (corpus.tokens.shape[0] // unit_size) * unit_size
+    toks = corpus.tokens[:n]
+    lens = corpus.lengths[:n]
+    S = toks.shape[1]
+    mask = (np.arange(S)[None, :] < lens[:, None]).astype(np.float32)
+    nu = n // unit_size
+    return {
+        "tokens": toks.reshape(nu, unit_size, S).astype(np.int32),
+        "loss_mask": mask.reshape(nu, unit_size, S),
+        "weights": np.ones((nu, unit_size), np.float32),
+    }
 
 
 def asr_units(corpus: ASRCorpus, unit_size: int) -> Dict[str, np.ndarray]:
@@ -29,8 +44,11 @@ def asr_units(corpus: ASRCorpus, unit_size: int) -> Dict[str, np.ndarray]:
 
 
 def unit_durations(units: Dict[str, np.ndarray]) -> np.ndarray:
-    """Per-unit total duration (for the LargeOnly/LargeSmall baselines)."""
-    return units["feat_lens"].sum(axis=1).astype(np.float32)
+    """Per-unit total duration (for the LargeOnly/LargeSmall baselines):
+    frames for ASR units, loss-bearing tokens for LM units."""
+    if "feat_lens" in units:
+        return units["feat_lens"].sum(axis=1).astype(np.float32)
+    return units["loss_mask"].sum(axis=(1, 2)).astype(np.float32)
 
 
 def epoch_plan(n_units: int, seed: int, epoch: int,

@@ -34,6 +34,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 SOURCES = {
     "rnnt_lattice": _KERNELS_DIR / "rnnt_lattice" / "csrc" / "rnnt_lattice.cu",
     "omp_gram": _KERNELS_DIR / "omp_gram" / "csrc" / "omp_gram.cu",
+    "grad_sketch": _KERNELS_DIR / "grad_sketch" / "csrc" / "grad_sketch.cu",
 }
 
 _LIBS: Dict[str, ctypes.CDLL] = {}

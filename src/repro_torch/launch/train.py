@@ -1,13 +1,17 @@
-"""Training launcher of the port (the RNN-T part of the reference's
-``repro.launch.train``):
+"""Training launcher of the port (the single-device host-engine part of
+the reference's ``repro.launch.train``):
 
   PYTHONPATH=src python -m repro_torch.launch.train --arch rnnt-crdnn \
       --method pgm --epochs 6 [--noise 0.2 --snr-db 5] [--device cpu]
+  PYTHONPATH=src python -m repro_torch.launch.train --arch starcoder2-3b \
+      --seq 512 --method pgm --epochs 3 [--device cpu]
 
 Runs on the card unless ``--device cpu`` is given, and prints the same
-``epoch N: train X val Y lr Z`` lines as the reference.  ``--noise``
-corrupts that fraction of training utterances with additive feature
-noise at ``--snr-db`` and turns validation matching on.
+``epoch N: train X val Y lr Z`` lines as the reference.  RNN-T archs
+train on the synthetic ASR corpus, LMs on the synthetic LM corpus of
+``--seq`` tokens.  ``--noise`` corrupts that fraction of training
+examples (additive feature noise at ``--snr-db`` for ASR, corrupted
+labels for LM) and turns validation matching on.
 """
 from __future__ import annotations
 
@@ -16,33 +20,39 @@ from typing import Optional
 
 from repro_torch.configs import get_config
 from repro_torch.configs.base import PGMConfig, TrainConfig
-from repro_torch.data.pipeline import asr_units
-from repro_torch.data.synthetic import make_asr_corpus
+from repro_torch.data.pipeline import asr_units, lm_units
+from repro_torch.data.synthetic import make_asr_corpus, make_lm_corpus
 from repro_torch.kernels.backend import fp32_numerics, resolve_device
 from repro_torch.models.api import build_model
 from repro_torch.train.loop import METHODS, History, train_with_selection
 
 
-def make_units_for(cfg, *, n: int, noise: float, seed: int = 0,
-                   unit_size: int = 4, snr_db: float = 10.0):
-    """(train units, val units) from the synthetic ASR corpus, as the
-    reference builds them; validation stays clean."""
-    r = cfg.rnnt
-    corpus = make_asr_corpus(seed, n, n_feats=r.n_feats,
-                             vocab_size=r.vocab_size,
-                             noise_fraction=noise, snr_db=snr_db)
-    vc = make_asr_corpus(seed + 7, max(n // 4, 8), n_feats=r.n_feats,
-                         vocab_size=r.vocab_size)
-    return asr_units(corpus, unit_size), asr_units(vc, unit_size)
+def make_units_for(cfg, *, n: int, noise: float, seq: int = 24,
+                   seed: int = 0, unit_size: int = 4, snr_db: float = 10.0):
+    """(train units, val units) for the arch family, as the reference
+    builds them: RNN-T gets the ASR corpus, an LM the LM corpus of
+    ``seq`` tokens; validation (seed + 7) stays clean."""
+    if cfg.family == "rnnt":
+        r = cfg.rnnt
+        corpus = make_asr_corpus(seed, n, n_feats=r.n_feats,
+                                 vocab_size=r.vocab_size,
+                                 noise_fraction=noise, snr_db=snr_db)
+        vc = make_asr_corpus(seed + 7, max(n // 4, 8), n_feats=r.n_feats,
+                             vocab_size=r.vocab_size)
+        return asr_units(corpus, unit_size), asr_units(vc, unit_size)
+    corpus = make_lm_corpus(seed, n, seq, cfg.vocab_size,
+                            noise_fraction=noise)
+    vc = make_lm_corpus(seed + 7, max(n // 4, 8), seq, cfg.vocab_size)
+    return lm_units(corpus, unit_size), lm_units(vc, unit_size)
 
 
 def launch_train(arch: str, tc: TrainConfig, *, method: str = "pgm",
-                 n: int = 96, noise: float = 0.0, snr_db: float = 10.0,
-                 device: Optional[str] = None,
+                 n: int = 96, seq: int = 24, noise: float = 0.0,
+                 snr_db: float = 10.0, device: Optional[str] = None,
                  log_fn=print) -> History:
     cfg = get_config(arch)
-    units, val = make_units_for(cfg, n=n, noise=noise, seed=tc.seed,
-                                snr_db=snr_db)
+    units, val = make_units_for(cfg, n=n, seq=seq, noise=noise,
+                                seed=tc.seed, snr_db=snr_db)
     return train_with_selection(build_model(cfg), units, tc, method=method,
                                 val_units=val, device=device, log_fn=log_fn)
 
@@ -57,11 +67,13 @@ def main(argv=None):
     ap.add_argument("--warm-start", type=int, default=2)
     ap.add_argument("--epochs", type=int, default=10)
     ap.add_argument("--n", type=int, default=96)
+    ap.add_argument("--seq", type=int, default=24,
+                    help="tokens per example of the LM corpus")
     ap.add_argument("--lr", type=float, default=0.5)
     ap.add_argument("--optimizer", default="sgd", choices=["sgd", "adamw"])
     ap.add_argument("--noise", type=float, default=0.0,
-                    help="fraction of training utterances with additive "
-                         "feature noise")
+                    help="fraction of corrupted training examples "
+                         "(feature noise for ASR, label noise for LM)")
     ap.add_argument("--snr-db", type=float, default=10.0,
                     help="SNR of the injected feature noise (dB)")
     ap.add_argument("--seed", type=int, default=0)
@@ -80,7 +92,7 @@ def main(argv=None):
                       warm_start_epochs=args.warm_start,
                       val_matching=args.noise > 0))
     h = launch_train(args.arch, tc, method=args.method, n=args.n,
-                     noise=args.noise, snr_db=args.snr_db,
+                     seq=args.seq, noise=args.noise, snr_db=args.snr_db,
                      device=str(device))
     if h.val_loss:
         print(f"done: val {h.val_loss[-1]:.4f}, "

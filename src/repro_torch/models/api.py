@@ -1,11 +1,13 @@
-"""Model bundle of the port: the RNN-T family (the reference's
-``models/api.py:_build_rnnt``).
+"""Model bundles of the port: the RNN-T family (the reference's
+``models/api.py:_build_rnnt``) and dense decoder LMs (``_build_lm`` for
+text-only models).
 
-The bundle is the surface the trainer and the PGM core build on:
-``init_params``, the per-example loss (transducer NLL divided by
-``max(u_len, 1)``), the weighted training loss and the last-layer head.
-Batches are dicts of tensors on the params' device with the reference's
-keys (``feats``, ``feat_lens``, ``tokens``, ``token_lens``, ``weights``).
+A bundle is the surface the trainer and the PGM core build on:
+``init_params``, the per-example loss, the weighted training loss and the
+last-layer head; the LM bundle also has ``final_hidden``, the hook of LM
+stage A.  Batches are dicts of tensors on the params' device with the
+reference's keys (RNN-T: ``feats``, ``feat_lens``, ``tokens``,
+``token_lens``, ``weights``; LM: ``tokens``, ``loss_mask``, ``weights``).
 """
 from __future__ import annotations
 
@@ -14,9 +16,10 @@ from typing import Dict, Tuple
 
 import torch
 
-from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.base import ATTN_KINDS, ModelConfig
 from repro_torch.core.rnnt_loss import rnnt_loss_fused
 from repro_torch.models import rnnt as rnnt_mod
+from repro_torch.models import transformer as tfm
 
 Batch = Dict[str, torch.Tensor]
 
@@ -68,5 +71,76 @@ class RNNTBundle:
         return params["joint"]["w_out"]
 
 
-def build_model(cfg: ModelConfig) -> RNNTBundle:
-    return RNNTBundle(cfg)
+def softmax_xent(logits: torch.Tensor, targets: torch.Tensor,
+                 mask: torch.Tensor) -> torch.Tensor:
+    """Per-example mean cross-entropy in fp32: logits (B,S,V), targets
+    (B,S), mask (B,S) -> (B,).  The gold logit is gathered; the
+    reference contracts a one-hot, which selects the same value."""
+    lv = logits.to(torch.float32)
+    logz = torch.logsumexp(lv, dim=-1)
+    gold = torch.gather(lv, -1, targets.long()[..., None])[..., 0]
+    nll = (logz - gold) * mask
+    return nll.sum(dim=-1) / torch.clamp(mask.sum(dim=-1), min=1.0)
+
+
+@dataclasses.dataclass(frozen=True)
+class LMBundle:
+    """Dense text decoder LM: position i predicts token i+1."""
+
+    cfg: ModelConfig
+
+    def __post_init__(self):
+        why = _unported(self.cfg)
+        if why:
+            raise NotImplementedError(
+                f"{self.cfg.name}: {why} is not ported yet (ROADMAP.md "
+                f"queue 1, other families)")
+
+    def init_params(self, gen: torch.Generator, device: torch.device):
+        return tfm.init_params(self.cfg, gen, device)
+
+    def assemble(self, params, batch: Batch):
+        """-> (embedded tokens (B,S,d), targets (B,S-1), mask (B,S-1))."""
+        tokens = batch["tokens"]
+        x = tfm.embed_tokens(params, self.cfg, tokens)
+        targets = tokens[:, 1:]
+        mask = batch.get("loss_mask")
+        mask = (torch.ones(targets.shape, dtype=torch.float32,
+                           device=tokens.device) if mask is None
+                else mask[:, 1:].to(torch.float32))
+        return x, targets, mask
+
+    def final_hidden(self, params, batch: Batch):
+        """-> (hidden states aligned with the next-token targets
+        (B,S-1,d) in the compute dtype, targets, mask)."""
+        x, targets, mask = self.assemble(params, batch)
+        h = tfm.forward_hidden(params, self.cfg, x)
+        return h[:, :-1], targets, mask
+
+    def per_example_loss(self, params, batch: Batch) -> torch.Tensor:
+        h, targets, mask = self.final_hidden(params, batch)
+        return softmax_xent(tfm.unembed(params, self.cfg, h), targets, mask)
+
+    def loss_fn(self, params, batch: Batch) -> Tuple[torch.Tensor, Dict]:
+        return _weighted(self.per_example_loss(params, batch), batch)
+
+    def head_weight(self, params) -> torch.Tensor:
+        return tfm.head_weight(params, self.cfg)
+
+
+def _unported(cfg: ModelConfig) -> str:
+    """What of ``cfg`` the LM slice does not carry ('' when nothing):
+    a family other than dense (moe, ssm, hybrid, encdec, vlm), or blocks
+    other than attention."""
+    if cfg.family != "dense":
+        return f"the {cfg.family!r} family"
+    odd = sorted(set(cfg.layer_kinds()) - set(ATTN_KINDS))
+    return f"{odd} blocks" if odd else ""
+
+
+def build_model(cfg: ModelConfig):
+    """The bundle of ``cfg.family``: ``rnnt`` or ``dense``; any other
+    family raises ``NotImplementedError``."""
+    if cfg.family == "rnnt":
+        return RNNTBundle(cfg)
+    return LMBundle(cfg)

@@ -1,18 +1,25 @@
-"""Initializers and params-dict helpers of the port.
+"""Initializers, shared numerics and params-tree helpers of the port.
 
-``dense_init``/``embed_init`` are the reference's
-(``models/common.py``) with a ``torch.Generator`` in place of a
-``jax.random`` key.  Draws happen on the CPU generator and the result is
-moved to the target device, so a seed gives the same parameters on the
-CPU and on the card.  Params are nested dicts of tensors with the
+``dense_init``/``embed_init`` are the reference's (``models/common.py``)
+with a ``torch.Generator`` in place of a ``jax.random`` key.  Draws
+happen on the CPU generator and the result is moved to the target
+device, so a seed gives the same parameters on the CPU and on the card.
+Params are trees of tensors (dicts, and tuples for the LM stack) with the
 reference's key layout and (in, out) weight layout.
+
+``rms_norm``, ``rope_freqs``, ``apply_rope`` and ``ffn_act`` repeat the
+reference's numerics: the norm in fp32 with a ``(1 + gamma)`` scale, cast
+back; half-split (not interleaved) RoPE with fp32 frequencies and
+positions; and GELU in its tanh form, which is ``jax.nn.gelu``'s default
+(torch's default is the erf form).
 """
 from __future__ import annotations
 
 import math
-from typing import List
+from typing import Callable, List
 
 import torch
+import torch.nn.functional as F
 
 
 def dense_init(gen: torch.Generator, d_in: int, d_out: int,
@@ -27,16 +34,66 @@ def embed_init(gen: torch.Generator, vocab: int, d: int,
 
 
 def tree_leaves(tree) -> List[torch.Tensor]:
-    """Leaves of a nested dict in sorted-key order (the order JAX
-    flattens a dict pytree in)."""
+    """Leaves of a tree of dicts, tuples and lists in JAX's flatten order
+    (dict keys sorted, sequences in order)."""
     if isinstance(tree, dict):
         return [l for k in sorted(tree) for l in tree_leaves(tree[k])]
+    if isinstance(tree, (tuple, list)):
+        return [l for t in tree for l in tree_leaves(t)]
     return [tree]
 
 
 def tree_map(fn, tree, *rest):
-    """Apply ``fn`` leafwise over nested dicts of identical structure."""
+    """Apply ``fn`` leafwise over trees of identical structure."""
     if isinstance(tree, dict):
         return {k: tree_map(fn, tree[k], *(r[k] for r in rest))
                 for k in tree}
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(tree_map(fn, t, *(r[i] for r in rest))
+                          for i, t in enumerate(tree))
     return fn(tree, *rest)
+
+
+def rms_norm(x: torch.Tensor, gamma: torch.Tensor,
+             eps: float = 1e-6) -> torch.Tensor:
+    dt = x.dtype
+    x32 = x.to(torch.float32)
+    var = torch.mean(torch.square(x32), dim=-1, keepdim=True)
+    y = x32 * torch.rsqrt(var + eps)
+    return (y * (1.0 + gamma.to(torch.float32))).to(dt)
+
+
+def rope_freqs(head_dim: int, theta: float,
+               device: torch.device = torch.device("cpu")) -> torch.Tensor:
+    exps = torch.arange(0, head_dim, 2, dtype=torch.float32,
+                        device=device) / head_dim
+    return 1.0 / (torch.tensor(theta, dtype=torch.float32,
+                               device=device) ** exps)
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor,
+               theta: float) -> torch.Tensor:
+    """x: (..., S, H, hd); positions broadcastable to (..., S)."""
+    dt = x.dtype
+    hd = x.shape[-1]
+    freqs = rope_freqs(hd, theta, x.device)                  # (hd/2,)
+    angles = positions[..., None].to(torch.float32) * freqs  # (..., S, hd/2)
+    sin = torch.sin(angles)[..., None, :]                    # (..., S, 1, hd/2)
+    cos = torch.cos(angles)[..., None, :]
+    x32 = x.to(torch.float32)
+    x1, x2 = x32[..., : hd // 2], x32[..., hd // 2:]
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(dt)
+
+
+def _gelu_tanh(x: torch.Tensor) -> torch.Tensor:
+    return F.gelu(x, approximate="tanh")
+
+
+def ffn_act(ffn_type: str) -> Callable[[torch.Tensor], torch.Tensor]:
+    return {"swiglu": F.silu, "geglu": _gelu_tanh, "gelu": _gelu_tanh,
+            "sq_relu": lambda x: torch.square(F.relu(x))}[ffn_type]
+
+
+def compute_dtype(cfg) -> torch.dtype:
+    return getattr(torch, cfg.compute_dtype)

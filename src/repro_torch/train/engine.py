@@ -36,6 +36,9 @@ def make_step_core(bundle, cfg: TrainConfig):
             grad_leaves = torch.autograd.grad(total, leaves)
         by_id = {id(l): g for l, g in zip(leaves, grad_leaves)}
         grads = tree_map(lambda p: by_id[id(p)], live)
+        # only `grads` holds the raw gradients now: rebinding it to the
+        # clipped tree frees them before the update allocates new params
+        del grad_leaves, by_id
         with torch.no_grad():
             grads, gnorm = clip_by_global_norm(grads, cfg.grad_clip)
             params, opt_state = opt_update(params, grads, opt_state, lr)
@@ -51,8 +54,11 @@ def autotune_loss_vocab_chunk(bundle, units, batch_units: int):
     chunk width the reference picks for the same shapes (rows =
     ``B * (U+1) + joint_dim``, the shared ``auto_vocab_chunk`` budget),
     rebuilding the bundle only when that width is below the vocab.
-    Returns ``(bundle, resolved_chunk)``."""
+    Returns ``(bundle, resolved_chunk)``; ``(bundle, None)`` for a bundle
+    that is not RNN-T."""
     r = bundle.cfg.rnnt
+    if bundle.cfg.family != "rnnt" or r is None:
+        return bundle, None
     if r.loss_vocab_chunk != 0:
         return bundle, r.loss_vocab_chunk
     unit_size = int(units["tokens"].shape[1])

@@ -1,12 +1,13 @@
 """Training loop of paper Algorithm 1 (the reference's
-``train/loop.py:train_with_selection`` with ``engine="host"``, methods
-``full`` and ``pgm``; the host engine is the only one ported): warm start on full data, re-selection every R
-epochs, weighted mini-batch SGD on the subset, newbob lr annealing on
-validation loss, and cost accounting.
+``train/loop.py:train_with_selection`` with ``engine="host"``, the only
+engine ported): warm start on full data, re-selection every R epochs by
+PGM or a baseline, weighted mini-batch SGD on the subset, newbob lr
+annealing on validation loss, and cost accounting.
 
 Initial params and sketch projections are drawn from one
 ``torch.Generator`` seeded with ``tc.seed`` unless the caller hands them
-in (a parity test hands in the reference's).
+in (a parity test hands in the reference's).  The ``random`` baseline
+draws from a generator seeded with ``(tc.seed, epoch)``.
 """
 from __future__ import annotations
 
@@ -18,16 +19,19 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import TrainConfig
-from repro_torch.core.lastlayer import make_proj_for
+from repro_torch.core import baselines as bl
+from repro_torch.core.lastlayer import make_proj_for, units_gradients
 from repro_torch.core.metrics import overlap_index
 from repro_torch.core.pgm import Selection, pgm_select
 from repro_torch.core.sketch import Projections
+from repro_torch.data.pipeline import unit_durations
 from repro_torch.kernels.backend import resolve_device
 from repro_torch.models.common import tree_map
 from repro_torch.train.engine import HostEngine
 from repro_torch.train.optim import NewbobState, make_update_for
 
-METHODS = ("full", "pgm")
+METHODS = ("pgm", "random", "large_only", "large_small", "gradmatch_pb",
+           "full")
 
 
 @dataclasses.dataclass
@@ -39,6 +43,37 @@ class History:
     cost_units: float = 0.0        # full-epoch-equivalent compute units
     wall_time: float = 0.0
     final_params: Any = None
+
+
+def _select(method, bundle, params, units, tc: TrainConfig, epoch: int,
+            proj, val_units, durations) -> Selection:
+    """One selection round of ``method`` over the device-resident units
+    (the reference's ``train/loop.py:_select`` without a mesh)."""
+    pc = tc.pgm
+    n_units = units["tokens"].shape[0]
+    budget = max(int(pc.subset_fraction * n_units), 1)
+    if method == "pgm":
+        return pgm_select(bundle, params, units, pc, proj,
+                          val_units=val_units)
+    if method == "random":
+        gen = torch.Generator().manual_seed(tc.seed * 1_000_003 + 1000
+                                            + epoch)
+        return bl.random_subset(gen, n_units, budget, durations.device)
+    if method == "large_only":
+        return bl.large_only(durations, budget)
+    if method == "large_small":
+        return bl.large_small(durations, budget)
+    if method == "gradmatch_pb":
+        g = units_gradients(bundle, params, units, proj,
+                            exact=not pc.use_sketch)
+        g_val = None
+        if pc.val_matching:
+            gv = units_gradients(bundle, params, val_units, proj,
+                                 exact=not pc.use_sketch)
+            g_val = gv.mean(dim=0) * float(n_units)
+        return bl.gradmatch_pb(g, budget, pc.lam, pc.eps, pc.nonneg_weights,
+                               g_val=g_val)
+    raise ValueError(method)
 
 
 def train_with_selection(
@@ -58,7 +93,7 @@ def train_with_selection(
     for).  ``params``/``proj``: optional initial params dict and sketch
     projections (moved to the device)."""
     if method not in METHODS:
-        raise ValueError(f"method {method!r} is not ported; one of {METHODS}")
+        raise ValueError(f"unknown method {method!r}; one of {METHODS}")
     dev = resolve_device(device)
     eng = HostEngine(bundle, tc, units, val_units=val_units,
                      batch_units=batch_units, device=dev)
@@ -72,6 +107,8 @@ def train_with_selection(
             else Projections(*(torch.tensor(x, device=dev) for x in proj)))
     opt_init, _ = make_update_for(tc)
     opt_state = opt_init(params)
+    durations = torch.as_tensor(unit_durations(
+        {k: np.asarray(v) for k, v in units.items()})).to(dev)
 
     hist = History()
     newbob = NewbobState(tc.lr)
@@ -82,13 +119,15 @@ def train_with_selection(
     for epoch in range(tc.epochs):
         use_full = method == "full" or epoch < warm
         if not use_full and (selection is None or (epoch - warm) % R == 0):
-            new_sel = pgm_select(bundle, params, eng.units, tc.pgm, proj,
-                                 val_units=eng.val_units)
+            new_sel = _select(method, bundle, params, eng.units, tc, epoch,
+                              proj, eng.val_units, durations)
             oi = (overlap_index(selection.indices.cpu().numpy(),
                                 new_sel.indices.cpu().numpy())
                   if selection is not None else float("nan"))
             selection = new_sel
-            hist.cost_units += 1.0 / 3.0     # one grad pass ~ 1/3 epoch
+            # a gradient pass over all units costs ~1/3 epoch
+            if method in ("pgm", "gradmatch_pb"):
+                hist.cost_units += 1.0 / 3.0
             hist.selections.append({
                 "epoch": epoch,
                 "indices": selection.indices.cpu().tolist(),

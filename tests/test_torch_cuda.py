@@ -16,6 +16,10 @@ torch = pytest.importorskip("torch")
 
 from repro_torch.core.rnnt_loss import rnnt_loss_fused  # noqa: E402
 from repro_torch.kernels import backend  # noqa: E402
+from repro_torch.kernels.grad_sketch.ops import (  # noqa: E402
+    grad_sketch_op, grad_sketch_units_op)
+from repro_torch.kernels.grad_sketch.ref import (  # noqa: E402
+    grad_sketch_units_ref)
 from repro_torch.kernels.omp_gram.ops import omp_gram_batched_op  # noqa: E402
 from repro_torch.kernels.omp_gram.ref import omp_gram_batched_ref  # noqa: E402
 from repro_torch.kernels.rnnt_lattice.ops import rnnt_lattice_op  # noqa: E402
@@ -103,3 +107,67 @@ def test_fused_loss_on_card_matches_cpu(card):
         out[str(dev)] = [nll.detach().cpu()] + [x.grad.cpu() for x in xs]
     for a, b in zip(out["cpu"], out["cuda"]):
         torch.testing.assert_close(b, a, rtol=1e-4, atol=1e-5)
+
+
+def _sketch_inputs(U, n, d, V, k1, k2, seed, dev):
+    """Logits of std 4 (w scaled by 4/sqrt(d)), so the softmax is peaked
+    and its p.R2 term carries a good part of the sketch; unit 1 (when
+    there is one) has an all-zero scale row set."""
+    g = torch.Generator().manual_seed(seed)
+    h = torch.randn(U, n, d, generator=g)
+    wt = torch.randn(V, d, generator=g) * (4 / d ** 0.5)
+    rh = torch.randn(d, k1, generator=g)
+    rv = torch.randn(V, k2, generator=g)
+    t = torch.randint(0, V, (U, n), generator=g, dtype=torch.int32)
+    s = torch.rand(U, n, generator=g) + 0.5
+    if U > 1:
+        s[1] = 0.0
+    h, wt, rh, rv, t, s = (x.to(dev) for x in (h, wt, rh, rv, t, s))
+    return h, wt.t(), rh, rv, t, s            # w (d, V) as the tied head's view
+
+
+@pytest.mark.parametrize("U,n,d,V,k1,k2", [
+    (1, 2044, 3072, 49152, 64, 64),            # the LM main path's unit
+    (1, 1, 1, 1, 1, 1), (1, 17, 16, 64, 8, 8), (3, 130, 72, 1001, 24, 40),
+    (2, 65, 33, 4099, 64, 100), (4, 511, 256, 8195, 70, 64)])
+def test_grad_sketch_kernel_matches_plain(card, U, n, d, V, k1, k2):
+    ins = _sketch_inputs(U, n, d, V, k1, k2, seed=n + V, dev=card)
+    n0 = grad_sketch_units_op.launches
+    got = grad_sketch_units_op(*ins)
+    again = grad_sketch_units_op(*ins)
+    torch.cuda.synchronize()
+    assert grad_sketch_units_op.launches == n0 + 2
+    assert got.shape == (U, k1, k2) and torch.equal(got, again)
+    want = grad_sketch_units_ref(*ins)
+    torch.testing.assert_close(got, want, rtol=0,
+                               atol=1e-4 * float(want.abs().max()))
+    # also within 1e-4 of the vocab pass's own part (hr^T (p R2) scale),
+    # which the target term R2[t] computed outside the kernel can dwarf
+    h, _, rh, rv, t, s = ins
+    vocab = want + torch.einsum("unk,unl->ukl", h @ rh,
+                                rv[t.long()] * s[..., None])
+    assert float((got - want).abs().max()) \
+        <= 1e-4 * float(vocab.abs().max())
+    if U > 1:
+        assert not got[1].any()
+    one = grad_sketch_op(ins[0][0], ins[1], ins[2], ins[3], ins[4][0],
+                         ins[5][0])
+    torch.testing.assert_close(one, got[0], rtol=0,
+                               atol=1e-5 * float(got[0].abs().max()))
+
+
+def test_grad_sketch_wrapper_refuses_what_the_kernel_does_not_take(card):
+    h, w, rh, rv, t, s = _sketch_inputs(1, 8, 16, 70, 4, 4, seed=0, dev=card)
+    with pytest.raises(TypeError):
+        grad_sketch_units_op(h.double(), w, rh, rv, t, s)
+    with pytest.raises(TypeError):
+        grad_sketch_units_op(h, w.half(), rh, rv, t, s)
+    with pytest.raises(ValueError):                  # (d, V) contiguous head
+        grad_sketch_units_op(h, w.contiguous(), rh, rv, t, s)
+    with pytest.raises(ValueError):
+        grad_sketch_units_op(h.transpose(1, 2).contiguous().transpose(1, 2),
+                             w, rh, rv, t, s)
+    with pytest.raises(ValueError):
+        grad_sketch_units_op(h, w, rh, rv, t, s.t())
+    with pytest.raises(ValueError):                  # a CPU tensor in the mix
+        grad_sketch_units_op(h, w, rh, rv, t.cpu(), s)

@@ -1,8 +1,10 @@
 """PyTorch port, package contract: ``src/repro_torch/`` and
 ``chip_smoke.py`` import neither ``jax`` nor anything of ``repro``; the
 entry points refuse to run without a card unless the CPU is asked for by
-name; the port's copied corpus, units and plans equal the reference's
-byte for byte; and the launcher prints the reference's epoch lines."""
+name; the port's copied corpora (ASR and LM), units and plans equal the
+reference's byte for byte; the converter round-trips the LM params tree
+(tuples of stacked dicts) bit-exactly; and the launcher prints the
+reference's epoch lines for an RNN-T and an LM arch."""
 import ast
 from pathlib import Path
 
@@ -11,10 +13,15 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+import jax  # noqa: E402
+
+from repro.configs import get_config as jax_get_config  # noqa: E402
 from repro.data import pipeline as jax_pipeline  # noqa: E402
 from repro.data import synthetic as jax_synthetic  # noqa: E402
+from repro.models.api import build_model as jax_build  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.configs.base import TrainConfig  # noqa: E402
+from repro_torch.convert import from_numpy, to_numpy  # noqa: E402
 from repro_torch.data import pipeline, synthetic  # noqa: E402
 from repro_torch.launch import train as launch  # noqa: E402
 from repro_torch.models.api import build_model  # noqa: E402
@@ -61,6 +68,8 @@ def test_entry_points_need_a_card_unless_cpu_is_asked_for(monkeypatch):
                              TrainConfig(epochs=1), val_units=val)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         launch.main(["--arch", "rnnt-crdnn-smoke", "--epochs", "1"])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        launch.main(["--arch", "starcoder2-3b-smoke", "--epochs", "1"])
 
 
 @pytest.mark.parametrize("kw", [
@@ -96,6 +105,45 @@ def test_corpus_units_and_plans_are_byte_identical(kw):
             assert a.dtype == b.dtype and a.tobytes() == b.tobytes()
 
 
+@pytest.mark.parametrize("kw", [
+    dict(seed=0, n_examples=12, seq_len=24, vocab_size=277,
+         noise_fraction=0.25),
+    dict(seed=5, n_examples=17, seq_len=512, vocab_size=49152),
+])
+def test_lm_corpus_and_units_are_byte_identical(kw):
+    mine = synthetic.make_lm_corpus(**kw)
+    ref = jax_synthetic.make_lm_corpus(**kw)
+    for f in ("tokens", "lengths", "difficulty", "noisy"):
+        a, b = getattr(mine, f), getattr(ref, f)
+        assert a.dtype == b.dtype and a.tobytes() == b.tobytes(), f
+    u_mine, u_ref = pipeline.lm_units(mine, 4), jax_pipeline.lm_units(ref, 4)
+    assert sorted(u_mine) == sorted(u_ref) == ["loss_mask", "tokens",
+                                               "weights"]
+    for k in u_ref:
+        assert u_mine[k].dtype == u_ref[k].dtype
+        assert u_mine[k].tobytes() == u_ref[k].tobytes(), k
+    assert pipeline.unit_durations(u_mine).tobytes() == \
+        jax_pipeline.unit_durations(u_ref).tobytes()
+
+
+def test_converter_round_trips_the_lm_tree_bit_exactly():
+    params = jax.tree.map(
+        np.asarray, jax_build(jax_get_config("starcoder2-3b-smoke"))
+        .init_params(jax.random.PRNGKey(0)))
+    tp = from_numpy(params)
+    assert isinstance(tp["stack"]["groups"], tuple)
+    assert isinstance(tp["stack"]["tail"], tuple)
+    back = to_numpy(tp)
+    assert jax.tree.structure(back) == jax.tree.structure(params)
+    for a, b in zip(jax.tree.leaves(back), jax.tree.leaves(params)):
+        assert a.dtype == b.dtype and a.shape == b.shape
+        assert a.tobytes() == b.tobytes()
+    # the port's flatten order is JAX's (dict keys sorted, tuples in order)
+    from repro_torch.models.common import tree_leaves
+    for a, b in zip(tree_leaves(tp), jax.tree.leaves(params)):
+        assert a.numpy().tobytes() == b.tobytes()
+
+
 def test_launcher_prints_the_reference_epoch_lines(capsys):
     h = launch.main(["--arch", "rnnt-crdnn-smoke", "--epochs", "3",
                      "--n", "16", "--warm-start", "1", "--select-every", "1",
@@ -106,5 +154,19 @@ def test_launcher_prints_the_reference_epoch_lines(capsys):
     for e in range(3):
         assert any(line.startswith(f"epoch {e}: train ") for line in out)
     assert sum("selected" in line for line in out) == 2
+    assert all(np.isfinite(h.train_loss)) and all(np.isfinite(h.val_loss))
+    assert out[-1].startswith("done: val ")
+
+
+def test_launcher_prints_the_reference_epoch_lines_for_an_lm(capsys):
+    h = launch.main(["--arch", "starcoder2-3b-smoke", "--seq", "24",
+                     "--epochs", "3", "--n", "16", "--warm-start", "1",
+                     "--select-every", "1", "--subset", "0.5",
+                     "--partitions", "2", "--noise", "0.25",
+                     "--device", "cpu"])
+    out = capsys.readouterr().out.splitlines()
+    for e in range(3):
+        assert any(line.startswith(f"epoch {e}: train ") for line in out)
+    assert sum("selected 2 units" in line for line in out) == 2
     assert all(np.isfinite(h.train_loss)) and all(np.isfinite(h.val_loss))
     assert out[-1].startswith("done: val ")
