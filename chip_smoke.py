@@ -10,7 +10,7 @@ failure exits non-zero, and no phase catches an error and carries on:
 1. environment: the card's name and power limit; TF32 off everywhere
    (``cudnn.allow_tf32`` defaults to True, which would put the CRDNN
    convolutions in TF32);
-2. build: the three CUDA kernels from the checkout's sources, one
+2. build: the four CUDA kernels from the checkout's sources, one
    ``nvcc`` per source, all started together;
 3. kernels: each kernel against its plain PyTorch version on the same
    card tensors, at the main paths' shapes and at ragged edge shapes,
@@ -18,11 +18,15 @@ failure exits non-zero, and no phase catches an error and carries on:
    call's time where one computes the same function, and the least time
    the card could take (bytes over 3.35 TB/s, operations over the fp32
    67 TFLOP/s of an H100 SXM); the grad-sketch kernel also launched twice
-   on the same inputs, which must agree bit for bit;
-4. agreement: one full-width ``rnnt-crdnn`` unit, and one unit of
-   ``starcoder2-3b`` at full width with 2 layers in fp32, through the
-   kernels on the card against the same unit through the plain versions
-   on the CPU (per-example loss and the stage-A gradient or sketch);
+   on the same inputs, which must agree bit for bit; the RWKV6 WKV
+   kernels (forward and backward) against the plain chunk algebra and its
+   autograd, twice bitwise, at the RWKV path's shape and the reference
+   kernel tests' shapes;
+4. agreement: one full-width ``rnnt-crdnn`` unit, and one unit each of
+   ``starcoder2-3b`` and ``rwkv6-3b`` at full width with 2 layers in
+   fp32, through the kernels on the card against the same unit through
+   the plain versions on the CPU (per-example loss, the stage-A gradient
+   or sketch, and for RWKV one layer's time-mix gradients);
 5. main path, RNN-T: ``train_with_selection(method="pgm")`` at the full
    width of ``rnnt-crdnn`` on a synthetic corpus — warm start, then a PGM
    round (stage A + stage B) before each subset epoch;
@@ -32,18 +36,24 @@ failure exits non-zero, and no phase catches an error and carries on:
    depth (30 layers, d_model 3072, vocab 49152, bf16 compute, fp32 master
    weights) on a synthetic corpus of 512-token examples, with the peak of
    device memory;
-8. profile, LM: one training step of that model, as in 6.
+8. profile, LM: one training step of that model, as in 6;
+9. main path, RWKV: the same loop on ``rwkv6-3b`` at full width and
+   depth (32 layers, d_model 2560, 40 WKV heads of 64, vocab 65536, bf16
+   compute, fp32 master weights), with the peak of device memory;
+10. profile, RWKV: one training step of that model, as in 6.
 
 Each main path runs with its kernels' launch counters set to 0 just
 before and read just after, and fails if a kernel of the path was never
 launched.  The script ends with a JSON line of per-kernel numbers (one
-row per kernel and main path, so the Gram, which both paths run, has
-two), the card's name and power limit as ``nvidia-smi`` prints them, and the line
+row per kernel and main path, so the Gram, which all three paths run,
+has three, and the grad sketch, which both LM paths run, two), the
+card's name and power limit as ``nvidia-smi`` prints them, and the line
 ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
 import dataclasses
+import gc
 import json
 import math
 import subprocess
@@ -73,9 +83,19 @@ LM_SEQ = 512
 # with n = 4 * 511 tokens, and ragged ones (n and V off every tile, k1 !=
 # k2, several units, an all-zero scale row set in unit 1)
 SKETCH_MAIN = (1, UNIT_SIZE * (LM_SEQ - 1), 3072, 49152, 64, 64)
+# the RWKV path's stage-A unit: rwkv6-3b's d 2560, vocab 65536
+SKETCH_RWKV = (1, UNIT_SIZE * (LM_SEQ - 1), 2560, 65536, 64, 64)
 SKETCH_EDGES = ((1, 1, 1, 1, 1, 1), (1, 17, 16, 64, 8, 8),
                 (3, 130, 72, 1001, 24, 40), (2, 65, 33, 4099, 64, 100),
                 (4, 511, 256, 8195, 70, 64))
+
+# WKV shapes (B, S, H, N, C, decay): the RWKV main path's time-mix, and the
+# reference kernel tests' (tests/test_kernels.py), with decays in (0.4,
+# 0.99) or all 1e-6
+WKV_MAIN = (UNIT_SIZE, LM_SEQ, 40, 64, 64, None)
+WKV_EDGES = ((2, 64, 2, 16, 16, None), (1, 128, 3, 32, 32, None),
+             (2, 96, 1, 8, 32, None), (1, 64, 2, 64, 64, None),
+             (1, 64, 1, 8, 16, 1e-6))
 
 
 def fail(msg: str) -> None:
@@ -188,6 +208,65 @@ def sketch_err(torch, op, ref, ins):
             err / v_scale if v_scale else 0.0)
 
 
+def wkv_inputs(torch, B, S, H, N, w, seed, dev):
+    """r, k, v standard normal; decays in (0.4, 0.99) or all ``w``; u of
+    scale 0.1; lw = log(clip(w)); cotangents for y and the final state."""
+    from repro_torch.kernels.rwkv6_scan.ref import log_decay
+    g = torch.Generator().manual_seed(seed)
+    r, k, v = (torch.randn(B, S, H, N, generator=g) for _ in range(3))
+    ww = (torch.rand(B, S, H, N, generator=g) * 0.59 + 0.4 if w is None
+          else torch.full((B, S, H, N), w))
+    u = torch.randn(H, N, generator=g) * 0.1
+    cy = torch.randn(B, S, H, N, generator=g)
+    cs = torch.randn(B, H, N, N, generator=g) * 0.1
+    return ([x.to(dev) for x in (r, k, v, log_decay(ww), u)],
+            (cy.to(dev), cs.to(dev)))
+
+
+def wkv_plain(torch, r, k, v, lw, u, C):
+    from repro_torch.kernels.rwkv6_scan.ref import wkv_chunked_lw
+    B, _, H, N = r.shape
+    return wkv_chunked_lw(r, k, v, lw, u,
+                          torch.zeros(B, H, N, N, device=r.device), C)
+
+
+def wkv_err(torch, op, shape, dev):
+    """Forward and backward through ``op`` (the kernels) against autograd
+    of the plain chunk algebra on the same card tensors, with cotangents
+    on y and on the final state; two runs bitwise equal; each of y,
+    state, dr, dk, dv, dlw, du within 1e-4 of its largest entry (at
+    decays of 1e-6, dlw within 1e-5 of the largest dr entry: its true
+    entries lie below the fp32 rounding of the terms that cancel in it)
+    -> {name: (max abs err, scale)}."""
+    B, S, H, N, C, w = shape
+    ins, (cy, cs) = wkv_inputs(torch, B, S, H, N, w, seed=S + N, dev=dev)
+
+    def run(fn):
+        xs = [x.clone().requires_grad_(True) for x in ins]
+        y, s = fn(*xs, C)
+        (torch.sum(y * cy) + torch.sum(s * cs)).backward()
+        return [y.detach(), s.detach()] + [x.grad for x in xs]
+
+    got, again = run(op), run(op)
+    torch.cuda.synchronize()
+    want = run(lambda *a: wkv_plain(torch, *a))
+    errs = {}
+    for name, a, b, c in zip(("y", "state", "dr", "dk", "dv", "dlw", "du"),
+                             got, again, want):
+        require(bool(torch.isfinite(a).all()),
+                f"rwkv6_wkv {shape}: non-finite {name}")
+        require(bool(torch.equal(a, b)),
+                f"rwkv6_wkv {shape}: two launches differ in {name}")
+        tiny = name == "dlw" and w is not None
+        scale = float((want[2] if tiny else c).abs().max())
+        err = float((a - c).abs().max())
+        require(err <= (1e-5 if tiny else 1e-4) * scale,
+                f"rwkv6_wkv {shape}: {name} max abs err {err} against "
+                f"scale {scale}")
+        errs[name] = (err, scale)
+    return errs
+
+
 def profile_step(torch, bundle, tc, units, dev, params, tag) -> None:
     """One training step on one unit under ``torch.profiler``: host wall
     time, summed kernel time (device busy share), and the kernels that
@@ -254,11 +333,13 @@ def main() -> None:
     from repro_torch.kernels.grad_sketch.ops import grad_sketch_units_op
     from repro_torch.kernels.grad_sketch.ref import grad_sketch_units_ref
     from repro_torch.launch.train import make_units_for
-    from repro_torch.models.common import tree_map
+    from repro_torch.models.common import tree_leaves, tree_map
     from repro_torch.kernels.omp_gram.ops import omp_gram_batched_op
     from repro_torch.kernels.omp_gram.ref import omp_gram_batched_ref
     from repro_torch.kernels.rnnt_lattice.ops import rnnt_lattice_op
     from repro_torch.kernels.rnnt_lattice.ref import rnnt_lattice_ref
+    from repro_torch.kernels.rwkv6_scan.ops import (rwkv6_wkv_op,
+                                                    wkv_backward, wkv_forward)
     from repro_torch.models.api import build_model
     from repro_torch.train.loop import train_with_selection
 
@@ -365,6 +446,74 @@ def main() -> None:
           f"bound_ms {sk_bound:.4f} ({sk_by}) achieved "
           f"{sk_ops / sk_ms / 1e9:.2f} TFLOP/s", flush=True)
     del ins
+    # the same kernel at the RWKV path's stage-A unit (untied head)
+    ins = sketch_inputs(torch, *SKETCH_RWKV, seed=1, dev=dev)
+    skr_err, skr_rel, skr_vrel = sketch_err(torch, grad_sketch_units_op,
+                                            grad_sketch_units_ref, ins)
+    skr_ms = cuda_ms(torch, lambda: grad_sketch_units_op(*ins), reps=10)
+    skr_plain = cuda_ms(torch, lambda: grad_sketch_units_ref(*ins), reps=5)
+    U, n, d, V, k1, k2 = SKETCH_RWKV
+    skr_ops = 2 * U * n * d * V + 2 * U * n * V * k2 + 2 * U * n * d * k1 \
+        + 2 * U * n * k1 * k2
+    skr_bound, skr_by = bound(
+        4 * (U * n * d + d * V + d * k1 + V * k2 + 2 * U * n + U * k1 * k2),
+        skr_ops)
+    print(f"[kernels] grad_sketch {SKETCH_RWKV}: max_abs_err {skr_err:.3e} "
+          f"({skr_rel:.1e} of the largest entry, {skr_vrel:.1e} of the "
+          f"vocab part's) kernel_ms {skr_ms:.4f} plain_ms {skr_plain:.4f} "
+          f"library_ms none bound_ms {skr_bound:.4f} ({skr_by}) achieved "
+          f"{skr_ops / skr_ms / 1e9:.2f} TFLOP/s", flush=True)
+    del ins
+
+    for shape in WKV_EDGES:
+        wkv_err(torch, rwkv6_wkv_op, shape, dev)
+    print(f"[kernels] rwkv6_wkv forward + backward edge shapes (B, S, H, N, "
+          f"C, decay) in {WKV_EDGES}: ok, two launches bitwise equal",
+          flush=True)
+    wkv_errs = wkv_err(torch, rwkv6_wkv_op, WKV_MAIN, dev)
+    B, S, H, N, C, _ = WKV_MAIN
+    ins, (cy, cs) = wkv_inputs(torch, B, S, H, N, None, seed=0, dev=dev)
+    wkv_ms = cuda_ms(torch, lambda: wkv_forward(*ins, C, True), reps=20)
+    wkv_ms_nostate = cuda_ms(torch, lambda: wkv_forward(*ins, C, False),
+                             reps=20)
+    _, _, states = wkv_forward(*ins, C, True)
+    wkvb_ms = cuda_ms(torch, lambda: wkv_backward(*ins, states, cy, cs, C),
+                      reps=20)
+    with torch.no_grad():
+        wkv_plain_ms = cuda_ms(torch, lambda: wkv_plain(torch, *ins, C),
+                               reps=5)
+    xs = [x.clone().requires_grad_(True) for x in ins]
+    y_p, s_p = wkv_plain(torch, *xs, C)
+    wkvb_plain_ms = cuda_ms(torch, lambda: torch.autograd.grad(
+        (y_p, s_p), xs, (cy, cs), retain_graph=True), reps=5)
+    del xs, y_p, s_p, states
+    # what the function needs: r, k, v, lw, u read once; y, the final
+    # state and the chunk states the backward takes written once; the
+    # recurrence's k^T v and r S, 4 N^2 FLOP a (token, head).  Backward:
+    # r, k, v, lw, u, dy, d(state), the chunk states read, dr, dk, dv, dlw
+    # and du written; dy S^T, r^T dy, v dS^T, k dS: 8 N^2 FLOP.
+    bshn, bhnn = B * S * H * N, B * H * N * N
+    n_states = B * H * (S // C) * N * N
+    wkv_bound, wkv_by = bound(
+        4 * (4 * bshn + H * N + bshn + bhnn + n_states), 4 * N * N * B * S * H)
+    wkvb_bound, wkvb_by = bound(
+        4 * (5 * bshn + H * N + bhnn + n_states + 4 * bshn + H * N),
+        8 * N * N * B * S * H)
+    wkv_rel = {k: e / sc if sc else 0.0 for k, (e, sc) in wkv_errs.items()}
+    wkv_abs = max(wkv_errs[k][0] for k in ("y", "state"))
+    wkvb_abs = max(wkv_errs[k][0] for k in ("dr", "dk", "dv", "dlw", "du"))
+    print(f"[kernels] rwkv6_wkv {WKV_MAIN[:5]}: forward err "
+          f"(y {wkv_rel['y']:.1e}, state {wkv_rel['state']:.1e} of the "
+          f"largest entry) kernel_ms {wkv_ms:.4f} (without the chunk states "
+          f"{wkv_ms_nostate:.4f}) plain_ms {wkv_plain_ms:.4f} library_ms "
+          f"none bound_ms {wkv_bound:.4f} ({wkv_by})", flush=True)
+    print(f"[kernels] rwkv6_wkv_bwd {WKV_MAIN[:5]}: err "
+          + ", ".join(f"{k} {wkv_rel[k]:.1e}"
+                      for k in ("dr", "dk", "dv", "dlw", "du"))
+          + f" of the largest entry; kernel_ms {wkvb_ms:.4f} plain_ms "
+          f"{wkvb_plain_ms:.4f} (autograd of the plain version) library_ms "
+          f"none bound_ms {wkvb_bound:.4f} ({wkvb_by})", flush=True)
+    del ins, cy, cs
 
     mark("kernels")
 
@@ -437,6 +586,68 @@ def main() -> None:
     require(loss_rel < 1e-4 and unit_rel < 1e-3,
             "card and CPU disagree on the full-width LM unit")
     del p_cpu, lm2
+
+    rw_cfg = get_config("rwkv6-3b")
+    cfg3 = dataclasses.replace(rw_cfg, n_layers=2, compute_dtype="float32")
+    rw2 = build_model(cfg3)
+    rw_units, rw_val = make_units_for(rw_cfg, n=LM_N, seq=LM_SEQ, noise=0.0)
+    gen = torch.Generator().manual_seed(0)
+    p_cpu = rw2.init_params(gen, torch.device("cpu"))
+    proj_cpu = make_projections(gen, rw_cfg.d_model, rw_cfg.vocab_size)
+    unit = {k: torch.as_tensor(v[:1]) for k, v in rw_units.items()}
+    out = {}
+    for where in ("cpu", "cuda"):
+        on = torch.device("cpu") if where == "cpu" else dev
+        p = tree_map(lambda x: x.detach().to(on).requires_grad_(True),
+                     p_cpu)
+        pr = type(proj_cpu)(*(x.to(on) for x in proj_cpu))
+        u = {k: v.to(on) for k, v in unit.items()}
+        t_a = time.time()
+        # per-example loss and its mean's gradient in one pass (the
+        # weighted loss with unit weights)
+        loss = rw2.per_example_loss(p, {k: v[0] for k, v in u.items()})
+        loss.mean().backward()
+        tm = p["stack"]["groups"][0]["tmix"]
+        grads = {k: v.grad[0].cpu() for k, v in tm.items()}
+        if where == "cuda":
+            torch.cuda.synchronize()
+            held = torch.cuda.memory_allocated()
+        sk = units_gradients(rw2, p, u, pr)
+        if where == "cuda":
+            # stage A copies the untied (d, V) head to (V, d) rows once a
+            # unit (671 MB at full width); the copy must not outlive it
+            torch.cuda.synchronize()
+            kept = torch.cuda.memory_allocated() - held
+            require(kept < 1e6, f"stage A kept {kept} bytes on the card "
+                                f"after the unit")
+        out[where] = (loss.detach().cpu(), sk.cpu(), grads,
+                      time.time() - t_a)
+        # the loss's graph holds the leaves (and their grads) alive
+        del p, tm, loss, sk, pr, u
+    require(bool(torch.isfinite(out["cuda"][0]).all())
+            and bool(torch.isfinite(out["cuda"][1]).all())
+            and all(bool(torch.isfinite(g).all())
+                    for g in out["cuda"][2].values()),
+            "non-finite RWKV loss, sketch or gradient on the card")
+    loss_rel = float(((out["cuda"][0] - out["cpu"][0]).abs()
+                      / out["cpu"][0].abs()).max())
+    unit_rel = float((out["cuda"][1] - out["cpu"][1]).abs().max()
+                     / out["cpu"][1].abs().max())
+    tmix_rel = {k: float((g - out["cpu"][2][k]).abs().max()
+                         / out["cpu"][2][k].abs().max())
+                for k, g in out["cuda"][2].items()}
+    worst = max(tmix_rel, key=tmix_rel.get)
+    print(f"[agree] rwkv6-3b unit at full width, 2 layers, fp32 "
+          f"(B={UNIT_SIZE}, S={LM_SEQ}, V={rw_cfg.vocab_size}): loss rel "
+          f"err {loss_rel:.2e}, stage-A sketch err {unit_rel:.2e} of its "
+          f"largest entry, layer-0 time-mix gradients' err at most "
+          f"{tmix_rel[worst]:.2e} of a leaf's largest entry ({worst}; "
+          f"decay_base {tmix_rel['decay_base']:.2e}, bonus "
+          f"{tmix_rel['bonus']:.2e}) (card {out['cuda'][3]:.1f} s vs CPU "
+          f"{out['cpu'][3]:.1f} s)", flush=True)
+    require(loss_rel < 1e-4 and unit_rel < 1e-3 and tmix_rel[worst] < 1e-3,
+            "card and CPU disagree on the full-width RWKV unit")
+    del p_cpu, rw2, out
 
     mark("agreement")
 
@@ -546,10 +757,71 @@ def main() -> None:
     del hist
 
     mark("profile, LM")
+
+    # -- 9. main path, RWKV: rwkv6-3b at full width and depth ------------
+    gc.collect()
+    torch.cuda.empty_cache()
+    rw = build_model(rw_cfg)
+    n_rw = LM_N // UNIT_SIZE
+    print(f"[main rwkv] rwkv6-3b (n_params {rw_cfg.n_params():,} by the "
+          f"reference's formula, {rw_cfg.n_layers} layers, d_model "
+          f"{rw_cfg.d_model}, {rw_cfg.n_heads} WKV heads of "
+          f"{rw_cfg.rwkv_head_dim}, d_ff {rw_cfg.d_ff}, vocab "
+          f"{rw_cfg.vocab_size}, {rw_cfg.compute_dtype} compute, fp32 master "
+          f"weights) on {n_rw} units of {UNIT_SIZE} x {LM_SEQ} tokens, "
+          f"{rw_val['tokens'].shape[0] * UNIT_SIZE} validation examples, "
+          f"{tc_lm.epochs} epochs, warm start 1, {P_main} partitions, "
+          f"subset 0.5, lr {tc_lm.lr}", flush=True)
+    omp_gram_batched_op.launches = 0
+    grad_sketch_units_op.launches = 0
+    rnnt_lattice_op.launches = 0
+    rwkv6_wkv_op.launches = 0
+    rwkv6_wkv_op.bwd_launches = 0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.time()
+    hist = train_with_selection(
+        rw, rw_units, tc_lm, method="pgm", val_units=rw_val, device="cuda",
+        log_fn=lambda s: print(f"[main rwkv +{time.time() - t0:.1f}s] {s}",
+                               flush=True))
+    torch.cuda.synchronize()
+    rw_s = time.time() - t0
+    rw_peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    rw_launches = {"rwkv6_wkv": rwkv6_wkv_op.launches,
+                   "rwkv6_wkv_bwd": rwkv6_wkv_op.bwd_launches,
+                   "grad_sketch": grad_sketch_units_op.launches,
+                   "omp_gram": omp_gram_batched_op.launches}
+    n_leaves = sum(t.numel() for t in tree_leaves(hist.final_params))
+    for s in hist.selections:
+        print(f"[main rwkv] selection at epoch {s['epoch']}: indices "
+              f"{s['indices']} weights "
+              f"{[round(w, 4) for w in s['weights']]}", flush=True)
+    print(f"[main rwkv] {rw_s:.1f} s, of which {hist.wall_time:.1f} s after "
+          f"the init; {n_leaves:,} params counted from the leaves; launches "
+          f"{rw_launches}; peak device memory {rw_peak_gb:.2f} GB "
+          f"(torch.cuda.max_memory_allocated)", flush=True)
+    require(all(v > 0 for v in rw_launches.values()),
+            f"a kernel of the RWKV path was never launched: {rw_launches}")
+    require(rnnt_lattice_op.launches == 0,
+            "the RWKV path launched the RNN-T lattice kernel")
+    require(len(hist.selections) == 2 and len(hist.train_loss) == 3,
+            "the RWKV path did not run its selection rounds and epochs")
+    require(all(np.isfinite(hist.train_loss))
+            and all(np.isfinite(hist.val_loss)), "non-finite RWKV loss")
+    require(all(len(s["indices"]) == n_rw // 2 for s in hist.selections),
+            "RWKV selection budget")
+
+    mark("main path, RWKV")
+
+    # -- 10. where an RWKV training step's time goes ---------------------
+    profile_step(torch, rw, tc_lm, rw_units, dev, hist.final_params, "rwkv")
+    del hist
+
+    mark("profile, RWKV")
     g_err, g_ms, g_plain, g_lib, g_bound, g_by = \
         gram_rows[(P_main, n_units // P_main, D_sk)]
-    print(f"[launches] RNN-T path {launches}, LM path {lm_launches}",
-          flush=True)
+    print(f"[launches] RNN-T path {launches}, LM path {lm_launches}, RWKV "
+          f"path {rw_launches}", flush=True)
     # one row per kernel and main path, "launches" from that path's run;
     # the Gram's stage-B shape (4, 4, 4096) is the same on both paths
     gram = {"name": "omp_gram_batched", "route": "cuda",
@@ -572,6 +844,25 @@ def main() -> None:
          "launches": lm_launches["grad_sketch"], "max_abs_err": sk_err,
          "ms": sk_ms, "plain_ms": sk_plain, "bound_ms": sk_bound,
          "bound_by": sk_by, "library_ms": None},
+        dict(gram, path="rwkv", launches=rw_launches["omp_gram"]),
+        {"name": "grad_sketch_units", "path": "rwkv", "route": "cuda",
+         "source": "src/repro_torch/kernels/grad_sketch/csrc/grad_sketch.cu",
+         "replaces": "src/repro/kernels/grad_sketch/kernel.py:128",
+         "launches": rw_launches["grad_sketch"], "max_abs_err": skr_err,
+         "ms": skr_ms, "plain_ms": skr_plain, "bound_ms": skr_bound,
+         "bound_by": skr_by, "library_ms": None},
+        {"name": "rwkv6_wkv", "path": "rwkv", "route": "cuda",
+         "source": "src/repro_torch/kernels/rwkv6_scan/csrc/rwkv6_wkv.cu",
+         "replaces": "src/repro/kernels/rwkv6_scan/kernel.py:88",
+         "launches": rw_launches["rwkv6_wkv"], "max_abs_err": wkv_abs,
+         "ms": wkv_ms, "plain_ms": wkv_plain_ms, "bound_ms": wkv_bound,
+         "bound_by": wkv_by, "library_ms": None},
+        {"name": "rwkv6_wkv_bwd", "path": "rwkv", "route": "cuda",
+         "source": "src/repro_torch/kernels/rwkv6_scan/csrc/rwkv6_wkv.cu",
+         "replaces": "jax.grad of src/repro/models/rwkv6.py:wkv_chunked",
+         "launches": rw_launches["rwkv6_wkv_bwd"], "max_abs_err": wkvb_abs,
+         "ms": wkvb_ms, "plain_ms": wkvb_plain_ms, "bound_ms": wkvb_bound,
+         "bound_by": wkvb_by, "library_ms": None},
     ]
     print(json.dumps({"kernels": kernels}))
     print(card)

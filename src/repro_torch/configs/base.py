@@ -1,10 +1,10 @@
 """Config dataclasses of the PyTorch port.
 
 A copy of the reference's ``repro/configs/base.py`` restricted to what
-the ported paths read (RNN-T and dense decoder-LM training + PGM
+the ported paths read (RNN-T, dense decoder-LM and RWKV6 training + PGM
 selection): the field names, defaults and the smoke reduction are the
 reference's, so a config built here and one built there describe the
-same model and run.  Fields of later slices (MoE, recurrent, encdec and
+same model and run.  Fields of later slices (MoE, RG-LRU, encdec and
 VLM extras, mesh, compression, fault guard) are not carried: the
 families that need them are refused by ``models/api.py:build_model``.
 """
@@ -19,7 +19,8 @@ from typing import Optional, Tuple
 BLOCK_ATTN = "attn"          # full causal attention
 BLOCK_LOCAL = "local"        # sliding-window attention
 BLOCK_GLOBAL = "global"      # full attention inside a hybrid stack
-# the reference's other kinds, "rec" (RG-LRU) and "rwkv", are not ported
+BLOCK_RWKV = "rwkv"          # RWKV6 time-mix + channel-mix block
+# the reference's other kind, "rec" (RG-LRU), is not ported
 ATTN_KINDS = (BLOCK_ATTN, BLOCK_LOCAL, BLOCK_GLOBAL)
 
 
@@ -70,8 +71,9 @@ class ModelConfig:
     """Architecture description (RNN-T and dense decoder LMs)."""
 
     name: str
-    family: str                      # dense | rnnt (moe | ssm | hybrid |
-                                     # encdec | vlm are not ported)
+    family: str                      # dense | ssm (rwkv stacks) | rnnt
+                                     # (moe | hybrid | encdec | vlm are
+                                     # not ported)
     n_layers: int
     d_model: int
     n_heads: int
@@ -87,6 +89,8 @@ class ModelConfig:
     tie_embeddings: bool = False
     embed_scale: bool = False        # gemma-style sqrt(d_model) embedding scale
     norm_eps: float = 1e-6
+    # --- rwkv extras ---
+    rwkv_head_dim: int = 64
     rnnt: Optional[RNNTConfig] = None
     # numerics
     param_dtype: str = "float32"
@@ -107,18 +111,29 @@ class ModelConfig:
 
     def n_params(self) -> int:
         """Analytic parameter count (embedding + stack + head), the
-        reference's formula for RNN-T and dense attention stacks."""
+        reference's formula for RNN-T, dense attention stacks and RWKV6
+        stacks.  Its RWKV term is the reference's as written: it leaves
+        out the channel-mix ``wr`` and most of the LoRA weights, so it is
+        below the count of the params tree's leaves."""
         if self.rnnt is not None:
             return self.rnnt.n_params()
-        if self.family != "dense" or set(self.layer_kinds()) - set(ATTN_KINDS):
+        kinds = self.layer_kinds()
+        if self.family not in ("dense", "ssm") \
+                or set(kinds) - set(ATTN_KINDS) - {BLOCK_RWKV}:
             raise NotImplementedError(
                 f"{self.name}: n_params is ported for dense attention "
-                f"stacks and RNN-T only")
+                f"stacks, RWKV6 stacks and RNN-T only")
         d, ff, V = self.d_model, self.d_ff, self.vocab_size
         n = V * d * (1 if self.tie_embeddings else 2)
         mult = 3 if self.ffn_type in ("swiglu", "geglu") else 2
-        attn = d * self.q_dim + 2 * d * self.kv_dim + self.q_dim * d
-        return n + self.n_layers * (attn + mult * d * ff)
+        for kind in kinds:
+            if kind == BLOCK_RWKV:
+                # r,k,v,g,o projections + decay lora + token-shift mus
+                n += 5 * d * d + 2 * d * 96 + 6 * d
+            else:
+                n += d * self.q_dim + 2 * d * self.kv_dim + self.q_dim * d
+            n += mult * d * ff
+        return n
 
 
 @dataclass(frozen=True)

@@ -35,6 +35,7 @@ SOURCES = {
     "rnnt_lattice": _KERNELS_DIR / "rnnt_lattice" / "csrc" / "rnnt_lattice.cu",
     "omp_gram": _KERNELS_DIR / "omp_gram" / "csrc" / "omp_gram.cu",
     "grad_sketch": _KERNELS_DIR / "grad_sketch" / "csrc" / "grad_sketch.cu",
+    "rwkv6_wkv": _KERNELS_DIR / "rwkv6_scan" / "csrc" / "rwkv6_wkv.cu",
 }
 
 _LIBS: Dict[str, ctypes.CDLL] = {}

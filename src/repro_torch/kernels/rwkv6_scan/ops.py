@@ -1,0 +1,148 @@
+"""Wrapper of the RWKV6 WKV kernels: CUDA tensors launch the Hopper
+kernels (``csrc/rwkv6_wkv.cu``, forward and backward), CPU tensors take
+the plain chunk algebra (``ref.py:wkv_chunked_lw``) and its autograd.
+Consumed by ``models/rwkv6.py:tmix_forward`` in every time-mix layer
+whose sequence takes the chunked branch (S % 64 == 0 and S >= 128).
+
+The forward kernel replaces the Pallas TPU kernel
+``src/repro/kernels/rwkv6_scan/kernel.py:rwkv6_wkv``; the backward
+kernel replaces ``jax.grad`` of ``src/repro/models/rwkv6.py:wkv_chunked``
+(the reference trains through that function by autodiff).  Both are
+bound by bytes on the card; each runs one block per (batch, head) lane
+with a loop over the chunks, the (N, N) state carried in shared memory,
+and the backward carries dS from the last chunk to the first, starting
+each chunk from the state the forward saved at its start (the note in
+the source has the details).
+
+``rwkv6_wkv_op.launches`` counts forward launches and
+``rwkv6_wkv_op.bwd_launches`` backward launches (never plain-path
+calls); ``wkv_forward`` and ``wkv_backward`` are the two launches, which
+the autograd function wraps.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch.kernels import backend
+from repro_torch.kernels.rwkv6_scan.ref import CHUNK, wkv_chunked_lw
+
+NAME = "rwkv6_wkv"
+MAX_N = 64              # head dim: the state and a chunk live in shared memory
+MAX_C = 64              # chunk length
+
+
+def _fwd_launcher():
+    fn = backend.library(NAME).rwkv6_wkv_fwd_launch
+    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 5 \
+        + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def _bwd_launcher():
+    fn = backend.library(NAME).rwkv6_wkv_bwd_launch
+    fn.argtypes = [ctypes.c_void_p] * 13 + [ctypes.c_int] * 5 \
+        + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def _check(r, k, v, lw, u, chunk: int) -> int:
+    """Refuse what the kernels do not take, before a pointer is passed;
+    -> the chunk C = min(chunk, S)."""
+    for t in (r, k, v, lw):
+        backend.check_input(NAME, t, 4)
+    backend.check_input(NAME, u, 2)
+    B, S, H, N = r.shape
+    if any(tuple(t.shape) != (B, S, H, N) for t in (k, v, lw)) \
+            or tuple(u.shape) != (H, N):
+        raise ValueError(f"{NAME}: inconsistent shapes r {tuple(r.shape)} "
+                         f"k {tuple(k.shape)} v {tuple(v.shape)} lw "
+                         f"{tuple(lw.shape)} u {tuple(u.shape)}")
+    C = min(chunk, S)
+    if not (0 < N <= MAX_N and 0 < C <= MAX_C and S % C == 0):
+        raise ValueError(f"{NAME}: takes head dim N <= {MAX_N} and a chunk "
+                         f"C <= {MAX_C} dividing S; got N {N}, S {S}, "
+                         f"chunk {chunk}")
+    return C
+
+
+def wkv_forward(r, k, v, lw, u, chunk: int, keep_states: bool):
+    """One launch of the forward kernel on card tensors -> (y, final
+    state, the states at each chunk's start (B H, S/C, N, N) or None)."""
+    C = _check(r, k, v, lw, u, chunk)
+    B, S, H, N = r.shape
+    y = torch.empty_like(r)
+    s_out = torch.empty((B, H, N, N), dtype=torch.float32, device=r.device)
+    states = (torch.empty((B * H, S // C, N, N), dtype=torch.float32,
+                          device=r.device) if keep_states else None)
+    status = _fwd_launcher()(
+        r.data_ptr(), k.data_ptr(), v.data_ptr(), lw.data_ptr(),
+        u.data_ptr(), y.data_ptr(), s_out.data_ptr(),
+        None if states is None else states.data_ptr(), B, S, H, N, C,
+        backend.stream_handle(r.device))
+    backend.check(NAME, status)
+    rwkv6_wkv_op.launches += 1
+    return y, s_out, states
+
+
+def wkv_backward(r, k, v, lw, u, states, dy, ds, chunk: int):
+    """One launch of the backward kernel: the forward's inputs and chunk
+    states, and the cotangents of y and of the final state -> (dr, dk,
+    dv, dlw, du), du summed over the batch."""
+    C = _check(r, k, v, lw, u, chunk)
+    B, S, H, N = r.shape
+    backend.check_input(NAME, dy, 4)
+    backend.check_input(NAME, ds, 4)
+    backend.check_input(NAME, states, 4)
+    if tuple(dy.shape) != (B, S, H, N) or tuple(ds.shape) != (B, H, N, N) \
+            or tuple(states.shape) != (B * H, S // C, N, N):
+        raise ValueError(f"{NAME}: inconsistent cotangent or state shapes "
+                         f"dy {tuple(dy.shape)} ds {tuple(ds.shape)} "
+                         f"states {tuple(states.shape)}")
+    dr, dk, dv, dlw = (torch.empty_like(r) for _ in range(4))
+    du_lane = torch.empty((B, H, N), dtype=torch.float32, device=r.device)
+    status = _bwd_launcher()(
+        r.data_ptr(), k.data_ptr(), v.data_ptr(), lw.data_ptr(),
+        u.data_ptr(), states.data_ptr(), dy.data_ptr(), ds.data_ptr(),
+        dr.data_ptr(), dk.data_ptr(), dv.data_ptr(), dlw.data_ptr(),
+        du_lane.data_ptr(), B, S, H, N, C, backend.stream_handle(r.device))
+    backend.check(NAME, status)
+    rwkv6_wkv_op.bwd_launches += 1
+    return dr, dk, dv, dlw, du_lane.sum(dim=0)
+
+
+class _WKV(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, r, k, v, lw, u, chunk):
+        keep = any(ctx.needs_input_grad[:5])
+        y, s_out, states = wkv_forward(r, k, v, lw, u, chunk, keep)
+        if keep:
+            ctx.save_for_backward(r, k, v, lw, u, states)
+        ctx.chunk = chunk
+        return y, s_out
+
+    @staticmethod
+    def backward(ctx, dy, ds):
+        r, k, v, lw, u, states = ctx.saved_tensors
+        grads = wkv_backward(r, k, v, lw, u, states, dy.contiguous(),
+                             ds.contiguous(), ctx.chunk)
+        return (*grads, None)
+
+
+def rwkv6_wkv_op(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                 lw: torch.Tensor, u: torch.Tensor, chunk: int = CHUNK):
+    """r, k, v, lw (B,S,H,N) fp32, lw = log(clip(w, 1e-8, 1)); u (H,N)
+    -> (y (B,S,H,N) fp32, final state (B,H,N,N)), from a zero initial
+    state, differentiable in r, k, v, lw and u."""
+    if not backend.on_card(r, k, v, lw, u):
+        B, S, H, N = r.shape
+        s0 = torch.zeros((B, H, N, N), dtype=torch.float32)
+        return wkv_chunked_lw(r, k, v, lw, u, s0, chunk)
+    return _WKV.apply(r, k, v, lw, u, chunk)
+
+
+rwkv6_wkv_op.launches = 0
+rwkv6_wkv_op.bwd_launches = 0

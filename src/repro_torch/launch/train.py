@@ -5,11 +5,13 @@ the reference's ``repro.launch.train``):
       --method pgm --epochs 6 [--noise 0.2 --snr-db 5] [--device cpu]
   PYTHONPATH=src python -m repro_torch.launch.train --arch starcoder2-3b \
       --seq 512 --method pgm --epochs 3 [--device cpu]
+  PYTHONPATH=src python -m repro_torch.launch.train --arch rwkv6-3b \
+      --seq 512 --method pgm --epochs 3 --lr 0.05 [--device cpu]
 
 Runs on the card unless ``--device cpu`` is given, and prints the same
 ``epoch N: train X val Y lr Z`` lines as the reference.  RNN-T archs
-train on the synthetic ASR corpus, LMs on the synthetic LM corpus of
-``--seq`` tokens.  ``--noise`` corrupts that fraction of training
+train on the synthetic ASR corpus, LMs (dense and RWKV6) on the
+synthetic LM corpus of ``--seq`` tokens.  ``--noise`` corrupts that fraction of training
 examples (additive feature noise at ``--snr-db`` for ASR, corrupted
 labels for LM) and turns validation matching on.
 """

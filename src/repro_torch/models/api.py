@@ -1,6 +1,6 @@
 """Model bundles of the port: the RNN-T family (the reference's
-``models/api.py:_build_rnnt``) and dense decoder LMs (``_build_lm`` for
-text-only models).
+``models/api.py:_build_rnnt``) and text decoder LMs (``_build_lm`` for
+text-only models: dense attention stacks and RWKV6 stacks).
 
 A bundle is the surface the trainer and the PGM core build on:
 ``init_params``, the per-example loss, the weighted training loss and the
@@ -16,7 +16,7 @@ from typing import Dict, Tuple
 
 import torch
 
-from repro_torch.configs.base import ATTN_KINDS, ModelConfig
+from repro_torch.configs.base import ATTN_KINDS, BLOCK_RWKV, ModelConfig
 from repro_torch.core.rnnt_loss import rnnt_loss_fused
 from repro_torch.models import rnnt as rnnt_mod
 from repro_torch.models import transformer as tfm
@@ -85,7 +85,8 @@ def softmax_xent(logits: torch.Tensor, targets: torch.Tensor,
 
 @dataclasses.dataclass(frozen=True)
 class LMBundle:
-    """Dense text decoder LM: position i predicts token i+1."""
+    """Text decoder LM (dense attention or RWKV6 stack): position i
+    predicts token i+1."""
 
     cfg: ModelConfig
 
@@ -129,18 +130,20 @@ class LMBundle:
 
 
 def _unported(cfg: ModelConfig) -> str:
-    """What of ``cfg`` the LM slice does not carry ('' when nothing):
-    a family other than dense (moe, ssm, hybrid, encdec, vlm), or blocks
-    other than attention."""
-    if cfg.family != "dense":
+    """What of ``cfg`` the LM slices do not carry ('' when nothing): the
+    ``dense`` family with attention blocks and the ``ssm`` family with
+    RWKV6 blocks are ported; any other family (moe, hybrid, encdec,
+    vlm), or blocks of another kind in either, are not."""
+    allowed = {"dense": set(ATTN_KINDS), "ssm": {BLOCK_RWKV}}
+    if cfg.family not in allowed:
         return f"the {cfg.family!r} family"
-    odd = sorted(set(cfg.layer_kinds()) - set(ATTN_KINDS))
-    return f"{odd} blocks" if odd else ""
+    odd = sorted(set(cfg.layer_kinds()) - allowed[cfg.family])
+    return f"{odd} blocks in the {cfg.family!r} family" if odd else ""
 
 
 def build_model(cfg: ModelConfig):
-    """The bundle of ``cfg.family``: ``rnnt`` or ``dense``; any other
-    family raises ``NotImplementedError``."""
+    """The bundle of ``cfg.family``: ``rnnt``, ``dense`` or ``ssm`` (RWKV6
+    stacks); any other family raises ``NotImplementedError``."""
     if cfg.family == "rnnt":
         return RNNTBundle(cfg)
     return LMBundle(cfg)

@@ -1,5 +1,5 @@
-"""Decoder stack of the port for dense attention LMs (the reference's
-``models/transformer.py``, training/prefill forward).
+"""Decoder stack of the port for dense attention LMs and RWKV6 stacks
+(the reference's ``models/transformer.py``, training/prefill forward).
 
 The params tree is the reference's: ``stack.groups`` is a tuple with one
 dict per position of the config's ``pattern``, each leaf stacked over a
@@ -11,7 +11,8 @@ unbound once per forward (``torch.unbind``), so their backward stacks
 the per-layer gradients in one copy instead of scattering each layer's
 into a zero tensor of the whole stack.
 
-Attention blocks with a dense feed-forward only: the bundle
+Attention blocks with a dense feed-forward, and RWKV6 blocks (time-mix
+and channel-mix, no attention and no MLP): the bundle
 (``models/api.py:LMBundle``) refuses configs with other block kinds or
 MoE layers.
 """
@@ -21,19 +22,28 @@ from typing import Any, Dict, List
 
 import torch
 
+from repro_torch.configs.base import BLOCK_RWKV
 from repro_torch.models import attention as attn
 from repro_torch.models import ffn as ffn_mod
+from repro_torch.models import rwkv6 as rwkv_mod
 from repro_torch.models.common import (compute_dtype, dense_init, embed_init,
                                        rms_norm, tree_map)
 
 
-def _init_block(gen: torch.Generator, cfg, device: torch.device) -> Dict:
+def _init_block(gen: torch.Generator, cfg, kind: str,
+                device: torch.device) -> Dict:
     d = cfg.d_model
-    return {"ln1": torch.zeros((d,), device=device),
-            "ln2": torch.zeros((d,), device=device),
-            "attn": attn.init_attn_params(gen, cfg, device),
-            "mlp": ffn_mod.init_ffn_params(gen, d, cfg.d_ff, cfg.ffn_type,
-                                           device)}
+    p = {"ln1": torch.zeros((d,), device=device),
+         "ln2": torch.zeros((d,), device=device)}
+    if kind == BLOCK_RWKV:
+        p["tmix"] = rwkv_mod.init_tmix_params(
+            gen, d, cfg.n_heads, cfg.rwkv_head_dim, device)
+        p["cmix"] = rwkv_mod.init_cmix_params(gen, d, cfg.d_ff, device)
+    else:
+        p["attn"] = attn.init_attn_params(gen, cfg, device)
+        p["mlp"] = ffn_mod.init_ffn_params(gen, d, cfg.d_ff, cfg.ffn_type,
+                                           device)
+    return p
 
 
 def init_params(cfg, gen: torch.Generator, device: torch.device) -> Dict:
@@ -41,7 +51,8 @@ def init_params(cfg, gen: torch.Generator, device: torch.device) -> Dict:
     (each layer's draws moved to ``device`` before the next is drawn)."""
     P = len(cfg.pattern)
     n_groups = cfg.n_layers // P
-    per_layer = [_init_block(gen, cfg, device) for _ in range(cfg.n_layers)]
+    per_layer = [_init_block(gen, cfg, kind, device)
+                 for kind in cfg.layer_kinds()]
     groups = tuple(
         tree_map(lambda *xs: torch.stack(xs),
                  *[per_layer[g * P + pos] for g in range(n_groups)])
@@ -62,7 +73,9 @@ def init_params(cfg, gen: torch.Generator, device: torch.device) -> Dict:
 def cast_block_params(bp, cfg):
     """The block's fp32 master params cast to the compute dtype once, as
     the reference does (the norms' gammas included, so a block norm scales
-    by ``1 + bf16(gamma)``); no-op for fp32 compute."""
+    by ``1 + bf16(gamma)``; and an RWKV block's ``decay_base``, ``bonus``,
+    ``mu_*`` and ``ln_g``/``ln_b``, which the time-mix widens back to
+    fp32 or mixes with fp32 values); no-op for fp32 compute."""
     dt = compute_dtype(cfg)
     if dt == torch.float32:
         return bp
@@ -73,6 +86,10 @@ def cast_block_params(bp, cfg):
 def block_forward(bp, cfg, kind: str, x: torch.Tensor) -> torch.Tensor:
     bp = cast_block_params(bp, cfg)
     h = rms_norm(x, bp["ln1"], cfg.norm_eps)
+    if kind == BLOCK_RWKV:
+        x = x + rwkv_mod.tmix_forward(bp["tmix"], cfg, h)
+        h2 = rms_norm(x, bp["ln2"], cfg.norm_eps)
+        return x + rwkv_mod.cmix_forward(bp["cmix"], h2)
     x = x + attn.attn_forward(bp["attn"], cfg, h, kind=kind)
     h2 = rms_norm(x, bp["ln2"], cfg.norm_eps)
     return x + ffn_mod.ffn_forward(bp["mlp"], h2, cfg.ffn_type)

@@ -6,8 +6,8 @@ a machine that has only PyTorch:
 
 Each Hopper kernel is held against its plain PyTorch version on the same
 card tensors (which the CPU tests hold against the JAX reference), at
-ragged edge shapes; the fused loss is held against the same loss on the
-CPU.  TF32 is off throughout (``backend.fp32_numerics``).
+ragged edge shapes; the WKV backward kernel against autograd of the
+plain chunk algebra; the fused loss against the same loss on the CPU.  TF32 is off throughout (``backend.fp32_numerics``).
 """
 import numpy as np
 import pytest
@@ -25,6 +25,9 @@ from repro_torch.kernels.omp_gram.ref import omp_gram_batched_ref  # noqa: E402
 from repro_torch.kernels.rnnt_lattice.ops import rnnt_lattice_op  # noqa: E402
 from repro_torch.kernels.rnnt_lattice.ref import (  # noqa: E402
     NEG, rnnt_lattice_ref)
+from repro_torch.kernels.rwkv6_scan.ops import rwkv6_wkv_op  # noqa: E402
+from repro_torch.kernels.rwkv6_scan.ref import (  # noqa: E402
+    log_decay, wkv_chunked_lw)
 
 pytestmark = pytest.mark.cuda
 
@@ -171,3 +174,81 @@ def test_grad_sketch_wrapper_refuses_what_the_kernel_does_not_take(card):
         grad_sketch_units_op(h, w, rh, rv, t, s.t())
     with pytest.raises(ValueError):                  # a CPU tensor in the mix
         grad_sketch_units_op(h, w, rh, rv, t.cpu(), s)
+
+
+def _wkv_inputs(B, S, H, N, seed, dev, w=None):
+    """r, k, v standard normal; decays in (0.4, 0.99), or all equal to
+    ``w``; u of scale 0.1; lw = log(clip(w, 1e-8, 1))."""
+    g = torch.Generator().manual_seed(seed)
+    r, k, v = (torch.randn(B, S, H, N, generator=g) for _ in range(3))
+    ww = (torch.rand(B, S, H, N, generator=g) * 0.59 + 0.4 if w is None
+          else torch.full((B, S, H, N), w))
+    u = torch.randn(H, N, generator=g) * 0.1
+    cy = torch.randn(B, S, H, N, generator=g)
+    cs = torch.randn(B, H, N, N, generator=g) * 0.1
+    return [x.to(dev) for x in (r, k, v, log_decay(ww), u)], \
+        (cy.to(dev), cs.to(dev))
+
+
+def _wkv_run(fn, ins, cots, C):
+    xs = [x.clone().requires_grad_(True) for x in ins]
+    y, s = fn(*xs, C)
+    (torch.sum(y * cots[0]) + torch.sum(s * cots[1])).backward()
+    return [y.detach(), s.detach()] + [x.grad for x in xs]
+
+
+def _wkv_plain(r, k, v, lw, u, C):
+    B, _, H, N = r.shape
+    return wkv_chunked_lw(r, k, v, lw, u,
+                          torch.zeros(B, H, N, N, device=r.device), C)
+
+
+@pytest.mark.parametrize("B,S,H,N,C,w", [
+    (4, 512, 40, 64, 64, None),               # the rwkv6-3b main path
+    (2, 64, 2, 16, 16, None), (1, 128, 3, 32, 32, None),
+    (2, 96, 1, 8, 32, None), (1, 64, 2, 64, 64, None),
+    (1, 64, 1, 8, 16, 1e-6)])                 # decays near zero
+def test_wkv_kernels_match_plain_autograd(card, B, S, H, N, C, w):
+    """Forward (y, final state) and backward (dr, dk, dv, dlw, du) with
+    cotangents on both outputs, against autograd of the plain chunk
+    algebra on the same card tensors, each within 1e-4 of its largest
+    entry; two launches agree bit for bit.  At decays of 1e-6, dlw's
+    true entries (~2e-5) lie below the fp32 rounding of the terms that
+    cancel in it (autograd of the plain version is itself ~3% of its
+    largest entry off its fp64 value there, ``scripts/rwkv6_numerics.py``),
+    so it is held finite and within 1e-5 of the largest dr entry."""
+    ins, cots = _wkv_inputs(B, S, H, N, seed=S + N, dev=card, w=w)
+    n0, b0 = rwkv6_wkv_op.launches, rwkv6_wkv_op.bwd_launches
+    got = _wkv_run(rwkv6_wkv_op, ins, cots, C)
+    again = _wkv_run(rwkv6_wkv_op, ins, cots, C)
+    torch.cuda.synchronize()
+    assert rwkv6_wkv_op.launches == n0 + 2
+    assert rwkv6_wkv_op.bwd_launches == b0 + 2
+    want = _wkv_run(_wkv_plain, ins, cots, C)
+    names = ("y", "state", "dr", "dk", "dv", "dlw", "du")
+    for name, a, b, c in zip(names, got, again, want):
+        assert torch.isfinite(a).all(), name
+        assert torch.equal(a, b), name
+        scale = float((want[2] if name == "dlw" and w else c).abs().max())
+        tol = 1e-5 if name == "dlw" and w else 1e-4
+        torch.testing.assert_close(a, c, rtol=0, atol=tol * scale, msg=name)
+
+
+def test_wkv_wrapper_refuses_what_the_kernels_do_not_take(card):
+    (r, k, v, lw, u), _ = _wkv_inputs(1, 128, 2, 16, seed=0, dev=card)
+    with pytest.raises(TypeError):
+        rwkv6_wkv_op(r.double(), k, v, lw, u, 64)
+    with pytest.raises(ValueError):                  # non-contiguous
+        rwkv6_wkv_op(r.transpose(1, 2).contiguous().transpose(1, 2), k, v,
+                     lw, u, 64)
+    with pytest.raises(ValueError):                  # S % C != 0
+        rwkv6_wkv_op(r, k, v, lw, u, 48)
+    with pytest.raises(ValueError):                  # chunk above 64
+        rwkv6_wkv_op(r, k, v, lw, u, 128)
+    with pytest.raises(ValueError):                  # u of another shape
+        rwkv6_wkv_op(r, k, v, lw, u[:1], 64)
+    with pytest.raises(ValueError):                  # a CPU tensor in the mix
+        rwkv6_wkv_op(r, k, v, lw, u.cpu(), 64)
+    big = torch.zeros(1, 64, 1, 65, device=card)     # head dim above 64
+    with pytest.raises(ValueError):
+        rwkv6_wkv_op(big, big, big, big, torch.zeros(1, 65, device=card), 64)

@@ -178,7 +178,8 @@ def test_attention_refuses_what_the_slice_does_not_port(setup):
             build_model(dataclasses.replace(cfg, **bad))
 
 
-@pytest.mark.parametrize("arch", ["starcoder2-3b", ARCH, "rnnt-crdnn-smoke"])
+@pytest.mark.parametrize("arch", ["starcoder2-3b", ARCH, "rnnt-crdnn-smoke",
+                                  "rwkv6-3b", "rwkv6-3b-smoke"])
 def test_configs_match_reference(arch):
     cj, ct = jax_get_config(arch), get_config(arch)
     for f in dataclasses.fields(ct):
