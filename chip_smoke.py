@@ -10,45 +10,63 @@ failure exits non-zero, and no phase catches an error and carries on:
 1. environment: the card's name and power limit; TF32 off everywhere
    (``cudnn.allow_tf32`` defaults to True, which would put the CRDNN
    convolutions in TF32);
-2. build: the four CUDA kernels from the checkout's sources, one
+2. build: the five CUDA kernels from the checkout's sources, one
    ``nvcc`` per source, all started together;
 3. kernels: each kernel against its plain PyTorch version on the same
    card tensors, at the main paths' shapes and at ragged edge shapes,
    with times (CUDA events), the plain version's time, a PyTorch library
    call's time where one computes the same function, and the least time
-   the card could take (bytes over 3.35 TB/s, operations over the fp32
-   67 TFLOP/s of an H100 SXM); the grad-sketch kernel also launched twice
-   on the same inputs, which must agree bit for bit; the RWKV6 WKV
-   kernels (forward and backward) against the plain chunk algebra and its
-   autograd, twice bitwise, at the RWKV path's shape and the reference
-   kernel tests' shapes;
+   the card could take (bytes over 3.35 TB/s, operations over the peak
+   of the inputs' type: fp32 67 TFLOP/s, bf16 989 TFLOP/s, H100 SXM);
+   the grad-sketch kernel also launched twice on the same inputs, which
+   must agree bit for bit; the RWKV6 WKV kernels (forward and backward)
+   against the plain chunk algebra and its autograd, twice bitwise, at
+   the RWKV path's shape and the reference kernel tests' shapes; the
+   sliding-window attention kernel at the serving path's prefill shape
+   and at edge shapes, twice bitwise, with
+   ``scaled_dot_product_attention`` under the band mask as its library
+   time;
 4. agreement: one full-width ``rnnt-crdnn`` unit, and one unit each of
    ``starcoder2-3b`` and ``rwkv6-3b`` at full width with 2 layers in
    fp32, through the kernels on the card against the same unit through
    the plain versions on the CPU (per-example loss, the stage-A gradient
-   or sketch, and for RWKV one layer's time-mix gradients);
+   or sketch, and for RWKV one layer's time-mix gradients); and the
+   2-layer ``starcoder2-3b`` served on a 6,144-token prompt (the band
+   branch), prefill and 8 teacher-forced greedy decode steps, card
+   against CPU;
 5. main path, RNN-T: ``train_with_selection(method="pgm")`` at the full
-   width of ``rnnt-crdnn`` on a synthetic corpus — warm start, then a PGM
+   width of ``rnnt-crdnn`` on a synthetic corpus -- warm start, then a PGM
    round (stage A + stage B) before each subset epoch;
 6. profile, RNN-T: one training step under ``torch.profiler`` (host wall
    time, device busy time, the kernels that take the most of it);
-7. main path, LM: the same loop on ``starcoder2-3b`` at full width and
+7. serving, RNN-T: ``rnnt-crdnn`` at full width (random weights; the
+   3-epoch model emits only blanks) in the slot engine (streaming greedy
+   transducer search) on 8 utterances, token for token against
+   ``rnnt_greedy_reference`` on the card;
+8. main path, LM: the same loop on ``starcoder2-3b`` at full width and
    depth (30 layers, d_model 3072, vocab 49152, bf16 compute, fp32 master
    weights) on a synthetic corpus of 512-token examples, with the peak of
    device memory;
-8. profile, LM: one training step of that model, as in 6;
-9. main path, RWKV: the same loop on ``rwkv6-3b`` at full width and
+9. profile, LM: one training step of that model, as in 6;
+10. serving, LM: the same params (the training path's optimizer state
+   freed) served at full depth: ``generate`` on 2 prompts of 8,192
+   tokens, then ``SlotEngine`` with 4 slots on the launcher's 8
+   requests of 4,136-7,581 tokens (5 through the band kernel, 3 through
+   the kv-block flash branch), 32 new tokens each; every completion's
+   first token against ``generate`` on its prompt alone; one decode scan
+   under the profiler;
+11. main path, RWKV: the same loop on ``rwkv6-3b`` at full width and
    depth (32 layers, d_model 2560, 40 WKV heads of 64, vocab 65536, bf16
    compute, fp32 master weights), with the peak of device memory;
-10. profile, RWKV: one training step of that model, as in 6.
+12. profile, RWKV: one training step of that model, as in 6.
 
 Each main path runs with its kernels' launch counters set to 0 just
 before and read just after, and fails if a kernel of the path was never
 launched.  The script ends with a JSON line of per-kernel numbers (one
-row per kernel and main path, so the Gram, which all three paths run,
-has three, and the grad sketch, which both LM paths run, two), the
-card's name and power limit as ``nvidia-smi`` prints them, and the line
-``{"ok": true, "device": {...}}``.
+row per kernel and main path, so the Gram, which all three training
+paths run, has three, and the grad sketch, which both LM paths run,
+two), the card's name and power limit as ``nvidia-smi`` prints them, and
+the line ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
@@ -66,6 +84,7 @@ SRC = ROOT / "src"
 
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM device memory
 FP32_FLOP_PER_S = 67e12            # H100 SXM fp32 outside the tensor cores
+BF16_FLOP_PER_S = 989e12           # H100 SXM bf16 dense tensor cores
 NEG = -1e30
 
 # main-path corpus: T = 32 * 16 = 512 frames -> T' = 128, U + 1 = 33
@@ -98,6 +117,29 @@ WKV_EDGES = ((2, 64, 2, 16, 16, None), (1, 128, 3, 32, 32, None),
              (1, 64, 1, 8, 16, 1e-6))
 
 
+# sliding-window attention (B, S, KV, G, hd, window, dtype, lengths): the
+# serving path's prefill shape (starcoder2-3b, one 8,192-token prompt),
+# then S off the 64-row tile and off 1024, a window below the tile, a
+# window above S, per-row lengths at B 2, fp32
+SWA_MAIN = (1, 8192, 2, 12, 128, 4096, "bfloat16", None)
+SWA_EDGES = ((1, 1100, 2, 12, 128, 256, "bfloat16", None),
+             (1, 300, 2, 3, 64, 16, "bfloat16", None),
+             (1, 200, 1, 2, 32, 512, "bfloat16", None),
+             (2, 1500, 2, 4, 128, 700, "bfloat16", (1500, 1033)),
+             (2, 777, 2, 2, 16, 100, "float32", (5, 777)),
+             (1, 2048, 2, 12, 128, 1024, "float32", None))
+# serving: the agreement prompt, and the full-depth run's prompts
+SERVE_AGREE_S = 6144
+SERVE_AGREE_STEPS = 8
+SERVE_PROMPT = 8192
+SERVE_NEW = 32
+SERVE_SLOTS = 4
+SERVE_REQUESTS = 8
+# RNN-T serving: the launcher's utterances of 256-512 frames
+RNNT_SERVE_FRAMES = 512
+RNNT_MAX_SYMBOLS = 8
+
+
 def fail(msg: str) -> None:
     print(f"chip_smoke: FAIL: {msg}", file=sys.stderr)
     sys.exit(1)
@@ -123,10 +165,11 @@ def cuda_ms(torch, fn, reps: int, warmup: int = 2) -> float:
     return start.elapsed_time(end) / reps
 
 
-def bound(n_bytes: float, n_ops: float):
-    """(least ms, what bounds it) for the card's published peaks."""
+def bound(n_bytes: float, n_ops: float, flop_per_s: float = FP32_FLOP_PER_S):
+    """(least ms, what bounds it) for the card's published peaks; the
+    operations at the peak of the inputs' type (fp32 unless given)."""
     t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
-    t_ops = n_ops / FP32_FLOP_PER_S * 1e3
+    t_ops = n_ops / flop_per_s * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -267,25 +310,286 @@ def wkv_err(torch, op, shape, dev):
     return errs
 
 
-def profile_step(torch, bundle, tc, units, dev, params, tag) -> None:
-    """One training step on one unit under ``torch.profiler``: host wall
-    time, summed kernel time (device busy share), and the kernels that
-    take the most device time."""
+def swa_inputs(torch, B, S, KV, G, hd, dtype, lengths, seed, dev):
+    g = torch.Generator().manual_seed(seed)
+    q = torch.randn(B, S, KV, G, hd, generator=g)
+    k, v = (torch.randn(B, S, KV, hd, generator=g) for _ in range(2))
+    dt = getattr(torch, dtype)
+    lens = (None if lengths is None
+            else torch.tensor(lengths, dtype=torch.int32, device=dev))
+    return [x.to(device=dev, dtype=dt) for x in (q, k, v)], lens
+
+
+def swa_err(torch, op, ref, shape, dev):
+    """Two launches on the same inputs agree bitwise, and the kernel
+    agrees with the plain band gather on the same card tensors -> (max
+    abs err, the largest share of its bar that an element takes).  Both
+    compute in fp32 and differ only in the order of their sums.  At bf16
+    both then round to bf16, so each element is held to one bf16 ulp of
+    its own value, ``2**-7 |want| + 1e-5``; at fp32 the output is held to
+    1e-5 of its largest entry (and to 1e-4, the reference tests' bar)."""
+    B, S, KV, G, hd, W, dtype, lengths = shape
+    (q, k, v), lens = swa_inputs(torch, B, S, KV, G, hd, dtype, lengths,
+                                 seed=S + hd, dev=dev)
+    got = op(q, k, v, window=W, lengths=lens)
+    again = op(q, k, v, window=W, lengths=lens)
+    torch.cuda.synchronize()
+    require(bool(torch.equal(got, again)),
+            f"swa_attn {shape}: two launches on the same inputs differ")
+    want = ref(q, k, v, window=W, lengths=lens).float()
+    diff = (got.float() - want).abs()
+    if dtype == "float32":
+        bar = torch.full_like(want, min(1e-4, 1e-5 * float(want.abs().max())))
+    else:
+        bar = 2.0 ** -7 * want.abs() + 1e-5
+    margin = float((diff / bar).max())
+    err = float(diff.max())
+    require(bool(torch.isfinite(got).all()) and margin <= 1.0,
+            f"swa_attn {shape}: an element is {margin:.2f} x its bar "
+            f"(max abs err {err})")
+    return err, margin
+
+
+def band_pairs(S: int, W: int) -> int:
+    """(query, key) pairs of a causal window W over S tokens."""
+    return sum(min(s + 1, W) for s in range(S))
+
+
+def serve_agreement(torch, bundle, p_cpu, dev, tree_map) -> None:
+    """The 2-layer model served on one SERVE_AGREE_S-token prompt on the
+    card (band kernel) and on the CPU (plain band gather): last logits
+    within 1e-4 of their largest entry, the cache's k/v within 1e-5 of
+    theirs, then SERVE_AGREE_STEPS greedy decode steps teacher-forced with
+    the CPU's tokens, logits held to the same bar at every step, argmaxes
+    equal wherever the CPU's top-2 margin exceeds 10x that bar."""
+    V = bundle.cfg.vocab_size
+    prompt = torch.randint(0, V, (1, SERVE_AGREE_S), dtype=torch.int32,
+                           generator=torch.Generator().manual_seed(3))
+    runs = {}
+    fed = []
+    for where in ("cpu", "cuda"):
+        on = torch.device("cpu") if where == "cpu" else dev
+        p = tree_map(lambda x: x.to(on), p_cpu)
+        t0 = time.time()
+        with torch.no_grad():
+            logits, cache = bundle.prefill(
+                p, {"tokens": prompt.to(on)},
+                cache_len=SERVE_AGREE_S + SERVE_AGREE_STEPS)
+            # copies: decode writes the cache in place
+            kv = [x.to("cpu", torch.float32, copy=True)
+                  for grp in cache["groups"]
+                  for name, x in sorted(grp.items()) if name in ("k", "v")]
+            steps = [logits.float().cpu()[0]]
+            for i in range(SERVE_AGREE_STEPS):
+                if where == "cpu":
+                    fed.append(int(torch.argmax(steps[-1])))
+                tok = torch.tensor([fed[i]], dtype=torch.int32, device=on)
+                logits, cache = bundle.decode(p, cache, tok)
+                steps.append(logits.float().cpu()[0])
+        if where == "cuda":
+            torch.cuda.synchronize()
+        runs[where] = (steps, kv, time.time() - t0)
+        del p, cache
+    kv_rel = max(float((a - b).abs().max() / b.abs().max())
+                 for a, b in zip(runs["cuda"][1], runs["cpu"][1]))
+    worst, forks = 0.0, 0
+    for i, (a, b) in enumerate(zip(runs["cuda"][0], runs["cpu"][0])):
+        require(bool(torch.isfinite(a).all()), f"serve step {i}: non-finite")
+        bar = 1e-4 * float(b.abs().max())
+        err = float((a - b).abs().max())
+        worst = max(worst, err / float(b.abs().max()))
+        require(err <= bar, f"serve agreement step {i}: logits err {err} "
+                            f"> {bar}")
+        top2 = torch.topk(b, 2).values
+        if float(top2[0] - top2[1]) > 10 * bar:
+            require(int(torch.argmax(a)) == int(torch.argmax(b)),
+                    f"serve agreement step {i}: argmax differs")
+        else:
+            forks += 1
+    require(kv_rel <= 1e-5, f"serve agreement: cache k/v err {kv_rel} of "
+                            f"the largest entry > 1e-5")
+    print(f"[agree] starcoder2-3b served at full width, 2 layers, fp32, one "
+          f"prompt of {SERVE_AGREE_S} (band) + {SERVE_AGREE_STEPS} "
+          f"teacher-forced decode steps: logits err at most {worst:.2e} of "
+          f"the largest entry, cache k/v err {kv_rel:.2e} of their "
+          f"largest entry, {SERVE_AGREE_STEPS + 1 - forks} of "
+          f"{SERVE_AGREE_STEPS + 1} argmaxes held (the rest within 10x the "
+          f"bar of a tie) (card {runs['cuda'][2]:.1f} s vs CPU "
+          f"{runs['cpu'][2]:.1f} s)", flush=True)
+
+
+def rnnt_trace(torch, bundle, params, feats, L, max_symbols):
+    """The greedy transducer search of ``rnnt_greedy_reference`` with
+    each decision's (frame, symbol, top-2 margin, largest |logit|)."""
+    from repro_torch.models import rnnt as rnnt_mod
+    dev = params["joint"]["w_out"].device
+    with torch.no_grad():
+        enc = rnnt_mod.encode(params, bundle.cfg,
+                              torch.as_tensor(feats, device=dev))
+        g, h = rnnt_mod.pred_start(params, bundle.cfg, 1, enc.dtype, dev)
+        out = []
+        for t in range(min(max(L // bundle.cfg.rnnt.time_reduction, 1),
+                           enc.shape[1])):
+            for _ in range(max_symbols):
+                logits = rnnt_mod.joint_step(params, enc[:, t], g)[0]
+                top2 = torch.topk(logits, 2).values
+                k = int(torch.argmax(logits))
+                out.append((t, k, float(top2[0] - top2[1]),
+                            float(logits.abs().max())))
+                if k == rnnt_mod.BLANK_ID:
+                    break
+                g, h = rnnt_mod.pred_step(
+                    params, bundle.cfg, torch.tensor([k], device=dev), h)
+    return out
+
+
+def serve_rnnt(torch, np, bundle, params) -> None:
+    """The slot engine on 8 launcher utterances against the non-streaming
+    greedy search on the card, token for token; where they part, the
+    decisions between the last shared token and the next are printed,
+    and the phase fails unless the smallest top-2 margin among them is
+    below 1e-5 of the largest |logit|."""
+    from repro_torch.launch.serve import make_requests
+    from repro_torch.serve.engine import SlotEngine, rnnt_greedy_reference
+    cfg = bundle.cfg
+    max_new = RNNT_SERVE_FRAMES // cfg.rnnt.time_reduction * RNNT_MAX_SYMBOLS
+    reqs = make_requests(cfg, SERVE_REQUESTS, RNNT_SERVE_FRAMES, max_new,
+                         seed=0)
+    eng = SlotEngine(bundle, params, n_slots=SERVE_SLOTS,
+                     max_new_tokens=max_new, max_prompt_len=RNNT_SERVE_FRAMES,
+                     sync_every=4, max_symbols=RNNT_MAX_SYMBOLS)
+    torch.cuda.synchronize()
+    t0 = time.time()
+    comps = eng.run(reqs)
+    wall = time.time() - t0
+    require(len(comps) == SERVE_REQUESTS
+            and all(c.status == "ok" for c in comps),
+            "RNN-T serving: not every request completed")
+    got = {c.uid: c.tokens for c in comps}
+    n_tok, parted = 0, 0
+    for r in reqs:
+        L = r.inputs["feats"].shape[0]
+        feats = np.zeros((1, eng.bucket_for(r), cfg.rnnt.n_feats), np.float32)
+        feats[0, :L] = r.inputs["feats"]
+        want = rnnt_greedy_reference(bundle, params, feats, np.asarray([L]),
+                                     max_symbols=RNNT_MAX_SYMBOLS)[0]
+        n_tok += len(want)
+        if got[r.uid] == want:
+            continue
+        parted += 1
+        u = next((i for i, (a, b) in enumerate(zip(got[r.uid], want))
+                  if a != b), min(len(got[r.uid]), len(want)))
+        trace = rnnt_trace(torch, bundle, params, feats, L, RNNT_MAX_SYMBOLS)
+        emitted, window = 0, []
+        for step, (t, k, margin, big) in enumerate(trace):
+            if emitted >= u:
+                window.append((step, t, margin, big))
+            if k != 0:
+                emitted += 1
+                if emitted > u:
+                    break
+        step, t, margin, big = min(window, key=lambda w: w[2])
+        print(f"[serve rnnt] request {r.uid} parts from the reference after "
+              f"{u} tokens: decision {step} (frame {t}), top-2 margin "
+              f"{margin:.3e}, largest |logit| {big:.3e}", flush=True)
+        require(margin < 1e-5 * big, f"RNN-T serving: request {r.uid} "
+                                     f"parts at a margin of {margin}")
+    print(f"[serve rnnt] rnnt-crdnn slot engine ({SERVE_SLOTS} slots, "
+          f"{SERVE_REQUESTS} utterances of {RNNT_SERVE_FRAMES // 2}-"
+          f"{RNNT_SERVE_FRAMES} frames): {wall:.2f} s, "
+          f"{SERVE_REQUESTS / wall:.1f} req/s, {n_tok} tokens; "
+          f"{SERVE_REQUESTS - parted} of {SERVE_REQUESTS} token for token "
+          f"equal to rnnt_greedy_reference on the card", flush=True)
+
+
+def serve_lm(torch, bundle, params, dev, swa_op, other_ops):
+    """The full-depth serving run: ``generate`` on 2 prompts of
+    SERVE_PROMPT, then the slot engine on the launcher's requests; the
+    band kernel's launches are counted over the two and must be 30 for
+    every prefill with S > window + 1024 -> (launches, a summary)."""
+    from repro_torch.launch.serve import make_requests
+    from repro_torch.serve.engine import SlotEngine, generate
+    cfg = bundle.cfg
+    V = cfg.vocab_size
+    band_at = cfg.window + 1024
+    prompts = torch.randint(0, V, (2, SERVE_PROMPT), dtype=torch.int32,
+                            generator=torch.Generator().manual_seed(1)
+                            ).to(dev)
+    reqs = make_requests(cfg, SERVE_REQUESTS, SERVE_PROMPT, SERVE_NEW, seed=0)
+    lens = [len(r.inputs["tokens"]) for r in reqs]
+    n_band = 1 + sum(L > band_at for L in lens)
+    for op in other_ops:
+        op.launches = 0
+    swa_op.launches = 0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    toks, st = generate(bundle, params, prompts, SERVE_NEW)
+    require(toks.shape == (2, SERVE_NEW), "generate: wrong shape")
+    eng = SlotEngine(bundle, params, n_slots=SERVE_SLOTS,
+                     max_new_tokens=SERVE_NEW, max_prompt_len=SERVE_PROMPT,
+                     sync_every=4, seed=0)
+    t0 = time.time()
+    comps = eng.run(reqs)
+    wall = time.time() - t0
+    launches = swa_op.launches
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    require(all(op.launches == 0 for op in other_ops),
+            "the serving path launched a training-path kernel")
+    require(launches == cfg.n_layers * n_band,
+            f"swa_attn launched {launches} times, not {cfg.n_layers} x "
+            f"{n_band} band prefills")
+    require(len(comps) == SERVE_REQUESTS
+            and all(c.status == "ok" and len(c.tokens) == SERVE_NEW
+                    for c in comps), "slot engine: not 8 x 32 tokens")
+    require(all(0 <= t < V for c in comps for t in c.tokens)
+            and bool(((toks >= 0) & (toks < V)).all()), "token out of range")
+    lat = sorted(c.latency_s for c in comps)
+    print(f"[serve lm] generate B=2 x {SERVE_PROMPT} + {SERVE_NEW}: prefill "
+          f"{st.prefill_s * 1e3:.1f} ms ({st.prefill_tokens_per_s:.0f} tok/s),"
+          f" decode {st.decode_s * 1e3:.1f} ms / {st.decode_steps} steps "
+          f"({st.decode_tokens} live tok, {st.tokens_per_s:.1f} tok/s)",
+          flush=True)
+    print(f"[serve lm] SlotEngine {SERVE_SLOTS} slots on {SERVE_REQUESTS} "
+          f"requests (lengths {lens}, {n_band - 1} through the band, the "
+          f"rest through flash), {SERVE_NEW} new tokens each: {wall:.2f} s "
+          f"wall, {SERVE_REQUESTS / wall:.2f} req/s, "
+          f"{SERVE_REQUESTS * SERVE_NEW / wall:.1f} tok/s, p50 latency "
+          f"{lat[len(lat) // 2] * 1e3:.0f} ms, {eng.n_decode_dispatches} "
+          f"decode scans; swa_attn launches {launches}; peak device memory "
+          f"{peak_gb:.2f} GB (torch.cuda.max_memory_allocated)", flush=True)
+    # first tokens: the same B = 1 prefill shapes and kernels as generate
+    # on the prompt alone, so bitwise the same
+    for c in comps:
+        prompt = torch.from_numpy(reqs[c.uid].inputs["tokens"])[None].to(dev)
+        alone, _ = generate(bundle, params, prompt, 1)
+        require(int(alone[0, 0]) == c.tokens[0],
+                f"request {c.uid}: first token {c.tokens[0]} != generate's "
+                f"{int(alone[0, 0])}")
+    print(f"[serve lm] every completion's first token equals generate on its "
+          f"prompt alone", flush=True)
+    # where a decode micro-step's time goes: one scan over the 4 slots
+    # (every slot now dead, so each micro-step is computed with its
+    # cache writes masked, the same work as a live one)
+    profile_call(torch, eng._decode_scan, "serve",
+                 f"one decode scan ({eng.sync_every} micro-steps x "
+                 f"{SERVE_SLOTS} slots, {cfg.n_layers} layers, caches of "
+                 f"{cfg.window} slots)")
+    return launches
+
+
+def profile_call(torch, fn, tag: str, what: str) -> None:
+    """``fn()`` once under ``torch.profiler`` after a warm-up call: host
+    wall time, summed kernel time (device busy share), and the kernels
+    that take the most device time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    from repro_torch.train.engine import make_step_core, to_device
-    from repro_torch.train.optim import make_update_for
-
-    opt_state = make_update_for(tc)[0](params)
-    step = make_step_core(bundle, tc)
-    batch = to_device({k: v[0] for k, v in units.items()}, dev)
-    step(params, opt_state, batch, tc.lr)               # warm up
+    fn()                                                # warm up
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.time()
-        step(params, opt_state, batch, tc.lr)
+        fn()
         torch.cuda.synchronize()
         wall_ms = (time.time() - t0) * 1e3
     rows = []
@@ -298,13 +602,24 @@ def profile_step(torch, bundle, tc, units, dev, params, tag) -> None:
         rows.append((dt / 1e3, ev.count, ev.key))
     busy_ms = sum(r[0] for r in rows)
     n_kernels = sum(r[1] for r in rows)
-    print(f"[profile {tag}] one training step (B={UNIT_SIZE}): wall "
-          f"{wall_ms:.1f} ms, device busy {busy_ms:.1f} ms "
-          f"({100 * busy_ms / wall_ms:.1f}%), {n_kernels} device ops",
-          flush=True)
+    print(f"[profile {tag}] {what}: wall {wall_ms:.1f} ms, device busy "
+          f"{busy_ms:.1f} ms ({100 * busy_ms / wall_ms:.1f}%), {n_kernels} "
+          f"device ops", flush=True)
     for dt, count, key in sorted(rows, reverse=True)[:8]:
         print(f"[profile {tag}]   {dt:8.3f} ms  x{count:<6d} {key[:80]}",
               flush=True)
+
+
+def profile_step(torch, bundle, tc, units, dev, params, tag) -> None:
+    """One training step on one unit under the profiler."""
+    from repro_torch.train.engine import make_step_core, to_device
+    from repro_torch.train.optim import make_update_for
+
+    opt_state = make_update_for(tc)[0](params)
+    step = make_step_core(bundle, tc)
+    batch = to_device({k: v[0] for k, v in units.items()}, dev)
+    profile_call(torch, lambda: step(params, opt_state, batch, tc.lr), tag,
+                 f"one training step (B={UNIT_SIZE})")
 
 
 def main() -> None:
@@ -340,6 +655,8 @@ def main() -> None:
     from repro_torch.kernels.rnnt_lattice.ref import rnnt_lattice_ref
     from repro_torch.kernels.rwkv6_scan.ops import (rwkv6_wkv_op,
                                                     wkv_backward, wkv_forward)
+    from repro_torch.kernels.swa_attn.ops import swa_attn_op
+    from repro_torch.kernels.swa_attn.ref import swa_attn_ref
     from repro_torch.models.api import build_model
     from repro_torch.train.loop import train_with_selection
 
@@ -515,6 +832,55 @@ def main() -> None:
           f"none bound_ms {wkvb_bound:.4f} ({wkvb_by})", flush=True)
     del ins, cy, cs
 
+    # (B, S, KV, G, hd, window, dtype, lengths): max abs err, and the
+    # largest share of its bar that an element takes; the main shape in
+    # fp32, then in bf16 last, whose error the kernels line reports
+    for shape in SWA_EDGES + (SWA_MAIN[:6] + ("float32", None), SWA_MAIN):
+        swa_abs, swa_margin = swa_err(torch, swa_attn_op, swa_attn_ref,
+                                      shape, dev)
+        print(f"[kernels] swa_attn {shape}: max abs err {swa_abs:.3e}, "
+              f"{swa_margin:.3f} of the bar at most; two launches bitwise "
+              f"equal", flush=True)
+    B, S, KV, G, hd, W, dtype, _ = SWA_MAIN
+    (q, k, v), _ = swa_inputs(torch, B, S, KV, G, hd, dtype, None, seed=0,
+                              dev=dev)
+    swa_ms = cuda_ms(torch, lambda: swa_attn_op(q, k, v, window=W), reps=5)
+    with torch.no_grad():
+        swa_plain = cuda_ms(torch, lambda: swa_attn_ref(q, k, v, window=W),
+                            reps=3)
+    # the library yardstick, timed only: PyTorch's SDPA on (B, H, S, hd)
+    # with k, v repeated over the group and the band as a boolean mask
+    H = KV * G
+    qh = q.reshape(B, S, H, hd).transpose(1, 2).contiguous()
+    kh, vh = (x.transpose(1, 2).repeat_interleave(G, dim=1).contiguous()
+              for x in (k, v))
+    pos = torch.arange(S, device=dev)
+    band = ((pos[:, None] - pos[None, :]) >= 0) \
+        & ((pos[:, None] - pos[None, :]) < W)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    with torch.no_grad():
+        lib = sdpa(qh, kh, vh, attn_mask=band)
+        lib_err = float((lib.transpose(1, 2).reshape(q.shape).float()
+                         - swa_attn_op(q, k, v, window=W).float()).abs().max())
+        swa_lib = cuda_ms(torch, lambda: sdpa(qh, kh, vh, attn_mask=band),
+                          reps=5)
+    del qh, kh, vh, band, lib
+    # what the function needs: q, k, v read once and o written once (bf16);
+    # q.k and p.v over the band's pairs, 4 hd FLOP a pair and head, at the
+    # bf16 tensor-core peak since the inputs are bf16
+    swa_ops = 4 * hd * band_pairs(S, W) * H * B
+    swa_bound, swa_by = bound(2 * (2 * q.numel() + k.numel() + v.numel()),
+                              swa_ops, BF16_FLOP_PER_S)
+    print(f"[kernels] swa_attn {SWA_MAIN[:7]}: max_abs_err {swa_abs:.3e} "
+          f"({swa_margin:.3f} of the one-ulp bar) "
+          f"kernel_ms {swa_ms:.4f} plain_ms {swa_plain:.4f} library_ms "
+          f"(scaled_dot_product_attention, band mask; max abs diff to the "
+          f"kernel {lib_err:.3e}) {swa_lib:.4f} bound_ms {swa_bound:.4f} "
+          f"({swa_by}, bf16 peak; {swa_ops / FP32_FLOP_PER_S * 1e3:.3f} ms "
+          f"at the fp32 peak) achieved {swa_ops / swa_ms / 1e9:.2f} "
+          f"TFLOP/s", flush=True)
+    del q, k, v
+
     mark("kernels")
 
     # -- 4. agreement: one full-width unit, card kernels vs CPU plain ----
@@ -585,6 +951,7 @@ def main() -> None:
           f"{out['cpu'][2]:.1f} s)", flush=True)
     require(loss_rel < 1e-4 and unit_rel < 1e-3,
             "card and CPU disagree on the full-width LM unit")
+    serve_agreement(torch, lm2, p_cpu, dev, tree_map)
     del p_cpu, lm2
 
     rw_cfg = get_config("rwkv6-3b")
@@ -664,6 +1031,7 @@ def main() -> None:
     rnnt_lattice_op.launches = 0
     omp_gram_batched_op.launches = 0
     grad_sketch_units_op.launches = 0
+    swa_attn_op.launches = 0
     torch.cuda.synchronize()
     t0 = time.time()
     hist = train_with_selection(
@@ -674,8 +1042,9 @@ def main() -> None:
     main_s = time.time() - t0
     launches = {"rnnt_lattice": rnnt_lattice_op.launches,
                 "omp_gram": omp_gram_batched_op.launches}
-    require(grad_sketch_units_op.launches == 0,
-            "the RNN-T path launched the LM grad-sketch kernel")
+    require(grad_sketch_units_op.launches == 0
+            and swa_attn_op.launches == 0,
+            "the RNN-T path launched an LM kernel")
     for s in hist.selections:
         print(f"[main] selection at epoch {s['epoch']}: indices "
               f"{s['indices']} weights "
@@ -694,11 +1063,19 @@ def main() -> None:
 
     # -- 6. where a training step's time goes (outside the counted run) --
     profile_step(torch, bundle, tc, units, dev, hist.final_params, "rnnt")
-    del hist
 
     mark("profile, RNN-T")
 
-    # -- 7. main path, LM: starcoder2-3b at full width and depth ---------
+    # -- 7. serving, RNN-T: streaming greedy search ---------------------
+    # random weights: the 3-epoch model of phase 5 emits only blanks on
+    # these utterances, which would hold nothing token for token
+    del hist
+    serve_rnnt(torch, np, bundle,
+               bundle.init_params(torch.Generator().manual_seed(1), dev))
+
+    mark("serving, RNN-T")
+
+    # -- 8. main path, LM: starcoder2-3b at full width and depth ---------
     lm = build_model(lm_cfg)
     n_lm = LM_N // UNIT_SIZE
     # lr 0.05, not the launcher's 0.5: from this random init (embedding
@@ -719,6 +1096,7 @@ def main() -> None:
     omp_gram_batched_op.launches = 0
     grad_sketch_units_op.launches = 0
     rnnt_lattice_op.launches = 0
+    swa_attn_op.launches = 0
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.time()
@@ -752,13 +1130,28 @@ def main() -> None:
 
     mark("main path, LM")
 
-    # -- 8. where an LM training step's time goes ------------------------
+    # -- 9. where an LM training step's time goes ------------------------
     profile_step(torch, lm, tc_lm, lm_units, dev, hist.final_params, "lm")
-    del hist
 
     mark("profile, LM")
 
-    # -- 9. main path, RWKV: rwkv6-3b at full width and depth ------------
+    # -- 10. serving, LM: the same params at full depth ------------------
+    lm_params = hist.final_params
+    del hist
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"[serve lm] starcoder2-3b at full width and depth "
+          f"({lm_cfg.n_layers} layers, window {lm_cfg.window}, {lm_cfg.compute_dtype} compute "
+          f"over the trained fp32 params; ring KV caches of "
+          f"{lm_cfg.window} slots)", flush=True)
+    swa_launches = serve_lm(torch, lm, lm_params, dev, swa_attn_op,
+                            (rnnt_lattice_op, omp_gram_batched_op,
+                             grad_sketch_units_op, rwkv6_wkv_op))
+    del lm_params
+
+    mark("serving, LM")
+
+    # -- 11. main path, RWKV: rwkv6-3b at full width and depth -----------
     gc.collect()
     torch.cuda.empty_cache()
     rw = build_model(rw_cfg)
@@ -777,6 +1170,7 @@ def main() -> None:
     rnnt_lattice_op.launches = 0
     rwkv6_wkv_op.launches = 0
     rwkv6_wkv_op.bwd_launches = 0
+    swa_attn_op.launches = 0
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.time()
@@ -813,7 +1207,7 @@ def main() -> None:
 
     mark("main path, RWKV")
 
-    # -- 10. where an RWKV training step's time goes ---------------------
+    # -- 12. where an RWKV training step's time goes ---------------------
     profile_step(torch, rw, tc_lm, rw_units, dev, hist.final_params, "rwkv")
     del hist
 
@@ -821,7 +1215,8 @@ def main() -> None:
     g_err, g_ms, g_plain, g_lib, g_bound, g_by = \
         gram_rows[(P_main, n_units // P_main, D_sk)]
     print(f"[launches] RNN-T path {launches}, LM path {lm_launches}, RWKV "
-          f"path {rw_launches}", flush=True)
+          f"path {rw_launches}, serving path {{'swa_attn': {swa_launches}}}",
+          flush=True)
     # one row per kernel and main path, "launches" from that path's run;
     # the Gram's stage-B shape (4, 4, 4096) is the same on both paths
     gram = {"name": "omp_gram_batched", "route": "cuda",
@@ -863,6 +1258,12 @@ def main() -> None:
          "launches": rw_launches["rwkv6_wkv_bwd"], "max_abs_err": wkvb_abs,
          "ms": wkvb_ms, "plain_ms": wkvb_plain_ms, "bound_ms": wkvb_bound,
          "bound_by": wkvb_by, "library_ms": None},
+        {"name": "swa_attn", "path": "serve", "route": "cuda",
+         "source": "src/repro_torch/kernels/swa_attn/csrc/swa_attn.cu",
+         "replaces": "src/repro/kernels/swa_attn/kernel.py:79",
+         "launches": swa_launches, "max_abs_err": swa_abs, "ms": swa_ms,
+         "plain_ms": swa_plain, "bound_ms": swa_bound, "bound_by": swa_by,
+         "library_ms": swa_lib},
     ]
     print(json.dumps({"kernels": kernels}))
     print(card)

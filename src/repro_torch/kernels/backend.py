@@ -36,6 +36,7 @@ SOURCES = {
     "omp_gram": _KERNELS_DIR / "omp_gram" / "csrc" / "omp_gram.cu",
     "grad_sketch": _KERNELS_DIR / "grad_sketch" / "csrc" / "grad_sketch.cu",
     "rwkv6_wkv": _KERNELS_DIR / "rwkv6_scan" / "csrc" / "rwkv6_wkv.cu",
+    "swa_attn": _KERNELS_DIR / "swa_attn" / "csrc" / "swa_attn.cu",
 }
 
 _LIBS: Dict[str, ctypes.CDLL] = {}

@@ -5,9 +5,14 @@ text-only models: dense attention stacks and RWKV6 stacks).
 A bundle is the surface the trainer and the PGM core build on:
 ``init_params``, the per-example loss, the weighted training loss and the
 last-layer head; the LM bundle also has ``final_hidden``, the hook of LM
-stage A.  Batches are dicts of tensors on the params' device with the
-reference's keys (RNN-T: ``feats``, ``feat_lens``, ``tokens``,
-``token_lens``, ``weights``; LM: ``tokens``, ``loss_mask``, ``weights``).
+stage A.  Both carry the serving hooks (``prefill``, ``decode``,
+``init_cache``) the engines of ``serve/engine.py`` drive: for an LM, a
+prompt prefill into per-layer KV caches and one-token decode; for the
+RNN-T, streaming greedy transducer search (the encoder runs once at
+prefill, a decode is one joint step).  Batches are dicts of tensors on
+the params' device with the reference's keys (RNN-T: ``feats``,
+``feat_lens``, ``tokens``, ``token_lens``, ``weights``; LM: ``tokens``,
+``loss_mask``, ``weights``).
 """
 from __future__ import annotations
 
@@ -70,6 +75,77 @@ class RNNTBundle:
     def head_weight(self, params) -> torch.Tensor:
         return params["joint"]["w_out"]
 
+    # -- streaming greedy transducer search (the reference's rnnt serve
+    # hooks): the cache is one utterance's decode state -- the encoder
+    # output, the frame cursor and limit, the prediction-net state and
+    # the symbols emitted at the current frame.  A blank advances the
+    # frame; once ``max_syms`` symbols were emitted at a frame the logits
+    # are forced to blank, where the non-streaming search breaks its loop.
+
+    def prefill(self, params, batch: Batch, cache_len=None,
+                max_symbols: int = 8):
+        """Encode ``feats`` (B,T,F) once -> (the joint logits at frame 0
+        from the blank-start state (B,V), the decode cache)."""
+        enc = rnnt_mod.encode(params, self.cfg, batch["feats"])
+        B, T_enc, _ = enc.shape
+        dev = enc.device
+        t_len = torch.clamp(self.t_lens(batch), max=T_enc).to(torch.int32)
+        g, h = rnnt_mod.pred_start(params, self.cfg, B, enc.dtype, dev)
+        logits = rnnt_mod.joint_step(params, enc[:, 0], g)
+        cache = {"enc": enc,
+                 "t": torch.zeros((B,), dtype=torch.int32, device=dev),
+                 "t_len": t_len, "g": g, "h": h,
+                 "syms": torch.zeros((B,), dtype=torch.int32, device=dev),
+                 "max_syms": torch.full((B,), max_symbols,
+                                        dtype=torch.int32, device=dev)}
+        return logits, cache
+
+    def decode(self, params, cache, tokens: torch.Tensor, live=None):
+        """One joint step: tokens (B,) the symbols sampled from the last
+        logits -> (next logits (B,V), new cache).  Rows where ``live``
+        (B,) is False keep their state bit-exactly (the encoder buffer is
+        shared, not copied)."""
+        blank = tokens == rnnt_mod.BLANK_ID
+        g_new, h_new = rnnt_mod.pred_step(params, self.cfg, tokens,
+                                          cache["h"])
+        state = {"g": torch.where(blank[:, None], cache["g"], g_new),
+                 "h": torch.where(blank[:, None], cache["h"], h_new),
+                 "t": cache["t"] + blank.to(torch.int32),
+                 "syms": torch.where(blank, torch.zeros_like(cache["syms"]),
+                                     cache["syms"] + 1)}
+        if live is not None:
+            state = {k: torch.where(live.reshape((-1,) + (1,) * (x.dim() - 1)),
+                                    x, cache[k]) for k, x in state.items()}
+        t, g, syms = state["t"], state["g"], state["syms"]
+        T_enc = cache["enc"].shape[1]
+        t_idx = torch.clamp(t, 0, T_enc - 1).long()
+        enc_t = cache["enc"][torch.arange(t.shape[0], device=t.device),
+                             t_idx]
+        logits = rnnt_mod.joint_step(params, enc_t, g)
+        forced = torch.full_like(logits, -1e30)
+        forced[:, rnnt_mod.BLANK_ID] = 0.0
+        logits = torch.where((syms >= cache["max_syms"])[:, None], forced,
+                             logits)
+        return logits, dict(cache, **state)
+
+    def init_cache(self, batch_size: int, cache_len: int, dtype=None,
+                   max_symbols: int = 8, device=torch.device("cpu")):
+        """Empty decode state; ``cache_len`` is the encoder-frame
+        capacity (audio frames // time_reduction)."""
+        r = self.cfg.rnnt
+        dtype = torch.float32 if dtype is None else dtype
+        z = dict(dtype=torch.int32, device=device)
+        return {"enc": torch.zeros((batch_size, cache_len, r.dnn_dim),
+                                   dtype=dtype, device=device),
+                "t": torch.zeros((batch_size,), **z),
+                "t_len": torch.zeros((batch_size,), **z),
+                "g": torch.zeros((batch_size, r.pred_hidden), dtype=dtype,
+                                 device=device),
+                "h": torch.zeros((batch_size, r.pred_hidden), dtype=dtype,
+                                 device=device),
+                "syms": torch.zeros((batch_size,), **z),
+                "max_syms": torch.full((batch_size,), max_symbols, **z)}
+
 
 def softmax_xent(logits: torch.Tensor, targets: torch.Tensor,
                  mask: torch.Tensor) -> torch.Tensor:
@@ -115,7 +191,7 @@ class LMBundle:
         """-> (hidden states aligned with the next-token targets
         (B,S-1,d) in the compute dtype, targets, mask)."""
         x, targets, mask = self.assemble(params, batch)
-        h = tfm.forward_hidden(params, self.cfg, x)
+        h, _ = tfm.forward_hidden(params, self.cfg, x)
         return h[:, :-1], targets, mask
 
     def per_example_loss(self, params, batch: Batch) -> torch.Tensor:
@@ -127,6 +203,50 @@ class LMBundle:
 
     def head_weight(self, params) -> torch.Tensor:
         return tfm.head_weight(params, self.cfg)
+
+    def _serving(self):
+        """Refuse the serving hooks for what this slice does not serve."""
+        if BLOCK_RWKV in self.cfg.layer_kinds():
+            raise NotImplementedError(
+                f"{self.cfg.name}: serving RWKV6 blocks (prefill state and "
+                f"decode) is not ported yet (ROADMAP.md queue 1, RWKV6 "
+                f"prefill/decode and the other families)")
+
+    def prefill(self, params, batch: Batch, cache_len=None,
+                prompt_lens=None):
+        """Prefill the decode cache from ``tokens`` (B,S) -> (last-token
+        logits (B,V), cache).  With ``prompt_lens`` (B,) each row is a
+        prompt right-padded to S: positions from the length on are -1,
+        invalid under every mask, and the logits are taken at each row's
+        last valid token."""
+        self._serving()
+        tokens = batch["tokens"]
+        B, S = tokens.shape
+        x = tfm.embed_tokens(params, self.cfg, tokens)
+        lens = (torch.full((B,), S, device=tokens.device)
+                if prompt_lens is None else prompt_lens.to(tokens.device))
+        pos = torch.arange(S, device=tokens.device).expand(B, S)
+        pos = torch.where(pos < lens[:, None], pos, -1)
+        h, cache = tfm.forward_hidden(params, self.cfg, x, positions=pos,
+                                      collect_cache=True,
+                                      cache_len=cache_len or S)
+        last = torch.clamp(lens.long() - 1, 0, S - 1)
+        h_last = h[torch.arange(B, device=h.device), last][:, None]
+        return tfm.unembed(params, self.cfg, h_last)[:, 0], cache
+
+    def decode(self, params, cache, tokens: torch.Tensor, live=None):
+        """tokens (B,): each row's next input -> (logits (B,V), cache).
+        The cache is written in place and returned; rows where ``live``
+        (B,) is False keep theirs bit-exactly."""
+        self._serving()
+        x_t = tfm.embed_tokens(params, self.cfg, tokens[:, None])
+        h = tfm.decode_step(params, self.cfg, x_t, cache, live)
+        return tfm.unembed(params, self.cfg, h)[:, 0], cache
+
+    def init_cache(self, batch_size: int, cache_len: int, dtype=None,
+                   device=torch.device("cpu")):
+        self._serving()
+        return tfm.init_cache(self.cfg, batch_size, cache_len, dtype, device)
 
 
 def _unported(cfg: ModelConfig) -> str:

@@ -1,33 +1,49 @@
-"""Attention of the port, training path (the reference's
-``models/attention.py``): GQA/MQA/MHA with full-causal or sliding-window
-masks over materialized scores.
+"""Attention of the port (the reference's ``models/attention.py``):
+GQA/MQA/MHA with full-causal or sliding-window masks, for training and
+prefill forwards and for one-token decode against full or ring KV
+caches.
 
 Numerics are the reference's: q/k/v projections in the compute dtype,
 scores accumulated in fp32 and scaled by an fp32 ``1/sqrt(hd)``, masked
 scores set to ``NEG_INF = -1e30`` (not -inf), the softmax in fp32 and its
-output cast to the compute dtype before ``p @ v``.  Where the reference
-dispatches to its band-gather (``_mha_band``, a local layer with
-``S > window + Q_BLOCK``) or its kv-block online-softmax scan
-(``_mha_flash``, ``Sq * Sk > FLASH_THRESHOLD**2``), the port raises
-``NotImplementedError``: those are a later slice.  KV caches and decode
-belong to the serving slice.
+output cast to the compute dtype before ``p @ v``.
+
+A forward dispatches as the reference does (``attn_forward``):
+
+- band: a local layer with ``S > window + Q_BLOCK`` goes through the
+  sliding-window kernel (``kernels/swa_attn``), O(S (W + C)) memory, any
+  S (the reference's band gather raises unless S % 1024 == 0).  The
+  kernel keeps p in fp32 for ``p @ v`` where the reference's band
+  gather casts it to the compute dtype first: the same function at fp32
+  compute, within bf16 rounding at bf16;
+- flash: otherwise, where ``S * S > FLASH_THRESHOLD**2``, an online
+  softmax over kv blocks of ``KV_BLOCK`` in plain PyTorch
+  (``_mha_flash``);
+- full: materialized scores (``_mha_full``).
+
+Caches carry an explicit per-slot position vector (-1 = empty), so full
+and ring caches share one masking rule.  Every cache leaf has the batch
+first, and ``t`` (the next position) is per row, so a batch of serving
+slots at different positions decodes in one call.  A decode step writes
+its row into the cache in place, and leaves the rows of slots that are
+not live untouched: no copy of the cache is made per step.
 """
 from __future__ import annotations
 
-from typing import Callable, Dict
+from typing import Callable, Dict, Optional
 
 import torch
 
+from repro_torch.kernels.swa_attn.ops import swa_attn_op
+from repro_torch.kernels.swa_attn.ref import attn_scale
 from repro_torch.models.common import apply_rope, dense_init, rms_norm
 
 NEG_INF = -1e30
-FLASH_THRESHOLD = 4096      # Sq*avg_Sk above which the reference scans kv blocks
+FLASH_THRESHOLD = 4096      # Sq*Sk above which kv blocks are scanned
+KV_BLOCK = 512
 Q_BLOCK = 1024
 
 MaskFn = Callable[[torch.Tensor, torch.Tensor], torch.Tensor]
-
-_LATER = ("is not ported yet (ROADMAP.md queue 1, the rest of the "
-          "decoder-LM path)")
 
 
 def causal_mask(q_pos, kv_pos):
@@ -45,6 +61,12 @@ def _valid(kv_pos):
     return kv_pos >= 0
 
 
+def _scale(hd: int) -> float:
+    """The fp32 ``1/sqrt(hd)`` as a Python float (exact, so a product
+    with it is the product with the fp32 tensor)."""
+    return float(attn_scale(hd))
+
+
 def init_attn_params(gen: torch.Generator, cfg, device: torch.device) -> Dict:
     d, qd, kvd = cfg.d_model, cfg.q_dim, cfg.kv_dim
     p = {"wq": dense_init(gen, d, qd, device),
@@ -58,7 +80,7 @@ def init_attn_params(gen: torch.Generator, cfg, device: torch.device) -> Dict:
 
 
 def _project_qkv(params, cfg, x, q_pos, kv_pos):
-    """-> q (B,Sq,KV,G,hd), k, v (B,Sk,KV,hd)."""
+    """-> q (B,Sq,KV,G,hd), k, v (B,S,KV,hd)."""
     B, S, _ = x.shape
     H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     dt = x.dtype
@@ -76,38 +98,175 @@ def _project_qkv(params, cfg, x, q_pos, kv_pos):
 def _mha_full(q, k, v, mask, scale):
     """q (B,Sq,KV,G,hd), k/v (B,Sk,KV,hd), mask (B,Sq,Sk) bool ->
     (B,Sq,KV,G,hd).  Scores in fp32 whatever the compute dtype (the
-    products of two bf16 values are exact in fp32)."""
-    qf = q.to(torch.float32).permute(0, 2, 3, 1, 4)        # (B,KV,G,Sq,hd)
-    kf = k.to(torch.float32).permute(0, 2, 3, 1)[:, :, None]  # (B,KV,1,hd,Sk)
-    scores = (qf @ kf) * scale                              # (B,KV,G,Sq,Sk)
-    scores = torch.where(mask[:, None, None], scores,
-                         torch.tensor(NEG_INF, dtype=torch.float32,
-                                      device=scores.device))
-    p = torch.softmax(scores, dim=-1).to(q.dtype)
-    out = p @ v.permute(0, 2, 1, 3)[:, :, None]            # (B,KV,G,Sq,hd)
+    products of two bf16 values are exact in fp32).  The G query heads of
+    a KV head are rows of one product, so k and v are read once, not
+    broadcast over the group."""
+    B, Sq, KV, G, hd = q.shape
+    qf = q.to(torch.float32).permute(0, 2, 3, 1, 4).reshape(B, KV, G * Sq, hd)
+    kf = k.to(torch.float32).permute(0, 2, 3, 1)           # (B,KV,hd,Sk)
+    scores = ((qf @ kf) * scale).reshape(B, KV, G, Sq, -1)  # (B,KV,G,Sq,Sk)
+    scores = torch.where(mask[:, None, None], scores, NEG_INF)
+    p = torch.softmax(scores, dim=-1).to(q.dtype).reshape(B, KV, G * Sq, -1)
+    out = (p @ v.permute(0, 2, 1, 3)).reshape(B, KV, G, Sq, hd)
     return out.permute(0, 3, 1, 2, 4)
 
 
-def attn_forward(params, cfg, x: torch.Tensor, *,
-                 kind: str = "attn") -> torch.Tensor:
-    """Self-attention of a training forward at positions 0..S-1: x (B,S,d)
-    -> (B,S,d); ``kind`` is ``attn``, ``local`` or ``global``."""
+def _mha_flash(q, k, v, q_pos, kv_pos, mask_fn: MaskFn, scale,
+               block: int = KV_BLOCK):
+    """Online softmax over kv blocks of ``block`` (the reference's
+    ``_mha_flash``): fp32 scores, p cast to the compute dtype before an
+    fp32-accumulated ``p @ v``; the last block is short instead of
+    padded with invalid positions (the same sums)."""
+    B, Sq, KV, G, hd = q.shape
+    dev = q.device
+    qf = q.to(torch.float32).permute(0, 2, 3, 1, 4)        # (B,KV,G,Sq,hd)
+    m = torch.full((B, KV, G, Sq), NEG_INF, dtype=torch.float32, device=dev)
+    l = torch.zeros((B, KV, G, Sq), dtype=torch.float32, device=dev)
+    acc = torch.zeros((B, KV, G, Sq, hd), dtype=torch.float32, device=dev)
+    for j0 in range(0, k.shape[1], block):
+        kc = k[:, j0:j0 + block].to(torch.float32)
+        vc = v[:, j0:j0 + block]
+        pc = kv_pos[:, j0:j0 + block]
+        s = (qf @ kc.permute(0, 2, 3, 1)[:, :, None]) * scale
+        mask = mask_fn(q_pos, pc) & _valid(pc)[..., None, :]   # (B,Sq,blk)
+        s = torch.where(mask[:, None, None], s, NEG_INF)
+        m_new = torch.maximum(m, s.amax(dim=-1))
+        alpha = torch.exp(m - m_new)
+        p = torch.exp(s - m_new[..., None])
+        l = l * alpha + p.sum(dim=-1)
+        pv = (p.to(q.dtype).to(torch.float32)
+              @ vc.to(torch.float32).permute(0, 2, 1, 3)[:, :, None])
+        acc = acc * alpha[..., None] + pv
+        m = m_new
+    out = acc / torch.clamp(l, min=1e-30)[..., None]
+    return out.permute(0, 3, 1, 2, 4).to(q.dtype)             # (B,Sq,KV,G,hd)
+
+
+def band_lengths(pos: torch.Tensor) -> torch.Tensor:
+    """Per-row valid lengths (B,) int32 of positions (B,S) that are
+    ``arange(S)`` below the length and -1 from it on (what a prefill
+    makes); raises on any other form, which the band kernel cannot
+    express."""
+    S = pos.shape[1]
+    n = (pos >= 0).sum(dim=1).to(torch.int32)
+    ar = torch.arange(S, device=pos.device)
+    want = torch.where(ar[None, :] < n[:, None], ar[None, :], -1)
+    if not torch.equal(pos.to(want.dtype), want):
+        raise ValueError("band attention takes positions 0..n-1 followed "
+                         "by -1 in every row")
+    return n
+
+
+def _mha_band(q, k, v, positions: Optional[torch.Tensor], window: int):
+    """Sliding-window attention of a local layer through the band kernel
+    (``kernels/swa_attn``): per-row lengths from the positions."""
+    lengths = None if positions is None else band_lengths(positions)
+    return swa_attn_op(q.contiguous(), k.contiguous(), v.contiguous(),
+                       window=window, lengths=lengths)
+
+
+def attn_forward(params, cfg, x: torch.Tensor, *, kind: str = "attn",
+                 q_positions: Optional[torch.Tensor] = None,
+                 kv_positions: Optional[torch.Tensor] = None):
+    """Self-attention of a training or prefill forward: x (B,S,d) ->
+    (out (B,S,d), (k, v, kv positions)), the last what a prefill writes
+    into the layer's cache; ``kind`` is ``attn``, ``local`` or
+    ``global``; positions (B,S) default to ``arange(S)`` (-1 marks an
+    invalid token)."""
     B, S, _ = x.shape
+    ar = torch.arange(S, device=x.device).expand(B, S)
+    q_pos = ar if q_positions is None else q_positions
+    kv_pos = ar if kv_positions is None else kv_positions
+    q, k, v = _project_qkv(params, cfg, x, q_pos, kv_pos)
+    scale = _scale(cfg.head_dim)
     local = kind == "local" and cfg.window
-    if local and S > cfg.window + Q_BLOCK:
-        raise NotImplementedError(
-            f"{cfg.name}: the band-gather sliding-window attention "
-            f"(S={S} > window {cfg.window} + {Q_BLOCK}) {_LATER}")
-    if S * S > FLASH_THRESHOLD ** 2:
-        raise NotImplementedError(
-            f"{cfg.name}: the kv-block online-softmax attention "
-            f"(S={S} > {FLASH_THRESHOLD}) {_LATER}")
-    pos = torch.arange(S, device=x.device).expand(B, S)
-    q, k, v = _project_qkv(params, cfg, x, pos, pos)
-    scale = 1.0 / torch.sqrt(torch.tensor(float(cfg.head_dim),
-                                          dtype=torch.float32,
-                                          device=x.device))
     mask_fn = window_mask(cfg.window) if local else causal_mask
-    mask = mask_fn(pos, pos) & _valid(pos)[..., None, :]
-    out = _mha_full(q, k, v, mask, scale).reshape(B, S, cfg.q_dim)
-    return out @ params["wo"].to(x.dtype)
+    if local and S > cfg.window + Q_BLOCK:
+        out = _mha_band(q, k, v, q_positions, cfg.window)
+    elif S * S > FLASH_THRESHOLD ** 2:
+        out = _mha_flash(q, k, v, q_pos, kv_pos, mask_fn, scale)
+    else:
+        mask = mask_fn(q_pos, kv_pos) & _valid(kv_pos)[..., None, :]
+        out = _mha_full(q, k, v, mask, scale)
+    out = out.reshape(B, S, cfg.q_dim) @ params["wo"].to(x.dtype)
+    return out, (k, v, kv_pos)
+
+
+# ---------------------------------------------------------------------------
+# KV caches
+# ---------------------------------------------------------------------------
+
+def init_kv_cache(cfg, batch: int, length: int, window: bool, dtype,
+                  device) -> Dict[str, torch.Tensor]:
+    """``length`` = full context for global/full layers; a local layer's
+    ring holds ``min(length, window)``.  ``pos`` holds the absolute
+    position in each slot (-1 = empty), ``t`` each row's next position."""
+    L = min(length, cfg.window) if (window and cfg.window) else length
+    shape = (batch, L, cfg.n_kv_heads, cfg.head_dim)
+    return {"k": torch.zeros(shape, dtype=dtype, device=device),
+            "v": torch.zeros(shape, dtype=dtype, device=device),
+            "pos": torch.full((batch, L), -1, dtype=torch.int32,
+                              device=device),
+            "t": torch.zeros((batch,), dtype=torch.int32, device=device)}
+
+
+def cache_write(cache, k_new, v_new, pos_new, live=None) -> None:
+    """Write one step (Sq = 1) of every row at its slot ``t % L``, in
+    place, and advance its ``t``.  Rows where ``live`` (B,) is False are
+    left bit-exactly as they were."""
+    B, L = cache["pos"].shape
+    rows = torch.arange(B, device=k_new.device)
+    slot = (cache["t"] % L).long()
+    new = {"k": k_new[:, 0], "v": v_new[:, 0], "pos": pos_new[:, 0]}
+    for name, val in new.items():
+        buf = cache[name]
+        val = val.to(buf.dtype)
+        if live is not None:
+            keep = live.reshape((B,) + (1,) * (val.dim() - 1))
+            val = torch.where(keep, val, buf[rows, slot])
+        buf[rows, slot] = val
+    cache["t"] += 1 if live is None else live.to(torch.int32)
+
+
+def cache_prefill(cache, k_all, v_all, pos_all):
+    """Bulk fill after a prefill: keeps the last L positions.  Each row's
+    ``t`` is its largest position + 1, so a right-padded prompt (pads at
+    position -1) resumes decode at its true length and overwrites the
+    pad slots first.  With S >= L the last L positions sit at their
+    natural ring slots (position p at slot p % L), so later writes evict
+    the oldest first."""
+    L = cache["k"].shape[1]
+    S = k_all.shape[1]
+    t_next = (pos_all.max(dim=1).values + 1).to(torch.int32)
+    dt = cache["k"].dtype
+    if S >= L:
+        shift = (S - L) % L
+
+        def sl(a):
+            return torch.roll(a[:, S - L:], shift, dims=1)
+        return {"k": sl(k_all).to(dt), "v": sl(v_all).to(dt),
+                "pos": sl(pos_all).to(torch.int32), "t": t_next}
+    cache["k"][:, :S] = k_all.to(dt)
+    cache["v"][:, :S] = v_all.to(dt)
+    cache["pos"][:, :S] = pos_all.to(torch.int32)
+    cache["t"] = t_next
+    return cache
+
+
+def attn_decode(params, cfg, x_t: torch.Tensor, cache, *,
+                kind: str = "attn", live=None) -> torch.Tensor:
+    """One decode step.  x_t: (B,1,d), each row at its own position
+    ``cache['t']``; the cache is updated in place (rows where ``live`` is
+    False are not written).  Returns out (B,1,d)."""
+    B = x_t.shape[0]
+    q_pos = cache["t"][:, None].clone()         # the write advances t
+    q, k_new, v_new = _project_qkv(params, cfg, x_t, q_pos, q_pos)
+    cache_write(cache, k_new, v_new, q_pos, live)
+    kv_pos = cache["pos"]
+    mask_fn = (window_mask(cfg.window) if (kind == "local" and cfg.window)
+               else causal_mask)
+    mask = mask_fn(q_pos, kv_pos) & _valid(kv_pos)[..., None, :]
+    out = _mha_full(q, cache["k"].to(q.dtype), cache["v"].to(q.dtype), mask,
+                    _scale(cfg.head_dim))
+    out = out.reshape(B, 1, cfg.q_dim)
+    return out @ params["wo"].to(x_t.dtype)

@@ -9,9 +9,10 @@ reference's key layout and (in, out) weight layout.
 
 ``rms_norm``, ``rope_freqs``, ``apply_rope`` and ``ffn_act`` repeat the
 reference's numerics: the norm in fp32 with a ``(1 + gamma)`` scale, cast
-back; half-split (not interleaved) RoPE with fp32 frequencies and
-positions; and GELU in its tanh form, which is ``jax.nn.gelu``'s default
-(torch's default is the erf form).
+back; half-split (not interleaved) RoPE with fp32 frequencies (exactly
+rounded, as the reference's jitted code folds them) and fp32 positions;
+and GELU in its tanh form, which is ``jax.nn.gelu``'s default (torch's
+default is the erf form).
 """
 from __future__ import annotations
 
@@ -65,10 +66,13 @@ def rms_norm(x: torch.Tensor, gamma: torch.Tensor,
 
 def rope_freqs(head_dim: int, theta: float,
                device: torch.device = torch.device("cpu")) -> torch.Tensor:
-    exps = torch.arange(0, head_dim, 2, dtype=torch.float32,
+    """``1 / theta**(2i/hd)`` rounded once to fp32, as the reference's
+    compiled code has them (XLA folds the constant exactly rounded; an
+    fp32 ``pow`` is an ulp off in about a third of the entries, which
+    moves a rotation by ~1e-4 at positions in the thousands)."""
+    exps = torch.arange(0, head_dim, 2, dtype=torch.float64,
                         device=device) / head_dim
-    return 1.0 / (torch.tensor(theta, dtype=torch.float32,
-                               device=device) ** exps)
+    return (1.0 / (float(theta) ** exps)).to(torch.float32)
 
 
 def apply_rope(x: torch.Tensor, positions: torch.Tensor,

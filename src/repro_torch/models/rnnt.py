@@ -58,12 +58,12 @@ def init_gru(gen, d_in, d_h, device):
             "b": torch.zeros((3 * d_h,), device=device)}
 
 
-def gru_scan(p, x):
-    """x: (B,T,d_in) -> (B,T,d_h)."""
+def gru_scan(p, x, h0=None):
+    """x: (B,T,d_in), initial state h0 (B,d_h) or zeros -> (B,T,d_h)."""
     B, T, _ = x.shape
     d_h = p["wh"].shape[0]
     xw = x @ p["wx"] + p["b"]
-    h = x.new_zeros((B, d_h))
+    h = x.new_zeros((B, d_h)) if h0 is None else h0
     hs = []
     for t in range(T):
         xr, xz, xn = xw[:, t].chunk(3, dim=-1)
@@ -74,6 +74,19 @@ def gru_scan(p, x):
         h = (1 - z) * n + z * h
         hs.append(h)
     return torch.stack(hs, dim=1)
+
+
+def gru_step(p, x_t, h):
+    """One GRU step for greedy transducer decoding: x_t (B,d_in), h
+    (B,d_h) -> (y, h_new), which are the same (B,d_h) values."""
+    y = gru_scan(p, x_t[:, None], h0=h)[:, 0]
+    return y, y
+
+
+#: Transducer blank symbol: training reserves id 0 for blank/pad (the
+#: corpus samples labels from [1, V), the loss scores blank on column 0),
+#: so decoding uses the same convention.
+BLANK_ID = 0
 
 
 # ---------------------------------------------------------------------------
@@ -171,3 +184,32 @@ def joint_hidden(params, enc, pred):
 def joint_logits(params, z):
     return z @ params["joint"]["w_out"]
 
+
+
+def pred_step(params, cfg, tokens, h):
+    """One prediction-network step for streaming greedy decode: tokens
+    (B,) int, the symbol just emitted (any id < 0 is the blank-start
+    state, a zero embedding, as ``predict`` feeds at position 0); h (B,
+    pred_hidden) -> (g, h_new).  Stepping a label sequence through it
+    reproduces ``predict``'s rows."""
+    emb = params["pred_embed"]["w"][torch.clamp(tokens.long(), min=0)]
+    emb = torch.where((tokens >= 0)[:, None], emb, torch.zeros_like(emb))
+    return gru_step(params["pred_gru"], emb, h)
+
+
+def pred_start(params, cfg, batch_size: int, dtype=torch.float32,
+               device=torch.device("cpu")):
+    """Blank-start prediction state ``(g0, h0)``: ``predict`` at u = 0."""
+    h0 = torch.zeros((batch_size, cfg.rnnt.pred_hidden), dtype=dtype,
+                     device=device)
+    start = torch.full((batch_size,), -1, dtype=torch.int32, device=device)
+    return pred_step(params, cfg, start, h0)
+
+
+def joint_step(params, enc_t, g):
+    """Joint network at one (frame, prediction state): enc_t (B,
+    dnn_dim), g (B, pred_hidden) -> logits (B, V); one (t, u) cell of
+    ``joint_hidden`` + ``joint_logits``."""
+    ze = enc_t @ params["joint"]["w_enc"]
+    zp = g @ params["joint"]["w_pred"]
+    return torch.tanh(ze + zp) @ params["joint"]["w_out"]

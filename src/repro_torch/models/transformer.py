@@ -1,5 +1,7 @@
 """Decoder stack of the port for dense attention LMs and RWKV6 stacks
-(the reference's ``models/transformer.py``, training/prefill forward).
+(the reference's ``models/transformer.py``): the training/prefill
+forward, and for attention blocks the prefill cache and one-token
+decode.
 
 The params tree is the reference's: ``stack.groups`` is a tuple with one
 dict per position of the config's ``pattern``, each leaf stacked over a
@@ -11,10 +13,15 @@ unbound once per forward (``torch.unbind``), so their backward stacks
 the per-layer gradients in one copy instead of scattering each layer's
 into a zero tensor of the whole stack.
 
+The decode cache has the reference's tree (``groups``/``tail``, one KV
+cache per attention layer) with the batch first in every leaf: a group
+leaf is (B, n_groups, ...), where the reference stacks the layer axis
+first.  So a serving slot is index 0 of every leaf.
+
 Attention blocks with a dense feed-forward, and RWKV6 blocks (time-mix
 and channel-mix, no attention and no MLP): the bundle
 (``models/api.py:LMBundle``) refuses configs with other block kinds or
-MoE layers.
+MoE layers, and RWKV6 blocks in a prefill or decode.
 """
 from __future__ import annotations
 
@@ -83,16 +90,41 @@ def cast_block_params(bp, cfg):
                     bp)
 
 
-def block_forward(bp, cfg, kind: str, x: torch.Tensor) -> torch.Tensor:
+def block_forward(bp, cfg, kind: str, x: torch.Tensor, *,
+                  positions=None, collect_cache: bool = False,
+                  cache_len: int = 0):
+    """-> (x, the layer's prefill KV cache when ``collect_cache``, else
+    None)."""
     bp = cast_block_params(bp, cfg)
     h = rms_norm(x, bp["ln1"], cfg.norm_eps)
     if kind == BLOCK_RWKV:
         x = x + rwkv_mod.tmix_forward(bp["tmix"], cfg, h)
         h2 = rms_norm(x, bp["ln2"], cfg.norm_eps)
-        return x + rwkv_mod.cmix_forward(bp["cmix"], h2)
-    x = x + attn.attn_forward(bp["attn"], cfg, h, kind=kind)
+        return x + rwkv_mod.cmix_forward(bp["cmix"], h2), None
+    y, kv = attn.attn_forward(bp["attn"], cfg, h, kind=kind,
+                              q_positions=positions, kv_positions=positions)
+    x = x + y
+    entry = None
+    if collect_cache:
+        # the forward's own k/v: the values the reference recomputes
+        cache = attn.init_kv_cache(cfg, x.shape[0], cache_len,
+                                   kind == "local", compute_dtype(cfg),
+                                   x.device)
+        entry = attn.cache_prefill(cache, *kv)
     h2 = rms_norm(x, bp["ln2"], cfg.norm_eps)
-    return x + ffn_mod.ffn_forward(bp["mlp"], h2, cfg.ffn_type)
+    return x + ffn_mod.ffn_forward(bp["mlp"], h2, cfg.ffn_type), entry
+
+
+def block_decode(bp, cfg, kind: str, x_t: torch.Tensor, entry, live=None):
+    """One token through an attention block -> x_t; the layer's cache
+    ``entry`` is written in place (rows where ``live`` is False are
+    not)."""
+    bp = cast_block_params(bp, cfg)
+    h = rms_norm(x_t, bp["ln1"], cfg.norm_eps)
+    x_t = x_t + attn.attn_decode(bp["attn"], cfg, h, entry, kind=kind,
+                                 live=live)
+    h2 = rms_norm(x_t, bp["ln2"], cfg.norm_eps)
+    return x_t + ffn_mod.ffn_forward(bp["mlp"], h2, cfg.ffn_type)
 
 
 def embed_tokens(params, cfg, tokens: torch.Tensor) -> torch.Tensor:
@@ -112,26 +144,86 @@ def unembed(params, cfg, x: torch.Tensor) -> torch.Tensor:
     return x @ head_weight(params, cfg).to(x.dtype)
 
 
-def _unstack(tree: Any, n: int) -> List[Any]:
-    """A dict of leaves stacked on a leading axis of ``n`` -> ``n``
-    per-layer dicts of views (``unbind``)."""
+def _unstack(tree: Any, n: int, dim: int = 0) -> List[Any]:
+    """A dict of leaves stacked on axis ``dim`` of size ``n`` -> ``n``
+    per-layer dicts of views (``unbind``): writes into a view land in
+    the stacked leaf."""
     if isinstance(tree, dict):
-        parts = {k: _unstack(v, n) for k, v in tree.items()}
+        parts = {k: _unstack(v, n, dim) for k, v in tree.items()}
         return [{k: parts[k][i] for k in tree} for i in range(n)]
-    return list(torch.unbind(tree, 0))
+    return list(torch.unbind(tree, dim))
 
 
-def forward_hidden(params, cfg, x: torch.Tensor) -> torch.Tensor:
-    """Runs the stack on embedded input ``x`` (B,S,d) -> the final-normed
-    hidden states (B,S,d)."""
+def _stack(entries: List[Any]) -> Any:
+    """Per-layer cache entries -> one entry stacked on axis 1 (after the
+    batch)."""
+    return tree_map(lambda *xs: torch.stack(xs, dim=1), *entries)
+
+
+def forward_hidden(params, cfg, x: torch.Tensor, *, positions=None,
+                   collect_cache: bool = False, cache_len: int = 0):
+    """Runs the stack on embedded input ``x`` (B,S,d) -> (the final-normed
+    hidden states (B,S,d), the decode cache when ``collect_cache``, else
+    None).  ``positions`` (B,S) default to ``arange(S)``."""
     pattern = cfg.pattern
     n_groups = cfg.n_layers // len(pattern)
+    kw = dict(positions=positions, collect_cache=collect_cache,
+              cache_len=cache_len)
+    entries = [[] for _ in pattern]
     if n_groups:
         layers = [_unstack(gp, n_groups) for gp in params["stack"]["groups"]]
         for g in range(n_groups):
             for pos, kind in enumerate(pattern):
-                x = block_forward(layers[pos][g], cfg, kind, x)
+                x, ce = block_forward(layers[pos][g], cfg, kind, x, **kw)
+                entries[pos].append(ce)
     kinds = cfg.layer_kinds()
+    tail = []
     for i, bp in enumerate(params["stack"]["tail"]):
-        x = block_forward(bp, cfg, kinds[n_groups * len(pattern) + i], x)
-    return rms_norm(x, params["final_norm"], cfg.norm_eps)
+        x, ce = block_forward(bp, cfg, kinds[n_groups * len(pattern) + i], x,
+                              **kw)
+        tail.append(ce)
+    h = rms_norm(x, params["final_norm"], cfg.norm_eps)
+    if not collect_cache:
+        return h, None
+    groups = tuple(_stack(e) for e in entries) if n_groups else tuple()
+    return h, {"groups": groups, "tail": tuple(tail)}
+
+
+def init_cache(cfg, batch: int, cache_len: int, dtype=None,
+               device=torch.device("cpu")):
+    """Empty decode cache of ``forward_hidden``'s structure."""
+    dtype = compute_dtype(cfg) if dtype is None else dtype
+    pattern = cfg.pattern
+    n_groups = cfg.n_layers // len(pattern)
+    kinds = cfg.layer_kinds()
+
+    def one(kind):
+        return attn.init_kv_cache(cfg, batch, cache_len, kind == "local",
+                                  dtype, device)
+
+    groups = tuple(_stack([one(kind)] * n_groups)
+                   for kind in pattern) if n_groups else tuple()
+    tail = tuple(one(kinds[n_groups * len(pattern) + i])
+                 for i in range(cfg.n_layers - n_groups * len(pattern)))
+    return {"groups": groups, "tail": tail}
+
+
+def decode_step(params, cfg, x_t: torch.Tensor, cache, live=None):
+    """x_t: (B,1,d) embedded tokens, row b at position ``t[b]`` -> the
+    final-normed hidden (B,1,d).  Every layer's cache is written in place
+    (a group leaf through its per-layer views); rows where ``live`` (B,)
+    is False keep their cache bit-exactly."""
+    pattern = cfg.pattern
+    n_groups = cfg.n_layers // len(pattern)
+    kinds = cfg.layer_kinds()
+    if n_groups:
+        layers = [_unstack(gp, n_groups) for gp in params["stack"]["groups"]]
+        caches = [_unstack(gc, n_groups, dim=1) for gc in cache["groups"]]
+        for g in range(n_groups):
+            for pos, kind in enumerate(pattern):
+                x_t = block_decode(layers[pos][g], cfg, kind, x_t,
+                                   caches[pos][g], live)
+    for i, bp in enumerate(params["stack"]["tail"]):
+        kind = kinds[n_groups * len(pattern) + i]
+        x_t = block_decode(bp, cfg, kind, x_t, cache["tail"][i], live)
+    return rms_norm(x_t, params["final_norm"], cfg.norm_eps)

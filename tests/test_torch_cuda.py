@@ -7,7 +7,9 @@ a machine that has only PyTorch:
 Each Hopper kernel is held against its plain PyTorch version on the same
 card tensors (which the CPU tests hold against the JAX reference), at
 ragged edge shapes; the WKV backward kernel against autograd of the
-plain chunk algebra; the fused loss against the same loss on the CPU.  TF32 is off throughout (``backend.fp32_numerics``).
+plain chunk algebra; the sliding-window attention kernel against its
+plain band gather (and its refused backward); the fused loss against the
+same loss on the CPU.  TF32 is off throughout (``backend.fp32_numerics``).
 """
 import numpy as np
 import pytest
@@ -28,6 +30,8 @@ from repro_torch.kernels.rnnt_lattice.ref import (  # noqa: E402
 from repro_torch.kernels.rwkv6_scan.ops import rwkv6_wkv_op  # noqa: E402
 from repro_torch.kernels.rwkv6_scan.ref import (  # noqa: E402
     log_decay, wkv_chunked_lw)
+from repro_torch.kernels.swa_attn.ops import swa_attn_op  # noqa: E402
+from repro_torch.kernels.swa_attn.ref import swa_attn_ref  # noqa: E402
 
 pytestmark = pytest.mark.cuda
 
@@ -252,3 +256,70 @@ def test_wkv_wrapper_refuses_what_the_kernels_do_not_take(card):
     big = torch.zeros(1, 64, 1, 65, device=card)     # head dim above 64
     with pytest.raises(ValueError):
         rwkv6_wkv_op(big, big, big, big, torch.zeros(1, 65, device=card), 64)
+
+
+# (B, S, KV, G, hd, window, dtype, lengths): the serving prefill shape
+# (starcoder2-3b, one 8,192-token prompt) in bf16 and fp32, then S off the
+# 64-row tile and off 1024, a window below the tile, a window above S,
+# per-row lengths, fp32
+SWA_EDGES = [
+    (1, 8192, 2, 12, 128, 4096, "bfloat16", None),
+    (1, 8192, 2, 12, 128, 4096, "float32", None),
+    (1, 1100, 2, 12, 128, 256, "bfloat16", None),
+    (1, 300, 2, 3, 64, 16, "bfloat16", None),
+    (1, 200, 1, 2, 32, 512, "bfloat16", None),
+    (2, 1500, 2, 4, 128, 700, "bfloat16", (1500, 1033)),
+    (2, 777, 2, 2, 16, 100, "float32", (5, 777)),
+    (1, 2048, 2, 12, 128, 1024, "float32", None),
+]
+
+
+def _swa_inputs(B, S, KV, G, hd, dtype, seed, dev):
+    g = torch.Generator().manual_seed(seed)
+    q = torch.randn(B, S, KV, G, hd, generator=g)
+    k, v = (torch.randn(B, S, KV, hd, generator=g) for _ in range(2))
+    return [x.to(device=dev, dtype=getattr(torch, dtype)) for x in (q, k, v)]
+
+
+@pytest.mark.parametrize("B,S,KV,G,hd,W,dtype,lengths", SWA_EDGES)
+def test_swa_kernel_matches_plain(card, B, S, KV, G, hd, W, dtype, lengths):
+    q, k, v = _swa_inputs(B, S, KV, G, hd, dtype, seed=S + hd, dev=card)
+    lens = (None if lengths is None
+            else torch.tensor(lengths, dtype=torch.int32, device=card))
+    n0 = swa_attn_op.launches
+    got = swa_attn_op(q, k, v, window=W, lengths=lens)
+    again = swa_attn_op(q, k, v, window=W, lengths=lens)
+    torch.cuda.synchronize()
+    assert swa_attn_op.launches == n0 + 2
+    assert got.dtype == q.dtype and got.shape == q.shape
+    assert torch.equal(got, again)                   # no atomics
+    want = swa_attn_ref(q, k, v, window=W, lengths=lens).float()
+    # both sum in fp32 in different orders: at bf16 both round to bf16, so
+    # each element is held to one bf16 ulp of its own value; at fp32 to
+    # 1e-5 of the largest entry (and the reference tests' 1e-4)
+    if dtype == "float32":
+        atol = min(1e-4, 1e-5 * float(want.abs().max()))
+        torch.testing.assert_close(got, want, rtol=0, atol=atol)
+    else:
+        torch.testing.assert_close(got.float(), want, rtol=2.0 ** -7,
+                                   atol=1e-5)
+
+
+def test_swa_backward_raises_and_wrapper_refuses(card):
+    q, k, v = _swa_inputs(1, 128, 1, 2, 32, "float32", seed=0, dev=card)
+    q.requires_grad_(True)
+    out = swa_attn_op(q, k, v, window=64)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        out.sum().backward()
+    with pytest.raises(TypeError):                   # fp16
+        swa_attn_op(q.detach().half(), k.half(), v.half(), window=64)
+    with pytest.raises(ValueError):                  # head dim 48
+        swa_attn_op(torch.zeros(1, 8, 1, 1, 48, device=card),
+                    torch.zeros(1, 8, 1, 48, device=card),
+                    torch.zeros(1, 8, 1, 48, device=card), window=4)
+    with pytest.raises(ValueError):                  # non-contiguous k
+        swa_attn_op(q.detach(), torch.zeros(1, 128, 1, 64, device=card
+                                            )[..., :32], v, window=64)
+    with pytest.raises(ValueError):                  # lengths not int32
+        swa_attn_op(q.detach(), k, v, window=64,
+                    lengths=torch.tensor([5], device=card))

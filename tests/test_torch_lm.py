@@ -161,21 +161,15 @@ def test_model_loss_and_grads_match_reference(setup, dtype):
 
 
 def test_attention_refuses_what_the_slice_does_not_port(setup):
-    _, params, _, _, _ = setup
     cfg = get_config(ARCH)
-    ap = {k: torch.from_numpy(np.array(v[0])) for k, v in
-          params["stack"]["groups"][0]["attn"].items()}
-    x = torch.zeros(1, cfg.window + attention.Q_BLOCK + 1, cfg.d_model)
-    with pytest.raises(NotImplementedError, match="band-gather"):
-        attention.attn_forward(ap, cfg, x, kind="local")
-    x = torch.zeros(1, attention.FLASH_THRESHOLD + 1, cfg.d_model)
-    with pytest.raises(NotImplementedError, match="online-softmax"):
-        attention.attn_forward(ap, cfg, x, kind="attn")
     for bad in (dict(family="moe"), dict(family="vlm"),
                 dict(family="encdec"), dict(family="ssm"),
                 dict(family="hybrid"), dict(pattern=("rec", "rec", "local"))):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             build_model(dataclasses.replace(cfg, **bad))
+    rwkv = build_model(get_config("rwkv6-3b-smoke"))
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        rwkv.prefill({}, {"tokens": torch.zeros((1, 4), dtype=torch.int32)})
 
 
 @pytest.mark.parametrize("arch", ["starcoder2-3b", ARCH, "rnnt-crdnn-smoke",

@@ -1,7 +1,7 @@
 """PyTorch port, package contract: ``src/repro_torch/`` and
 ``chip_smoke.py`` import neither ``jax`` nor anything of ``repro``; the
-entry points refuse to run without a card unless the CPU is asked for by
-name; the port's copied corpora (ASR and LM), units and plans equal the
+entry points (the training and serving launchers) refuse to run without
+a card unless the CPU is asked for by name; the port's copied corpora (ASR and LM), units and plans equal the
 reference's byte for byte; the converter round-trips the LM params tree
 (tuples of stacked dicts) bit-exactly; and the launcher prints the
 reference's epoch lines for an RNN-T and an LM arch."""
@@ -23,6 +23,7 @@ from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.configs.base import TrainConfig  # noqa: E402
 from repro_torch.convert import from_numpy, to_numpy  # noqa: E402
 from repro_torch.data import pipeline, synthetic  # noqa: E402
+from repro_torch.launch import serve as serve_launch  # noqa: E402
 from repro_torch.launch import train as launch  # noqa: E402
 from repro_torch.models.api import build_model  # noqa: E402
 from repro_torch.train.loop import train_with_selection  # noqa: E402
@@ -70,6 +71,11 @@ def test_entry_points_need_a_card_unless_cpu_is_asked_for(monkeypatch):
         launch.main(["--arch", "rnnt-crdnn-smoke", "--epochs", "1"])
     with pytest.raises(RuntimeError, match="no CUDA device"):
         launch.main(["--arch", "starcoder2-3b-smoke", "--epochs", "1"])
+    for argv in (["--arch", "starcoder2-3b-smoke"],
+                 ["--arch", "starcoder2-3b-smoke", "--engine", "slots"],
+                 ["--arch", "rnnt-crdnn-smoke"]):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            serve_launch.main(argv)
 
 
 @pytest.mark.parametrize("kw", [
