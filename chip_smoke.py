@@ -18,14 +18,18 @@ failure exits non-zero, and no phase catches an error and carries on:
    call's time where one computes the same function, and the least time
    the card could take (bytes over 3.35 TB/s, operations over the peak
    of the inputs' type: fp32 67 TFLOP/s, bf16 989 TFLOP/s, H100 SXM);
-   the grad-sketch kernel also launched twice on the same inputs, which
+   the Gram at stage B's (4, 4, 4096) and at (8, 512, 4096), twice
+   bitwise and exactly symmetric, timed in turns with ``torch.bmm``; the
+   grad-sketch kernel also launched twice on the same inputs, which
    must agree bit for bit; the RWKV6 WKV kernels (forward and backward)
    against the plain chunk algebra and its autograd, twice bitwise, at
    the RWKV path's shape and the reference kernel tests' shapes; the
-   sliding-window attention kernel at the serving path's prefill shape
-   and at edge shapes, twice bitwise, with
+   sliding-window attention kernel (bf16 on the tensor cores, fp32 on
+   the SIMT body) at the serving path's prefill shape and at edge shapes
+   of both bodies, twice bitwise, timed in turns with
    ``scaled_dot_product_attention`` under the band mask as its library
-   time;
+   time, its rate printed against both the function's FLOPs and the
+   tensor cores' (p . v runs twice, p split into bf16 hi + lo);
 4. agreement: one full-width ``rnnt-crdnn`` unit, and one unit each of
    ``starcoder2-3b`` and ``rwkv6-3b`` at full width with 2 layers in
    fp32, through the kernels on the card against the same unit through
@@ -54,7 +58,7 @@ failure exits non-zero, and no phase catches an error and carries on:
    requests of 4,136-7,581 tokens (5 through the band kernel, 3 through
    the kv-block flash branch), 32 new tokens each; every completion's
    first token against ``generate`` on its prompt alone; one decode scan
-   under the profiler;
+   and one prefill of the 2 x 8,192 prompts under the profiler;
 11. main path, RWKV: the same loop on ``rwkv6-3b`` at full width and
    depth (32 layers, d_model 2560, 40 WKV heads of 64, vocab 65536, bf16
    compute, fp32 master weights), with the peak of device memory;
@@ -120,14 +124,23 @@ WKV_EDGES = ((2, 64, 2, 16, 16, None), (1, 128, 3, 32, 32, None),
 # sliding-window attention (B, S, KV, G, hd, window, dtype, lengths): the
 # serving path's prefill shape (starcoder2-3b, one 8,192-token prompt),
 # then S off the 64-row tile and off 1024, a window below the tile, a
-# window above S, per-row lengths at B 2, fp32
+# window above S, per-row lengths at B 2, fp32; then the bf16 tensor-core
+# body's edges: S off its 192-row q tile and off 128 (129, 1100), windows
+# off its 64-key tile (1, 63, 200), every head dim, per-row lengths of 1
+# and S, of S - 1 and 70
 SWA_MAIN = (1, 8192, 2, 12, 128, 4096, "bfloat16", None)
 SWA_EDGES = ((1, 1100, 2, 12, 128, 256, "bfloat16", None),
              (1, 300, 2, 3, 64, 16, "bfloat16", None),
              (1, 200, 1, 2, 32, 512, "bfloat16", None),
              (2, 1500, 2, 4, 128, 700, "bfloat16", (1500, 1033)),
              (2, 777, 2, 2, 16, 100, "float32", (5, 777)),
-             (1, 2048, 2, 12, 128, 1024, "float32", None))
+             (1, 2048, 2, 12, 128, 1024, "float32", None),
+             (1, 129, 2, 3, 128, 200, "bfloat16", None),
+             (1, 1100, 1, 4, 16, 63, "bfloat16", None),
+             (1, 1100, 2, 2, 32, 1, "bfloat16", None),
+             (1, 1100, 1, 3, 64, 200, "bfloat16", None),
+             (2, 700, 2, 2, 128, 300, "bfloat16", (1, 700)),
+             (2, 700, 1, 3, 64, 63, "bfloat16", (699, 70)))
 # serving: the agreement prompt, and the full-depth run's prompts
 SERVE_AGREE_S = 6144
 SERVE_AGREE_STEPS = 8
@@ -574,6 +587,11 @@ def serve_lm(torch, bundle, params, dev, swa_op, other_ops):
                  f"one decode scan ({eng.sync_every} micro-steps x "
                  f"{SERVE_SLOTS} slots, {cfg.n_layers} layers, caches of "
                  f"{cfg.window} slots)")
+    # where the prefill's time goes: generate's 2 x SERVE_PROMPT prompts
+    # with one new token (the prefill and its first token, no decode)
+    profile_call(torch, lambda: generate(bundle, params, prompts, 1),
+                 "serve", f"one prefill (generate, B=2 x {SERVE_PROMPT}, "
+                 f"1 new token)")
     return launches
 
 
@@ -722,20 +740,34 @@ def main() -> None:
     for shape in ((P_main, n_units // P_main, D_sk), (8, 512, 4096)):
         g = torch.randn(*shape, generator=torch.Generator().manual_seed(1)
                         ).to(dev)
-        err = gram_err(torch, omp_gram_batched_op(g),
-                       omp_gram_batched_ref(g))
+        got, again = omp_gram_batched_op(g), omp_gram_batched_op(g)
+        torch.cuda.synchronize()
+        require(bool(torch.equal(got, again)),
+                f"omp_gram {shape}: two launches on the same inputs differ")
+        require(bool(torch.equal(got, got.transpose(1, 2))),
+                f"omp_gram {shape}: K is not exactly symmetric")
+        err = gram_err(torch, got, omp_gram_batched_ref(g))
         P, n, D = shape
         reps = 50 if n >= 256 else 500
-        k_ms = cuda_ms(torch, lambda: omp_gram_batched_op(g), reps)
-        p_ms = cuda_ms(torch, lambda: omp_gram_batched_ref(g), reps)
         gt = g.transpose(1, 2)
-        l_ms = cuda_ms(torch, lambda: torch.bmm(g, gt), reps)
-        b_ms, b_by = bound(4 * (P * n * D + P * n * n), 2 * P * n * n * D)
+        # kernel and library in turns, twice; the plain version once
+        k_ms, l_ms = [], []
+        for _ in range(2):
+            k_ms.append(cuda_ms(torch, lambda: omp_gram_batched_op(g), reps))
+            l_ms.append(cuda_ms(torch, lambda: torch.bmm(g, gt), reps))
+        p_ms = cuda_ms(torch, lambda: omp_gram_batched_ref(g), reps)
+        k_ms, l_ms = sum(k_ms) / 2, sum(l_ms) / 2
+        # K is symmetric: the function needs its upper triangle only,
+        # n (n + 1) / 2 entries of 2 D FLOPs a partition
+        g_ops = P * n * (n + 1) * D
+        b_ms, b_by = bound(4 * (P * n * D + P * n * n), g_ops)
         gram_rows[shape] = (err, k_ms, p_ms, l_ms, b_ms, b_by)
         print(f"[kernels] omp_gram {shape}: max_abs_err {err:.3e} kernel_ms "
               f"{k_ms:.4f} plain_ms {p_ms:.4f} library_ms (torch.bmm) "
-              f"{l_ms:.4f} bound_ms {b_ms:.6f} ({b_by}) achieved "
-              f"{2 * P * n * n * D / k_ms / 1e9:.2f} TFLOP/s", flush=True)
+              f"{l_ms:.4f} (kernel / library {k_ms / l_ms:.3f}) bound_ms "
+              f"{b_ms:.6f} ({b_by}) achieved {g_ops / k_ms / 1e9:.2f} "
+              f"TFLOP/s (counting the upper triangle); two launches bitwise "
+              f"equal, K exactly symmetric", flush=True)
 
     for shape in SKETCH_EDGES:
         sketch_err(torch, grad_sketch_units_op, grad_sketch_units_ref,
@@ -844,10 +876,6 @@ def main() -> None:
     B, S, KV, G, hd, W, dtype, _ = SWA_MAIN
     (q, k, v), _ = swa_inputs(torch, B, S, KV, G, hd, dtype, None, seed=0,
                               dev=dev)
-    swa_ms = cuda_ms(torch, lambda: swa_attn_op(q, k, v, window=W), reps=5)
-    with torch.no_grad():
-        swa_plain = cuda_ms(torch, lambda: swa_attn_ref(q, k, v, window=W),
-                            reps=3)
     # the library yardstick, timed only: PyTorch's SDPA on (B, H, S, hd)
     # with k, v repeated over the group and the band as a boolean mask
     H = KV * G
@@ -862,23 +890,38 @@ def main() -> None:
         lib = sdpa(qh, kh, vh, attn_mask=band)
         lib_err = float((lib.transpose(1, 2).reshape(q.shape).float()
                          - swa_attn_op(q, k, v, window=W).float()).abs().max())
-        swa_lib = cuda_ms(torch, lambda: sdpa(qh, kh, vh, attn_mask=band),
-                          reps=5)
+        # kernel and library in turns, twice; the plain version once
+        swa_runs, lib_runs = [], []
+        for _ in range(2):
+            swa_runs.append(cuda_ms(
+                torch, lambda: swa_attn_op(q, k, v, window=W), reps=20))
+            lib_runs.append(cuda_ms(
+                torch, lambda: sdpa(qh, kh, vh, attn_mask=band), reps=5))
+        swa_plain = cuda_ms(torch, lambda: swa_attn_ref(q, k, v, window=W),
+                            reps=3)
+    swa_ms, swa_lib = sum(swa_runs) / 2, sum(lib_runs) / 2
     del qh, kh, vh, band, lib
     # what the function needs: q, k, v read once and o written once (bf16);
     # q.k and p.v over the band's pairs, 4 hd FLOP a pair and head, at the
-    # bf16 tensor-core peak since the inputs are bf16
+    # bf16 tensor-core peak since the inputs are bf16.  The bf16 kernel
+    # runs p.v twice (p split into bf16 hi + lo): 6 hd FLOP a pair on the
+    # tensor cores
     swa_ops = 4 * hd * band_pairs(S, W) * H * B
+    swa_tc_ops = swa_ops * 3 // 2
     swa_bound, swa_by = bound(2 * (2 * q.numel() + k.numel() + v.numel()),
                               swa_ops, BF16_FLOP_PER_S)
     print(f"[kernels] swa_attn {SWA_MAIN[:7]}: max_abs_err {swa_abs:.3e} "
           f"({swa_margin:.3f} of the one-ulp bar) "
-          f"kernel_ms {swa_ms:.4f} plain_ms {swa_plain:.4f} library_ms "
+          f"kernel_ms {swa_ms:.4f} ({swa_runs[0]:.4f}, {swa_runs[1]:.4f}) "
+          f"plain_ms {swa_plain:.4f} library_ms "
           f"(scaled_dot_product_attention, band mask; max abs diff to the "
-          f"kernel {lib_err:.3e}) {swa_lib:.4f} bound_ms {swa_bound:.4f} "
-          f"({swa_by}, bf16 peak; {swa_ops / FP32_FLOP_PER_S * 1e3:.3f} ms "
-          f"at the fp32 peak) achieved {swa_ops / swa_ms / 1e9:.2f} "
-          f"TFLOP/s", flush=True)
+          f"kernel {lib_err:.3e}) {swa_lib:.4f} ({lib_runs[0]:.4f}, "
+          f"{lib_runs[1]:.4f}); kernel / library {swa_ms / swa_lib:.3f}; "
+          f"bound_ms {swa_bound:.4f} ({swa_by}, bf16 peak; "
+          f"{swa_ops / FP32_FLOP_PER_S * 1e3:.3f} ms at the fp32 peak) "
+          f"achieved {swa_ops / swa_ms / 1e9:.2f} TFLOP/s on the function's "
+          f"{swa_ops / 1e9:.1f} GFLOP, {swa_tc_ops / swa_ms / 1e9:.2f} on the "
+          f"{swa_tc_ops / 1e9:.1f} GFLOP the tensor cores run", flush=True)
     del q, k, v
 
     mark("kernels")

@@ -1,5 +1,5 @@
 // Causal sliding-window attention, forward, for Hopper (sm_90a); bf16 or
-// fp32 in and out, fp32 arithmetic throughout.
+// fp32 in and out, scale, mask and online softmax in fp32.
 //
 // Replaces the Pallas TPU kernel src/repro/kernels/swa_attn/kernel.py
 // (swa_attn, body _swa_kernel), the TPU version of the band attention
@@ -8,39 +8,68 @@
 //
 //   o_s = sum_j softmax_j(scale * q_s . k_j) v_j,   s - window < j <= s
 //
-// with an online softmax (m, l, acc) over the key tiles, every product
-// and sum in fp32 (as swa_attn_ref: p stays fp32 for p . v), and the
-// output written as acc / max(l, 1e-30) in q's dtype.
+// with an online softmax (m, l, acc) over the key tiles, p kept in fp32
+// for p . v (as swa_attn_ref and the TPU kernel), and the output written
+// as acc / max(l, 1e-30) in q's dtype.
 //
 // Layout: the port's, read in place.  q and o are (B, S, KV, G, hd), k
 // and v (B, S, KV, hd); head h = kv * G + g reads its KV group's k and v
 // without a repeat.  An optional lengths (B,) int32 marks row b's tokens
 // at or past lengths[b] invalid: those keys are masked and those query
-// rows are written as zeros.
+// rows are written as zeros.  Sums run in a fixed order and there are no
+// atomics, so two launches on the same inputs agree bit for bit.
 //
 // What bounds it on this card: operations.  At the serving path's
 // prefill shape (B 1, S 8192, 24 heads of 128, window 4096) the band
-// holds 25.2M (query, key) pairs a head, 4 hd FLOP a pair, 309 GFLOP in
-// all, against ~0.1 GB of bf16 q, k, v and o: thousands of FLOPs a
-// byte, far above the ridge of either the fp32 or the bf16 rate.  This
-// is the simple first version: fp32 SIMT FMAs, no tensor cores, no
-// wgmma or TMA, no overlap of loads with compute (later work).
+// holds 25.2M (query, key) pairs a head, 4 hd FLOP a pair: the
+// function's 309 GFLOP take 0.31 ms at the bf16 tensor-core peak
+// (989 TFLOP/s), against ~0.1 GB of q, k, v and o (0.03 ms at 3.35
+// TB/s).  The bf16 body below spends 155 GFLOP more on the tensor cores
+// than the function needs (464 in all, 0.47 ms at the peak), for the
+// split of p described there.
 //
-// Design: one block of 256 threads per (q tile of 64 rows, head,
-// batch), looping over the 64-key tiles the window reaches from that q
-// tile (65 at window 4096, fewer at the start of the sequence).  The q
-// tile is staged once in shared memory, transposed and converted to
-// fp32; each k tile is staged the same way, then each v tile into the
-// same buffer.  Thread (ty, tx) of a 16 x 16 grid owns rows 4 ty .. 4 ty
-// + 3 and, for the scores, key columns 4 tx .. 4 tx + 3 (float4 reads of
-// both transposed tiles), for p . v the hd / 16 output columns tx + 16 c.
-// Each row's max and the rescale factor are reduced over its 16 threads
-// with shuffles; the masks (the window's two edges, the ragged S and
-// window edges, the per-row lengths) are applied per element, and a
-// masked entry contributes exactly 0 (never exp(-1e30 - m)).  Sums run
-// in a fixed order and there are no atomics, so two launches on the
-// same inputs agree bit for bit.  Shared memory at hd 128 is 87 KB, two
-// blocks an SM.
+// bf16 (the serving path), replacing the fp32 SIMT body of the first version
+// (12.5 ms at that shape on an H100 80GB HBM3 at 700 W, 4.7x slower than
+// PyTorch's SDPA under a band mask): the products run on the tensor cores
+// with wgmma, bf16 in, fp32 accumulate, fed by TMA.  One block per (q tile
+// of 192 rows, query head, batch): three consumer warpgroups of 64 q rows
+// and one producer warp.  The q tiles go longest band first (the grid's
+// slowest axis runs from the last q tile down), so the short bands at the
+// start of the sequence fill the tail of the grid.  The producer walks the
+// key tiles of 64 the block's window reaches and loads each K and V tile
+// with TMA (cuTensorMapEncodeTiled looked up through the runtime, no
+// -lcuda; boxes of 64 columns x 64 keys, 128-byte swizzle, keys past S and
+// columns past hd read as zeros) into a ring of 4 stages, with a "full"
+// mbarrier (TMA bytes) and an "empty" one (every consumer warp) a stage.
+// The warpgroups then run apart from each other, so one's softmax overlaps
+// another's products.  The q tile comes in once by cp.async in the same
+// swizzled layout.  S = q k^T is wgmma m64n64k16 with both operands in
+// shared memory, K-major; q and k are bf16, so each product is exact and the
+// scores differ from an fp32 computation only in the order of the sum.
+// Scale, mask and the online softmax (m, l) stay fp32 in registers; the mask
+// is applied per element only where a warpgroup's 64 x 64 tile crosses the
+// window's edges, the ragged S or a row's length (a masked score is -inf, so
+// its p is exactly 0), interior tiles take no mask, and a warpgroup skips a
+// tile that holds no valid pair.  p . v without rounding p to bf16: a bf16 p
+// carries up to 2^-9 relative error in each term, which puts small outputs,
+// where terms cancel, far over the one-bf16-ulp bar the kernel is held to;
+// so p is split into p_hi = bf16(p) and p_lo = bf16(p - p_hi), both A
+// operands in registers of wgmma m64n{64,128}k16 against v in shared memory
+// (MN-major), into one fp32 accumulator, leaving ~2^-17 relative error in p.
+// That split is the 155 GFLOP above: p . v is half the function's work and
+// runs twice.  Head dims below 64 are padded to 64 columns in shared memory
+// (zeros). Shared memory at hd 128: 48 KB of q tile plus 4 x 32 KB of K/V
+// stages, 177 KB, one block an SM.
+//
+// fp32 (the agreement phase and the tests): the first version's SIMT
+// body, one block of 256 threads per (q tile of 64 rows, head, batch),
+// fp32 FMAs, the q tile and each k / v tile staged in shared memory
+// (87 KB at hd 128, two blocks an SM); thread (ty, tx) of a 16 x 16 grid
+// owns rows 4 ty .. 4 ty + 3 and, for the scores, key columns 4 tx ..
+// 4 tx + 3, for p . v the hd / 16 output columns tx + 16 c.
+#include <cmath>
+#include <cstdint>
+#include <cuda.h>
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 
@@ -51,22 +80,15 @@
 
 namespace {
 
-__device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 x) {
-    return __bfloat162float(x);
-}
-__device__ __forceinline__ void store(float* p, float x) { *p = x; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float x) {
-    *p = __float2bfloat16(x);
-}
-
 constexpr float NEG = -1e30f;
 
-template <typename T, int HD>
+// ---- fp32: SIMT ---------------------------------------------------------
+
+template <int HD>
 __global__ void __launch_bounds__(THREADS)
-swa_attn_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                const T* __restrict__ v, const int* __restrict__ lengths,
-                T* __restrict__ o, int S, int KV, int G, int window,
+swa_attn_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                const float* __restrict__ v, const int* __restrict__ lengths,
+                float* __restrict__ o, int S, int KV, int G, int window,
                 float scale) {
     constexpr int DPT = HD / 16;            // p . v output columns a thread
     extern __shared__ __align__(16) float smem[];
@@ -87,10 +109,10 @@ swa_attn_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
     const size_t q_row = (size_t)H * HD;    // stride of s in q and o
     const size_t k_row = (size_t)KV * HD;   // stride of s in k and v
-    const T* qb = q + (size_t)b * S * q_row + (size_t)head * HD;
-    T* ob = o + (size_t)b * S * q_row + (size_t)head * HD;
-    const T* kb = k + (size_t)b * S * k_row + (size_t)kv * HD;
-    const T* vb = v + (size_t)b * S * k_row + (size_t)kv * HD;
+    const float* qb = q + (size_t)b * S * q_row + (size_t)head * HD;
+    float* ob = o + (size_t)b * S * q_row + (size_t)head * HD;
+    const float* kb = k + (size_t)b * S * k_row + (size_t)kv * HD;
+    const float* vb = v + (size_t)b * S * k_row + (size_t)kv * HD;
 
     float acc[4][DPT];
     float m[4], l[4];
@@ -106,7 +128,7 @@ swa_attn_kernel(const T* __restrict__ q, const T* __restrict__ k,
         for (int e = tid; e < TQ * HD; e += THREADS) {
             const int r = e / HD, d = e % HD;
             const int s = q0 + r;
-            Qt[d * LDT + r] = s < S ? to_f(qb[(size_t)s * q_row + d]) : 0.0f;
+            Qt[d * LDT + r] = s < S ? qb[(size_t)s * q_row + d] : 0.0f;
         }
         const int q_last = min(q0 + TQ, n) - 1;
         const int kt_lo = max(0, q0 - window + 1) / TK;
@@ -118,7 +140,7 @@ swa_attn_kernel(const T* __restrict__ q, const T* __restrict__ k,
                 const int r = e / HD, d = e % HD;
                 const int s = k0 + r;
                 KVs[d * LDT + r] =
-                    s < S ? to_f(kb[(size_t)s * k_row + d]) : 0.0f;
+                    s < S ? kb[(size_t)s * k_row + d] : 0.0f;
             }
             __syncthreads();
 
@@ -183,7 +205,7 @@ swa_attn_kernel(const T* __restrict__ q, const T* __restrict__ k,
                 const int r = e / HD, d = e % HD;
                 const int s = k0 + r;
                 KVs[r * HD + d] =
-                    s < S ? to_f(vb[(size_t)s * k_row + d]) : 0.0f;
+                    s < S ? vb[(size_t)s * k_row + d] : 0.0f;
             }
             __syncthreads();
 #pragma unroll 4
@@ -214,41 +236,545 @@ swa_attn_kernel(const T* __restrict__ q, const T* __restrict__ k,
         const float inv = 1.0f / fmaxf(li, 1e-30f);
 #pragma unroll
         for (int c = 0; c < DPT; ++c)
-            store(&ob[(size_t)s * q_row + tx + 16 * c], acc[i][c] * inv);
+            ob[(size_t)s * q_row + tx + 16 * c] = acc[i][c] * inv;
     }
 }
 
-template <typename T, int HD>
-int launch(const void* q, const void* k, const void* v, const int* lengths,
-           void* o, int B, int S, int KV, int G, int window, float scale,
-           cudaStream_t stream) {
-    const int smem = (2 * HD * LDT + TK * LDT) * (int)sizeof(float);
+// ---- bf16: wgmma, K/V by TMA from a producer warp ----------------------
+
+constexpr int NWG = 3;           // consumer warpgroups, 64 q rows each
+constexpr int BQ = 64 * NWG;     // q rows a block
+constexpr int BN = 64;           // keys a K/V tile
+constexpr int KV_STAGES = 4;     // K/V stages in the ring
+constexpr int TC_THREADS = 128 * NWG + 32;    // + 1 producer warp
+
+typedef __nv_bfloat16 bf16;
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+    return (uint32_t)__cvta_generic_to_shared(p);
+}
+
+// 16 bytes global -> shared, zero-filled when !valid (src must still be
+// a valid address; nothing is read from it then)
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
+                                           bool valid) {
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+                 :: "r"(dst), "l"(src), "r"(valid ? 16 : 0) : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+    asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+    asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
+}
+
+__device__ __forceinline__ uint32_t bf16x2_bits(__nv_bfloat162 x) {
+    return *reinterpret_cast<uint32_t*>(&x);
+}
+
+// (x, y) fp32 -> hi = bf16(x, y) and lo = bf16(x - hi, y - hi), x in the
+// low half (the smaller key index of an mma fragment pair)
+__device__ __forceinline__ void split_p(float x, float y, uint32_t& hi,
+                                       uint32_t& lo) {
+    const __nv_bfloat162 h = __floats2bfloat162_rn(x, y);
+    const float2 hf = __bfloat1622float2(h);
+    hi = bf16x2_bits(h);
+    lo = bf16x2_bits(__floats2bfloat162_rn(x - hf.x, y - hf.y));
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+    asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+    asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+    asm volatile("wgmma.wait_group.sync.aligned %0;\n" :: "n"(N) : "memory");
+}
+// keep the compiler from moving register reads or writes across an
+// asynchronous wgmma that owns them
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&d)[N]) {
+#pragma unroll
+    for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i]) :: "memory");
+}
+template <int N>
+__device__ __forceinline__ void fence_regs(uint32_t (&a)[N][4]) {
+#pragma unroll
+    for (int i = 0; i < N; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+            asm volatile("" : "+r"(a[i][j]) :: "memory");
+}
+
+// shared-memory matrix descriptor, 128-byte swizzle; offsets in bytes
+__device__ __forceinline__ uint64_t smem_desc(uint32_t addr, uint32_t lbo,
+                                              uint32_t sbo) {
+    return (uint64_t)((addr & 0x3FFFF) >> 4)
+           | ((uint64_t)((lbo >> 4) & 0x3FFF) << 16)
+           | ((uint64_t)((sbo >> 4) & 0x3FFF) << 32) | (1ull << 62);
+}
+
+// byte offset of 16-byte chunk c of row r in a tile of `rows` rows laid
+// out as 128-byte-swizzle atoms: 64 columns (128 bytes) a row, the atoms
+// of a row's next 64 columns after all rows of the first
+__device__ __forceinline__ uint32_t swz(int r, int c, int rows) {
+    return (uint32_t)((c >> 3) * rows * 128 + r * 128
+                      + (((c & 7) ^ (r & 7)) << 4));
+}
+
+// d (m64 n64, fp32) (+)= a . b, a and b in shared memory (descriptors),
+// both K-major; d is zeroed first when !acc
+__device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t a,
+                                           uint64_t b, int acc) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+        "{"
+        "%0, %1, %2, %3, %4, %5, %6, %7, "
+        "%8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, "
+        "%24, %25, %26, %27, %28, %29, %30, %31"
+        "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+          "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+          "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+        : "l"(a), "l"(b), "r"(acc));
+}
+
+// d (m64 n64, fp32) += a . b, a (bf16) in registers, b in shared memory
+// (descriptor), MN-major
+__device__ __forceinline__ void wgmma_rs_n64(float (&d)[32],
+                                           const uint32_t (&a)[4],
+                                           uint64_t b) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+        "{"
+        "%0, %1, %2, %3, %4, %5, %6, %7, "
+        "%8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, "
+        "%24, %25, %26, %27, %28, %29, %30, %31"
+        "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+          "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+          "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+// d (m64 n128, fp32) += a . b, a (bf16) in registers, b in shared memory
+// (descriptor), MN-major
+__device__ __forceinline__ void wgmma_rs_n128(float (&d)[64],
+                                           const uint32_t (&a)[4],
+                                           uint64_t b) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+        "{"
+        "%0, %1, %2, %3, %4, %5, %6, %7, "
+        "%8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, "
+        "%24, %25, %26, %27, %28, %29, %30, %31, "
+        "%32, %33, %34, %35, %36, %37, %38, %39, "
+        "%40, %41, %42, %43, %44, %45, %46, %47, "
+        "%48, %49, %50, %51, %52, %53, %54, %55, "
+        "%56, %57, %58, %59, %60, %61, %62, %63"
+        "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+          "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+          "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+          "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+          "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+          "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+          "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+          "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+          "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+          "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+          "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
+    asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n"
+                 :: "r"(bar), "r"(count) : "memory");
+}
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+    asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n"
+                 :: "r"(bar) : "memory");
+}
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+    asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+                 :: "r"(bar), "r"(bytes) : "memory");
+}
+// wait until the phase of this parity has completed; a wait of ~10 s
+// (a lost arrival) traps instead of hanging the card
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+    const long long t0 = clock64();
+    while (true) {
+        uint32_t done;
+        asm volatile("{\n.reg .pred p;\n"
+                     "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+                     "selp.u32 %0, 1, 0, p;\n}\n"
+                     : "=r"(done) : "r"(bar), "r"(parity) : "memory");
+        if (done) return;
+        if (clock64() - t0 > 20000000000ll) __trap();
+    }
+}
+// one box of a 4-d tensor map into shared memory, completing on `bar`
+__device__ __forceinline__ void tma_load_4d(uint32_t dst,
+                                            const CUtensorMap* map,
+                                            uint32_t bar, int c0, int c1,
+                                            int c2, int c3) {
+    asm volatile("cp.async.bulk.tensor.4d.shared::cluster.global."
+                 "mbarrier::complete_tx::bytes [%0], [%1, {%3, %4, %5, %6}], "
+                 "[%2];\n"
+                 :: "r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(bar),
+                    "r"(c0), "r"(c1), "r"(c2), "r"(c3) : "memory");
+}
+
+template <int HD>
+__global__ void __launch_bounds__(TC_THREADS, 1)
+swa_attn_bf16_kernel(const __grid_constant__ CUtensorMap kmap,
+                     const __grid_constant__ CUtensorMap vmap,
+                     const bf16* __restrict__ q,
+                     const int* __restrict__ lengths, bf16* __restrict__ o,
+                     int S, int KV, int G, int window, float scale_log2) {
+    constexpr int HDP = HD < 64 ? 64 : HD;  // columns in shared (padded)
+    constexpr int NA = HDP / 64;            // 128-byte atoms a row
+    constexpr int CH = HD / 8;              // 16-byte chunks a row
+    constexpr int CHP = HDP / 8;
+    constexpr int NO = HDP / 2;             // output accumulators a thread
+    constexpr uint32_t Q_BYTES = BQ * HDP * 2;
+    constexpr uint32_t KV_BYTES = BN * HDP * 2;
+    extern __shared__ unsigned char smem_raw[];
+    const uint32_t qs = (smem_u32(smem_raw) + 1023) & ~1023u;
+    const uint32_t ks = qs + Q_BYTES;       // [KV_STAGES] K tiles
+    const uint32_t vs = ks + KV_STAGES * KV_BYTES;
+    const uint32_t full = vs + KV_STAGES * KV_BYTES;   // [KV_STAGES] mbarriers
+    const uint32_t empty = full + 8 * KV_STAGES;       // [KV_STAGES]
+
+    const int head = blockIdx.x;
+    const int b = blockIdx.y;
+    const int q0 = (gridDim.z - 1 - blockIdx.z) * BQ;  // longest first
+    const int kv = head / G;
+    const int H = KV * G;
+    const int tid = threadIdx.x;
+    const int wg = tid / 128;
+    const int warp = tid / 32;
+    const int lane = tid % 32;
+    const int n = lengths ? min(lengths[b], S) : S;
+
+    const size_t q_row = (size_t)H * HD;
+    const bf16* qb = q + (size_t)b * S * q_row + (size_t)head * HD;
+    bf16* ob = o + (size_t)b * S * q_row + (size_t)head * HD;
+
+    if (q0 >= n) {
+        const uint4 zero = make_uint4(0, 0, 0, 0);
+        for (int e = tid; e < BQ * CH; e += TC_THREADS) {
+            const int s = q0 + e / CH;
+            if (s < S)
+                *reinterpret_cast<uint4*>(ob + (size_t)s * q_row
+                                          + (e % CH) * 8) = zero;
+        }
+        return;
+    }
+    const int q_last = min(q0 + BQ, n) - 1;
+    const int kt_lo = max(0, q0 - window + 1) / BN;
+    const int n_tiles = q_last / BN - kt_lo + 1;
+
+    if (tid == 0) {
+        for (int st = 0; st < KV_STAGES; ++st) {
+            mbar_init(full + 8 * st, 1);    // the producer's expect_tx
+            mbar_init(empty + 8 * st, 4 * NWG);   // every consumer warp
+        }
+        asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    }
+    __syncthreads();
+
+    if (warp == 4 * NWG) {                  // the producer warp
+        if (lane == 0) {
+            for (int i = 0; i < n_tiles; ++i) {
+                const int st = i % KV_STAGES;
+                if (i >= KV_STAGES)         // read in round i / stages - 1
+                    mbar_wait(empty + 8 * st, (i / KV_STAGES - 1) & 1);
+                mbar_expect_tx(full + 8 * st, 2 * KV_BYTES);
+                const int k0 = (kt_lo + i) * BN;
+#pragma unroll
+                for (int a = 0; a < NA; ++a) {
+                    tma_load_4d(ks + st * KV_BYTES + a * BN * 128, &kmap,
+                                full + 8 * st, a * 64, kv, k0, b);
+                    tma_load_4d(vs + st * KV_BYTES + a * BN * 128, &vmap,
+                                full + 8 * st, a * 64, kv, k0, b);
+                }
+            }
+        }
+        return;
+    }
+
+    // consumers: the q tile by cp.async, swizzled as the TMA boxes are
+    for (int e = tid; e < BQ * CHP; e += 128 * NWG) {
+        const int r = e / CHP, c = e % CHP;
+        const int s = q0 + r;
+        cp_async16(qs + swz(r, c, BQ),
+                   qb + (size_t)min(s, S - 1) * q_row + min(c, CH - 1) * 8,
+                   s < S && c < CH);
+    }
+    cp_async_commit();
+    cp_async_wait<0>();
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    asm volatile("bar.sync 1, %0;\n" :: "n"(128 * NWG) : "memory");
+
+    // this thread's rows: g and g + 8 of its warp's 16 in its warpgroup's 64
+    const int gq = lane >> 2;
+    const int tq = lane & 3;
+    const int wq0 = q0 + wg * 64;           // the warpgroup's first q row
+    const int rows[2] = {wq0 + (warp % 4) * 16 + gq,
+                         wq0 + (warp % 4) * 16 + gq + 8};
+    float acc[NO];
+#pragma unroll
+    for (int d = 0; d < NO; ++d) acc[d] = 0.0f;
+    float m[2] = {NEG, NEG};
+    float l[2] = {0.0f, 0.0f};
+
+    for (int i = 0; i < n_tiles; ++i) {
+        const int st = i % KV_STAGES;
+        mbar_wait(full + 8 * st, (i / KV_STAGES) & 1);
+        const int k0 = (kt_lo + i) * BN;
+        // a tile with no valid pair for the warpgroup's 64 rows
+        if (k0 > wq0 + 63 || k0 >= n || wq0 >= n
+            || wq0 - (k0 + BN - 1) >= window) {
+            if (lane == 0) mbar_arrive(empty + 8 * st);
+            continue;
+        }
+        const bool interior = k0 + BN - 1 <= wq0
+                              && wq0 + 63 - k0 < window
+                              && k0 + BN <= n && wq0 + 64 <= n;
+        const uint32_t kt = ks + st * KV_BYTES;
+        const uint32_t vt = vs + st * KV_BYTES;
+
+        // S = q k^T: A = q (K-major), B = k (K-major), 16 columns a step
+        float sc[32];
+#pragma unroll
+        for (int j = 0; j < 32; ++j) sc[j] = 0.0f;
+        wgmma_fence();
+        fence_regs(sc);
+#pragma unroll
+        for (int c = 0; c < HD / 16; ++c)
+            wgmma_ss_n64(sc,
+                         smem_desc(qs + (c / 4) * BQ * 128 + wg * 64 * 128
+                                   + (c % 4) * 32, 16, 1024),
+                         smem_desc(kt + (c / 4) * BN * 128 + (c % 4) * 32,
+                                   16, 1024), c > 0);
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_regs(sc);
+
+        // scale (log2 units), mask, online softmax; sc[4 j + e] is row
+        // rows[e / 2], key k0 + 8 j + 2 tq + e % 2
+        float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+                float x = sc[4 * j + e] * scale_log2;
+                if (!interior) {
+                    const int qp = rows[e >> 1];
+                    const int kp = k0 + j * 8 + 2 * tq + (e & 1);
+                    if (!(qp < n && kp < n && kp <= qp && qp - kp < window))
+                        x = -INFINITY;
+                }
+                sc[4 * j + e] = x;
+                mx[e >> 1] = fmaxf(mx[e >> 1], x);
+            }
+        float alpha[2], rs[2] = {0.0f, 0.0f};
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+            mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+            mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+            const float m_new = fmaxf(m[r], mx[r]);
+            alpha[r] = exp2f(m[r] - m_new);
+            m[r] = m_new;
+        }
+#pragma unroll
+        for (int j = 0; j < 32; ++j) {
+            const float p = exp2f(sc[j] - m[(j >> 1) & 1]);
+            sc[j] = p;
+            rs[(j >> 1) & 1] += p;
+        }
+#pragma unroll
+        for (int r = 0; r < 2; ++r) l[r] = l[r] * alpha[r] + rs[r];
+#pragma unroll
+        for (int d = 0; d < NO; ++d) acc[d] *= alpha[(d >> 1) & 1];
+
+        // acc += p_hi . v, then p_lo . v: A = p in registers, B = v
+        // (MN-major), 16 keys a step
+        uint32_t ph[4][4], pl[4][4];
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk) {
+            split_p(sc[8 * kk + 0], sc[8 * kk + 1], ph[kk][0], pl[kk][0]);
+            split_p(sc[8 * kk + 2], sc[8 * kk + 3], ph[kk][1], pl[kk][1]);
+            split_p(sc[8 * kk + 4], sc[8 * kk + 5], ph[kk][2], pl[kk][2]);
+            split_p(sc[8 * kk + 6], sc[8 * kk + 7], ph[kk][3], pl[kk][3]);
+        }
+        wgmma_fence();
+        fence_regs(acc);
+        fence_regs(ph);
+        fence_regs(pl);
+#pragma unroll
+        for (int half = 0; half < 2; ++half)
+#pragma unroll
+            for (int kk = 0; kk < 4; ++kk) {
+                const uint64_t dv = smem_desc(vt + kk * 16 * 128,
+                                              BN * 128, 1024);
+                if constexpr (HDP == 128)
+                    wgmma_rs_n128(acc, half ? pl[kk] : ph[kk], dv);
+                else
+                    wgmma_rs_n64(acc, half ? pl[kk] : ph[kk], dv);
+            }
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_regs(acc);
+        fence_regs(ph);
+        fence_regs(pl);
+        if (lane == 0) mbar_arrive(empty + 8 * st);    // stage read
+    }
+
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+        float lr = l[r];
+        lr += __shfl_xor_sync(0xffffffffu, lr, 1);
+        lr += __shfl_xor_sync(0xffffffffu, lr, 2);
+        const float den = fmaxf(lr, 1e-30f);
+        const int s = rows[r];
+        if (s >= S) continue;
+        bf16* orow = ob + (size_t)s * q_row + 2 * tq;
+#pragma unroll
+        for (int d = 0; d < HD / 8; ++d)
+            *reinterpret_cast<__nv_bfloat162*>(orow + d * 8) =
+                __floats2bfloat162_rn(acc[4 * d + 2 * r] / den,
+                                      acc[4 * d + 2 * r + 1] / den);
+    }
+}
+
+// cuTensorMapEncodeTiled, looked up through the runtime (no -lcuda)
+typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType,
+                                  cuuint32_t, void*, const cuuint64_t*,
+                                  const cuuint64_t*, const cuuint32_t*,
+                                  const cuuint32_t*, CUtensorMapInterleave,
+                                  CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                  CUtensorMapFloatOOBfill);
+
+EncodeTiledFn encode_tiled() {
+    static EncodeTiledFn fn = nullptr;
+    if (fn == nullptr) {
+        void* p = nullptr;
+        cudaDriverEntryPointQueryResult found;
+        if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
+                                    cudaEnableDefault, &found) == cudaSuccess
+            && found == cudaDriverEntryPointSuccess)
+            fn = reinterpret_cast<EncodeTiledFn>(p);
+    }
+    return fn;
+}
+
+// k or v (B, S, KV, hd) as a 4-d map (hd, KV, S, B) in boxes of 64 columns
+// x BN keys, 128-byte swizzle; columns past hd read as zeros
+bool kv_map(CUtensorMap* map, const void* ptr, int B, int S, int KV, int hd) {
+    const EncodeTiledFn encode = encode_tiled();
+    if (encode == nullptr || reinterpret_cast<uintptr_t>(ptr) % 16 != 0)
+        return false;
+    const cuuint64_t dims[4] = {(cuuint64_t)hd, (cuuint64_t)KV,
+                                (cuuint64_t)S, (cuuint64_t)B};
+    const cuuint64_t strides[3] = {(cuuint64_t)hd * 2,
+                                   (cuuint64_t)KV * hd * 2,
+                                   (cuuint64_t)S * KV * hd * 2};
+    const cuuint32_t box[4] = {64, 1, BN, 1};
+    const cuuint32_t unit[4] = {1, 1, 1, 1};
+    return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
+                  const_cast<void*>(ptr), dims, strides, box, unit,
+                  CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                  CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                  CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+template <int HD>
+int launch_bf16(const void* q, const void* k, const void* v,
+                const int* lengths, void* o, int B, int S, int KV, int G,
+                int window, float scale, cudaStream_t stream) {
+    constexpr int HDP = HD < 64 ? 64 : HD;
+    const int smem = 1024 + (BQ + 2 * KV_STAGES * BN) * HDP * 2
+                     + 16 * KV_STAGES;
+    const int n_qt = (S + BQ - 1) / BQ;
+    if (B > 65535 || n_qt > 65535) return (int)cudaErrorInvalidValue;
+    CUtensorMap kmap, vmap;
+    if (reinterpret_cast<uintptr_t>(q) % 16 != 0    // q rows by cp.async
+        || !kv_map(&kmap, k, B, S, KV, HD) || !kv_map(&vmap, v, B, S, KV, HD))
+        return (int)cudaErrorInvalidValue;
     cudaError_t err = cudaFuncSetAttribute(
-        swa_attn_kernel<T, HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        swa_attn_bf16_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         smem);
     if (err != cudaSuccess) return (int)err;
-    const dim3 grid((S + TQ - 1) / TQ, KV * G, B);
-    swa_attn_kernel<T, HD><<<grid, THREADS, smem, stream>>>(
-        (const T*)q, (const T*)k, (const T*)v, lengths, (T*)o, S, KV, G,
-        window, scale);
+    const dim3 grid(KV * G, B, n_qt);
+    swa_attn_bf16_kernel<HD><<<grid, TC_THREADS, smem, stream>>>(
+        kmap, vmap, (const bf16*)q, lengths, (bf16*)o, S, KV, G, window,
+        scale * 1.4426950408889634f);
     return (int)cudaGetLastError();
 }
 
-template <typename T>
-int dispatch_hd(int hd, const void* q, const void* k, const void* v,
+template <int HD>
+int launch_fp32(const void* q, const void* k, const void* v,
                 const int* lengths, void* o, int B, int S, int KV, int G,
                 int window, float scale, cudaStream_t stream) {
+    const int smem = (2 * HD * LDT + TK * LDT) * (int)sizeof(float);
+    cudaError_t err = cudaFuncSetAttribute(
+        swa_attn_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        smem);
+    if (err != cudaSuccess) return (int)err;
+    const dim3 grid((S + TQ - 1) / TQ, KV * G, B);
+    swa_attn_kernel<HD><<<grid, THREADS, smem, stream>>>(
+        (const float*)q, (const float*)k, (const float*)v, lengths, (float*)o,
+        S, KV, G, window, scale);
+    return (int)cudaGetLastError();
+}
+
+int dispatch_hd(int hd, int dtype, const void* q, const void* k,
+                const void* v, const int* lengths, void* o, int B, int S,
+                int KV, int G, int window, float scale, cudaStream_t stream) {
+#define SWA_CASE(HD)                                                        \
+    case HD:                                                                \
+        return dtype == 0                                                   \
+            ? launch_fp32<HD>(q, k, v, lengths, o, B, S, KV, G, window,     \
+                               scale, stream)                               \
+            : launch_bf16<HD>(q, k, v, lengths, o, B, S, KV, G, window,     \
+                              scale, stream);
     switch (hd) {
-        case 16: return launch<T, 16>(q, k, v, lengths, o, B, S, KV, G,
-                                      window, scale, stream);
-        case 32: return launch<T, 32>(q, k, v, lengths, o, B, S, KV, G,
-                                      window, scale, stream);
-        case 64: return launch<T, 64>(q, k, v, lengths, o, B, S, KV, G,
-                                      window, scale, stream);
-        case 128: return launch<T, 128>(q, k, v, lengths, o, B, S, KV, G,
-                                        window, scale, stream);
+        SWA_CASE(16)
+        SWA_CASE(32)
+        SWA_CASE(64)
+        SWA_CASE(128)
         default: return (int)cudaErrorInvalidValue;
     }
+#undef SWA_CASE
 }
 
 }  // namespace
@@ -260,12 +786,7 @@ extern "C" int swa_attn_launch(const void* q, const void* k, const void* v,
                                int dtype, void* stream) {
     if (B <= 0 || S <= 0 || KV <= 0 || G <= 0 || window <= 0)
         return (int)cudaErrorInvalidValue;
-    cudaStream_t st = (cudaStream_t)stream;
-    if (dtype == 0)
-        return dispatch_hd<float>(hd, q, k, v, lengths, o, B, S, KV, G,
-                                  window, scale, st);
-    if (dtype == 1)
-        return dispatch_hd<__nv_bfloat16>(hd, q, k, v, lengths, o, B, S, KV,
-                                          G, window, scale, st);
-    return (int)cudaErrorInvalidValue;
+    if (dtype != 0 && dtype != 1) return (int)cudaErrorInvalidValue;
+    return dispatch_hd(hd, dtype, q, k, v, lengths, o, B, S, KV, G, window,
+                       scale, (cudaStream_t)stream);
 }

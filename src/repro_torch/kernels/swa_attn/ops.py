@@ -6,10 +6,14 @@ prefill (or forward) with ``S > window + 1024`` takes.
 
 The kernel replaces the Pallas TPU kernel
 ``src/repro/kernels/swa_attn/kernel.py:swa_attn``.  It is bound by
-operations on the card (4 hd FLOP per (query, key) pair of the band);
-this first version runs one block per (q tile of 64 rows, head, batch)
-over the key tiles the window reaches, with an fp32 online softmax and
-fp32 SIMT products (the note in the source has the details).
+operations on the card (4 hd FLOP per (query, key) pair of the band).
+bf16 inputs (the serving path) run on the tensor cores: one block per
+(q tile of 192 rows, head, batch), three warpgroups of ``wgmma`` products
+with fp32 accumulation over the 64-key tiles the window reaches, a
+producer warp loading K/V tiles by TMA into a ring of shared-memory
+stages, an fp32 online softmax, and p split into bf16 hi + lo for p . v
+so that p keeps fp32 accuracy.  fp32 inputs run an fp32 SIMT body (the
+note in the source has the details).
 
 It computes the forward only, as the TPU kernel does.  Its autograd
 function refuses a backward: training through the band on the card

@@ -68,14 +68,22 @@ def test_lattice_kernel_matches_plain(card, T, U1):
 
 
 @pytest.mark.parametrize("P,n,D", [(1, 1, 1), (4, 4, 4096), (3, 65, 130),
-                                   (2, 130, 4099)])
+                                   (2, 130, 4099), (8, 512, 4096),
+                                   (2, 1000, 4096), (5, 33, 1),
+                                   (1, 257, 777)])
 def test_gram_kernel_matches_plain(card, P, n, D):
+    """Within 1e-4 of the largest |K| (two fp32 summation orders over D),
+    two launches bitwise equal (D split without atomics), and exactly
+    symmetric (each upper tile written with its mirror)."""
     g = torch.randn(P, n, D, generator=torch.Generator().manual_seed(n)
                     ).to(card)
     n0 = omp_gram_batched_op.launches
     got = omp_gram_batched_op(g)
+    again = omp_gram_batched_op(g)
     torch.cuda.synchronize()
-    assert omp_gram_batched_op.launches == n0 + 1
+    assert omp_gram_batched_op.launches == n0 + 2
+    assert torch.equal(got, again)
+    assert torch.equal(got, got.transpose(1, 2))
     want = omp_gram_batched_ref(g)
     torch.testing.assert_close(got, want, rtol=0,
                                atol=1e-4 * float(want.abs().max()))
@@ -261,7 +269,9 @@ def test_wkv_wrapper_refuses_what_the_kernels_do_not_take(card):
 # (B, S, KV, G, hd, window, dtype, lengths): the serving prefill shape
 # (starcoder2-3b, one 8,192-token prompt) in bf16 and fp32, then S off the
 # 64-row tile and off 1024, a window below the tile, a window above S,
-# per-row lengths, fp32
+# per-row lengths, fp32; then the bf16 tensor-core body's edges: S off its
+# 192-row q tile and off 128 (129, 1100), windows off its 64-key tile (1,
+# 63, 200), every head dim, and per-row lengths of 1 and S, of S - 1 and 70
 SWA_EDGES = [
     (1, 8192, 2, 12, 128, 4096, "bfloat16", None),
     (1, 8192, 2, 12, 128, 4096, "float32", None),
@@ -271,6 +281,12 @@ SWA_EDGES = [
     (2, 1500, 2, 4, 128, 700, "bfloat16", (1500, 1033)),
     (2, 777, 2, 2, 16, 100, "float32", (5, 777)),
     (1, 2048, 2, 12, 128, 1024, "float32", None),
+    (1, 129, 2, 3, 128, 200, "bfloat16", None),
+    (1, 1100, 1, 4, 16, 63, "bfloat16", None),
+    (1, 1100, 2, 2, 32, 1, "bfloat16", None),
+    (1, 1100, 1, 3, 64, 200, "bfloat16", None),
+    (2, 700, 2, 2, 128, 300, "bfloat16", (1, 700)),
+    (2, 700, 1, 3, 64, 63, "bfloat16", (699, 70)),
 ]
 
 
@@ -323,3 +339,8 @@ def test_swa_backward_raises_and_wrapper_refuses(card):
     with pytest.raises(ValueError):                  # lengths not int32
         swa_attn_op(q.detach(), k, v, window=64,
                     lengths=torch.tensor([5], device=card))
+    # bf16 q contiguous but 2 bytes off the 16 its rows are copied in
+    qm = torch.zeros(128 * 2 * 32 + 1, device=card,
+                     dtype=torch.bfloat16)[1:].view(1, 128, 1, 2, 32)
+    with pytest.raises(RuntimeError):
+        swa_attn_op(qm, k.bfloat16(), v.bfloat16(), window=64)

@@ -242,3 +242,47 @@ def test_band_at_bf16_within_the_bf16_bar(attn_params):
     assert got.dtype == torch.bfloat16
     rel = np.linalg.norm(got.float().numpy() - want) / np.linalg.norm(want)
     assert rel < 2e-2, rel
+
+
+def _band_split_p(q, k, v, window):
+    """The bf16 kernel's arithmetic in plain PyTorch for one head: fp32
+    scores of bf16 q and k, p = exp(s - m) in fp32 (masked entries 0),
+    p . v as the two bf16 products p_hi . v + p_lo . v (p_hi = bf16(p),
+    p_lo = bf16(p - p_hi)) summed in fp32, divided by l = sum(p); also
+    with a single bf16 p.  q, k, v (S, hd) fp32 holding bf16 values ->
+    (split, single) fp32, before any cast to bf16."""
+    S, hd = q.shape
+    s = (q @ k.T) * (1.0 / np.sqrt(np.float32(hd)))
+    pos = torch.arange(S)
+    d = pos[:, None] - pos[None, :]
+    s = torch.where((d >= 0) & (d < window), s, float("-inf"))
+    p = torch.exp(s - s.max(-1, keepdim=True).values)
+    den = p.sum(-1, keepdim=True)
+    hi = p.to(torch.bfloat16).float()
+    lo = (p - hi).to(torch.bfloat16).float()
+    return (hi @ v + lo @ v) / den, (hi @ v) / den
+
+
+def test_split_p_keeps_the_band_within_a_quarter_of_the_one_ulp_bar():
+    """The bf16 kernel feeds p . v to the tensor cores in bf16, so it
+    splits p into bf16 hi + lo and runs two products into one fp32
+    accumulator.  Against the plain band softmax with an fp32 p on the
+    same bf16-valued inputs (one head, S 1024, W 512, hd 128), every
+    fp32 output takes at most a quarter of the one-bf16-ulp bar
+    ``2^-7 |want| + 1e-5`` the card check holds the kernel to (0.08 of
+    it here).  A single bf16 p is not enough: its 2^-9 relative error a
+    term puts the small outputs, where terms cancel, far over the 1e-5
+    floor, ~60x the bar at this shape.  The outputs are compared before
+    the cast to bf16, which by itself may land one ulp apart."""
+    S, W, hd = 1024, 512, 128
+    rng = np.random.default_rng(15)
+    q, k, v = (torch.from_numpy(rng.normal(size=(S, hd)).astype(np.float32)
+                                ).to(torch.bfloat16).float()
+               for _ in range(3))
+    split, single = _band_split_p(q, k, v, W)
+    want = swa_attn_ref(q[None, :, None, None], k[None, :, None],
+                        v[None, :, None], window=W)[0, :, 0, 0]
+    assert want.dtype == torch.float32
+    bar = 2.0 ** -7 * want.abs() + 1e-5
+    assert float(((split - want).abs() / bar).max()) <= 0.25
+    assert float(((single - want).abs() / bar).max()) > 10.0
