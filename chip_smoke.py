@@ -21,9 +21,13 @@ failure exits non-zero, and no phase catches an error and carries on:
    the Gram at stage B's (4, 4, 4096) and at (8, 512, 4096), twice
    bitwise and exactly symmetric, timed in turns with ``torch.bmm``; the
    grad-sketch kernel also launched twice on the same inputs, which
-   must agree bit for bit; the RWKV6 WKV kernels (forward and backward)
-   against the plain chunk algebra and its autograd, twice bitwise, at
-   the RWKV path's shape and the reference kernel tests' shapes; the
+   must agree bit for bit, timed in turns with its plain version, its
+   rate printed against two bounds (the fp32 FMA route and the 3xTF32
+   tensor-core route it takes); the RWKV6 WKV kernels (forward and
+   backward) against the plain chunk algebra and its autograd, twice
+   bitwise, at the RWKV path's shape and the reference kernel tests'
+   shapes, at decays in (0.4, 0.99), of 1e-6, at the 1e-8 clip and
+   mixed by channel, with the forward's three launches timed apart; the
    sliding-window attention kernel (bf16 on the tensor cores, fp32 on
    the SIMT body) at the serving path's prefill shape and at edge shapes
    of both bodies, twice bitwise, timed in turns with
@@ -34,13 +38,18 @@ failure exits non-zero, and no phase catches an error and carries on:
    ``starcoder2-3b`` and ``rwkv6-3b`` at full width with 2 layers in
    fp32, through the kernels on the card against the same unit through
    the plain versions on the CPU (per-example loss, the stage-A gradient
-   or sketch, and for RWKV one layer's time-mix gradients); and the
+   or sketch, and for RWKV one layer's time-mix gradients), the RNN-T
+   unit's fused backward twice on the card with the same dw_out bits;
+   and the
    2-layer ``starcoder2-3b`` served on a 6,144-token prompt (the band
    branch), prefill and 8 teacher-forced greedy decode steps, card
    against CPU;
 5. main path, RNN-T: ``train_with_selection(method="pgm")`` at the full
    width of ``rnnt-crdnn`` on a synthetic corpus -- warm start, then a PGM
-   round (stage A + stage B) before each subset epoch;
+   round (stage A + stage B) before each subset epoch, each round's time
+   printed; then two stage-A rounds on the trained params, timed, with
+   whether their unit vectors agree bit for bit and whether they pick
+   the same subsets (so also after the LM and RWKV profiles);
 6. profile, RNN-T: one training step under ``torch.profiler`` (host wall
    time, device busy time, the kernels that take the most of it);
 7. serving, RNN-T: ``rnnt-crdnn`` at full width (random weights; the
@@ -78,6 +87,7 @@ import dataclasses
 import gc
 import json
 import math
+import re
 import subprocess
 import sys
 import time
@@ -89,6 +99,7 @@ SRC = ROOT / "src"
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM device memory
 FP32_FLOP_PER_S = 67e12            # H100 SXM fp32 outside the tensor cores
 BF16_FLOP_PER_S = 989e12           # H100 SXM bf16 dense tensor cores
+TF32_FLOP_PER_S = 495e12           # H100 SXM TF32 dense tensor cores
 NEG = -1e30
 
 # main-path corpus: T = 32 * 16 = 512 frames -> T' = 128, U + 1 = 33
@@ -110,15 +121,17 @@ SKETCH_MAIN = (1, UNIT_SIZE * (LM_SEQ - 1), 3072, 49152, 64, 64)
 SKETCH_RWKV = (1, UNIT_SIZE * (LM_SEQ - 1), 2560, 65536, 64, 64)
 SKETCH_EDGES = ((1, 1, 1, 1, 1, 1), (1, 17, 16, 64, 8, 8),
                 (3, 130, 72, 1001, 24, 40), (2, 65, 33, 4099, 64, 100),
-                (4, 511, 256, 8195, 70, 64))
+                (4, 511, 256, 8195, 70, 64), (2, 300, 128, 1000, 32, 72))
 
 # WKV shapes (B, S, H, N, C, decay): the RWKV main path's time-mix, and the
 # reference kernel tests' (tests/test_kernels.py), with decays in (0.4,
-# 0.99) or all 1e-6
+# 0.99), all 1e-6, all at the 1e-8 clip, or mixed by channel (the clip,
+# 0.999 and (0.4, 0.99))
 WKV_MAIN = (UNIT_SIZE, LM_SEQ, 40, 64, 64, None)
 WKV_EDGES = ((2, 64, 2, 16, 16, None), (1, 128, 3, 32, 32, None),
              (2, 96, 1, 8, 32, None), (1, 64, 2, 64, 64, None),
-             (1, 64, 1, 8, 16, 1e-6))
+             (1, 64, 1, 8, 16, 1e-6), (1, 128, 2, 64, 64, 1e-8),
+             (2, 128, 2, 64, 64, "mixed"), (1, 96, 1, 16, 32, "mixed"))
 
 
 # sliding-window attention (B, S, KV, G, hd, window, dtype, lengths): the
@@ -264,14 +277,145 @@ def sketch_err(torch, op, ref, ins):
             err / v_scale if v_scale else 0.0)
 
 
+def sketch_row(torch, op, ref, shape, seed, dev, tag):
+    """The grad-sketch kernel at one main path's stage-A shape (one unit):
+    its error (``sketch_err``), its and the plain version's distance from
+    the same function in float64, kernel and plain version timed in
+    turns, and two
+    bounds: the fp32 FMA route (every product at the fp32 peak) and the
+    3xTF32 route the kernel takes (h.W and p.R2 three times over at the
+    TF32 tensor-core peak, h.R1 and hr^T er2 at the fp32 peak), each the
+    larger of its operations time and the bytes time.  -> (err, kernel
+    ms, plain ms, the lesser bound, what bounds it)."""
+    ins = sketch_inputs(torch, *shape, seed=seed, dev=dev)
+    err, rel, vrel = sketch_err(torch, op, ref, ins)
+    # both against the same function in float64 (the reference's formula)
+    h, w, rh, rv, t, s = ins
+    hh = h[0].double()
+    p = torch.softmax(hh @ w.double(), dim=-1)
+    p[torch.arange(p.shape[0], device=dev), t[0].long()] -= 1.0
+    truth = (hh @ rh.double()).t() @ ((p * s[0].double()[:, None])
+                                      @ rv.double())
+    del hh, p
+    t_scale = float(truth.abs().max())
+    k64 = float((op(*ins)[0].double() - truth).abs().max()) / t_scale
+    p64 = float((ref(*ins)[0].double() - truth).abs().max()) / t_scale
+    runs = []
+    for _ in range(2):
+        runs.append(cuda_ms(torch, lambda: op(*ins), reps=10))
+        runs.append(cuda_ms(torch, lambda: ref(*ins), reps=5))
+    k_ms, p_ms = (runs[0] + runs[2]) / 2, (runs[1] + runs[3]) / 2
+    U, n, d, V, k1, k2 = shape
+    # inputs h, w, r_h, r_v, targets, scale read once, the sketch written
+    # once; what the function needs: h.W, p.R2, h.R1 and hr^T er2
+    big = 2 * U * n * d * V + 2 * U * n * V * k2
+    small = 2 * U * n * d * k1 + 2 * U * n * k1 * k2
+    n_bytes = 4 * (U * n * d + d * V + d * k1 + V * k2 + 2 * U * n
+                   + U * k1 * k2)
+    fp32_ms, fp32_by = bound(n_bytes, big + small)
+    t_ops = (3 * big / TF32_FLOP_PER_S + small / FP32_FLOP_PER_S) * 1e3
+    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    tf32_ms, tf32_by = ((t_ops, "operations") if t_ops >= t_bytes
+                        else (t_bytes, "bytes"))
+    print(f"[kernels] grad_sketch {tag} {shape}: max_abs_err {err:.3e} "
+          f"({rel:.1e} of the largest entry, {vrel:.1e} of the vocab "
+          f"part's; against float64, kernel {k64:.2e} and plain {p64:.2e} "
+          f"of the largest entry) "
+          f"kernel_ms {k_ms:.4f} ({runs[0]:.4f}, {runs[2]:.4f}) "
+          f"plain_ms {p_ms:.4f} ({runs[1]:.4f}, {runs[3]:.4f}); kernel / "
+          f"plain {k_ms / p_ms:.3f}; library_ms none; bound_ms fp32 FMA "
+          f"route {fp32_ms:.4f} ({fp32_by}), 3xTF32 route {tf32_ms:.4f} "
+          f"({tf32_by}); achieved {(big + small) / k_ms / 1e9:.2f} TFLOP/s "
+          f"on the function's {(big + small) / 1e9:.1f} GFLOP "
+          f"({fp32_ms / k_ms:.3f} of the fp32 bound), "
+          f"{3 * big / k_ms / 1e9:.2f} TFLOP/s of TF32 tensor work on "
+          f"3 x {big / 1e9:.1f} GFLOP ({tf32_ms / k_ms:.3f} of the 3xTF32 "
+          f"bound)", flush=True)
+    del ins
+    return (err, k_ms, p_ms) + min((fp32_ms, fp32_by), (tf32_ms, tf32_by))
+
+
+def kernel_times(torch, fn, reps: int):
+    """Mean device time of each kernel that ``fn`` launches, over ``reps``
+    calls under ``torch.profiler`` after a warm-up call -> {name: ms}."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for ev in prof.key_averages():
+        if ev.device_type != DeviceType.CUDA:
+            continue
+        dt = getattr(ev, "self_device_time_total", None)
+        if dt is None:
+            dt = ev.self_cuda_time_total
+        out[ev.key] = dt / 1e3 / reps
+    return out
+
+
+def stage_a_rounds(torch, bundle, params, units, val_units, pgm_cfg, dev,
+                   tag):
+    """Two selection rounds on the same params and projections: stage A
+    (a unit vector for every training and validation unit), timed on the
+    host clock after a synchronize, then stage B.  Prints each round's
+    stage-A time, whether the two rounds' unit vectors agree bit for bit
+    and whether they pick the same subsets -> (bitwise equal, same
+    subsets)."""
+    from repro_torch.core.lastlayer import make_proj_for, units_gradients
+    from repro_torch.core.pgm import _stage_b, _val_target
+    from repro_torch.train.engine import to_device
+
+    us, vs = to_device(units, dev), to_device(val_units, dev)
+    proj = make_proj_for(bundle, torch.Generator().manual_seed(0),
+                         pgm_cfg.sketch_dim_h, pgm_cfg.sketch_dim_v, dev)
+    rounds = []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.time()
+        g = units_gradients(bundle, params, us, proj)
+        gv = units_gradients(bundle, params, vs, proj)
+        torch.cuda.synchronize()
+        secs = time.time() - t0
+        sel = _stage_b(g, pgm_cfg, _val_target(gv, g.shape[0], pgm_cfg)
+                       if pgm_cfg.val_matching else None)
+        rounds.append((g, gv, sel.indices.cpu().tolist(),
+                       sel.weights.cpu().tolist(), secs))
+    (g1, gv1, i1, w1, s1), (g2, gv2, i2, w2, s2) = rounds
+    require(bool(torch.isfinite(g1).all()), f"stage A {tag}: non-finite")
+    bitwise = bool(torch.equal(g1, g2) and torch.equal(gv1, gv2))
+    diff = float((g1 - g2).abs().max() / g1.abs().max())
+    same = i1 == i2 and w1 == w2
+    print(f"[stage A {tag}] {g1.shape[0]} training + {gv1.shape[0]} "
+          f"validation units a round: {s1:.3f} s, {s2:.3f} s (host clock); "
+          f"unit vectors bitwise equal across the two rounds: {bitwise} "
+          f"(max diff {diff:.2e} of the largest entry); same subsets and "
+          f"weights: {same}", flush=True)
+    return bitwise, same
+
+
+def wkv_decays(torch, B, S, H, N, w, g):
+    """Decays in (0.4, 0.99) (``w`` None), all ``w``, or ``"mixed"``: by
+    channel n, n % 3 == 0 below the 1e-8 clip, 1 at 0.999, 2 in (0.4,
+    0.99)."""
+    ww = torch.rand(B, S, H, N, generator=g) * 0.59 + 0.4
+    if w == "mixed":
+        n = torch.arange(N) % 3
+        return torch.where(n == 0, 1e-9, torch.where(n == 1, 0.999, ww))
+    return ww if w is None else torch.full((B, S, H, N), w)
+
+
 def wkv_inputs(torch, B, S, H, N, w, seed, dev):
-    """r, k, v standard normal; decays in (0.4, 0.99) or all ``w``; u of
-    scale 0.1; lw = log(clip(w)); cotangents for y and the final state."""
+    """r, k, v standard normal; decays from ``wkv_decays``; u of scale
+    0.1; lw = log(clip(w)); cotangents for y and the final state."""
     from repro_torch.kernels.rwkv6_scan.ref import log_decay
     g = torch.Generator().manual_seed(seed)
     r, k, v = (torch.randn(B, S, H, N, generator=g) for _ in range(3))
-    ww = (torch.rand(B, S, H, N, generator=g) * 0.59 + 0.4 if w is None
-          else torch.full((B, S, H, N), w))
+    ww = wkv_decays(torch, B, S, H, N, w, g)
     u = torch.randn(H, N, generator=g) * 0.1
     cy = torch.randn(B, S, H, N, generator=g)
     cs = torch.randn(B, H, N, N, generator=g) * 0.1
@@ -774,45 +918,13 @@ def main() -> None:
                    sketch_inputs(torch, *shape, seed=sum(shape), dev=dev))
     print(f"[kernels] grad_sketch edge shapes (U, n, d, V, k1, k2) in "
           f"{SKETCH_EDGES}: ok, two launches bitwise equal", flush=True)
-    ins = sketch_inputs(torch, *SKETCH_MAIN, seed=0, dev=dev)
-    sk_err, sk_rel, sk_vrel = sketch_err(torch, grad_sketch_units_op,
-                                         grad_sketch_units_ref, ins)
-    sk_ms = cuda_ms(torch, lambda: grad_sketch_units_op(*ins), reps=10)
-    sk_plain = cuda_ms(torch, lambda: grad_sketch_units_ref(*ins), reps=5)
-    U, n, d, V, k1, k2 = SKETCH_MAIN
-    # inputs h, w, r_h, r_v, targets, scale read once, the sketch written
-    # once; what the function needs: one h.W product, p.R2, h.R1 and
-    # hr^T.er2
-    sk_ops = 2 * U * n * d * V + 2 * U * n * V * k2 + 2 * U * n * d * k1 \
-        + 2 * U * n * k1 * k2
-    sk_bound, sk_by = bound(
-        4 * (U * n * d + d * V + d * k1 + V * k2 + 2 * U * n + U * k1 * k2),
-        sk_ops)
-    print(f"[kernels] grad_sketch {SKETCH_MAIN}: max_abs_err {sk_err:.3e} "
-          f"({sk_rel:.1e} of the largest entry, {sk_vrel:.1e} of the "
-          f"vocab part's) "
-          f"kernel_ms {sk_ms:.4f} plain_ms {sk_plain:.4f} library_ms none "
-          f"bound_ms {sk_bound:.4f} ({sk_by}) achieved "
-          f"{sk_ops / sk_ms / 1e9:.2f} TFLOP/s", flush=True)
-    del ins
-    # the same kernel at the RWKV path's stage-A unit (untied head)
-    ins = sketch_inputs(torch, *SKETCH_RWKV, seed=1, dev=dev)
-    skr_err, skr_rel, skr_vrel = sketch_err(torch, grad_sketch_units_op,
-                                            grad_sketch_units_ref, ins)
-    skr_ms = cuda_ms(torch, lambda: grad_sketch_units_op(*ins), reps=10)
-    skr_plain = cuda_ms(torch, lambda: grad_sketch_units_ref(*ins), reps=5)
-    U, n, d, V, k1, k2 = SKETCH_RWKV
-    skr_ops = 2 * U * n * d * V + 2 * U * n * V * k2 + 2 * U * n * d * k1 \
-        + 2 * U * n * k1 * k2
-    skr_bound, skr_by = bound(
-        4 * (U * n * d + d * V + d * k1 + V * k2 + 2 * U * n + U * k1 * k2),
-        skr_ops)
-    print(f"[kernels] grad_sketch {SKETCH_RWKV}: max_abs_err {skr_err:.3e} "
-          f"({skr_rel:.1e} of the largest entry, {skr_vrel:.1e} of the "
-          f"vocab part's) kernel_ms {skr_ms:.4f} plain_ms {skr_plain:.4f} "
-          f"library_ms none bound_ms {skr_bound:.4f} ({skr_by}) achieved "
-          f"{skr_ops / skr_ms / 1e9:.2f} TFLOP/s", flush=True)
-    del ins
+    # the LM path's stage-A unit (tied head), then the RWKV path's (untied)
+    sk_err, sk_ms, sk_plain, sk_bound, sk_by = sketch_row(
+        torch, grad_sketch_units_op, grad_sketch_units_ref, SKETCH_MAIN, 0,
+        dev, "lm")
+    skr_err, skr_ms, skr_plain, skr_bound, skr_by = sketch_row(
+        torch, grad_sketch_units_op, grad_sketch_units_ref, SKETCH_RWKV, 1,
+        dev, "rwkv")
 
     for shape in WKV_EDGES:
         wkv_err(torch, rwkv6_wkv_op, shape, dev)
@@ -825,6 +937,14 @@ def main() -> None:
     wkv_ms = cuda_ms(torch, lambda: wkv_forward(*ins, C, True), reps=20)
     wkv_ms_nostate = cuda_ms(torch, lambda: wkv_forward(*ins, C, False),
                              reps=20)
+    # the forward is three launches: each chunk's state increment, the
+    # scan over chunks, each chunk's output
+    phases = kernel_times(torch, lambda: wkv_forward(*ins, C, True), 20)
+    print("[kernels] rwkv6_wkv forward phases (device ms a launch, "
+          "torch.profiler): " + ", ".join(
+              f"{re.search(r'wkv_[a-z]+_kernel', k).group(0)} {v:.4f}"
+              for k, v in phases.items()
+              if re.search(r"wkv_[a-z]+_kernel", k)), flush=True)
     _, _, states = wkv_forward(*ins, C, True)
     wkvb_ms = cuda_ms(torch, lambda: wkv_backward(*ins, states, cy, cs, C),
                       reps=20)
@@ -945,6 +1065,13 @@ def main() -> None:
         with torch.no_grad():
             loss = bundle.per_example_loss(p, u)
         out[where] = (loss.cpu(), rnnt_joint_grad(bundle, p, u).cpu())
+        if where == "cuda":
+            # the fused backward twice: the same dw_out bits (its label
+            # columns are summed by a product, not an atomic scatter)
+            again = rnnt_joint_grad(bundle, p, u).cpu()
+            require(bool(torch.equal(again, out["cuda"][1])),
+                    "rnnt-crdnn: two fused backwards give different dw_out "
+                    "bits")
     require(out["cuda"][0].shape == (UNIT_SIZE,)
             and bool(torch.isfinite(out["cuda"][0]).all())
             and bool(torch.isfinite(out["cuda"][1]).all()),
@@ -955,7 +1082,8 @@ def main() -> None:
                      / out["cpu"][1].abs().max())
     print(f"[agree] rnnt-crdnn unit (B={UNIT_SIZE}, T'={T_main}, "
           f"U+1={U1_main}, V={r.vocab_size}): loss rel err {loss_rel:.2e}, "
-          f"dw_out rel err {grad_rel:.2e} (card kernels vs CPU plain)",
+          f"dw_out rel err {grad_rel:.2e} (card kernels vs CPU plain); "
+          f"dw_out of two fused backwards on the card bitwise equal",
           flush=True)
     require(loss_rel < 1e-4 and grad_rel < 1e-3,
             "card and CPU disagree on the full-width unit")
@@ -1091,7 +1219,8 @@ def main() -> None:
     for s in hist.selections:
         print(f"[main] selection at epoch {s['epoch']}: indices "
               f"{s['indices']} weights "
-              f"{[round(w, 4) for w in s['weights']]}", flush=True)
+              f"{[round(w, 4) for w in s['weights']]} ({s['seconds']:.3f} s, "
+              f"stage A + B)", flush=True)
     print(f"[main] {main_s:.1f} s; launches {launches}", flush=True)
     require(all(n > 0 for n in launches.values()),
             f"a kernel of the main path was never launched: {launches}")
@@ -1101,6 +1230,10 @@ def main() -> None:
             and all(np.isfinite(hist.val_loss)), "non-finite loss")
     require(all(len(s["indices"]) == n_units // 2 for s in hist.selections),
             "selection budget")
+
+    # two stage-A rounds on the trained params (outside the counted run)
+    stage_a_rounds(torch, bundle, hist.final_params, units, val_units, tc.pgm,
+                   dev, "rnnt")
 
     mark("main path, RNN-T")
 
@@ -1155,7 +1288,8 @@ def main() -> None:
     for s in hist.selections:
         print(f"[main lm] selection at epoch {s['epoch']}: indices "
               f"{s['indices']} weights "
-              f"{[round(w, 4) for w in s['weights']]}", flush=True)
+              f"{[round(w, 4) for w in s['weights']]} ({s['seconds']:.3f} s, "
+              f"stage A + B)", flush=True)
     print(f"[main lm] {lm_s:.1f} s, of which {hist.wall_time:.1f} s after "
           f"the init; launches {lm_launches}; "
           f"peak device memory {peak_gb:.2f} GB "
@@ -1175,6 +1309,8 @@ def main() -> None:
 
     # -- 9. where an LM training step's time goes ------------------------
     profile_step(torch, lm, tc_lm, lm_units, dev, hist.final_params, "lm")
+    stage_a_rounds(torch, lm, hist.final_params, lm_units, lm_val, tc_lm.pgm,
+                   dev, "lm")
 
     mark("profile, LM")
 
@@ -1232,7 +1368,8 @@ def main() -> None:
     for s in hist.selections:
         print(f"[main rwkv] selection at epoch {s['epoch']}: indices "
               f"{s['indices']} weights "
-              f"{[round(w, 4) for w in s['weights']]}", flush=True)
+              f"{[round(w, 4) for w in s['weights']]} ({s['seconds']:.3f} s, "
+              f"stage A + B)", flush=True)
     print(f"[main rwkv] {rw_s:.1f} s, of which {hist.wall_time:.1f} s after "
           f"the init; {n_leaves:,} params counted from the leaves; launches "
           f"{rw_launches}; peak device memory {rw_peak_gb:.2f} GB "
@@ -1252,6 +1389,8 @@ def main() -> None:
 
     # -- 12. where an RWKV training step's time goes ---------------------
     profile_step(torch, rw, tc_lm, rw_units, dev, hist.final_params, "rwkv")
+    stage_a_rounds(torch, rw, hist.final_params, rw_units, rw_val, tc_lm.pgm,
+                   dev, "rwkv")
     del hist
 
     mark("profile, RWKV")

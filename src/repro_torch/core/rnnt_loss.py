@@ -141,6 +141,20 @@ def _fused_forward(blank, vocab_chunk, ze, zp, w_out, labels, t_lens,
     return nll, (lpb, lpe, logz, alphas)
 
 
+def label_columns(lab: torch.Tensor, rows: torch.Tensor, V: int
+                  ) -> torch.Tensor:
+    """(J, V) sums of ``rows`` (B, U1, J) into the columns ``lab``
+    (B, U1) names, as the product ``rows^T onehot(lab)``: one matrix
+    product, whose sums run in the same order on every run.  A scatter
+    with ``index_add_`` is an atomic, unordered sum on the card, so
+    stage A's unit vector (this ``dw_out``) would not be a function of
+    the seed alone."""
+    onehot = torch.zeros((lab.numel(), V), dtype=rows.dtype,
+                         device=rows.device).scatter_(
+        1, lab.reshape(-1, 1), 1.0)          # one write a row: no conflict
+    return rows.reshape(-1, rows.shape[-1]).t() @ onehot
+
+
 def _fused_backward(blank, vocab_chunk, ze, zp, w_out, labels, t_lens,
                     u_lens, lpb, lpe, logz, alphas, nll, g):
     """Beta lattice + closed-form occupancy gradient, streamed over T rows
@@ -202,10 +216,8 @@ def _fused_backward(blank, vocab_chunk, ze, zp, w_out, labels, t_lens,
         dpre = dz * (1.0 - z * z)                               # tanh'
         dzp += dpre
         dze[:, t] = dpre.sum(dim=1)
-    # scatter the accumulated -occ_e * z contributions at label columns
-    scatter = torch.zeros((V, J), device=dev).index_add_(
-        0, lab.reshape(-1), dwlab.reshape(-1, J))
-    return dze, dzp, dwo - scatter.t()
+    # the accumulated -occ_e * z contributions at their label columns
+    return dze, dzp, dwo - label_columns(lab, dwlab, V)
 
 
 class _RNNTFused(torch.autograd.Function):

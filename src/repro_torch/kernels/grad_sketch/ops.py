@@ -6,11 +6,14 @@ lm_unit_sketch`` once per unit of every LM selection round (stage A).
 
 The kernel replaces the Pallas TPU kernel
 ``src/repro/kernels/grad_sketch/kernel.py:grad_sketch_units``.  On the
-card it is bound by operations (one fp32 h.W product over the whole
-vocab); it is a tiled fp32 SIMT GEMM (64 x 64 tiles, no TF32) with an
-online softmax and the p.R2 product in its epilogue, one pass over the
-vocab split across blocks so one unit fills the card, and the splits
-merged in a fixed order (the note in the source has the details).
+card it is bound by operations (one h.W product over the whole vocab).
+It runs that product and p.R2 on the tensor cores as 3xTF32 (each
+operand split into a TF32 hi and lo part, three products a pair, each K
+slice into an fp32 accumulator of its own, which keeps fp32 accuracy):
+128 x 128 tiles of ``wgmma`` fed by a ``cp.async`` ring, an online
+softmax in the epilogue, p.R2 on ``mma.sync``; one pass over the vocab
+split across blocks so one unit fills the card, and the partials merged
+in a fixed order (the note in the source has the details).
 
 The kernel reads the head as contiguous (V, d) rows, so on the card
 ``w`` must be the transpose of a contiguous (V, d) tensor: the tied
@@ -30,15 +33,17 @@ from repro_torch.core.lastlayer import streamed_er2
 from repro_torch.kernels import backend
 
 NAME = "grad_sketch"
-BM = BN = 64            # the kernel's row and vocab tiles
-TARGET_BLOCKS = 528     # blocks the vocab split aims at (4 x 132 SMs)
-MAX_K2 = 512            # the (64, k2) er2 accumulator lives in shared memory
+BM = BN = 128           # the kernel's row and vocab tiles
+SLAB = 128              # rows of one block of the hr^T er2 contraction
+TARGET_BLOCKS = 528     # blocks the vocab split aims at (4 waves of one
+                        # 212 KB block on each of 132 SMs)
+MAX_K2 = 512            # k2 is cut into chunks of 64 over the grid
 PLAIN_VOCAB_CHUNK = 8192  # the CPU path's streaming width over the vocab
 
 
 def _launcher():
     fn = backend.library(NAME).grad_sketch_units_launch
-    fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 8 \
+    fn.argtypes = [ctypes.c_void_p] * 12 + [ctypes.c_int] * 8 \
         + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
@@ -105,15 +110,18 @@ def grad_sketch_units_op(h: torch.Tensor, w: torch.Tensor,
     hr = (h @ r_h).contiguous()                                # (U, n, k1)
     rvt = r_v[targets.long().clamp(0, V - 1)].contiguous()     # (U, n, k2)
     S, per = vocab_splits(U, n, V)
-    m_part = torch.empty((S, U, n), dtype=torch.float32, device=h.device)
+    f32 = dict(dtype=torch.float32, device=h.device)
+    m_part = torch.empty((S, U, n), **f32)
     s_part = torch.empty_like(m_part)
-    er2_part = torch.empty((S, U, n, k2), dtype=torch.float32,
-                           device=h.device)
+    er2_part = torch.empty((S, U, n, k2), **f32)
+    er2 = torch.empty((U, n, k2), **f32)
+    part = torch.empty((-(-n // SLAB), U, k1, k2), **f32)
     status = _launcher()(h.data_ptr(), wt.data_ptr(), r_v.data_ptr(),
                          hr.data_ptr(), rvt.data_ptr(), scale.data_ptr(),
                          m_part.data_ptr(), s_part.data_ptr(),
-                         er2_part.data_ptr(), out.data_ptr(), U, n, d, V,
-                         k1, k2, S, per, backend.stream_handle(h.device))
+                         er2_part.data_ptr(), er2.data_ptr(),
+                         part.data_ptr(), out.data_ptr(), U, n, d, V, k1,
+                         k2, S, per, backend.stream_handle(h.device))
     backend.check(NAME, status)
     grad_sketch_units_op.launches += 1
     return out

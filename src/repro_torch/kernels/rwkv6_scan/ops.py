@@ -4,20 +4,24 @@ the plain chunk algebra (``ref.py:wkv_chunked_lw``) and its autograd.
 Consumed by ``models/rwkv6.py:tmix_forward`` in every time-mix layer
 whose sequence takes the chunked branch (S % 64 == 0 and S >= 128).
 
-The forward kernel replaces the Pallas TPU kernel
+The forward kernels replace the Pallas TPU kernel
 ``src/repro/kernels/rwkv6_scan/kernel.py:rwkv6_wkv``; the backward
 kernel replaces ``jax.grad`` of ``src/repro/models/rwkv6.py:wkv_chunked``
 (the reference trains through that function by autodiff).  Both are
-bound by bytes on the card; each runs one block per (batch, head) lane
-with a loop over the chunks, the (N, N) state carried in shared memory,
-and the backward carries dS from the last chunk to the first, starting
-each chunk from the state the forward saved at its start (the note in
-the source has the details).
+bound by bytes on the card.  The forward is three launches, parallel
+over (lane, chunk) where the recurrence allows it (:func:`wkv_grid`):
+each chunk's own state increment, an ordered scan over the chunks that
+leaves the state at every chunk's start, then each chunk's output with
+its pairwise decays factorised over sub-chunks of 16 tokens.  The
+backward runs one block per (batch, head) lane, carrying dS from the
+last chunk to the first and starting each chunk from the state the
+forward saved at its start (the note in the source has the details).
 
-``rwkv6_wkv_op.launches`` counts forward launches and
-``rwkv6_wkv_op.bwd_launches`` backward launches (never plain-path
-calls); ``wkv_forward`` and ``wkv_backward`` are the two launches, which
-the autograd function wraps.
+``rwkv6_wkv_op.launches`` counts forward calls that launched the
+kernels (one per forward, although a forward is three kernel launches)
+and ``rwkv6_wkv_op.bwd_launches`` backward launches (never plain-path
+calls); ``wkv_forward`` and ``wkv_backward`` are the two, which the
+autograd function wraps.
 """
 from __future__ import annotations
 
@@ -31,14 +35,48 @@ from repro_torch.kernels.rwkv6_scan.ref import CHUNK, wkv_chunked_lw
 NAME = "rwkv6_wkv"
 MAX_N = 64              # head dim: the state and a chunk live in shared memory
 MAX_C = 64              # chunk length
+SUB = 16                # the forward's sub-chunk of exact pairwise decays
+FWD_THREADS = 256       # threads of a forward block and of a scan block
 
 
 def _fwd_launcher():
     fn = backend.library(NAME).rwkv6_wkv_fwd_launch
-    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 5 \
+    fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 5 \
         + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
+
+
+def wkv_grid(B: int, S: int, H: int, N: int, C: int):
+    """The forward's launch grid, a function of the shapes only: (blocks
+    of the per-chunk phases (a) and (c), one per (lane, chunk) in
+    lane-major order; blocks of the scan (b), one thread per (lane, n, m)
+    state entry)."""
+    return B * H * (S // C), -(-(B * H * N * N) // FWD_THREADS)
+
+
+def wkv_block(blk: int, H: int, n_chunks: int):
+    """(batch, head, chunk) of a per-chunk block, as the kernels read
+    ``blockIdx.x``."""
+    lane, c = divmod(blk, n_chunks)
+    return lane // H, lane % H, c
+
+
+def subchunk_plan(C: int):
+    """How phase (c) covers a chunk's strictly lower pairs (i, j < i), in
+    the kernel's order: (the diagonal sub-blocks' pairs (i, j), each one
+    thread's exact pairwise sum; the off-diagonal tasks (i, J, half),
+    each the 8 columns 16 J + 8 half + 0..7 of row i, taken through the
+    last token 16 J + 15 of sub-chunk J)."""
+    nsub = -(-C // SUB)
+    pairs, tasks = [], []
+    for I in range(nsub):
+        L = min(SUB, C - I * SUB)
+        pairs += [(I * SUB + a, I * SUB + b)
+                  for a in range(1, L) for b in range(a)]
+        tasks += [(I * SUB + q // I, q % I, half)
+                  for q in range(L * I) for half in (0, 1)]
+    return pairs, tasks
 
 
 def _bwd_launcher():
@@ -70,22 +108,25 @@ def _check(r, k, v, lw, u, chunk: int) -> int:
 
 
 def wkv_forward(r, k, v, lw, u, chunk: int, keep_states: bool):
-    """One launch of the forward kernel on card tensors -> (y, final
-    state, the states at each chunk's start (B H, S/C, N, N) or None)."""
+    """One forward on card tensors (its three kernel launches) -> (y,
+    final state, the states at each chunk's start (B H, S/C, N, N) or
+    None).  The chunk states are the scan's buffer, so they are made
+    either way and returned only when ``keep_states``."""
     C = _check(r, k, v, lw, u, chunk)
     B, S, H, N = r.shape
     y = torch.empty_like(r)
     s_out = torch.empty((B, H, N, N), dtype=torch.float32, device=r.device)
-    states = (torch.empty((B * H, S // C, N, N), dtype=torch.float32,
-                          device=r.device) if keep_states else None)
+    states = torch.empty((B * H, S // C, N, N), dtype=torch.float32,
+                         device=r.device)
+    tot = torch.empty((B * H, S // C, N), dtype=torch.float32,
+                      device=r.device)
     status = _fwd_launcher()(
         r.data_ptr(), k.data_ptr(), v.data_ptr(), lw.data_ptr(),
-        u.data_ptr(), y.data_ptr(), s_out.data_ptr(),
-        None if states is None else states.data_ptr(), B, S, H, N, C,
-        backend.stream_handle(r.device))
+        u.data_ptr(), y.data_ptr(), s_out.data_ptr(), states.data_ptr(),
+        tot.data_ptr(), B, S, H, N, C, backend.stream_handle(r.device))
     backend.check(NAME, status)
     rwkv6_wkv_op.launches += 1
-    return y, s_out, states
+    return y, s_out, (states if keep_states else None)
 
 
 def wkv_backward(r, k, v, lw, u, states, dy, ds, chunk: int):

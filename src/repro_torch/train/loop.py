@@ -119,6 +119,7 @@ def train_with_selection(
     for epoch in range(tc.epochs):
         use_full = method == "full" or epoch < warm
         if not use_full and (selection is None or (epoch - warm) % R == 0):
+            t_sel = time.time()
             new_sel = _select(method, bundle, params, eng.units, tc, epoch,
                               proj, eng.val_units, durations)
             oi = (overlap_index(selection.indices.cpu().numpy(),
@@ -128,11 +129,15 @@ def train_with_selection(
             # a gradient pass over all units costs ~1/3 epoch
             if method in ("pgm", "gradmatch_pb"):
                 hist.cost_units += 1.0 / 3.0
+            indices = selection.indices.cpu().tolist()
+            weights = selection.weights.cpu().tolist()
             hist.selections.append({
                 "epoch": epoch,
-                "indices": selection.indices.cpu().tolist(),
-                "weights": selection.weights.cpu().tolist(),
+                "indices": indices,
+                "weights": weights,
                 "overlap_index": oi,
+                # host clock, the round's results copied back to the host
+                "seconds": time.time() - t_sel,
             })
             log_fn(f"epoch {epoch}: selected {selection.n_selected} units "
                    f"(OI={oi:.3f})")

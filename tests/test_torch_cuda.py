@@ -124,6 +124,31 @@ def test_fused_loss_on_card_matches_cpu(card):
         torch.testing.assert_close(b, a, rtol=1e-4, atol=1e-5)
 
 
+def test_fused_loss_dw_out_is_bitwise_repeatable(card):
+    """The fused backward's dw_out (stage A's unit vector on the RNN-T
+    path) twice on the same inputs: the same bits.  Its label columns are
+    summed by a product, not by an atomic scatter."""
+    rng = np.random.default_rng(3)
+    B, T, U, J, V = 4, 32, 12, 64, 50
+    ze = torch.tensor(rng.normal(size=(B, T, J)).astype(np.float32),
+                      device=card)
+    zp = torch.tensor(rng.normal(size=(B, U + 1, J)).astype(np.float32),
+                      device=card)
+    w0 = (rng.normal(size=(J, V)) * 0.5).astype(np.float32)
+    labels = torch.tensor(rng.integers(1, 4, (B, U)), device=card)
+    lens = (torch.tensor([32, 20, 9, 32], device=card),
+            torch.tensor([12, 7, 3, 12], device=card))
+    grads = []
+    for _ in range(2):
+        w = torch.tensor(w0, device=card, requires_grad=True)
+        rnnt_loss_fused(ze, zp, w, labels, *lens, vocab_chunk=16
+                        ).sum().backward()
+        grads.append(w.grad)
+    torch.cuda.synchronize()
+    assert torch.isfinite(grads[0]).all()
+    assert torch.equal(grads[0], grads[1])
+
+
 def _sketch_inputs(U, n, d, V, k1, k2, seed, dev):
     """Logits of std 4 (w scaled by 4/sqrt(d)), so the softmax is peaked
     and its p.R2 term carries a good part of the sketch; unit 1 (when
@@ -144,7 +169,8 @@ def _sketch_inputs(U, n, d, V, k1, k2, seed, dev):
 @pytest.mark.parametrize("U,n,d,V,k1,k2", [
     (1, 2044, 3072, 49152, 64, 64),            # the LM main path's unit
     (1, 1, 1, 1, 1, 1), (1, 17, 16, 64, 8, 8), (3, 130, 72, 1001, 24, 40),
-    (2, 65, 33, 4099, 64, 100), (4, 511, 256, 8195, 70, 64)])
+    (2, 65, 33, 4099, 64, 100), (4, 511, 256, 8195, 70, 64),
+    (2, 300, 128, 1000, 32, 72)])              # n and V off the 128 tile
 def test_grad_sketch_kernel_matches_plain(card, U, n, d, V, k1, k2):
     ins = _sketch_inputs(U, n, d, V, k1, k2, seed=n + V, dev=card)
     n0 = grad_sketch_units_op.launches
@@ -189,12 +215,18 @@ def test_grad_sketch_wrapper_refuses_what_the_kernel_does_not_take(card):
 
 
 def _wkv_inputs(B, S, H, N, seed, dev, w=None):
-    """r, k, v standard normal; decays in (0.4, 0.99), or all equal to
-    ``w``; u of scale 0.1; lw = log(clip(w, 1e-8, 1))."""
+    """r, k, v standard normal; decays in (0.4, 0.99), all equal to ``w``,
+    or for ``w == "mixed"`` by channel n: n % 3 == 0 below the 1e-8 clip,
+    1 at 0.999, 2 in (0.4, 0.99); u of scale 0.1; lw = log(clip(w, 1e-8,
+    1))."""
     g = torch.Generator().manual_seed(seed)
     r, k, v = (torch.randn(B, S, H, N, generator=g) for _ in range(3))
-    ww = (torch.rand(B, S, H, N, generator=g) * 0.59 + 0.4 if w is None
-          else torch.full((B, S, H, N), w))
+    ww = torch.rand(B, S, H, N, generator=g) * 0.59 + 0.4
+    if w == "mixed":
+        n = torch.arange(N) % 3
+        ww = torch.where(n == 0, 1e-9, torch.where(n == 1, 0.999, ww))
+    elif w is not None:
+        ww = torch.full((B, S, H, N), w)
     u = torch.randn(H, N, generator=g) * 0.1
     cy = torch.randn(B, S, H, N, generator=g)
     cs = torch.randn(B, H, N, N, generator=g) * 0.1
@@ -219,7 +251,9 @@ def _wkv_plain(r, k, v, lw, u, C):
     (4, 512, 40, 64, 64, None),               # the rwkv6-3b main path
     (2, 64, 2, 16, 16, None), (1, 128, 3, 32, 32, None),
     (2, 96, 1, 8, 32, None), (1, 64, 2, 64, 64, None),
-    (1, 64, 1, 8, 16, 1e-6)])                 # decays near zero
+    (1, 64, 1, 8, 16, 1e-6),                  # decays near zero
+    (1, 128, 2, 64, 64, 1e-8),                # every decay at the clip
+    (2, 128, 2, 64, 64, "mixed"), (1, 96, 1, 16, 32, "mixed")])
 def test_wkv_kernels_match_plain_autograd(card, B, S, H, N, C, w):
     """Forward (y, final state) and backward (dr, dk, dv, dlw, du) with
     cotangents on both outputs, against autograd of the plain chunk
@@ -228,7 +262,9 @@ def test_wkv_kernels_match_plain_autograd(card, B, S, H, N, C, w):
     true entries (~2e-5) lie below the fp32 rounding of the terms that
     cancel in it (autograd of the plain version is itself ~3% of its
     largest entry off its fp64 value there, ``scripts/rwkv6_numerics.py``),
-    so it is held finite and within 1e-5 of the largest dr entry."""
+    so it is held finite and within 1e-5 of the largest dr entry; so at
+    the 1e-8 clip and at mixed decays, whose channels at the clip have
+    the same cancellation."""
     ins, cots = _wkv_inputs(B, S, H, N, seed=S + N, dev=card, w=w)
     n0, b0 = rwkv6_wkv_op.launches, rwkv6_wkv_op.bwd_launches
     got = _wkv_run(rwkv6_wkv_op, ins, cots, C)

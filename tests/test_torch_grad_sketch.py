@@ -115,7 +115,9 @@ def test_cpu_wrapper_takes_the_plain_path_and_counts_no_launch():
 
 
 @pytest.mark.parametrize("U,n,V", [(1, 2044, 49152), (3, 23, 131),
-                                   (16, 2044, 49152), (1, 1, 1)])
+                                   (16, 2044, 49152), (1, 1, 1),
+                                   (1, 2044, 65536), (2, 300, 1000),
+                                   (4, 511, 8195)])
 def test_vocab_split_covers_every_tile_once(U, n, V):
     S, per = ops.vocab_splits(U, n, V)
     n_tiles = -(-V // ops.BN)

@@ -122,3 +122,24 @@ def test_chunk_layout_and_auto_chunk_match_reference():
     for rows, v in ((1156, 1000), (5000, 1000), (40000, 32000), (10, 37)):
         assert auto_vocab_chunk(rows, v) == \
             jax_chunking.auto_vocab_chunk(rows, v)
+
+
+@pytest.mark.parametrize("Bq,U1,Jq,Vq", [(3, 5, 6, 13), (4, 33, 16, 1000),
+                                         (2, 9, 4, 3)])
+def test_label_columns_match_the_index_add_scatter(Bq, U1, Jq, Vq):
+    """The fused backward's label-column sum, a one-hot product (its
+    order fixed), against the ``index_add_`` scatter it replaced (an
+    atomic, unordered sum on the card), on labels with repeats: within
+    1e-6 of the largest entry."""
+    rng = np.random.default_rng(Vq)
+    lab = rng.integers(0, Vq, (Bq, U1))
+    lab[:, ::3] = lab[0, 0]                   # one column label many times
+    lab = torch.from_numpy(lab)
+    rows = torch.from_numpy(rng.normal(size=(Bq, U1, Jq)).astype(np.float32))
+    assert torch.unique(lab).numel() < lab.numel()
+    want = torch.zeros((Vq, Jq)).index_add_(
+        0, lab.reshape(-1), rows.reshape(-1, Jq)).t()
+    got = rnnt_loss.label_columns(lab, rows, Vq)
+    assert got.shape == (Jq, Vq)
+    torch.testing.assert_close(got, want, rtol=0,
+                               atol=1e-6 * float(want.abs().max()))
