@@ -9,7 +9,7 @@ failure exits non-zero, and no phase catches an error and carries on:
 
 1. environment: the card's name and power limit; TF32 off everywhere
    (``cudnn.allow_tf32`` defaults to True, which would put the CRDNN
-   convolutions in TF32);
+   convolutions in TF32) and cuDNN on its deterministic algorithms;
 2. build: the five CUDA kernels from the checkout's sources, one
    ``nvcc`` per source, all started together;
 3. kernels: each kernel against its plain PyTorch version on the same
@@ -18,6 +18,8 @@ failure exits non-zero, and no phase catches an error and carries on:
    call's time where one computes the same function, and the least time
    the card could take (bytes over 3.35 TB/s, operations over the peak
    of the inputs' type: fp32 67 TFLOP/s, bf16 989 TFLOP/s, H100 SXM);
+   the lattice at ten row widths from 1 to 12,288 (ring depths 16, 8
+   and 1), twice bitwise, its time a row printed;
    the Gram at stage B's (4, 4, 4096) and at (8, 512, 4096), twice
    bitwise and exactly symmetric, timed in turns with ``torch.bmm``; the
    grad-sketch kernel also launched twice on the same inputs, which
@@ -27,7 +29,8 @@ failure exits non-zero, and no phase catches an error and carries on:
    backward) against the plain chunk algebra and its autograd, twice
    bitwise, at the RWKV path's shape and the reference kernel tests'
    shapes, at decays in (0.4, 0.99), of 1e-6, at the 1e-8 clip and
-   mixed by channel, with the forward's three launches timed apart; the
+   mixed by channel, one chunk (S = C) and C = 32, with the forward's and
+   the backward's three launches timed apart; the
    sliding-window attention kernel (bf16 on the tensor cores, fp32 on
    the SIMT body) at the serving path's prefill shape and at edge shapes
    of both bodies, twice bitwise, timed in turns with
@@ -39,15 +42,17 @@ failure exits non-zero, and no phase catches an error and carries on:
    fp32, through the kernels on the card against the same unit through
    the plain versions on the CPU (per-example loss, the stage-A gradient
    or sketch, and for RWKV one layer's time-mix gradients), the RNN-T
-   unit's fused backward twice on the card with the same dw_out bits;
-   and the
-   2-layer ``starcoder2-3b`` served on a 6,144-token prompt (the band
+   unit's fused backward twice on the card with the same dw_out bits,
+   the RNN-T unit's whole training gradient twice, every leaf bit for
+   bit; and the 2-layer ``starcoder2-3b`` served on a 6,144-token prompt (the band
    branch), prefill and 8 teacher-forced greedy decode steps, card
    against CPU;
 5. main path, RNN-T: ``train_with_selection(method="pgm")`` at the full
    width of ``rnnt-crdnn`` on a synthetic corpus -- warm start, then a PGM
    round (stage A + stage B) before each subset epoch, each round's time
-   printed; then two stage-A rounds on the trained params, timed, with
+   printed; the same path again with the same seed, its launches counted
+   apart, which must print the same losses and pick the same subsets and
+   weights; then two stage-A rounds on the trained params, timed, with
    whether their unit vectors agree bit for bit and whether they pick
    the same subsets (so also after the LM and RWKV profiles);
 6. profile, RNN-T: one training step under ``torch.profiler`` (host wall
@@ -126,12 +131,17 @@ SKETCH_EDGES = ((1, 1, 1, 1, 1, 1), (1, 17, 16, 64, 8, 8),
 # WKV shapes (B, S, H, N, C, decay): the RWKV main path's time-mix, and the
 # reference kernel tests' (tests/test_kernels.py), with decays in (0.4,
 # 0.99), all 1e-6, all at the 1e-8 clip, or mixed by channel (the clip,
-# 0.999 and (0.4, 0.99))
+# 0.999 and (0.4, 0.99)); then one chunk (S = C) and C = 32 at N = 64
 WKV_MAIN = (UNIT_SIZE, LM_SEQ, 40, 64, 64, None)
 WKV_EDGES = ((2, 64, 2, 16, 16, None), (1, 128, 3, 32, 32, None),
              (2, 96, 1, 8, 32, None), (1, 64, 2, 64, 64, None),
              (1, 64, 1, 8, 16, 1e-6), (1, 128, 2, 64, 64, 1e-8),
-             (2, 128, 2, 64, 64, "mixed"), (1, 96, 1, 16, 32, "mixed"))
+             (2, 128, 2, 64, 64, "mixed"), (1, 96, 1, 16, 32, "mixed"),
+             (2, 32, 2, 16, 32, "mixed"), (1, 128, 2, 64, 32, 1e-8))
+# lattice row widths: the reference kernel tests' and the transducer's,
+# then 257, the first past the 16-row ring (1,186) and the largest the
+# wrapper takes (12,288, a ring of one row)
+LATTICE_U1 = (1, 2, 5, 17, 33, 65, 129, 257, 1186, 12288)
 
 
 # sliding-window attention (B, S, KV, G, hd, window, dtype, lengths): the
@@ -333,6 +343,23 @@ def sketch_row(torch, op, ref, shape, seed, dev, tag):
           f"bound)", flush=True)
     del ins
     return (err, k_ms, p_ms) + min((fp32_ms, fp32_by), (tf32_ms, tf32_by))
+
+
+def leaf_names(tree, prefix: str = ""):
+    """Names of a params tree's leaves in ``tree_leaves`` order (dict keys
+    sorted)."""
+    if isinstance(tree, dict):
+        return [n for k in sorted(tree)
+                for n in leaf_names(tree[k], f"{prefix}{k}.")]
+    return [prefix[:-1]]
+
+
+def rnnt_run_record(hist):
+    """What one RNN-T main path printed: every epoch's train and val loss
+    and every round's indices and weights, for a same-seed comparison."""
+    return (list(hist.train_loss), list(hist.val_loss),
+            [(s["epoch"], list(s["indices"]), list(s["weights"]))
+             for s in hist.selections])
 
 
 def kernel_times(torch, fn, reps: int):
@@ -813,7 +840,8 @@ def main() -> None:
     from repro_torch.models.common import tree_leaves, tree_map
     from repro_torch.kernels.omp_gram.ops import omp_gram_batched_op
     from repro_torch.kernels.omp_gram.ref import omp_gram_batched_ref
-    from repro_torch.kernels.rnnt_lattice.ops import rnnt_lattice_op
+    from repro_torch.kernels.rnnt_lattice.ops import (ring_depth,
+                                                      rnnt_lattice_op)
     from repro_torch.kernels.rnnt_lattice.ref import rnnt_lattice_ref
     from repro_torch.kernels.rwkv6_scan.ops import (rwkv6_wkv_op,
                                                     wkv_backward, wkv_forward)
@@ -857,16 +885,23 @@ def main() -> None:
     U1_main = CORPUS["max_tokens"] + 1
     lat_shape = (T_main, UNIT_SIZE, U1_main)
     for T in (1, 9):
-        for U1 in (1, 2, 5, 17, 33, 65, 129):
+        for U1 in LATTICE_U1:
             ins = lattice_inputs(torch, T, 3, U1, seed=U1, dev=dev)
-            got = rnnt_lattice_op(*ins)
+            got, again = rnnt_lattice_op(*ins), rnnt_lattice_op(*ins)
             torch.cuda.synchronize()
+            require(bool(torch.equal(got, again)),
+                    f"rnnt_lattice ({T}, 3, {U1}): two launches differ")
             lattice_err(torch, got, rnnt_lattice_ref(*ins))
-    print("[kernels] rnnt_lattice edge shapes T in (1, 9), U1 in "
-          "(1, 2, 5, 17, 33, 65, 129): ok", flush=True)
+    print(f"[kernels] rnnt_lattice edge shapes T in (1, 9), U1 in "
+          f"{LATTICE_U1} (ring depths "
+          f"{sorted({ring_depth(u) for u in LATTICE_U1}, reverse=True)}): "
+          f"ok, two launches bitwise equal", flush=True)
     ins = lattice_inputs(torch, *lat_shape, seed=0, dev=dev)
-    lat_err = lattice_err(torch, rnnt_lattice_op(*ins),
-                          rnnt_lattice_ref(*ins))
+    got, again = rnnt_lattice_op(*ins), rnnt_lattice_op(*ins)
+    torch.cuda.synchronize()
+    require(bool(torch.equal(got, again)),
+            f"rnnt_lattice {lat_shape}: two launches differ")
+    lat_err = lattice_err(torch, got, rnnt_lattice_ref(*ins))
     lat_ms = cuda_ms(torch, lambda: rnnt_lattice_op(*ins), reps=200)
     lat_plain = cuda_ms(torch, lambda: rnnt_lattice_ref(*ins), reps=5)
     cells = math.prod(lat_shape)
@@ -874,8 +909,10 @@ def main() -> None:
     # log1p, add); 3 inputs read, 1 output written
     lat_bound, lat_by = bound(16 * cells, 14 * cells)
     print(f"[kernels] rnnt_lattice {lat_shape}: max_abs_err {lat_err:.3e} "
-          f"kernel_ms {lat_ms:.4f} plain_ms {lat_plain:.4f} bound_ms "
-          f"{lat_bound:.6f} ({lat_by})", flush=True)
+          f"kernel_ms {lat_ms:.4f} ({lat_ms * 1e3 / lat_shape[0]:.3f} us a "
+          f"row, ring of {ring_depth(lat_shape[2])}) plain_ms "
+          f"{lat_plain:.4f} library_ms none bound_ms {lat_bound:.6f} "
+          f"({lat_by}); two launches bitwise equal", flush=True)
 
     n_units = CORPUS["n_examples"] // UNIT_SIZE
     P_main = 4
@@ -944,10 +981,19 @@ def main() -> None:
           "torch.profiler): " + ", ".join(
               f"{re.search(r'wkv_[a-z]+_kernel', k).group(0)} {v:.4f}"
               for k, v in phases.items()
-              if re.search(r"wkv_[a-z]+_kernel", k)), flush=True)
+              if re.search(r"wkv_(chunk|scan|out)_kernel", k)), flush=True)
     _, _, states = wkv_forward(*ins, C, True)
     wkvb_ms = cuda_ms(torch, lambda: wkv_backward(*ins, states, cy, cs, C),
                       reps=20)
+    # the backward is three launches: each chunk's increment of the state
+    # gradient, the reverse scan over chunks, each chunk's gradients
+    phases = kernel_times(
+        torch, lambda: wkv_backward(*ins, states, cy, cs, C), 20)
+    print("[kernels] rwkv6_wkv backward phases (device ms a launch, "
+          "torch.profiler): " + ", ".join(
+              f"{re.search(r'wkv_bwd_[a-z]+_kernel', k).group(0)} {v:.4f}"
+              for k, v in phases.items()
+              if re.search(r"wkv_bwd_[a-z]+_kernel", k)), flush=True)
     with torch.no_grad():
         wkv_plain_ms = cuda_ms(torch, lambda: wkv_plain(torch, *ins, C),
                                reps=5)
@@ -1087,6 +1133,29 @@ def main() -> None:
           flush=True)
     require(loss_rel < 1e-4 and grad_rel < 1e-3,
             "card and CPU disagree on the full-width unit")
+    # F3: the whole training gradient twice from the same params and
+    # batch, every leaf equal bit for bit (with cudnn.deterministic False
+    # the convolution leaves differed from run to run)
+    ub = {k: v.to(dev) for k, v in unit.items()}
+    full = []
+    for _ in range(2):
+        live = tree_map(lambda x: x.detach().requires_grad_(True), params_dev)
+        total, _ = bundle.loss_fn(live, ub)
+        full.append(torch.autograd.grad(total, tree_leaves(live)))
+    torch.cuda.synchronize()
+    names = leaf_names(params_dev)
+    differ = [n for n, a, b in zip(names, *full) if not torch.equal(a, b)]
+    require(len(full[0]) == len(names)
+            and all(bool(torch.isfinite(g).all()) for g in full[0]),
+            "rnnt-crdnn: non-finite training gradient on the card")
+    print(f"[agree] rnnt-crdnn training gradient twice on the card: "
+          f"{len(names)} leaves, {len(names) - len(differ)} bitwise equal"
+          f"{'; differ: ' + str(differ) if differ else ''} "
+          f"(cudnn.deterministic {torch.backends.cudnn.deterministic}, "
+          f"benchmark {torch.backends.cudnn.benchmark})", flush=True)
+    require(not differ, f"rnnt-crdnn: the training gradient is not bitwise "
+                        f"repeatable in {differ}")
+    del full, live, total, ub
 
     lm_cfg = get_config("starcoder2-3b")
     cfg2 = dataclasses.replace(lm_cfg, n_layers=2, compute_dtype="float32")
@@ -1230,6 +1299,30 @@ def main() -> None:
             and all(np.isfinite(hist.val_loss)), "non-finite loss")
     require(all(len(s["indices"]) == n_units // 2 for s in hist.selections),
             "selection budget")
+
+    # F3: the same main path again, same seed, its launches counted apart
+    # from the first run's: every epoch's losses and every round's subset
+    # and weights must come out the same
+    first = rnnt_run_record(hist)
+    rnnt_lattice_op.launches = 0
+    omp_gram_batched_op.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.time()
+    hist2 = train_with_selection(
+        bundle, units, tc, method="pgm", val_units=val_units, device="cuda",
+        log_fn=lambda s: print(f"[main again +{time.time() - t0:.1f}s] {s}",
+                               flush=True))
+    torch.cuda.synchronize()
+    again_launches = {"rnnt_lattice": rnnt_lattice_op.launches,
+                      "omp_gram": omp_gram_batched_op.launches}
+    same_run = rnnt_run_record(hist2) == first
+    print(f"[main again] the RNN-T main path a second time with seed "
+          f"{tc.seed}: {time.time() - t0:.1f} s; launches {again_launches}; "
+          f"every epoch's train and val loss and every round's indices and "
+          f"weights equal to the first run's: {same_run}", flush=True)
+    require(same_run, f"two RNN-T main paths of one seed differ: "
+                      f"{first} against {rnnt_run_record(hist2)}")
+    del hist2
 
     # two stage-A rounds on the trained params (outside the counted run)
     stage_a_rounds(torch, bundle, hist.final_params, units, val_units, tc.pgm,

@@ -73,9 +73,17 @@ def on_card(*tensors: torch.Tensor) -> bool:
 def fp32_numerics() -> None:
     """Full fp32 everywhere: no TF32 in matmuls, cuDNN convolutions or
     RNNs (``cudnn.allow_tf32`` defaults to True), matmul precision
-    "highest" — the reference's fp32 numerics."""
+    "highest" — the reference's fp32 numerics.  cuDNN also runs only its
+    deterministic algorithms, chosen by its heuristics rather than by
+    timing (``benchmark`` off): with ``cudnn.deterministic`` False the
+    second CRDNN convolution's backward differed from run to run on an
+    H100 (its weight gradient, and its data gradient, which reaches
+    ``conv0.w`` and ``conv0.b``), so one seed did not give one RNN-T
+    training run."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
     torch.set_float32_matmul_precision("highest")
 
 

@@ -6,9 +6,12 @@ every loss forward and the beta lattice of every backward.
 The kernel replaces the Pallas TPU kernel
 ``src/repro/kernels/rnnt_lattice/kernel.py:rnnt_lattice``.  On the card it
 is bound by latency, not bytes or operations: T dependent rows, each an
-in-row scan.  So one warp owns one batch row, loops over T inside the
-block, and scans each row with warp shuffles in 32-wide pieces with a
-carried prefix (the note in the source has the details).
+in-row scan.  So one warp owns one batch row and loops over T inside the
+block; a ``cp.async`` ring keeps the next rows in shared memory
+(:func:`ring_depth`); lane l owns ``q = ceil(U1 / 32)`` consecutive
+columns, so a row is a sequential combine over the lane's columns, one
+shuffle scan of the lanes' aggregates and a fix-up (the note in the
+source has the details, :func:`lane_columns` the column split).
 
 ``rnnt_lattice_op.launches`` counts kernel launches (never plain-path
 calls), so a run can show that its main path went through the kernel.
@@ -23,9 +26,27 @@ from repro_torch.kernels import backend
 from repro_torch.kernels.rnnt_lattice.ref import rnnt_lattice_ref
 
 NAME = "rnnt_lattice"
-# one warp per batch row keeps the previous row in (default, <= 48 KB)
-# shared memory
+WARP = 32
 MAX_U1 = 12288
+SMEM_MAX = 232448       # dynamic shared memory a block may take (H100)
+
+
+def ring_depth(U1: int) -> int:
+    """Rows the kernel's ring holds ahead (its ``ring_depth``): 16
+    where the previous row and 16 slots of (mult, add, emit) fit in a
+    block's shared memory, else the largest power of two that does (1 at
+    ``MAX_U1``)."""
+    for depth in (16, 8, 4, 2):
+        if 4 * (-(-U1 // 4) * 4 + depth * 3 * U1) <= SMEM_MAX:
+            return depth
+    return 1
+
+
+def lane_columns(U1: int):
+    """[u0, u1) of each of the warp's 32 lanes: q = ceil(U1 / 32)
+    consecutive columns a lane, empty past the row's end."""
+    q = -(-U1 // WARP)
+    return [(min(l * q, U1), min(l * q + q, U1)) for l in range(WARP)]
 
 
 def _launcher():

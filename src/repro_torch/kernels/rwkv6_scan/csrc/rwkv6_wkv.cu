@@ -7,26 +7,32 @@
 // Per (batch, head) lane and chunk of C tokens, with lw = log(clip(w))
 // computed outside (so autograd carries its gradient):
 //
-//   cum_i  = sum_{j<=i} lw_j,   cp_i = cum_i - lw_i          (per channel)
-//   y      = (r * e^{cp}) S + [sum_n r_in k_jn e^{min(cp_in - cum_jn, 0)}]_{j<i} v
+//   cum_i  = sum_{j<=i} lw_j,  cp_i = cum_{i-1} (0 at i = 0)  (per channel)
+//   y      = (r * e^{cp}) S
+//            + [sum_n r_in k_jn e^{min(cp_in - cum_jn, 0)}]_{j<i} v
 //            + (r_i . (u * k_i)) v_i
 //   S'     = diag(e^{cum_C}) S + (k * e^{cum_C - cum})^T v
 //
+// The reference writes cp_i as cum_i - lw_i, the same value in exact
+// arithmetic; cum_{i-1} keeps the j = i - 1 decay exactly 1 and stays
+// within 1e-6 of a float64 scan where cum - lw sits 2-6e-5 off at C = 64
+// under strong decays (tests/test_torch_designs.py).
+//
 // Backward: replaces jax.grad of models/rwkv6.py:wkv_chunked (the
-// reference has no backward kernel).  It runs the chunk algebra in
-// reverse, carrying dS from the last chunk to the first and starting
-// each chunk from the state the forward saved at its start, so nothing
+// reference has no backward kernel), and is the exact gradient of the
+// forward's algebra above (cp_i = cum_{i-1}, the same sub-chunks).  Each
+// chunk starts from the state the forward saved at its start, so nothing
 // divides by a decay (a per-step reverse scan that recovers S_{t-1} as
 // (S_t - k v) / w blows up at decays near 1e-6).  The gradient through
-// min(., 0) is taken whole: the pairwise exponents are <= 0 except where
-// rounding makes the j = i - 1 one a few ulp positive, and that term's
-// contributions to dlw cancel exactly in the algebra (it is sum over an
-// empty range); exact ties (w rounding to 1.0) differ from autodiff,
-// which splits the gradient there.
+// min(., 0) is taken whole: the exponents are <= 0 by construction (a
+// float sum of non-positive lw never grows); exact ties (w rounding to
+// 1.0) differ from autodiff, which splits the gradient there.
 //
 // What bounds them on this card: bytes.  The forward reads r, k, v, lw
 // and writes y (5 B S H N floats) plus the chunk states; its least work
-// is ~4 N^2 FLOP per (token, head), far below the fp32 ridge.
+// is ~4 N^2 FLOP per (token, head), far below the fp32 ridge.  The
+// backward reads r, k, v, lw, dy and the chunk states and writes dr, dk,
+// dv, dlw; ~8 N^2 FLOP per (token, head).
 //
 // Forward design: three launches, parallel over (lane, chunk) where the
 // recurrence allows it (1,280 blocks at the rwkv6-3b shape, B 4, H 40,
@@ -44,35 +50,74 @@
 // A diagonal sub-block (i, j in the same sub-chunk, j < i) keeps the
 // exact pairwise e^{min(cp_i - cum_j, 0)}; an off-diagonal one (i in
 // sub-chunk I, j in an earlier J whose last token is b) factorises as
-// e^{cp_i - cum_b} e^{cum_b - cum_j}, both exponents <= 0 (a float sum of
-// non-positive lw never grows) and each clamped at 0, so nothing
-// overflows even at the 1e-8 clip (lw = -18.42 a token, -1,179 over a
-// 64-token chunk), and the sub-block becomes a small product (r e^{cp -
-// cum_b}) (k e^{cum_b - cum})^T.  A single factorisation across the whole
-// chunk about one reference point would overflow fp32 at such decays.
-// At C = 64 that is ~9k exponentials for the off-diagonal sub-blocks and
-// ~31k for the diagonal ones a chunk, against C^2 N / 2 = 131k before.
-// Rows are read with 16-byte loads where N % 4 == 0 and the rows are
-// 16-byte aligned.  Every sum runs in a fixed order and there are no
-// atomics: two launches on the same inputs agree bit for bit.  The
-// wrapper counts the three launches as one forward launch.
+// e^{cp_i - cum_b} e^{cum_b - cum_j}, both exponents <= 0 and each
+// clamped at 0, so nothing overflows even at the 1e-8 clip (lw = -18.42
+// a token, -1,179 over a 64-token chunk), and the sub-block becomes a
+// small product (r e^{cp - cum_b}) (k e^{cum_b - cum})^T.  A single
+// factorisation across the whole chunk about one reference point would
+// overflow fp32 at such decays.  At C = 64 that is ~9k exponentials for
+// the off-diagonal sub-blocks and ~31k for the diagonal ones a chunk,
+// against C^2 N / 2 = 131k before.  Rows are read with 16-byte loads
+// where N % 4 == 0 and the rows are 16-byte aligned.  Every sum runs in
+// a fixed order and there are no atomics: two launches on the same
+// inputs agree bit for bit.  The wrapper counts the three launches as
+// one forward launch.
+//
+// Backward design: three launches, the forward's shape run in reverse.
+// With D_c the gradient of the state after chunk c (D_{nC-1} = the final
+// state's cotangent) and r_dec = r e^{cp}:
+//   (a) wkv_bwd_inc_kernel, a block per (lane, chunk c >= 1): the chunk's
+//       increment r_dec^T dy (N x N) and its total decay, into a scratch
+//       buffer of the chunk-state size and a tot buffer;
+//   (b) wkv_bwd_scan_kernel, a thread per (lane, n, m): the ordered
+//       reverse scan D_{c-1} = e^{tot_c} D_c + inc_c, in place, leaving
+//       D_c in slot c of the scratch buffer;
+//   (c) wkv_bwd_grad_kernel, a block per (lane, chunk): from the chunk's
+//       start state (the forward's) and D_c, with no carry between
+//       blocks: dr, dk, dv, dlw of the chunk and a du partial a (lane,
+//       chunk), which the wrapper sums over fixed axes.
+// The 64-wide products (dy S^T, v D^T, k_dec D, dy v^T, A^T dy in (c),
+// r_dec^T dy in (a)) run on the tensor cores as 3xTF32 mma.sync
+// m16n8k8: each operand split into TF32 hi + lo by integer rounding,
+// lo.hi + hi.lo + hi.hi, lo.lo dropped; a warp owns a 16-row tile and
+// four 8-column tiles, so one A fragment feeds four accumulators.  The
+// pairwise terms (A, and the dA-weighted pv = sum_j dA_ij k_j e^{cp_i -
+// cum_j} and qv = sum_i dA_ij r_i e^{cp_i - cum_j}) use the forward's
+// sub-chunks: exact exponentials on the diagonal sub-blocks; off them,
+// two factors with exponents <= 0 (A and pv through the last token of
+// j's sub-chunk, qv through the first token of i's).  A's off-diagonal
+// sub-blocks are 3xTF32 products too; pv, qv and the row gradients run a
+// thread per (sub-chunk, channel), its 16 rows' sums in registers, and
+// dlw sums each sub-chunk's rows, then the sub-chunks' totals in order.
+// The j = i - 1 terms have a decay of exactly 1 for any lw (cp_i =
+// cum_{i-1}): they enter dr and dk but are kept out of the log-decay
+// gradients, where the two that the chunk algebra adds (through cp_i and
+// through cum_{i-1}) cancel exactly; summing them in anyway left dlw
+// ~0.16 of its largest entry off a float64 scan at decays of 1e-6 (the
+// plain autograd: ~0.08), against 3e-5 without them.  Block (c) holds
+// six chunk-sized arrays and a few short vectors, 108,032 B at C = N =
+// 64, so two blocks fit on an SM: the state and its gradient are
+// replaced by r and by the pairwise matrices (dA below the diagonal, A
+// transposed above it) once the products that read them are done.  Rows
+// land by cp.async, 16 bytes a copy where N % 4 == 0 and the rows are
+// 16-byte aligned.  No atomics; every sum in a fixed order.  The wrapper
+// counts the three launches as one backward launch.
 //
 // Tried and dropped: the first port ran one block of 512
 // threads per lane over its chunks in order (160 blocks on 132 SMs, a
 // full wave and a second of 28) with one accurate expf per pairwise term:
-// 0.87 ms at the rwkv6-3b shape on an H100, 23x its bytes bound.
-//
-// Backward design: one block of 512 threads per (b, h) lane loops over
-// the chunks from the last to the first, dS carried in shared memory.  A
-// chunk's r, k, v, lw and dy rows are read in place from the (B, S, H, N)
-// tensors into shared memory with rows padded to N + 1 floats.  Every
-// phase is a grid-stride loop over its entries with fixed-order sums, no
-// atomics.  du is written per lane; the wrapper sums it over the batch.
+// 0.87 ms at the rwkv6-3b shape on an H100, 23x its bytes bound.  Its
+// backward had the same shape, carrying dS from the last chunk to the
+// first in shared memory (200,448 B, one block an SM), every product
+// fp32 SIMT, three loops of C^2 N / 2 accurate expf, and cp = cum - lw:
+// 1.8226 ms at the rwkv6-3b shape on an H100 (NVIDIA H100 80GB HBM3,
+// 700 W), 29x its bytes bound.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#define THREADS 512
-#define THREADS_F 256
+#define THREADS_F 256     // a forward block, a scan block
+#define THREADS_B 256     // a backward block: 8 warps
+#define TPW 4             // 16 x 8 mma tiles a warp (64 x 64 / 8)
 #define MAXN 64
 #define MAXC 64
 #define SUB 16
@@ -86,10 +131,6 @@ struct Dims {
 // Offset of (b, s, h, 0) in a contiguous (B, S, H, N) tensor.
 __device__ __forceinline__ size_t row_off(const Dims& d, int b, int s, int h) {
     return (((size_t)b * d.S + s) * d.H + h) * d.N;
-}
-
-__device__ __forceinline__ float pair_decay(float cp_i, float cum_j) {
-    return expf(fminf(cp_i - cum_j, 0.0f));
 }
 
 // e^{min(x, 0)} for the forward's decays: the exponent is formed as a
@@ -400,178 +441,634 @@ wkv_out_kernel(const float* __restrict__ r, const float* __restrict__ k,
     }
 }
 
-__global__ void __launch_bounds__(THREADS)
-wkv_bwd_kernel(const float* __restrict__ r, const float* __restrict__ k,
-               const float* __restrict__ v, const float* __restrict__ lw,
-               const float* __restrict__ u, const float* __restrict__ states,
-               const float* __restrict__ dy, const float* __restrict__ ds_out,
-               float* __restrict__ dr, float* __restrict__ dk,
-               float* __restrict__ dv, float* __restrict__ dlw,
-               float* __restrict__ du_lane, Dims d) {
-    extern __shared__ float smem[];
-    const int N = d.N, C = d.C, P = d.N + 1, PC = d.C + 1;
-    float* rs = smem;                 // r                         (C x P)
-    float* ks = rs + C * P;           // k                         (C x P)
-    float* vs = ks + C * P;           // v, then g = dk_dec k_dec  (C x P)
-    float* ys = vs + C * P;           // dy                        (C x P)
-    float* cs = ys + C * P;           // lw, cum, then d(cum) all  (C x P)
-    float* ps = cs + C * P;           // cp, then d(cp)            (C x P)
-    float* rd = ps + C * P;           // r * e^{cp}                (C x P)
-    float* kd = rd + C * P;           // k * e^{tot - cum}         (C x P)
-    float* As = kd + C * P;           // pairwise matrix           (C x PC)
-    float* dA = As + C * PC;          // its gradient (masked)     (C x PC)
-    float* Ss = dA + C * PC;          // state at the chunk start  (N x P)
-    float* dS = Ss + N * P;           // gradient of the state after it
-    float* dg = dS + N * P;           // diagonal bonus            (C)
-    float* ddg = dg + MAXC;           // its gradient              (C)
-    float* tt = ddg + MAXC;           // tot = cum_{C-1}           (N)
+// ---------------------------------------------------------------------------
+// Backward
+// ---------------------------------------------------------------------------
 
-    const int lane = blockIdx.x;
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+    return (uint32_t)__cvta_generic_to_shared(p);
+}
+
+__device__ __forceinline__ void cp_async16(float* dst, const float* src) {
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n"
+                 :: "r"(smem_u32(dst)), "l"(src) : "memory");
+}
+
+__device__ __forceinline__ void cp_async4(float* dst, const float* src) {
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n"
+                 :: "r"(smem_u32(dst)), "l"(src) : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit_wait_all() {
+    asm volatile("cp.async.commit_group;\n" ::: "memory");
+    asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+// tf32(x), rounded to nearest with ties away from zero (cvt.rna.tf32.f32)
+// as two integer operations on the bits (this source keeps its own copy
+// of the grad sketch's split: each source builds alone)
+__device__ __forceinline__ uint32_t tf32_rna(float x) {
+    return (__float_as_uint(x) + 0x1000u) & 0xFFFFE000u;
+}
+
+// x = hi + lo, hi = tf32(x), lo = tf32(x - hi)
+__device__ __forceinline__ void split_tf32(float x, uint32_t& hi,
+                                           uint32_t& lo) {
+    hi = tf32_rna(x);
+    lo = tf32_rna(x - __uint_as_float(hi));
+}
+
+__device__ __forceinline__ void mma_tf32(float* c, const uint32_t a[4],
+                                         const uint32_t b[2]) {
+    asm volatile(
+        "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+        "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+        : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]),
+          "r"(b[1]));
+}
+
+// acc += a . b over depth K for the one 16 x 8 tile at (r0, c0), as
+// mma_3xtf32 below (3xTF32 on mma.sync m16n8k8).
+template <typename FA, typename FB>
+__device__ __forceinline__ void mma_tile_3xtf32(float (&acc)[4], int r0,
+                                                int c0, int K, FA a, FB b) {
+    const int g = (threadIdx.x & 31) >> 2, t = threadIdx.x & 3;
+#pragma unroll 2
+    for (int k0 = 0; k0 < K; k0 += 8) {
+        uint32_t ah[4], al[4], bh[2], bl[2];
+        split_tf32(a(r0 + g, k0 + t), ah[0], al[0]);
+        split_tf32(a(r0 + g + 8, k0 + t), ah[1], al[1]);
+        split_tf32(a(r0 + g, k0 + t + 4), ah[2], al[2]);
+        split_tf32(a(r0 + g + 8, k0 + t + 4), ah[3], al[3]);
+        split_tf32(b(k0 + t, c0 + g), bh[0], bl[0]);
+        split_tf32(b(k0 + t + 4, c0 + g), bh[1], bl[1]);
+        mma_tf32(acc, al, bh);
+        mma_tf32(acc, ah, bl);
+        mma_tf32(acc, ah, bh);
+    }
+}
+
+// acc[s] += a . b over depth K for the 16 x 8 tiles of a (rows x cols)
+// output (rows, cols <= 64) that this warp owns: row tile warp / 2 and
+// the four column tiles 4 (warp % 2) + s, so one A fragment a k step
+// serves four independent accumulators.  3xTF32 on mma.sync m16n8k8:
+// lo.hi + hi.lo + hi.hi.  a(row, k) and b(k, col) read shared memory and
+// return 0 outside (rows, K) and (K, cols).  Fragment layout (PTX ISA,
+// m16n8k8 .tf32): g = lane / 4, t = lane % 4; a0 (g, t), a1 (g + 8, t),
+// a2 (g, t + 4), a3 (g + 8, t + 4); b0 (t, g), b1 (t + 4, g); c_e at row
+// g + 8 (e / 2), column 2 t + e % 2.
+template <typename FA, typename FB>
+__device__ __forceinline__ void mma_3xtf32(float (&acc)[TPW][4], int rows,
+                                           int K, FA a, FB b) {
+    const int warp = threadIdx.x >> 5, g = (threadIdx.x & 31) >> 2,
+              t = threadIdx.x & 3;
+    const int r0 = (warp >> 1) * 16, c0 = (warp & 1) * TPW * 8;
+    if (r0 >= rows) return;
+#pragma unroll 2
+    for (int k0 = 0; k0 < K; k0 += 8) {
+        uint32_t ah[4], al[4];
+        split_tf32(a(r0 + g, k0 + t), ah[0], al[0]);
+        split_tf32(a(r0 + g + 8, k0 + t), ah[1], al[1]);
+        split_tf32(a(r0 + g, k0 + t + 4), ah[2], al[2]);
+        split_tf32(a(r0 + g + 8, k0 + t + 4), ah[3], al[3]);
+#pragma unroll
+        for (int s = 0; s < TPW; ++s) {
+            uint32_t bh[2], bl[2];
+            split_tf32(b(k0 + t, c0 + 8 * s + g), bh[0], bl[0]);
+            split_tf32(b(k0 + t + 4, c0 + 8 * s + g), bh[1], bl[1]);
+            mma_tf32(acc[s], al, bh);
+            mma_tf32(acc[s], ah, bl);
+            mma_tf32(acc[s], ah, bh);
+        }
+    }
+}
+
+// (row, col) of accumulator entry e of tile s of this thread, as
+// mma_3xtf32 walks an output of ``rows`` rows; row -1 when the warp has
+// no rows there.
+__device__ __forceinline__ void tile_pos(int s, int e, int rows, int& row,
+                                         int& col) {
+    const int warp = threadIdx.x >> 5, g = (threadIdx.x & 31) >> 2,
+              t = threadIdx.x & 3;
+    const int r0 = (warp >> 1) * 16;
+    row = r0 >= rows ? -1 : r0 + g + 8 * (e >> 1);
+    col = ((warp & 1) * TPW + s) * 8 + 2 * t + (e & 1);
+}
+
+// Shared-memory layout of the backward's blocks: rows of width N padded
+// to PN (a multiple of 4, + 4, so 16-byte copies land aligned and the
+// fragment reads spread over the banks), pairwise rows to PC.
+struct BwdLayout {
+    int PN, PC, row, flex;
+};
+
+__host__ __device__ __forceinline__ BwdLayout bwd_layout(int C, int N) {
+    BwdLayout L;
+    L.PN = ((N + 3) & ~3) + 4;
+    L.PC = ((C + 3) & ~3) + 4;
+    L.row = C * L.PN;
+    L.flex = (C > N ? C : N) * (L.PN > L.PC ? L.PN : L.PC);
+    return L;
+}
+
+// The C rows of chunk c of lane (b, h) of a (B, S, H, N) tensor into a
+// (C, ld) shared array by cp.async (16-byte copies when d.vec, else 4);
+// the caller commits and waits.
+__device__ __forceinline__ void load_chunk_async(float* dst, int ld,
+                                                 const float* src,
+                                                 const Dims& d, int b,
+                                                 int c, int h) {
+    const int N = d.N;
+    if (d.vec) {
+        const int N4 = N / 4;
+        for (int e = threadIdx.x; e < d.C * N4; e += blockDim.x) {
+            const int i = e / N4, q = e % N4;
+            cp_async16(dst + i * ld + 4 * q,
+                       src + row_off(d, b, c * d.C + i, h) + 4 * q);
+        }
+    } else {
+        for (int e = threadIdx.x; e < d.C * N; e += blockDim.x) {
+            const int i = e / N, n = e % N;
+            cp_async4(dst + i * ld + n,
+                      src + row_off(d, b, c * d.C + i, h) + n);
+        }
+    }
+}
+
+// An (N, N) state block into (N, ld) shared rows, as load_chunk_async.
+__device__ __forceinline__ void load_state_async(float* dst, int ld,
+                                                 const float* src,
+                                                 const Dims& d) {
+    const int N = d.N;
+    if (d.vec) {
+        const int N4 = N / 4;
+        for (int e = threadIdx.x; e < N * N4; e += blockDim.x) {
+            const int n = e / N4, q = e % N4;
+            cp_async16(dst + n * ld + 4 * q, src + n * N + 4 * q);
+        }
+    } else {
+        for (int e = threadIdx.x; e < N * N; e += blockDim.x)
+            cp_async4(dst + (e / N) * ld + e % N, src + e);
+    }
+}
+
+// (a) per (lane, chunk c >= 1): inc_c = r_dec^T dy (N x N) into slot c of
+// the scratch buffer, and tot_c = cum_{C-1}.
+__global__ void __launch_bounds__(THREADS_B)
+wkv_bwd_inc_kernel(const float* __restrict__ r, const float* __restrict__ lw,
+                   const float* __restrict__ dy, float* __restrict__ inc,
+                   float* __restrict__ tot, Dims d) {
+    extern __shared__ __align__(16) float bsm[];
+    const int N = d.N, C = d.C;
+    const BwdLayout L = bwd_layout(C, N);
+    const int PN = L.PN;
+    float* Rb = bsm;                  // r, then r_dec = r e^{cp}   (C x PN)
+    float* Yb = Rb + L.row;           // dy                         (C x PN)
+    float* Lb = Yb + L.row;           // lw, then cum               (C x PN)
+    const int per = d.nC - 1;
+    const int lane = blockIdx.x / per, c = 1 + blockIdx.x % per;
     const int b = lane / d.H, h = lane % d.H;
     const int tid = threadIdx.x;
-    float du_acc = 0.0f;              // thread n < N: sum over chunks
 
-    for (int e = tid; e < N * N; e += THREADS)
-        dS[(e / N) * P + e % N] = ds_out[(size_t)lane * N * N + e];
-
-    for (int c = d.nC - 1; c >= 0; --c) {
-        // 1. load the chunk and the state at its start
-        for (int e = tid; e < C * N; e += THREADS) {
-            const int i = e / N, n = e % N;
-            const size_t o = row_off(d, b, c * C + i, h) + n;
-            rs[i * P + n] = r[o];
-            ks[i * P + n] = k[o];
-            vs[i * P + n] = v[o];
-            ys[i * P + n] = dy[o];
-            cs[i * P + n] = lw[o];
+    load_chunk_async(Rb, PN, r, d, b, c, h);
+    load_chunk_async(Yb, PN, dy, d, b, c, h);
+    load_chunk_async(Lb, PN, lw, d, b, c, h);
+    cp_async_commit_wait_all();
+    __syncthreads();
+    if (tid < N) {
+        float acc = 0.0f;
+        for (int i = 0; i < C; ++i) {
+            acc += Lb[i * PN + tid];
+            Lb[i * PN + tid] = acc;
         }
-        const float* st = states + ((size_t)lane * d.nC + c) * N * N;
-        for (int e = tid; e < N * N; e += THREADS)
-            Ss[(e / N) * P + e % N] = st[e];
-        __syncthreads();
-        // 2. cumulative log-decays
-        if (tid < N) {
-            float acc = 0.0f;
-            for (int i = 0; i < C; ++i) {
-                const float l = cs[i * P + tid];
-                acc += l;
-                cs[i * P + tid] = acc;
-                ps[i * P + tid] = acc - l;
-            }
-            tt[tid] = acc;
-        }
-        __syncthreads();
-        // 3. A and dA = (dy v^T) masked; diag and its gradient; decayed
-        //    r and k
-        for (int e = tid; e < C * C; e += THREADS) {
-            const int i = e / C, j = e % C;
-            float a = 0.0f, da = 0.0f;
-            if (j < i) {
-                for (int n = 0; n < N; ++n)
-                    a += rs[i * P + n] * ks[j * P + n]
-                         * pair_decay(ps[i * P + n], cs[j * P + n]);
-                for (int m = 0; m < N; ++m)
-                    da += ys[i * P + m] * vs[j * P + m];
-            }
-            As[i * PC + j] = a;
-            dA[i * PC + j] = da;
-        }
-        for (int i = tid; i < C; i += THREADS) {
-            float a = 0.0f, da = 0.0f;
-            for (int n = 0; n < N; ++n) {
-                a += rs[i * P + n] * (ks[i * P + n] * u[h * N + n]);
-                da += ys[i * P + n] * vs[i * P + n];
-            }
-            dg[i] = a;
-            ddg[i] = da;
-        }
-        for (int e = tid; e < C * N; e += THREADS) {
-            const int i = e / N, n = e % N;
-            rd[i * P + n] = rs[i * P + n] * expf(ps[i * P + n]);
-            kd[i * P + n] = ks[i * P + n] * expf(tt[n] - cs[i * P + n]);
-        }
-        __syncthreads();
-        // 4. per (i, n): dr, dk, and the gradients of cp and cum, kept in
-        //    registers until every thread has read r, k, v, cum and cp
-        constexpr int PER = (MAXC * MAXN + THREADS - 1) / THREADS;
-        float g_reg[PER], dcp_reg[PER], dct_reg[PER];
-#pragma unroll
-        for (int t = 0; t < PER; ++t) {
-            const int e = tid + t * THREADS;
-            if (e >= C * N) break;
-            const int i = e / N, n = e % N;
-            const float cp_i = ps[i * P + n], cum_i = cs[i * P + n];
-            float drdec = 0.0f, dkdec = 0.0f, pv = 0.0f, qv = 0.0f;
-            for (int m = 0; m < N; ++m) {
-                drdec += ys[i * P + m] * Ss[n * P + m];
-                dkdec += vs[i * P + m] * dS[n * P + m];
-            }
-            for (int j = 0; j < i; ++j)
-                pv += dA[i * PC + j] * ks[j * P + n]
-                      * pair_decay(cp_i, cs[j * P + n]);
-            for (int l = i + 1; l < C; ++l)
-                qv += dA[l * PC + i] * rs[l * P + n]
-                      * pair_decay(ps[l * P + n], cum_i);
-            const float ri = rs[i * P + n], ki = ks[i * P + n];
-            const float ud = ddg[i] * u[h * N + n];
-            const size_t o = row_off(d, b, c * C + i, h) + n;
-            dr[o] = drdec * expf(cp_i) + pv + ud * ki;
-            dk[o] = dkdec * expf(tt[n] - cum_i) + qv + ud * ri;
-            const float dcp = drdec * rd[i * P + n] + ri * pv;
-            const float g = dkdec * kd[i * P + n];
-            g_reg[t] = g;
-            dcp_reg[t] = dcp;
-            dct_reg[t] = (-ki * qv - g) + dcp;
-        }
-        __syncthreads();
-#pragma unroll
-        for (int t = 0; t < PER; ++t) {
-            const int e = tid + t * THREADS;
-            if (e >= C * N) break;
-            const int i = e / N, n = e % N;
-            vs[i * P + n] = g_reg[t];
-            ps[i * P + n] = dcp_reg[t];
-            cs[i * P + n] = dct_reg[t];
-        }
-        __syncthreads();
-        // 5a. per channel: d(tot), then dlw = reverse cumsum of d(cum)
-        //     (d(tot) entering at the last row) minus d(cp); du
-        if (tid < N) {
-            const int n = tid;
-            float sds = 0.0f, gs = 0.0f, dus = 0.0f;
-            for (int m = 0; m < N; ++m) sds += Ss[n * P + m] * dS[n * P + m];
-            for (int i = 0; i < C; ++i) {
-                gs += vs[i * P + n];
-                dus += ddg[i] * (rs[i * P + n] * ks[i * P + n]);
-            }
-            du_acc += dus;
-            float acc = gs + sds * expf(tt[n]);
-            for (int i = C - 1; i >= 0; --i) {
-                acc += cs[i * P + n];
-                dlw[row_off(d, b, c * C + i, h) + n] = acc - ps[i * P + n];
-            }
-        }
-        // 5b. dv = A^T dy + diag dy + k_dec dS'
-        for (int e = tid; e < C * N; e += THREADS) {
-            const int j = e / N, m = e % N;
-            float a = 0.0f, s = 0.0f;
-            for (int i = j + 1; i < C; ++i) a += As[i * PC + j] * ys[i * P + m];
-            for (int n = 0; n < N; ++n) s += kd[j * P + n] * dS[n * P + m];
-            dv[row_off(d, b, c * C + j, h) + m] =
-                (a + dg[j] * ys[j * P + m]) + s;
-        }
-        __syncthreads();
-        // 6. gradient of the state at the chunk start:
-        //    dS <- diag(e^{tot}) dS + r_dec^T dy
-        for (int e = tid; e < N * N; e += THREADS) {
-            const int n = e / N, m = e % N;
-            float a = 0.0f;
-            for (int i = 0; i < C; ++i) a += rd[i * P + n] * ys[i * P + m];
-            dS[n * P + m] = expf(tt[n]) * dS[n * P + m] + a;
-        }
-        __syncthreads();
+        tot[((size_t)lane * d.nC + c) * N + tid] = acc;
     }
-    if (tid < N) du_lane[(size_t)lane * N + tid] = du_acc;
+    __syncthreads();
+    for (int e = tid; e < C * N; e += THREADS_B) {
+        const int i = e / N, n = e % N;
+        if (i > 0) Rb[i * PN + n] *= decay_exp(Lb[(i - 1) * PN + n]);
+    }
+    __syncthreads();
+    float acc[TPW][4] = {};
+    mma_3xtf32(acc, N, C,
+               [&](int n, int i) {
+                   return n < N && i < C ? Rb[i * PN + n] : 0.0f;
+               },
+               [&](int i, int m) {
+                   return i < C && m < N ? Yb[i * PN + m] : 0.0f;
+               });
+    float* out = inc + ((size_t)lane * d.nC + c) * N * N;
+#pragma unroll
+    for (int s = 0; s < TPW; ++s)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+            int n, m;
+            tile_pos(s, e, N, n, m);
+            if (n >= 0 && n < N && m < N) out[n * N + m] = acc[s][e];
+        }
+}
+
+// (b) per (lane, n, m), chunks from the last to the first: slot c's
+// increment is read, then replaced by D_c; D_{c-1} = e^{tot_c} D_c + inc_c.
+__global__ void __launch_bounds__(THREADS_F)
+wkv_bwd_scan_kernel(float* __restrict__ dstates,
+                    const float* __restrict__ tot,
+                    const float* __restrict__ ds_out, Dims d) {
+    const int NN = d.N * d.N;
+    const size_t e = (size_t)blockIdx.x * THREADS_F + threadIdx.x;
+    if (e >= (size_t)d.B * d.H * NN) return;
+    const size_t lane = e / NN;
+    const int nm = (int)(e % NN), n = nm / d.N;
+    float D = ds_out[lane * NN + nm];
+    // 8 chunks' loads in flight at a time, then their steps in order
+    for (int c0 = d.nC - 1; c0 >= 0; c0 -= 8) {
+        float x[8], dec[8];
+#pragma unroll
+        for (int q = 0; q < 8; ++q)
+            if (c0 - q >= 1) {
+                const size_t lc = lane * d.nC + c0 - q;
+                x[q] = dstates[lc * NN + nm];
+                dec[q] = tot[lc * d.N + n];
+            }
+#pragma unroll
+        for (int q = 0; q < 8; ++q)
+            if (c0 - q >= 0) {
+                dstates[(lane * d.nC + c0 - q) * NN + nm] = D;
+                if (c0 - q >= 1) D = expf(dec[q]) * D + x[q];
+            }
+    }
+}
+
+// (c) per (lane, chunk): dr, dk, dv, dlw of the chunk and its du partial,
+// from the state at the chunk's start and D_c.
+__global__ void __launch_bounds__(THREADS_B, 2)
+wkv_bwd_grad_kernel(const float* __restrict__ r, const float* __restrict__ k,
+                    const float* __restrict__ v, const float* __restrict__ lw,
+                    const float* __restrict__ u,
+                    const float* __restrict__ states,
+                    const float* __restrict__ dstates,
+                    const float* __restrict__ dy, float* __restrict__ dr,
+                    float* __restrict__ dk, float* __restrict__ dv,
+                    float* __restrict__ dlw, float* __restrict__ du_part,
+                    Dims d) {
+    extern __shared__ __align__(16) float bsm[];
+    const int N = d.N, C = d.C;
+    const BwdLayout L = bwd_layout(C, N);
+    const int PN = L.PN, PC = L.PC;
+    float* Kb = bsm;                  // k, then g, then g's prefix
+    float* Vb = Kb + L.row;           // v, then k~, then d(cum)
+    float* Yb = Vb + L.row;           // dy, then r^, then d(cp)
+    float* Lb = Yb + L.row;           // lw, then cum
+    float* Xb = Lb + L.row;           // S_c, then r
+    float* Zb = Xb + L.flex;          // D_c, then dA (lower) and A^T (upper)
+    float* tt = Zb + L.flex;          // tot = cum_{C-1}     (N)
+    float* sds = tt + MAXN;           // sum_m S D           (N)
+    float* ddg = sds + MAXN;          // dy_i . v_i          (C)
+    float* dg = ddg + MAXC;           // r_i . (u k_i)       (C)
+    float* dus = dg + MAXC;           // du partial          (N)
+    float* uu = dus + MAXN;           // u of this head      (N)
+    float* bg = uu + MAXN;            // sum of g a sub-chunk   (4 x N)
+    float* bd = bg + MAXC / SUB * MAXN;   // of d(cum) + d(cp)  (4 x N)
+    const int lane = blockIdx.x / d.nC, c = blockIdx.x % d.nC;
+    const int b = lane / d.H, h = lane % d.H;
+    const int tid = threadIdx.x;
+    const int nsub = (C + SUB - 1) / SUB;
+    const size_t sc = ((size_t)lane * d.nC + c) * N * N;
+
+    // 1. the chunk's rows, its start state and the gradient after it
+    load_chunk_async(Kb, PN, k, d, b, c, h);
+    load_chunk_async(Vb, PN, v, d, b, c, h);
+    load_chunk_async(Yb, PN, dy, d, b, c, h);
+    load_chunk_async(Lb, PN, lw, d, b, c, h);
+    load_state_async(Xb, PN, states + sc, d);
+    load_state_async(Zb, PN, dstates + sc, d);
+    if (tid < N) uu[tid] = u[h * N + tid];
+    cp_async_commit_wait_all();
+    __syncthreads();
+    // 2. cum (as the forward sums it), sum_m S D, and dy_i . v_i
+    if (tid < N) {
+        float acc = 0.0f;
+        for (int i = 0; i < C; ++i) {
+            acc += Lb[i * PN + tid];
+            Lb[i * PN + tid] = acc;
+        }
+        tt[tid] = acc;
+    } else if (tid < 2 * N) {
+        const int n = tid - N;
+        float a = 0.0f;
+        for (int m = 0; m < N; ++m) a += Xb[n * PN + m] * Zb[n * PN + m];
+        sds[n] = a;
+    } else if (tid < 2 * N + C) {
+        const int i = tid - 2 * N;
+        float a = 0.0f;
+        for (int m = 0; m < N; ++m) a += Yb[i * PN + m] * Vb[i * PN + m];
+        ddg[i] = a;
+    }
+    __syncthreads();
+#define CUM(i, n) Lb[(i) * PN + (n)]
+#define CP(i, n) ((i) > 0 ? Lb[((i) - 1) * PN + (n)] : 0.0f)
+    // 3. the products that read S_c and D_c, and dA = dy v^T
+    float acc1[TPW][4] = {}, acc2[TPW][4] = {}, acc3[TPW][4] = {},
+          acc4[TPW][4] = {};
+    mma_3xtf32(acc1, C, N,                   // dr_dec = dy S^T
+               [&](int i, int m) {
+                   return i < C && m < N ? Yb[i * PN + m] : 0.0f;
+               },
+               [&](int m, int n) {
+                   return m < N && n < N ? Xb[n * PN + m] : 0.0f;
+               });
+    mma_3xtf32(acc2, C, N,                   // dk_dec = v D^T
+               [&](int j, int m) {
+                   return j < C && m < N ? Vb[j * PN + m] : 0.0f;
+               },
+               [&](int m, int n) {
+                   return m < N && n < N ? Zb[n * PN + m] : 0.0f;
+               });
+    mma_3xtf32(acc3, C, N,                   // dv so far = k_dec D
+               [&](int j, int n) {
+                   return j < C && n < N
+                       ? Kb[j * PN + n] * decay_exp(tt[n] - CUM(j, n))
+                       : 0.0f;
+               },
+               [&](int n, int m) {
+                   return n < N && m < N ? Zb[n * PN + m] : 0.0f;
+               });
+    mma_3xtf32(acc4, C, N,                   // dA = dy v^T
+               [&](int i, int m) {
+                   return i < C && m < N ? Yb[i * PN + m] : 0.0f;
+               },
+               [&](int m, int j) {
+                   return m < N && j < C ? Vb[j * PN + m] : 0.0f;
+               });
+    __syncthreads();
+    // 4. r over S_c; dA's strict lower part over D_c; k~ over v (every
+    //    sub-chunk but the last, whose k~ no pairwise term reads)
+    load_chunk_async(Xb, PN, r, d, b, c, h);
+#pragma unroll
+    for (int s = 0; s < TPW; ++s)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+            int i, j;
+            tile_pos(s, e, C, i, j);
+            if (i >= 0 && i < C && j < i) Zb[i * PC + j] = acc4[s][e];
+        }
+    for (int e = tid; e < (nsub - 1) * SUB * N; e += THREADS_B) {
+        const int j = e / N, n = e % N;
+        const int bj = (j / SUB) * SUB + SUB - 1;
+        Vb[j * PN + n] = Kb[j * PN + n] * decay_exp(CUM(bj, n) - CUM(j, n));
+    }
+    cp_async_commit_wait_all();
+    __syncthreads();
+    // 5. the diagonal bonus, du's partial, and A into the upper triangle
+    //    (A_ij at Zb[j][i]): exact on the diagonal sub-blocks, through the
+    //    last token b of j's sub-chunk off them
+    if (tid < C) {
+        float a = 0.0f;
+        for (int n = 0; n < N; ++n)
+            a += Xb[tid * PN + n] * (Kb[tid * PN + n] * uu[n]);
+        dg[tid] = a;
+    } else if (tid < C + N) {
+        const int n = tid - C;
+        float a = 0.0f;
+        for (int i = 0; i < C; ++i)
+            a += ddg[i] * (Xb[i * PN + n] * Kb[i * PN + n]);
+        dus[n] = a;
+    }
+    int pairs = 0;
+    for (int I = 0; I < nsub; ++I) {
+        const int Ls = min(SUB, C - I * SUB);
+        pairs += Ls * (Ls - 1) / 2;
+    }
+    for (int p = tid; p < pairs; p += THREADS_B) {
+        int q = p, I = 0;
+        for (;; ++I) {
+            const int Ls = min(SUB, C - I * SUB);
+            if (q < Ls * (Ls - 1) / 2) break;
+            q -= Ls * (Ls - 1) / 2;
+        }
+        int ai = 1;
+        while (q >= ai) {
+            q -= ai;
+            ++ai;
+        }
+        const int i = I * SUB + ai, j = I * SUB + q;
+        float a[4] = {0.0f, 0.0f, 0.0f, 0.0f};   // four chains in flight
+        int n = 0;
+        for (; n + 4 <= N; n += 4)
+#pragma unroll
+            for (int z = 0; z < 4; ++z)
+                a[z] += Xb[i * PN + n + z] * Kb[j * PN + n + z]
+                        * decay_exp(CP(i, n + z) - CUM(j, n + z));
+        for (; n < N; ++n)
+            a[0] += Xb[i * PN + n] * Kb[j * PN + n]
+                    * decay_exp(CP(i, n) - CUM(j, n));
+        Zb[j * PC + i] = (a[0] + a[1]) + (a[2] + a[3]);
+    }
+    // the off-diagonal sub-blocks as 3xTF32 products, a 16 x 8 tile (i in
+    // sub-chunk I, 8 columns of an earlier J) a warp at a time:
+    // (r e^{cp - cum_b}) (k~)^T, b the last token of J
+    const int warp = tid >> 5;
+    int tiles = 0;
+    for (int I = 1; I < nsub; ++I) tiles += 2 * I;
+    for (int tl = warp; tl < tiles; tl += THREADS_B / 32) {
+        int q = tl, I = 1;
+        while (q >= 2 * I) {
+            q -= 2 * I;
+            ++I;
+        }
+        const int J = q >> 1, r0 = I * SUB, c0 = J * SUB + 8 * (q & 1);
+        const int bj = J * SUB + SUB - 1;
+        float acc[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+        mma_tile_3xtf32(acc, r0, c0, N,
+                        [&](int i, int n) {
+                            return i < C && n < N
+                                ? Xb[i * PN + n]
+                                  * decay_exp(CP(i, n) - CUM(bj, n))
+                                : 0.0f;
+                        },
+                        [&](int n, int j) {
+                            return n < N ? Vb[j * PN + n] : 0.0f;
+                        });
+        const int g = (tid & 31) >> 2, t = tid & 3;
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+            const int i = r0 + g + 8 * (e >> 1), j = c0 + 2 * t + (e & 1);
+            if (i < C) Zb[j * PC + i] = acc[e];
+        }
+    }
+    __syncthreads();
+    // 6. dv = k_dec D + A^T dy + dg dy
+    mma_3xtf32(acc3, C, C,
+               [&](int j, int i) {
+                   return j < C && i < C && i > j ? Zb[j * PC + i] : 0.0f;
+               },
+               [&](int i, int m) {
+                   return i < C && m < N ? Yb[i * PN + m] : 0.0f;
+               });
+#pragma unroll
+    for (int s = 0; s < TPW; ++s)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+            int j, m;
+            tile_pos(s, e, C, j, m);
+            if (j >= 0 && j < C && m < N)
+                dv[row_off(d, b, c * C + j, h) + m] =
+                    acc3[s][e] + dg[j] * Yb[j * PN + m];
+        }
+    __syncthreads();
+    // 7. dr_dec and dk_dec over dy and k~ (both done with)
+#pragma unroll
+    for (int s = 0; s < TPW; ++s)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+            int i, n;
+            tile_pos(s, e, C, i, n);
+            if (i >= 0 && i < C && n < N) {
+                Yb[i * PN + n] = acc1[s][e];
+                Vb[i * PN + n] = acc2[s][e];
+            }
+        }
+    __syncthreads();
+    // 8. a thread per (sub-chunk I, channel n), its rows' sums in
+    //    registers: pv_i = sum_{j<i} dA_ij k_j e^{cp_i - cum_j} and qv_j =
+    //    sum_{i>j} dA_ij r_i e^{cp_i - cum_j}, exact within the sub-chunk;
+    //    across sub-chunks pv through k~ = k e^{cum_b - cum} (b the last
+    //    token of j's sub-chunk) and qv through r^ = r e^{cp - cp_a} (a
+    //    the first token of i's), both formed here.  The j = i - 1 terms
+    //    (decay exactly 1) stay out of pv and qv: tv and sv carry them to
+    //    dr and dk.
+    const int I = tid / N, n = tid % N;
+    const bool mine = I < nsub;
+    const int i0 = I * SUB, LI = mine ? min(SUB, C - i0) : 0;
+    float pv[SUB], qv[SUB], gg[SUB];
+#pragma unroll
+    for (int ii = 0; ii < SUB; ++ii) pv[ii] = qv[ii] = gg[ii] = 0.0f;
+#pragma unroll
+    for (int ii = 2; ii < SUB; ++ii) {
+        if (ii >= LI) break;
+        const int i = i0 + ii;
+        const float cpi = CUM(i - 1, n), ri = Xb[i * PN + n];
+#pragma unroll
+        for (int jj = 0; jj < ii - 1; ++jj) {
+            const int j = i0 + jj;
+            const float E = decay_exp(cpi - CUM(j, n));
+            const float da = Zb[i * PC + j];
+            pv[ii] += da * Kb[j * PN + n] * E;
+            qv[jj] += da * ri * E;
+        }
+    }
+    for (int J = 0; J < I && mine; ++J) {
+        const int j0 = J * SUB;
+        const float cb = CUM(j0 + SUB - 1, n);
+        float kt[SUB];
+#pragma unroll
+        for (int jj = 0; jj < SUB; ++jj)
+            kt[jj] = Kb[(j0 + jj) * PN + n] * decay_exp(cb - CUM(j0 + jj, n));
+        const float kb = kt[SUB - 1];
+        if (J == I - 1) kt[SUB - 1] = 0.0f;   // row i0 leaves j = i0 - 1 out
+#pragma unroll
+        for (int ii = 0; ii < SUB; ++ii) {
+            if (ii >= LI) break;
+            const float4* z = reinterpret_cast<const float4*>(
+                Zb + (i0 + ii) * PC + j0);
+            float t = 0.0f;
+#pragma unroll
+            for (int q = 0; q < SUB / 4; ++q) {
+                const float4 x = z[q];
+                t += x.x * kt[4 * q] + x.y * kt[4 * q + 1]
+                     + x.z * kt[4 * q + 2] + x.w * kt[4 * q + 3];
+            }
+            pv[ii] += decay_exp(CP(i0 + ii, n) - cb) * t;
+            if (ii == 0) kt[SUB - 1] = kb;
+        }
+    }
+    for (int I2 = I + 1; I2 < nsub && mine; ++I2) {
+        const int a0 = I2 * SUB, L2 = min(SUB, C - a0);
+        const float ca = CUM(a0 - 1, n);
+        float tq[SUB];
+#pragma unroll
+        for (int jj = 0; jj < SUB; ++jj) tq[jj] = 0.0f;
+        for (int ll = 0; ll < L2; ++ll) {
+            const float rh = Xb[(a0 + ll) * PN + n]
+                             * decay_exp(CP(a0 + ll, n) - ca);
+            const float4* z = reinterpret_cast<const float4*>(
+                Zb + (a0 + ll) * PC + i0);
+#pragma unroll
+            for (int q = 0; q < SUB / 4; ++q) {
+                const float4 x = z[q];
+                tq[4 * q] += x.x * rh;
+                tq[4 * q + 1] += x.y * rh;
+                tq[4 * q + 2] += x.z * rh;
+                // row a0 leaves j = a0 - 1 (the last of I) out
+                if (q < SUB / 4 - 1 || ll > 0 || I2 > I + 1)
+                    tq[4 * q + 3] += x.w * rh;
+            }
+        }
+#pragma unroll
+        for (int jj = 0; jj < SUB; ++jj)
+            qv[jj] += decay_exp(ca - CUM(i0 + jj, n)) * tq[jj];
+    }
+    // the rows' gradients: dr and dk to device memory; g = dk_dec k_dec
+    // into gg, d(cp) into pv, d(cum) less g into qv
+    const float un = mine ? uu[n] : 0.0f, tn = mine ? tt[n] : 0.0f;
+    float gsum = 0.0f, dsum = 0.0f;
+#pragma unroll
+    for (int ii = 0; ii < SUB; ++ii) {
+        if (ii >= LI) break;
+        const int i = i0 + ii;
+        const float ri = Xb[i * PN + n], ki = Kb[i * PN + n];
+        const float tv = i > 0 ? Zb[i * PC + i - 1] * Kb[(i - 1) * PN + n]
+                               : 0.0f;
+        const float sv = i + 1 < C ? Zb[(i + 1) * PC + i]
+                                     * Xb[(i + 1) * PN + n]
+                                   : 0.0f;
+        const float drd = Yb[i * PN + n], dkd = Vb[i * PN + n];
+        const float ecp = decay_exp(CP(i, n));
+        const float ek = decay_exp(tn - CUM(i, n));
+        const float ud = ddg[i] * un;
+        const size_t o = row_off(d, b, c * C + i, h) + n;
+        dr[o] = drd * ecp + (pv[ii] + tv) + ud * ki;
+        dk[o] = dkd * ek + (qv[ii] + sv) + ud * ri;
+        gg[ii] = dkd * (ki * ek);
+        pv[ii] = drd * (ri * ecp) + ri * pv[ii];
+        qv[ii] = -ki * qv[ii];
+        gsum += gg[ii];
+        dsum += qv[ii] + pv[ii];
+    }
+    // 9. dlw_i = e^{tot} sum_m S D + sum_{j<i} g_j + sum_{i'>=i} d(cum)_{i'}
+    //    + sum_{i'>i} d(cp)_{i'} (cp_{i'} = cum_{i'-1}; d(tot) = sum_j g_j +
+    //    e^{tot} sum_m S D, and g_j also leaves d(cum_j)): each thread's
+    //    sums over its sub-chunk, then the other sub-chunks' totals, in
+    //    order
+    if (mine) {
+        bg[I * MAXN + n] = gsum;
+        bd[I * MAXN + n] = dsum;
+    }
+    __syncthreads();
+    if (mine) {
+        float P = 0.0f, Q = 0.0f;
+        for (int J = 0; J < I; ++J) P += bg[J * MAXN + n];
+        for (int J = nsub - 1; J > I; --J) Q += bd[J * MAXN + n];
+        const float es = sds[n] * decay_exp(tn);
+#pragma unroll
+        for (int ii = 0; ii < SUB; ++ii)
+            if (ii < LI) {
+                const float gi = gg[ii];
+                gg[ii] = P;                     // sum_{j<i} g_j
+                P += gi;
+            }
+#pragma unroll
+        for (int ii = SUB - 1; ii >= 0; --ii)
+            if (ii < LI) {
+                Q += qv[ii];
+                dlw[row_off(d, b, c * C + i0 + ii, h) + n] = (es + gg[ii]) + Q;
+                Q += pv[ii];
+            }
+    }
+    if (tid < N) du_part[((size_t)lane * d.nC + c) * N + tid] = dus[tid];
+#undef CP
+#undef CUM
 }
 
 size_t chunk_smem(int C, int N) {
@@ -580,11 +1077,6 @@ size_t chunk_smem(int C, int N) {
 
 size_t out_smem(int C, int N) {
     return sizeof(float) * (4 * C * (N + 1) + N * (N + 1) + C * (C + 1) + C);
-}
-
-size_t bwd_smem(int C, int N) {
-    return sizeof(float) * (8 * C * (N + 1) + 2 * C * (C + 1)
-                            + 2 * N * (N + 1) + 2 * MAXC + MAXN);
 }
 
 bool aligned16(const void* p) { return (uintptr_t)p % 16 == 0; }
@@ -630,22 +1122,53 @@ extern "C" int rwkv6_wkv_fwd_launch(const float* r, const float* k,
     return (int)cudaGetLastError();
 }
 
+// The backward's three launches in order on ``stream`` (the first only
+// when there is more than one chunk); returns the first launch error.
+// dstates (B H, S/C, N, N) and tot (B H, S/C, N) are scratch, written
+// before they are read; du_part (B H, S/C, N) gets one du partial a
+// (lane, chunk).
 extern "C" int rwkv6_wkv_bwd_launch(const float* r, const float* k,
                                     const float* v, const float* lw,
                                     const float* u, const float* states,
                                     const float* dy, const float* ds_out,
                                     float* dr, float* dk, float* dv,
-                                    float* dlw, float* du_lane, int B, int S,
-                                    int H, int N, int C, void* stream) {
+                                    float* dlw, float* du_part,
+                                    float* dstates, float* tot, int B,
+                                    int S, int H, int N, int C,
+                                    void* stream) {
     if (N < 1 || N > MAXN || C < 1 || C > MAXC || S % C != 0)
         return (int)cudaErrorInvalidValue;
-    const Dims d{B, S, H, N, C, S / C, 0};
-    const size_t smem = bwd_smem(C, N);
-    cudaError_t err = cudaFuncSetAttribute(
-        wkv_bwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
+    const int vec = N % 4 == 0 && aligned16(r) && aligned16(k)
+                    && aligned16(v) && aligned16(lw) && aligned16(dy)
+                    && aligned16(states) && aligned16(dstates);
+    const Dims d{B, S, H, N, C, S / C, vec};
+    cudaStream_t st = (cudaStream_t)stream;
+    const BwdLayout L = bwd_layout(C, N);
+    const size_t sm_a = sizeof(float) * 3 * L.row;
+    const size_t sm_c = sizeof(float)
+                        * (4 * L.row + 2 * L.flex + 4 * MAXN + 2 * MAXC
+                           + 2 * MAXC / SUB * MAXN);
+    cudaError_t err;
+    if (d.nC > 1) {
+        err = cudaFuncSetAttribute(
+            wkv_bwd_inc_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+            (int)sm_a);
+        if (err != cudaSuccess) return (int)err;
+        wkv_bwd_inc_kernel<<<B * H * (d.nC - 1), THREADS_B, sm_a, st>>>(
+            r, lw, dy, dstates, tot, d);
+        err = cudaGetLastError();
+        if (err != cudaSuccess) return (int)err;
+    }
+    const size_t entries = (size_t)B * H * N * N;
+    wkv_bwd_scan_kernel<<<(unsigned)((entries + THREADS_F - 1) / THREADS_F),
+                          THREADS_F, 0, st>>>(dstates, tot, ds_out, d);
+    err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
-    wkv_bwd_kernel<<<B * H, THREADS, smem, (cudaStream_t)stream>>>(
-        r, k, v, lw, u, states, dy, ds_out, dr, dk, dv, dlw, du_lane, d);
+    err = cudaFuncSetAttribute(
+        wkv_bwd_grad_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)sm_c);
+    if (err != cudaSuccess) return (int)err;
+    wkv_bwd_grad_kernel<<<B * H * d.nC, THREADS_B, sm_c, st>>>(
+        r, k, v, lw, u, states, dstates, dy, dr, dk, dv, dlw, du_part, d);
     return (int)cudaGetLastError();
 }

@@ -13,15 +13,18 @@ over (lane, chunk) where the recurrence allows it (:func:`wkv_grid`):
 each chunk's own state increment, an ordered scan over the chunks that
 leaves the state at every chunk's start, then each chunk's output with
 its pairwise decays factorised over sub-chunks of 16 tokens.  The
-backward runs one block per (batch, head) lane, carrying dS from the
-last chunk to the first and starting each chunk from the state the
-forward saved at its start (the note in the source has the details).
+backward is three launches of the same shape (:func:`wkv_bwd_grid`):
+each chunk's increment of the state gradient, an ordered reverse scan
+over the chunks that leaves the gradient of the state after every chunk,
+then each chunk's dr, dk, dv, dlw and du partial from its start state
+(the forward's) and that gradient, its 64-wide products on the tensor
+cores in 3xTF32 (the note in the source has the details).
 
 ``rwkv6_wkv_op.launches`` counts forward calls that launched the
 kernels (one per forward, although a forward is three kernel launches)
-and ``rwkv6_wkv_op.bwd_launches`` backward launches (never plain-path
-calls); ``wkv_forward`` and ``wkv_backward`` are the two, which the
-autograd function wraps.
+and ``rwkv6_wkv_op.bwd_launches`` backward calls (one per backward, also
+three kernel launches; never plain-path calls); ``wkv_forward`` and
+``wkv_backward`` are the two, which the autograd function wraps.
 """
 from __future__ import annotations
 
@@ -79,9 +82,37 @@ def subchunk_plan(C: int):
     return pairs, tasks
 
 
+def wkv_bwd_grid(B: int, S: int, H: int, N: int, C: int):
+    """The backward's launch grid, a function of the shapes only: (blocks
+    of the increment phase (a), one per (lane, chunk c >= 1), lane-major;
+    blocks of the reverse scan (b), one thread per (lane, n, m) state
+    entry; blocks of the gradient phase (c), one per (lane, chunk))."""
+    nC = S // C
+    return (B * H * (nC - 1), -(-(B * H * N * N) // FWD_THREADS),
+            B * H * nC)
+
+
+def wkv_bwd_inc_block(blk: int, H: int, n_chunks: int):
+    """(batch, head, chunk) of an increment block (a), as the kernel reads
+    ``blockIdx.x``: chunk 0's increment is never read, so it has none."""
+    lane, c = divmod(blk, n_chunks - 1)
+    return lane // H, lane % H, c + 1
+
+
+def bwd_grad_smem(C: int, N: int) -> int:
+    """Bytes of shared memory a gradient block (c) takes: four chunk-row
+    arrays and two of the larger of chunk rows, the state and the
+    pairwise matrix, each row padded to a multiple of 4 floats plus 4,
+    six vectors of up to 64 and two (sub-chunk, channel) tables of sums
+    (the source's ``bwd_layout`` and launcher)."""
+    pn, pc = -(-N // 4) * 4 + 4, -(-C // 4) * 4 + 4
+    return 4 * (4 * C * pn + 2 * max(C, N) * max(pn, pc)
+                + 4 * MAX_N + 2 * MAX_C + 2 * (MAX_C // SUB) * MAX_N)
+
+
 def _bwd_launcher():
     fn = backend.library(NAME).rwkv6_wkv_bwd_launch
-    fn.argtypes = [ctypes.c_void_p] * 13 + [ctypes.c_int] * 5 \
+    fn.argtypes = [ctypes.c_void_p] * 15 + [ctypes.c_int] * 5 \
         + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
@@ -130,9 +161,10 @@ def wkv_forward(r, k, v, lw, u, chunk: int, keep_states: bool):
 
 
 def wkv_backward(r, k, v, lw, u, states, dy, ds, chunk: int):
-    """One launch of the backward kernel: the forward's inputs and chunk
-    states, and the cotangents of y and of the final state -> (dr, dk,
-    dv, dlw, du), du summed over the batch."""
+    """One backward on card tensors (its three kernel launches): the
+    forward's inputs and chunk states, and the cotangents of y and of the
+    final state -> (dr, dk, dv, dlw, du), du's partials (one a lane and
+    chunk) summed over the batch and the chunks in a fixed order."""
     C = _check(r, k, v, lw, u, chunk)
     B, S, H, N = r.shape
     backend.check_input(NAME, dy, 4)
@@ -144,15 +176,23 @@ def wkv_backward(r, k, v, lw, u, states, dy, ds, chunk: int):
                          f"dy {tuple(dy.shape)} ds {tuple(ds.shape)} "
                          f"states {tuple(states.shape)}")
     dr, dk, dv, dlw = (torch.empty_like(r) for _ in range(4))
-    du_lane = torch.empty((B, H, N), dtype=torch.float32, device=r.device)
+    nC = S // C
+    # scratch: the gradient of the state after every chunk (first each
+    # chunk's increment), each chunk's total decay
+    dstates = torch.empty((B * H, nC, N, N), dtype=torch.float32,
+                          device=r.device)
+    tot = torch.empty((B * H, nC, N), dtype=torch.float32, device=r.device)
+    du_part = torch.empty((B, H, nC, N), dtype=torch.float32,
+                          device=r.device)
     status = _bwd_launcher()(
         r.data_ptr(), k.data_ptr(), v.data_ptr(), lw.data_ptr(),
         u.data_ptr(), states.data_ptr(), dy.data_ptr(), ds.data_ptr(),
         dr.data_ptr(), dk.data_ptr(), dv.data_ptr(), dlw.data_ptr(),
-        du_lane.data_ptr(), B, S, H, N, C, backend.stream_handle(r.device))
+        du_part.data_ptr(), dstates.data_ptr(), tot.data_ptr(), B, S, H, N,
+        C, backend.stream_handle(r.device))
     backend.check(NAME, status)
     rwkv6_wkv_op.bwd_launches += 1
-    return dr, dk, dv, dlw, du_lane.sum(dim=0)
+    return dr, dk, dv, dlw, du_part.sum(dim=(0, 2))
 
 
 class _WKV(torch.autograd.Function):

@@ -54,15 +54,21 @@ def _lattice_inputs(T, B, U1, seed):
     return mult, add, emit
 
 
-@pytest.mark.parametrize("U1", [1, 2, 5, 17, 33, 65, 129])
+@pytest.mark.parametrize("U1", [1, 2, 5, 17, 33, 65, 129, 257, 1186,
+                                12288])
 @pytest.mark.parametrize("T", [1, 9])
 def test_lattice_kernel_matches_plain(card, T, U1):
+    """Two launches bitwise equal, within atol 1e-4 / rtol 1e-5 of the
+    plain version; U1 257, 1,186 (the first row too wide for the 16-row
+    ring) and 12,288 (a ring of one row) beside the reference's shapes."""
     ins = [torch.from_numpy(x).to(card)
            for x in _lattice_inputs(T, 3, U1, seed=U1)]
     n0 = rnnt_lattice_op.launches
     got = rnnt_lattice_op(*ins)
+    again = rnnt_lattice_op(*ins)
     torch.cuda.synchronize()
-    assert rnnt_lattice_op.launches == n0 + 1
+    assert rnnt_lattice_op.launches == n0 + 2
+    assert torch.equal(got, again)
     torch.testing.assert_close(got, rnnt_lattice_ref(*ins),
                                atol=1e-4, rtol=1e-5)
 
@@ -147,6 +153,37 @@ def test_fused_loss_dw_out_is_bitwise_repeatable(card):
     torch.cuda.synchronize()
     assert torch.isfinite(grads[0]).all()
     assert torch.equal(grads[0], grads[1])
+
+
+def test_rnnt_training_gradient_is_bitwise_repeatable(card):
+    """F3: the full-width ``rnnt-crdnn`` training loss's gradient, twice
+    from the same params and batch, equal bit for bit on every leaf.
+    With ``cudnn.deterministic`` False (before ``fp32_numerics`` set it)
+    the convolution leaves differed from run to run."""
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import asr_units
+    from repro_torch.data.synthetic import make_asr_corpus
+    from repro_torch.models.api import build_model
+    from repro_torch.models.common import tree_leaves, tree_map
+
+    bundle = build_model(get_config("rnnt-crdnn"))
+    corpus = make_asr_corpus(0, n_examples=4, n_feats=80, vocab_size=1000,
+                             min_tokens=16, max_tokens=32,
+                             frames_per_token=16, noise_fraction=0.25,
+                             snr_db=5.0)
+    batch = {k: torch.as_tensor(v[0]).to(card)
+             for k, v in asr_units(corpus, 4).items()}
+    params = bundle.init_params(torch.Generator().manual_seed(0), card)
+    grads = []
+    for _ in range(2):
+        live = tree_map(lambda p: p.detach().requires_grad_(True), params)
+        total, _ = bundle.loss_fn(live, batch)
+        grads.append(torch.autograd.grad(total, tree_leaves(live)))
+    torch.cuda.synchronize()
+    assert len(grads[0]) == len(tree_leaves(params))
+    for a, b in zip(*grads):
+        assert torch.isfinite(a).all()
+        assert torch.equal(a, b)
 
 
 def _sketch_inputs(U, n, d, V, k1, k2, seed, dev):
@@ -253,7 +290,9 @@ def _wkv_plain(r, k, v, lw, u, C):
     (2, 96, 1, 8, 32, None), (1, 64, 2, 64, 64, None),
     (1, 64, 1, 8, 16, 1e-6),                  # decays near zero
     (1, 128, 2, 64, 64, 1e-8),                # every decay at the clip
-    (2, 128, 2, 64, 64, "mixed"), (1, 96, 1, 16, 32, "mixed")])
+    (2, 128, 2, 64, 64, "mixed"), (1, 96, 1, 16, 32, "mixed"),
+    (2, 32, 2, 16, 32, "mixed"),              # one chunk (S = C)
+    (1, 128, 2, 64, 32, 1e-8)])               # C = 32 at N = 64
 def test_wkv_kernels_match_plain_autograd(card, B, S, H, N, C, w):
     """Forward (y, final state) and backward (dr, dk, dv, dlw, du) with
     cotangents on both outputs, against autograd of the plain chunk

@@ -105,3 +105,26 @@ def test_same_padding_matches_xla():
     assert rnnt._same_pad(15) == (1, 1)
     assert rnnt._same_pad(2) == (0, 1)
     assert rnnt._same_pad(1) == (1, 1)
+
+
+def test_fp32_numerics_makes_cudnn_deterministic():
+    """F3: with ``cudnn.deterministic`` False the CRDNN's convolution
+    gradients differed from run to run on an H100, so ``fp32_numerics``
+    (which every launcher and ``chip_smoke.py`` call) turns cuDNN's
+    deterministic algorithms on and its timing-based choice off, beside
+    TF32 off everywhere."""
+    bk = torch.backends
+    saved = (bk.cudnn.deterministic, bk.cudnn.benchmark, bk.cudnn.allow_tf32,
+             bk.cuda.matmul.allow_tf32, torch.get_float32_matmul_precision())
+    try:
+        bk.cudnn.deterministic, bk.cudnn.benchmark = False, True
+        bk.cudnn.allow_tf32 = bk.cuda.matmul.allow_tf32 = True
+        torch.set_float32_matmul_precision("high")
+        fp32_numerics()
+        assert bk.cudnn.deterministic and not bk.cudnn.benchmark
+        assert not bk.cudnn.allow_tf32 and not bk.cuda.matmul.allow_tf32
+        assert torch.get_float32_matmul_precision() == "highest"
+    finally:
+        (bk.cudnn.deterministic, bk.cudnn.benchmark, bk.cudnn.allow_tf32,
+         bk.cuda.matmul.allow_tf32) = saved[:4]
+        torch.set_float32_matmul_precision(saved[4])
