@@ -55,36 +55,56 @@ failure exits non-zero, and no phase catches an error and carries on:
    weights; then two stage-A rounds on the trained params, timed, with
    whether their unit vectors agree bit for bit and whether they pick
    the same subsets (so also after the LM and RWKV profiles);
-6. profile, RNN-T: one training step under ``torch.profiler`` (host wall
+6. the reference's own loop (``examples/train_asr_pgm.py`` and the
+   reference's host engine), beside phase 5's first run: (a) the same
+   config with a checkpoint directory, preempted after epoch 1 (a
+   manifest with ``extra.preempted``), then resumed: the remaining
+   epochs' losses and rounds' subsets and weights bitwise those of
+   phase 5's first run, its launches counted; then the newest
+   checkpoint corrupted, and ``restore_latest_intact`` falls back to the
+   one before; (b) a guarded AdamW epoch with a NaN weight at step 5:
+   one step skipped, params and optimizer state bitwise unchanged across
+   it; (c) the dense loss (``loss_impl="dense"``, no kernel) against the
+   fused one on one full-width unit, per-example loss within 1e-4 and
+   every gradient within 1e-3 of its largest entry; (d) an
+   exact-gradient PGM round on the trained params, and the Gram at its
+   (4, 4, 1,024,000) twice bitwise, against its plain version, timed in
+   turns with ``torch.bmm``; (e) ``greedy_decode`` and
+   ``token_error_rate`` on the 16 validation utterances, card against
+   CPU (the trained params, then phase 8's random weights, which emit),
+   with the smallest top-2 margin; (f) ``python -m
+   repro_torch.examples.train_asr_pgm`` at its reference settings, its
+   TER line printed;
+7. profile, RNN-T: one training step under ``torch.profiler`` (host wall
    time, device busy time, the kernels that take the most of it);
-7. serving, RNN-T: ``rnnt-crdnn`` at full width (random weights; the
+8. serving, RNN-T: ``rnnt-crdnn`` at full width (random weights; the
    3-epoch model emits only blanks) in the slot engine (streaming greedy
    transducer search) on 8 utterances, token for token against
    ``rnnt_greedy_reference`` on the card;
-8. main path, LM: the same loop on ``starcoder2-3b`` at full width and
+9. main path, LM: the same loop on ``starcoder2-3b`` at full width and
    depth (30 layers, d_model 3072, vocab 49152, bf16 compute, fp32 master
    weights) on a synthetic corpus of 512-token examples, with the peak of
    device memory;
-9. profile, LM: one training step of that model, as in 6;
-10. serving, LM: the same params (the training path's optimizer state
+10. profile, LM: one training step of that model, as in 7;
+11. serving, LM: the same params (the training path's optimizer state
    freed) served at full depth: ``generate`` on 2 prompts of 8,192
    tokens, then ``SlotEngine`` with 4 slots on the launcher's 8
    requests of 4,136-7,581 tokens (5 through the band kernel, 3 through
    the kv-block flash branch), 32 new tokens each; every completion's
    first token against ``generate`` on its prompt alone; one decode scan
    and one prefill of the 2 x 8,192 prompts under the profiler;
-11. main path, RWKV: the same loop on ``rwkv6-3b`` at full width and
+12. main path, RWKV: the same loop on ``rwkv6-3b`` at full width and
    depth (32 layers, d_model 2560, 40 WKV heads of 64, vocab 65536, bf16
    compute, fp32 master weights), with the peak of device memory;
-12. profile, RWKV: one training step of that model, as in 6.
+13. profile, RWKV: one training step of that model, as in 7.
 
 Each main path runs with its kernels' launch counters set to 0 just
 before and read just after, and fails if a kernel of the path was never
 launched.  The script ends with a JSON line of per-kernel numbers (one
-row per kernel and main path, so the Gram, which all three training
-paths run, has three, and the grad sketch, which both LM paths run,
-two), the card's name and power limit as ``nvidia-smi`` prints them, and
-the line ``{"ok": true, "device": {...}}``.
+row per kernel and main path: the Gram, which all three training paths
+run, has three and a fourth for phase 6's exact stage B, and the grad
+sketch, which both LM paths run, two), the card's name and power limit
+as ``nvidia-smi`` prints them, and the line ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
@@ -92,6 +112,7 @@ import dataclasses
 import gc
 import json
 import math
+import os
 import re
 import subprocess
 import sys
@@ -811,6 +832,284 @@ def profile_step(torch, bundle, tc, units, dev, params, tag) -> None:
                  f"one training step (B={UNIT_SIZE})")
 
 
+def greedy_with_margin(torch, greedy_decode, bundle, params, feats, lens):
+    """``greedy_decode`` on ``params``, recording the top-2 margin of each
+    frame's joint logits that the search reads -> (hyp, n_sym, smallest
+    margin, largest |logit|)."""
+    from repro_torch.models import rnnt as rnnt_mod
+    joint_logits, seen = rnnt_mod.joint_logits, []
+
+    def recording(p, z):
+        logits = joint_logits(p, z)
+        top2 = torch.topk(logits, 2, dim=-1).values
+        seen.append((float((top2[..., 0] - top2[..., 1]).min()),
+                     float(logits.abs().max())))
+        return logits
+
+    rnnt_mod.joint_logits = recording
+    try:
+        hyp, n_sym = greedy_decode(bundle, params, feats, lens)
+    finally:
+        rnnt_mod.joint_logits = joint_logits
+    return hyp, n_sym, min(m for m, _ in seen), max(b for _, b in seen)
+
+
+def reference_loop(torch, np, bundle, tc, units, val_units, val_corpus,
+                   first, final_params, dev, mark):
+    """Phase 6: the reference's own loop on the card, beside phase 5's
+    first run (``first``, its final params): (a) preemption and resume,
+    then a corrupted newest checkpoint; (b) the non-finite guard; (c) the
+    dense loss against the fused one; (d) an exact-gradient PGM round and
+    the Gram at (4, 4, 1,024,000); (e) greedy decode and TER, card
+    against CPU; (f) the twin of ``examples/train_asr_pgm.py`` in a
+    process of its own.  -> (launches of (a)'s run, the exact Gram's
+    kernels row)."""
+    import tempfile
+
+    from repro_torch.configs.base import PGMConfig, TrainConfig
+    from repro_torch.core.lastlayer import units_gradients
+    from repro_torch.core.pgm import pgm_select
+    from repro_torch.examples.train_asr_pgm import (greedy_decode,
+                                                    token_error_rate)
+    from repro_torch.kernels.omp_gram.ops import omp_gram_batched_op
+    from repro_torch.kernels.omp_gram.ref import omp_gram_batched_ref
+    from repro_torch.kernels.rnnt_lattice.ops import rnnt_lattice_op
+    from repro_torch.models.api import build_model
+    from repro_torch.models.common import tree_leaves, tree_map
+    from repro_torch.train import checkpoint as ckpt
+    from repro_torch.train.engine import HostEngine, to_device
+    from repro_torch.train.faults import FaultPlan, corrupt_checkpoint
+    from repro_torch.train.optim import make_update_for
+
+    # (a) preemption after epoch 1, then resume: the remaining epochs and
+    # rounds bitwise phase 5's first run's; then the newest checkpoint
+    # corrupted, and the restore falls back to the one before
+    rnnt_lattice_op.launches = 0
+    omp_gram_batched_op.launches = 0
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_ckpt_") as ck:
+        t0 = time.time()
+        logs = []
+        cut = train_with_selection_logged(
+            bundle, units, tc, val_units, logs, "[6a cut", t0, ckpt_dir=ck,
+            fault_plan=FaultPlan(preempt_after_epoch=1))
+        manifest = ckpt.read_manifest(ck)
+        require(cut.preempted and len(cut.train_loss) == 2
+                and manifest["extra"].get("preempted") is True,
+                f"6a: the preempted run did not stop resumably: "
+                f"{manifest['extra']}")
+        res = train_with_selection_logged(
+            bundle, units, tc, val_units, logs, "[6a resume", t0,
+            ckpt_dir=ck, resume=True)
+        torch.cuda.synchronize()
+        launches = {"rnnt_lattice": rnnt_lattice_op.launches,
+                    "omp_gram": omp_gram_batched_op.launches}
+        joined = (cut.train_loss + res.train_loss, cut.val_loss
+                  + res.val_loss,
+                  [(s["epoch"], list(s["indices"]), list(s["weights"]))
+                   for s in cut.selections + res.selections])
+        same = joined == first
+        print(f"[6a] preempted after epoch 1 (manifest step "
+              f"{manifest['step']}, extra.preempted true), resumed at epoch "
+              f"2: {time.time() - t0:.1f} s for both; launches {launches}; "
+              f"every loss and every round's indices and weights bitwise "
+              f"equal to phase 5's first run: {same}", flush=True)
+        require(same, f"6a: preempted + resumed run differs from the "
+                      f"uninterrupted one: {joined} against {first}")
+        require(all(n > 0 for n in launches.values()),
+                f"6a: a kernel of the path was never launched: {launches}")
+        newest = ckpt.latest_step(ck)
+        corrupt_checkpoint(ck)
+        fell = []
+        _, m = ckpt.restore_latest_intact(
+            ck, template={"params": final_params}, log_fn=fell.append)
+        require(m["step"] == newest - 1 and len(fell) == 1,
+                f"6a: no fall-back to the previous checkpoint: {fell}")
+        print(f"[6a] step_{newest} corrupted: restore_latest_intact fell "
+              f"back to step_{m['step']} ({fell[0][:90]}...)", flush=True)
+    mark("6a preemption and resume")
+
+    # (b) the guard: one warm epoch with a NaN at step 5, run in three
+    # slices so the state around the poisoned step can be compared
+    tc_g = dataclasses.replace(tc, optimizer="adamw", lr=0.05,
+                               nonfinite_guard=True)
+    eng = HostEngine(bundle, tc_g, units, device=dev)
+    params = bundle.init_params(torch.Generator().manual_seed(0), dev)
+    opt = make_update_for(tc_g)[0](params)
+    idx, w = FaultPlan(nan_step=(0, 5)).poison_plan(0, eng.full_plan(0))
+    t0 = time.time()
+    skipped = 0
+    states = [(params, opt)]
+    for rows in (slice(0, 5), slice(5, 6), slice(6, None)):
+        p, o, losses = eng.run_epoch(*states[-1], tc_g.lr,
+                                     (idx[rows], w[rows]))
+        skipped += eng.last_n_skipped
+        states.append((p, o))
+    torch.cuda.synchronize()
+    before, after = states[1], states[2]
+    held = all(bool(torch.equal(a, b)) for a, b in
+               zip(tree_leaves(before), tree_leaves(after)))
+    finite = all(bool(torch.isfinite(x).all()) for x in
+                 tree_leaves(states[3]))
+    print(f"[6b] guarded AdamW epoch of {len(w)} steps with a NaN weight at "
+          f"step 5: {skipped} skipped; params and AdamW state (step, m, v) "
+          f"bitwise unchanged across it: {held}; final state finite: "
+          f"{finite} ({time.time() - t0:.1f} s)", flush=True)
+    require(skipped == 1 and held and finite, "6b: the guard failed")
+    del eng, states, before, after, params, opt
+    mark("6b guard")
+
+    # (c) the dense loss against the fused one on one full-width unit
+    cfg_d = dataclasses.replace(bundle.cfg, rnnt=dataclasses.replace(
+        bundle.cfg.rnnt, loss_impl="dense"))
+    ub = to_device({k: v[0] for k, v in units.items()}, dev)
+    got = {}
+    for name, b in (("fused", bundle), ("dense", build_model(cfg_d))):
+        rnnt_lattice_op.launches = 0
+        live = tree_map(lambda x: x.detach().requires_grad_(True),
+                        final_params)
+        per_ex = b.per_example_loss(live, ub)
+        total, _ = b.loss_fn(live, ub)
+        grads = torch.autograd.grad(total, tree_leaves(live))
+        torch.cuda.synchronize()
+        got[name] = (per_ex.detach(), grads, rnnt_lattice_op.launches)
+    loss_rel = float(((got["dense"][0] - got["fused"][0]).abs()
+                      / got["fused"][0].abs()).max())
+    grad_rel = max(float((a - b).abs().max() / b.abs().max().clamp_min(
+        1e-30)) for a, b in zip(got["dense"][1], got["fused"][1]))
+    # bars: the loss at 1e-4; the gradients at 1e-3 of each leaf's
+    # largest entry: both scale d(loss)/d(logits) by exp(-log p) of a
+    # per-example log-likelihood of hundreds of nats summed over the
+    # 128 x 33 lattice in fp32, in two orders (the dense autograd through
+    # alpha, the fused beta pass), so every leaf moves together by ~1e-4
+    # (2.9e-4 at the seed-0 init on the CPU)
+    print(f"[6c] dense vs fused loss, one full-width unit (fp32, TF32 off): "
+          f"per-example loss rel err {loss_rel:.2e} (bar 1e-4), gradients "
+          f"at most {grad_rel:.2e} of a leaf's largest entry (bar 1e-3); "
+          f"lattice launches fused {got['fused'][2]}, dense "
+          f"{got['dense'][2]}", flush=True)
+    require(loss_rel < 1e-4 and grad_rel < 1e-3,
+            "6c: the dense and fused losses disagree")
+    require(got["dense"][2] == 0 and got["fused"][2] > 0,
+            "6c: the dense oracle went through the lattice kernel, or the "
+            "fused loss did not")
+    del got, live, per_ex, total, grads
+    mark("6c dense loss")
+
+    # (d) one exact-gradient PGM round on the trained params; the Gram at
+    # its shape against its plain version, twice bitwise, timed
+    pc = dataclasses.replace(tc.pgm, use_sketch=False)
+    us, vs = to_device(units, dev), to_device(val_units, dev)
+    omp_gram_batched_op.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.time()
+    sel = pgm_select(bundle, final_params, us, pc, None, val_units=vs)
+    torch.cuda.synchronize()
+    exact_s = time.time() - t0
+    exact_launches = omp_gram_batched_op.launches
+    g = units_gradients(bundle, final_params, us, None, exact=True)
+    P = pc.n_partitions
+    gp = g.reshape(P, g.shape[0] // P, g.shape[1]).contiguous()
+    k1, k2 = omp_gram_batched_op(gp), omp_gram_batched_op(gp)
+    torch.cuda.synchronize()
+    want = omp_gram_batched_ref(gp)
+    require(bool(torch.equal(k1, k2)) and bool(torch.equal(k1, k1.transpose(
+        1, 2))), "6d: the exact Gram is not bitwise repeatable or symmetric")
+    err = gram_err(torch, k1, want)
+    gt = gp.transpose(1, 2)
+    k_ms, l_ms = [], []
+    for _ in range(2):
+        k_ms.append(cuda_ms(torch, lambda: omp_gram_batched_op(gp), 50))
+        l_ms.append(cuda_ms(torch, lambda: torch.bmm(gp, gt), 50))
+    p_ms = cuda_ms(torch, lambda: omp_gram_batched_ref(gp), 20)
+    k_ms, l_ms = sum(k_ms) / 2, sum(l_ms) / 2
+    _, n, D = gp.shape
+    g_ops = P * n * (n + 1) * D
+    b_ms, b_by = bound(4 * (P * n * D + P * n * n), g_ops)
+    print(f"[6d] exact PGM round (stage A: {g.shape[0]} + "
+          f"{vs['tokens'].shape[0]} units of {g.shape[1]:,} floats, then "
+          f"stage B): {exact_s:.2f} s, "
+          f"selected {sel.indices.cpu().tolist()}; Gram launches "
+          f"{exact_launches}", flush=True)
+    print(f"[kernels] omp_gram {tuple(gp.shape)} (exact stage B): "
+          f"max_abs_err {err:.3e} kernel_ms {k_ms:.4f} plain_ms {p_ms:.4f} "
+          f"library_ms (torch.bmm) {l_ms:.4f} (kernel / library "
+          f"{k_ms / l_ms:.3f}) bound_ms {b_ms:.6f} ({b_by}) achieved "
+          f"{4 * (P * n * D + P * n * n) / k_ms / 1e6:.1f} GB/s; two "
+          f"launches bitwise equal, K exactly symmetric", flush=True)
+    require(exact_launches > 0, "6d: the exact round never launched the "
+                                "Gram kernel")
+    gram_row = {"name": "omp_gram_batched", "path": "rnnt-exact",
+                "route": "cuda",
+                "source": "src/repro_torch/kernels/omp_gram/csrc/omp_gram.cu",
+                "replaces": "src/repro/kernels/omp_gram/kernel.py:54",
+                "launches": exact_launches, "max_abs_err": err, "ms": k_ms,
+                "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by,
+                "library_ms": l_ms}
+    del g, gp, gt, k1, k2, want, us, vs
+    mark("6d exact stage B")
+
+    # (e) greedy decode and TER on phase 5's final params over its 16
+    # validation utterances, card against CPU; then on phase 8's random
+    # weights, which emit symbols (the 3-epoch model emits blanks)
+    feats, lens = val_corpus.feats, val_corpus.feat_lens
+    for tag, p_dev in (("trained", final_params),
+                       ("random seed 1", bundle.init_params(
+                           torch.Generator().manual_seed(1), dev))):
+        t0 = time.time()
+        hyp, n_sym, margin, big = greedy_with_margin(
+            torch, greedy_decode, bundle, p_dev, feats, lens)
+        card_s = time.time() - t0
+        p_cpu = tree_map(lambda x: x.cpu(), p_dev)
+        t0 = time.time()
+        hyp_c, n_c = greedy_decode(bundle, p_cpu, feats, lens)
+        cpu_s = time.time() - t0
+        ter = token_error_rate(hyp, n_sym, val_corpus.tokens,
+                               val_corpus.token_lens)
+        same = bool(np.array_equal(hyp, hyp_c) and np.array_equal(n_sym,
+                                                                  n_c))
+        print(f"[6e] greedy decode ({tag}), {len(lens)} validation "
+              f"utterances: {int(n_sym.sum())} symbols, token error rate "
+              f"{ter:.3f}; card hypotheses equal to the CPU's: {same}; "
+              f"smallest top-2 margin {margin:.3e} (largest |logit| "
+              f"{big:.3e}) (card {card_s:.1f} s with the margins read, "
+              f"CPU {cpu_s:.1f} s)",
+              flush=True)
+        require(same, f"6e: card and CPU hypotheses differ ({tag})")
+    mark("6e greedy decode")
+
+    # (f) the twin at its reference settings, in a process of its own
+    t0 = time.time()
+    run = subprocess.run(
+        [sys.executable, "-m", "repro_torch.examples.train_asr_pgm"],
+        cwd=str(ROOT), env=dict(os.environ, PYTHONPATH=str(SRC)),
+        capture_output=True, text=True, timeout=600)
+    out = run.stdout.strip().splitlines()
+    require(run.returncode == 0 and out and "token error rate" in out[-1],
+            f"6f: the twin failed (rc {run.returncode}): "
+            f"{run.stderr[-2000:]}")
+    for line in filter(None, out):
+        print(f"[6f] {line}", flush=True)
+    print(f"[6f] python -m repro_torch.examples.train_asr_pgm on the card: "
+          f"{time.time() - t0:.1f} s (process start and kernel load "
+          f"included)", flush=True)
+    mark("6f twin")
+    return launches, gram_row
+
+
+def train_with_selection_logged(bundle, units, tc, val_units, logs, tag, t0,
+                                **kw):
+    """Phase 5's run with options, its log lines printed and kept."""
+    from repro_torch.train.loop import train_with_selection
+
+    def log(s):
+        logs.append(s)
+        print(f"{tag} +{time.time() - t0:.1f}s] {s}", flush=True)
+
+    return train_with_selection(bundle, units, tc, method="pgm",
+                                val_units=val_units, device="cuda",
+                                log_fn=log, **kw)
+
+
 def main() -> None:
     clock = [time.time()]
 
@@ -1330,12 +1629,18 @@ def main() -> None:
 
     mark("main path, RNN-T")
 
-    # -- 6. where a training step's time goes (outside the counted run) --
+    # -- 6. the reference's own loop: preemption and resume, the guard,
+    # the dense loss, exact stage B, greedy decode and TER, the twin ----
+    loop_launches, exact_gram = reference_loop(
+        torch, np, bundle, tc, units, val_units, val_corpus, first,
+        hist.final_params, dev, mark)
+
+    # -- 7. where a training step's time goes (outside the counted run) --
     profile_step(torch, bundle, tc, units, dev, hist.final_params, "rnnt")
 
     mark("profile, RNN-T")
 
-    # -- 7. serving, RNN-T: streaming greedy search ---------------------
+    # -- 8. serving, RNN-T: streaming greedy search ---------------------
     # random weights: the 3-epoch model of phase 5 emits only blanks on
     # these utterances, which would hold nothing token for token
     del hist
@@ -1344,7 +1649,7 @@ def main() -> None:
 
     mark("serving, RNN-T")
 
-    # -- 8. main path, LM: starcoder2-3b at full width and depth ---------
+    # -- 9. main path, LM: starcoder2-3b at full width and depth ---------
     lm = build_model(lm_cfg)
     n_lm = LM_N // UNIT_SIZE
     # lr 0.05, not the launcher's 0.5: from this random init (embedding
@@ -1400,14 +1705,14 @@ def main() -> None:
 
     mark("main path, LM")
 
-    # -- 9. where an LM training step's time goes ------------------------
+    # -- 10. where an LM training step's time goes -----------------------
     profile_step(torch, lm, tc_lm, lm_units, dev, hist.final_params, "lm")
     stage_a_rounds(torch, lm, hist.final_params, lm_units, lm_val, tc_lm.pgm,
                    dev, "lm")
 
     mark("profile, LM")
 
-    # -- 10. serving, LM: the same params at full depth ------------------
+    # -- 11. serving, LM: the same params at full depth ------------------
     lm_params = hist.final_params
     del hist
     gc.collect()
@@ -1423,7 +1728,7 @@ def main() -> None:
 
     mark("serving, LM")
 
-    # -- 11. main path, RWKV: rwkv6-3b at full width and depth -----------
+    # -- 12. main path, RWKV: rwkv6-3b at full width and depth -----------
     gc.collect()
     torch.cuda.empty_cache()
     rw = build_model(rw_cfg)
@@ -1480,7 +1785,7 @@ def main() -> None:
 
     mark("main path, RWKV")
 
-    # -- 12. where an RWKV training step's time goes ---------------------
+    # -- 13. where an RWKV training step's time goes ---------------------
     profile_step(torch, rw, tc_lm, rw_units, dev, hist.final_params, "rwkv")
     stage_a_rounds(torch, rw, hist.final_params, rw_units, rw_val, tc_lm.pgm,
                    dev, "rwkv")
@@ -1489,7 +1794,9 @@ def main() -> None:
     mark("profile, RWKV")
     g_err, g_ms, g_plain, g_lib, g_bound, g_by = \
         gram_rows[(P_main, n_units // P_main, D_sk)]
-    print(f"[launches] RNN-T path {launches}, LM path {lm_launches}, RWKV "
+    print(f"[launches] RNN-T path {launches}, its preempted and resumed "
+          f"runs {loop_launches}, exact stage B {{'omp_gram': "
+          f"{exact_gram['launches']}}}, LM path {lm_launches}, RWKV "
           f"path {rw_launches}, serving path {{'swa_attn': {swa_launches}}}",
           flush=True)
     # one row per kernel and main path, "launches" from that path's run;
@@ -1507,6 +1814,7 @@ def main() -> None:
          "ms": lat_ms, "plain_ms": lat_plain, "bound_ms": lat_bound,
          "bound_by": lat_by, "library_ms": None},
         dict(gram, path="rnnt", launches=launches["omp_gram"]),
+        exact_gram,
         dict(gram, path="lm", launches=lm_launches["omp_gram"]),
         {"name": "grad_sketch_units", "path": "lm", "route": "cuda",
          "source": "src/repro_torch/kernels/grad_sketch/csrc/grad_sketch.cu",

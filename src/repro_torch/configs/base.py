@@ -5,7 +5,7 @@ the ported paths read (RNN-T, dense decoder-LM and RWKV6 training + PGM
 selection): the field names, defaults and the smoke reduction are the
 reference's, so a config built here and one built there describe the
 same model and run.  Fields of later slices (MoE, RG-LRU, encdec and
-VLM extras, mesh, compression, fault guard) are not carried: the
+VLM extras, mesh, compression) are not carried: the
 families that need them are refused by ``models/api.py:build_model``.
 """
 from __future__ import annotations
@@ -43,6 +43,11 @@ class RNNTConfig:
     joint_dim: int = 1024
     vocab_size: int = 1000           # BPE units + blank
     time_reduction: int = 4          # cnn striding
+    # transducer-loss path: "fused" = the alpha/beta lattice over the
+    # joint factors with a vocab-streamed joint (never materializes the
+    # (B,T,U+1,V) tensor); "dense" = the autodiff parity oracle over the
+    # materialized logits
+    loss_impl: str = "fused"
     # vocab-chunk size of the fused loss's streamed logsumexp/backward
     # (0: auto-tuned at engine build, <0: one chunk of the whole vocab)
     loss_vocab_chunk: int = 0
@@ -167,6 +172,15 @@ class TrainConfig:
     anneal_factor: float = 0.8
     improvement_threshold: float = 0.0025
     seed: int = 0
+    # fault tolerance: with `nonfinite_guard` the step checks its loss
+    # and clipped gradient norm for NaN/Inf on the device and gates a
+    # non-finite step into a bit-exact no-op (optim.gate_step) with no
+    # host branch.  `max_skipped_steps` arms the host-side divergence
+    # watchdog: K consecutive skipped steps (or a non-finite train/val
+    # loss) roll the run back to the newest intact checkpoint with
+    # re-keyed batch plans.  0 disables the consecutive-skip trigger.
+    nonfinite_guard: bool = False
+    max_skipped_steps: int = 0
     pgm: PGMConfig = field(default_factory=PGMConfig)
 
 

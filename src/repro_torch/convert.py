@@ -7,6 +7,12 @@ port's params are the same tree of tensors, with the same keys, the same
 sequences, the same stacked layout and the same (in, out) weight layouts,
 so the conversion is a leafwise copy through numpy and nothing is
 transposed.  The round trip is bit-exact.
+
+Checkpoints cross the same way: both packages write the same format
+(``train/checkpoint.py``), keyed by each leaf's ``keystr`` path, so
+``checkpoint.restore(template=...)`` of either package restores the
+other's checkpoint, and ``train_with_selection(resume=True)`` resumes
+from it.
 """
 from __future__ import annotations
 

@@ -5,7 +5,10 @@ For RNN-T the last layer is the joint network's output head.  Its
 gradient G = dL/dW_out is exactly the ``dw_out`` of the fused loss's
 analytic backward (alpha/beta occupancies contracted against the
 streamed joint), so no ``(B,T,U+1,V)`` logits, gradient or
-``(B,T,U+1,J)`` activation is ever formed.  The unit's representation is
+``(B,T,U+1,J)`` activation is ever formed.  Under ``loss_impl="dense"``
+the reference takes G from the dense oracle's factors instead (the
+joint activations and the logits' gradient by autograd), and so does
+the port.  The unit's representation is
 G flattened (exact, paper-faithful) or its two-sided sketch R1^T G R2.
 The per-unit scaling matches the training loss: per-example NLL over
 ``max(u_len, 1)``, mean over the unit's examples.
@@ -25,9 +28,10 @@ import torch
 
 from repro_torch.core.chunking import (chunk_vocab_axis, resolve_vocab_chunk,
                                        vocab_chunk_mask)
-from repro_torch.core.rnnt_loss import rnnt_loss_fused
+from repro_torch.core.rnnt_loss import (rnnt_loss_from_logits,
+                                        rnnt_loss_fused)
 from repro_torch.core.sketch import (Projections, exact_from_factors,
-                                     make_projections)
+                                     make_projections, sketch_from_factors)
 from repro_torch.models import rnnt as rnnt_mod
 
 
@@ -123,14 +127,41 @@ def rnnt_joint_grad(bundle, params, batch) -> torch.Tensor:
     return g
 
 
+def rnnt_unit_factors(bundle, params, batch):
+    """The dense oracle's factors (``loss_impl="dense"``): the joint
+    activations z (N, J) and d(training loss)/d(logits) (N, V) from
+    autograd through the materialized lattice, N = B*T'*(U+1)."""
+    cfg = bundle.cfg
+    with torch.no_grad():
+        enc = rnnt_mod.encode(params, cfg, batch["feats"])
+        pred = rnnt_mod.predict(params, cfg, batch["tokens"])
+        z = rnnt_mod.joint_hidden(params, enc, pred)           # (B,T,U1,J)
+        logits = rnnt_mod.joint_logits(params, z).to(torch.float32)
+    logits.requires_grad_(True)
+    with torch.enable_grad():
+        per_ex = rnnt_loss_from_logits(logits, batch["tokens"],
+                                       bundle.t_lens(batch),
+                                       batch["token_lens"])
+        per_ex = per_ex / torch.clamp(
+            batch["token_lens"].to(torch.float32), min=1.0)
+        (e,) = torch.autograd.grad(per_ex.mean(), logits)
+    J = z.shape[-1]
+    return z.reshape(-1, J).to(torch.float32), e.reshape(-1, e.shape[-1])
+
+
 def rnnt_unit_sketch(bundle, params, batch, proj: Projections
                      ) -> torch.Tensor:
-    g = rnnt_joint_grad(bundle, params, batch)
-    return (proj.r_h.t() @ g @ proj.r_v).reshape(-1)
+    if bundle.cfg.rnnt.loss_impl == "fused":
+        g = rnnt_joint_grad(bundle, params, batch)
+        return (proj.r_h.t() @ g @ proj.r_v).reshape(-1)
+    return sketch_from_factors(*rnnt_unit_factors(bundle, params, batch),
+                               proj)
 
 
 def rnnt_unit_exact(bundle, params, batch) -> torch.Tensor:
-    return rnnt_joint_grad(bundle, params, batch).reshape(-1)
+    if bundle.cfg.rnnt.loss_impl == "fused":
+        return rnnt_joint_grad(bundle, params, batch).reshape(-1)
+    return exact_from_factors(*rnnt_unit_factors(bundle, params, batch))
 
 
 # ---------------------------------------------------------------------------

@@ -7,7 +7,8 @@ dependency is a first-order recurrence in the log semiring, combined as
 
 * ``rnnt_loss`` / ``rnnt_loss_from_logits`` — the **dense oracle**: takes
   the materialized ``(B, T, U+1, V)`` log-softmaxed joint and
-  differentiates the lattice with autograd.  Used by tests only.
+  differentiates the lattice with autograd.  The opt-in
+  ``loss_impl="dense"`` path of ``models/api.py``; no kernel runs in it.
 * ``rnnt_loss_fused`` — the training path: a ``torch.autograd.Function``
   over the joint *factors* ``(ze, zp, w_out)``.  The forward streams the
   joint row by row over T and over vocab chunks with an online logsumexp

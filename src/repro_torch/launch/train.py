@@ -7,17 +7,27 @@ the reference's ``repro.launch.train``):
       --seq 512 --method pgm --epochs 3 [--device cpu]
   PYTHONPATH=src python -m repro_torch.launch.train --arch rwkv6-3b \
       --seq 512 --method pgm --epochs 3 --lr 0.05 [--device cpu]
+  PYTHONPATH=src python -m repro_torch.launch.train --arch rnnt-crdnn \
+      --optimizer adamw --lr 0.05 --ckpt DIR [--resume] \
+      [--nonfinite-guard --max-skipped-steps 4] [--loss-impl dense] \
+      [--exact-gradients]
 
 Runs on the card unless ``--device cpu`` is given, and prints the same
 ``epoch N: train X val Y lr Z`` lines as the reference.  RNN-T archs
 train on the synthetic ASR corpus, LMs (dense and RWKV6) on the
 synthetic LM corpus of ``--seq`` tokens.  ``--noise`` corrupts that fraction of training
 examples (additive feature noise at ``--snr-db`` for ASR, corrupted
-labels for LM) and turns validation matching on.
+labels for LM) and turns validation matching on.  ``--ckpt DIR`` writes
+a checkpoint after every epoch in the reference's format, ``--resume``
+continues from the newest intact one; ``--nonfinite-guard`` gates
+non-finite steps off on the device and ``--max-skipped-steps K`` arms
+the divergence watchdog.  ``--engine`` has the host loop only: ``scan``
+raises.
 """
 from __future__ import annotations
 
 import argparse
+import dataclasses
 from typing import Optional
 
 from repro_torch.configs import get_config
@@ -50,19 +60,29 @@ def make_units_for(cfg, *, n: int, noise: float, seq: int = 24,
 
 def launch_train(arch: str, tc: TrainConfig, *, method: str = "pgm",
                  n: int = 96, seq: int = 24, noise: float = 0.0,
-                 snr_db: float = 10.0, device: Optional[str] = None,
+                 snr_db: float = 10.0, loss_impl: Optional[str] = None,
+                 engine: str = "host", ckpt_dir: Optional[str] = None,
+                 resume: bool = False, device: Optional[str] = None,
                  log_fn=print) -> History:
     cfg = get_config(arch)
+    if loss_impl is not None and cfg.family == "rnnt":
+        cfg = dataclasses.replace(
+            cfg, rnnt=dataclasses.replace(cfg.rnnt, loss_impl=loss_impl))
     units, val = make_units_for(cfg, n=n, seq=seq, noise=noise,
                                 seed=tc.seed, snr_db=snr_db)
     return train_with_selection(build_model(cfg), units, tc, method=method,
-                                val_units=val, device=device, log_fn=log_fn)
+                                val_units=val, ckpt_dir=ckpt_dir,
+                                resume=resume, engine=engine, device=device,
+                                log_fn=log_fn)
 
 
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", required=True)
     ap.add_argument("--method", default="pgm", choices=list(METHODS))
+    ap.add_argument("--engine", default="host", choices=["host", "scan"],
+                    help="the per-batch host loop; 'scan' (the scanned "
+                         "epoch engine) is not ported and raises")
     ap.add_argument("--subset", type=float, default=0.3)
     ap.add_argument("--partitions", type=int, default=4)
     ap.add_argument("--select-every", type=int, default=5)
@@ -78,6 +98,24 @@ def main(argv=None):
                          "(feature noise for ASR, label noise for LM)")
     ap.add_argument("--snr-db", type=float, default=10.0,
                     help="SNR of the injected feature noise (dB)")
+    ap.add_argument("--loss-impl", default=None, choices=["fused", "dense"],
+                    help="RNN-T loss path: the fused lattice (default) or "
+                         "the dense autodiff oracle")
+    ap.add_argument("--exact-gradients", action="store_true",
+                    help="paper-faithful exact last-layer gradients "
+                         "(no sketching)")
+    ap.add_argument("--nonfinite-guard", action="store_true",
+                    help="gate NaN/Inf steps off on the device (a "
+                         "bit-exact no-op, no host branch) and count them")
+    ap.add_argument("--max-skipped-steps", type=int, default=0,
+                    help="divergence watchdog: this many consecutive "
+                         "guarded-off steps roll back to the last good "
+                         "checkpoint with a re-keyed batch plan (0 = "
+                         "never; needs --nonfinite-guard)")
+    ap.add_argument("--ckpt", default=None,
+                    help="checkpoint directory (one checkpoint an epoch)")
+    ap.add_argument("--resume", action="store_true",
+                    help="continue from the newest intact checkpoint")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default=None,
                     help="'cuda' (default; fails without a card) or 'cpu'")
@@ -88,13 +126,18 @@ def main(argv=None):
     tc = TrainConfig(
         lr=args.lr, optimizer=args.optimizer, epochs=args.epochs,
         seed=args.seed,
+        nonfinite_guard=args.nonfinite_guard,
+        max_skipped_steps=args.max_skipped_steps,
         pgm=PGMConfig(subset_fraction=args.subset,
                       n_partitions=args.partitions,
                       select_every=args.select_every,
                       warm_start_epochs=args.warm_start,
-                      val_matching=args.noise > 0))
+                      val_matching=args.noise > 0,
+                      use_sketch=not args.exact_gradients))
     h = launch_train(args.arch, tc, method=args.method, n=args.n,
                      seq=args.seq, noise=args.noise, snr_db=args.snr_db,
+                     loss_impl=args.loss_impl, engine=args.engine,
+                     ckpt_dir=args.ckpt, resume=args.resume,
                      device=str(device))
     if h.val_loss:
         print(f"done: val {h.val_loss[-1]:.4f}, "

@@ -22,7 +22,8 @@ from typing import Dict, Tuple
 import torch
 
 from repro_torch.configs.base import ATTN_KINDS, BLOCK_RWKV, ModelConfig
-from repro_torch.core.rnnt_loss import rnnt_loss_fused
+from repro_torch.core.rnnt_loss import (rnnt_loss_from_logits,
+                                        rnnt_loss_fused)
 from repro_torch.models import rnnt as rnnt_mod
 from repro_torch.models import transformer as tfm
 
@@ -48,6 +49,9 @@ class RNNTBundle:
         if self.cfg.family != "rnnt" or self.cfg.rnnt is None:
             raise ValueError(f"{self.cfg.name}: the port carries the rnnt "
                              f"family only")
+        if self.cfg.rnnt.loss_impl not in ("fused", "dense"):
+            raise ValueError(f"rnnt.loss_impl must be 'fused' or 'dense', "
+                             f"got {self.cfg.rnnt.loss_impl!r}")
 
     def init_params(self, gen: torch.Generator, device: torch.device):
         return rnnt_mod.init_params(self.cfg, gen, device)
@@ -58,12 +62,22 @@ class RNNTBundle:
                            // self.cfg.rnnt.time_reduction, min=1)
 
     def per_example_nll(self, params, batch: Batch) -> torch.Tensor:
-        ze, zp = rnnt_mod.joint_factors(params, self.cfg, batch["feats"],
-                                        batch["tokens"])
-        return rnnt_loss_fused(ze, zp, params["joint"]["w_out"],
-                               batch["tokens"], self.t_lens(batch),
-                               batch["token_lens"],
-                               vocab_chunk=self.cfg.rnnt.loss_vocab_chunk)
+        """Per-example transducer NLL by ``rnnt.loss_impl``: ``fused``
+        runs the lattice kernels over the joint factors with an analytic
+        backward; ``dense`` materializes the (B,T',U+1,V) logits and
+        differentiates the dense oracle by autograd (no kernel, as in the
+        reference)."""
+        if self.cfg.rnnt.loss_impl == "fused":
+            ze, zp = rnnt_mod.joint_factors(params, self.cfg, batch["feats"],
+                                            batch["tokens"])
+            return rnnt_loss_fused(ze, zp, params["joint"]["w_out"],
+                                   batch["tokens"], self.t_lens(batch),
+                                   batch["token_lens"],
+                                   vocab_chunk=self.cfg.rnnt.loss_vocab_chunk)
+        logits = rnnt_mod.forward(params, self.cfg, batch["feats"],
+                                  batch["tokens"])
+        return rnnt_loss_from_logits(logits, batch["tokens"],
+                                     self.t_lens(batch), batch["token_lens"])
 
     def per_example_loss(self, params, batch: Batch) -> torch.Tensor:
         return self.per_example_nll(params, batch) / torch.clamp(

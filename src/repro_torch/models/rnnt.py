@@ -185,6 +185,12 @@ def joint_logits(params, z):
     return z @ params["joint"]["w_out"]
 
 
+def forward(params, cfg, feats, tokens):
+    """-> the dense logits (B, T', U+1, V) of the dense loss oracle."""
+    enc = encode(params, cfg, feats)
+    pred = predict(params, cfg, tokens)
+    return joint_logits(params, joint_hidden(params, enc, pred))
+
 
 def pred_step(params, cfg, tokens, h):
     """One prediction-network step for streaming greedy decode: tokens

@@ -5,6 +5,12 @@
 ``HostEngine`` runs one step per host-assembled batch of the
 (seed, epoch)-keyed plans, so its batch order is byte-identical to the
 reference's.  The scanned, device-resident ``EpochEngine`` is later work.
+
+The non-finite guard (``TrainConfig.nonfinite_guard``) checks each
+step's loss and clipped gradient norm on the device and folds the result
+into the optimizer's ``gate_step`` select, as the reference does: a
+poisoned batch leaves params and optimizer state bit for bit as they
+were, and a guarded run on finite data is bitwise the unguarded one.
 """
 from __future__ import annotations
 
@@ -23,12 +29,21 @@ from repro_torch.train.optim import clip_by_global_norm, make_update_for
 
 
 def make_step_core(bundle, cfg: TrainConfig):
-    """One weighted SGD step: ``step(params, opt_state, batch, lr) ->
-    (params, opt_state, metrics)``.  Gradients come from autograd through
-    the fused loss's analytic backward; the inputs are left untouched."""
-    _, opt_update = make_update_for(cfg)
+    """One weighted SGD step: ``step(params, opt_state, batch, lr,
+    step_on=None) -> (params, opt_state, metrics)``.  Gradients come from
+    autograd through the fused loss's analytic backward; the inputs are
+    left untouched.  ``step_on`` (0-dim bool tensor) gates the update.
 
-    def step(params, opt_state, batch, lr):
+    With ``cfg.nonfinite_guard`` the step also gates on ``isfinite(loss)
+    & isfinite(gnorm)`` (the clip's global norm: any NaN/Inf gradient
+    leaf poisons it, and a finite tree whose norm overflows is gated off
+    too), zeroes the metrics of a gated-off step and reports
+    ``metrics["skipped"]``, whether a live step was suppressed.  Nothing
+    is read back to the host."""
+    _, opt_update = make_update_for(cfg)
+    guard = bool(cfg.nonfinite_guard)
+
+    def step(params, opt_state, batch, lr, step_on=None):
         live = tree_map(lambda p: p.detach().requires_grad_(True), params)
         leaves = tree_leaves(live)
         with torch.enable_grad():
@@ -41,9 +56,21 @@ def make_step_core(bundle, cfg: TrainConfig):
         del grad_leaves, by_id
         with torch.no_grad():
             grads, gnorm = clip_by_global_norm(grads, cfg.grad_clip)
-            params, opt_state = opt_update(params, grads, opt_state, lr)
-        metrics = {k: v.detach() for k, v in metrics.items()}
-        metrics["grad_norm"] = gnorm
+            ok = step_on
+            if guard:
+                finite = torch.isfinite(total) & torch.isfinite(gnorm)
+                ok = finite if step_on is None else step_on & finite
+            params, opt_state = opt_update(params, grads, opt_state, lr,
+                                           step_on=ok)
+            metrics = {k: v.detach() for k, v in metrics.items()}
+            metrics["grad_norm"] = gnorm
+            if ok is not None:
+                metrics = {k: torch.where(ok, v, torch.zeros_like(v))
+                           for k, v in metrics.items()}
+            if guard:
+                live = (torch.ones_like(finite) if step_on is None
+                        else step_on)
+                metrics["skipped"] = live & ~finite
         return params, opt_state, metrics
 
     return step
@@ -72,6 +99,12 @@ def autotune_loss_vocab_chunk(bundle, units, batch_units: int):
     return build_model(cfg_new), tuned
 
 
+def plan_live_steps(plan) -> np.ndarray:
+    """Host-side mask of a plan's real (non-padding) rows: a row of ids
+    -1 is padding, excluded from the epoch's mean loss."""
+    return np.asarray(plan[0])[:, 0] >= 0
+
+
 def to_device(units: Dict[str, np.ndarray], device: torch.device
               ) -> Dict[str, torch.Tensor]:
     return {k: torch.as_tensor(np.asarray(v)).to(device)
@@ -81,7 +114,13 @@ def to_device(units: Dict[str, np.ndarray], device: torch.device
 class HostEngine:
     """The per-batch host loop: one step per host-assembled batch, one
     evaluation per validation unit.  Units are kept on the host (to
-    assemble batches) and on the device (for selection rounds)."""
+    assemble batches) and on the device (for selection rounds).
+
+    ``plan_salt`` re-keys the batch plans: the divergence watchdog bumps
+    it so that a rolled-back run replays on other batch orders
+    (``seed + 1_000_003 * plan_salt``).  With the guard on,
+    ``last_skipped`` holds the last epoch's per-step skip flags and
+    ``last_n_skipped`` their count."""
 
     def __init__(self, bundle, cfg: TrainConfig, units: Dict[str, np.ndarray],
                  val_units: Optional[Dict[str, np.ndarray]] = None,
@@ -99,15 +138,23 @@ class HostEngine:
                           else to_device(val_units, device))
         self.n_units = int(self.units_host["tokens"].shape[0])
         self.unit_size = int(self.units_host["tokens"].shape[1])
+        self.guard = bool(cfg.nonfinite_guard)
+        self.plan_salt = 0
+        self.last_skipped: Optional[np.ndarray] = None
+        self.last_n_skipped: Optional[int] = None
         self._step = make_step_core(bundle, cfg)
 
+    def _plan_seed(self) -> int:
+        return self.cfg.seed + 1_000_003 * self.plan_salt
+
     def full_plan(self, epoch: int):
-        idx = epoch_plan(self.n_units, self.cfg.seed, epoch, self.batch_units)
+        idx = epoch_plan(self.n_units, self._plan_seed(), epoch,
+                         self.batch_units)
         return idx, np.ones(idx.shape, np.float32)
 
     def subset_plan(self, indices, weights, epoch: int):
         return subset_epoch_plan(np.asarray(indices), np.asarray(weights),
-                                 self.cfg.seed, epoch, self.batch_units)
+                                 self._plan_seed(), epoch, self.batch_units)
 
     def epoch_cost(self, use_full: bool = False,
                    n_selected: Optional[int] = None) -> float:
@@ -117,7 +164,10 @@ class HostEngine:
         return float(n_selected) / self.n_units
 
     def run_epoch(self, params, opt_state, lr, plan):
-        losses = []
+        """Every plan row, padding rows included (a row of ids -1 runs on
+        the last unit with weight 0, as the reference's host loop runs
+        it) -> (params, opt_state, each row's loss)."""
+        losses, skipped = [], []
         for sel, w in zip(*plan):
             batch = {k: v[sel].reshape((-1,) + v.shape[2:])
                      for k, v in self.units_host.items()}
@@ -125,6 +175,11 @@ class HostEngine:
             params, opt_state, metrics = self._step(
                 params, opt_state, to_device(batch, self.device), lr)
             losses.append(float(metrics["loss"]))
+            if self.guard:
+                skipped.append(float(metrics["skipped"]))
+        if self.guard:
+            self.last_skipped = np.asarray(skipped, np.float32)
+            self.last_n_skipped = int(sum(skipped))
         return params, opt_state, np.asarray(losses, np.float64)
 
     def validate(self, params) -> float:

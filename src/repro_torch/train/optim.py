@@ -20,6 +20,20 @@ def global_norm(tree) -> torch.Tensor:
                           for l in tree_leaves(tree)))
 
 
+def tree_all_finite(tree) -> torch.Tensor:
+    """0-dim bool tensor: every leaf of ``tree`` is free of NaN/Inf.
+
+    The reference checker of the non-finite guard's semantics.  The step
+    itself does not sweep the tree: clipping already computes the global
+    norm, and any NaN/Inf leaf poisons that sum of squares, so the guard
+    checks ``isfinite(gnorm)``, one scalar."""
+    ok = torch.ones((), dtype=torch.bool,
+                    device=tree_leaves(tree)[0].device)
+    for l in tree_leaves(tree):
+        ok = ok & torch.all(torch.isfinite(l))
+    return ok
+
+
 def clip_by_global_norm(grads, max_norm: float):
     n = global_norm(grads)
     scale = torch.clamp(max_norm / torch.clamp(n, min=1e-9), max=1.0)
@@ -85,9 +99,21 @@ def make_optimizer(name: str):
     raise ValueError(name)
 
 
+def gate_step(step_on: torch.Tensor, new_tree, old_tree):
+    """``new_tree`` where ``step_on`` (a 0-dim bool tensor on the trees'
+    device) and ``old_tree`` otherwise, leafwise.  A select, not a host
+    branch: it reads no value back, so a captured step can replay it,
+    and a gated-off step returns the old leaves bit for bit (no parameter
+    update, no step tick, no Adam moment decay)."""
+    return tree_map(lambda a, b: torch.where(step_on, a, b), new_tree,
+                    old_tree)
+
+
 def make_update_for(cfg):
     """Bind a TrainConfig's optimizer hyper-parameters once:
-    ``init(params) -> state``; ``update(params, grads, state, lr)``."""
+    ``init(params) -> state``; ``update(params, grads, state, lr[,
+    step_on])``.  ``step_on`` (a 0-dim bool tensor) gates the update
+    through ``gate_step``; with ``None`` no gating op runs."""
     init, update = make_optimizer(cfg.optimizer)
     kw = {"momentum": cfg.momentum} if cfg.optimizer == "sgd" else {}
 
@@ -95,9 +121,13 @@ def make_update_for(cfg):
         return init(params, cfg.momentum) if cfg.optimizer == "sgd" \
             else init(params)
 
-    def update_fn(params, grads, state, lr):
-        return update(params, grads, state, lr,
-                      weight_decay=cfg.weight_decay, **kw)
+    def update_fn(params, grads, state, lr, step_on=None):
+        new_p, new_s = update(params, grads, state, lr,
+                              weight_decay=cfg.weight_decay, **kw)
+        if step_on is None:
+            return new_p, new_s
+        return (gate_step(step_on, new_p, params),
+                gate_step(step_on, new_s, state))
 
     return init_fn, update_fn
 

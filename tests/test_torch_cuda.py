@@ -76,7 +76,10 @@ def test_lattice_kernel_matches_plain(card, T, U1):
 @pytest.mark.parametrize("P,n,D", [(1, 1, 1), (4, 4, 4096), (3, 65, 130),
                                    (2, 130, 4099), (8, 512, 4096),
                                    (2, 1000, 4096), (5, 33, 1),
-                                   (1, 257, 777)])
+                                   (1, 257, 777),
+                                   # exact stage B: a unit's flattened
+                                   # dw_out at full width, 1,024 x 1,000
+                                   (4, 4, 1024000)])
 def test_gram_kernel_matches_plain(card, P, n, D):
     """Within 1e-4 of the largest |K| (two fp32 summation orders over D),
     two launches bitwise equal (D split without atomics), and exactly
@@ -183,6 +186,71 @@ def test_rnnt_training_gradient_is_bitwise_repeatable(card):
     assert len(grads[0]) == len(tree_leaves(params))
     for a, b in zip(*grads):
         assert torch.isfinite(a).all()
+        assert torch.equal(a, b)
+
+
+def _full_width_step(card):
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import asr_units
+    from repro_torch.data.synthetic import make_asr_corpus
+    from repro_torch.models.api import build_model
+
+    bundle = build_model(get_config("rnnt-crdnn"))
+    corpus = make_asr_corpus(0, n_examples=4, n_feats=80, vocab_size=1000,
+                             min_tokens=16, max_tokens=32,
+                             frames_per_token=16)
+    batch = {k: torch.as_tensor(v[0]).to(card)
+             for k, v in asr_units(corpus, 4).items()}
+    return bundle, batch, bundle.init_params(
+        torch.Generator().manual_seed(0), card)
+
+
+def test_checkpoint_of_card_tensors_restores_bitwise_onto_card(card,
+                                                               tmp_path):
+    """Full-width params and AdamW state on the card, saved and restored
+    with themselves as the template: every leaf back on the card, bit
+    for bit, dtypes kept (the int32 step included)."""
+    from repro_torch.models.common import tree_leaves
+    from repro_torch.train import checkpoint as ckpt
+    from repro_torch.train.optim import adamw_init
+
+    _, _, params = _full_width_step(card)
+    opt = adamw_init(params)
+    opt["m"] = {k: {n: torch.randn_like(v) for n, v in d.items()}
+                for k, d in opt["m"].items()}
+    tree = {"params": params, "opt": opt}
+    ckpt.save(str(tmp_path), 0, tree, extra={"epoch": 0})
+    got, manifest = ckpt.restore(str(tmp_path), template=tree)
+    assert manifest["extra"] == {"epoch": 0}
+    for a, b in zip(tree_leaves(got), tree_leaves(tree)):
+        assert a.device.type == "cuda" and a.dtype == b.dtype
+        assert torch.equal(a, b)
+
+
+def test_guarded_off_step_is_bitwise_on_card(card):
+    """G1 on the card: a full-width step on a NaN weight leaves params
+    and the AdamW state bit for bit; on finite data the guarded step is
+    bitwise the unguarded one."""
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.models.common import tree_leaves
+    from repro_torch.train.engine import make_step_core
+    from repro_torch.train.optim import make_update_for
+
+    bundle, batch, params = _full_width_step(card)
+    tc = TrainConfig(lr=0.05, optimizer="adamw", nonfinite_guard=True)
+    opt = make_update_for(tc)[0](params)
+    p1, o1, m1 = make_step_core(bundle, tc)(params, opt, batch, tc.lr)
+    p0, o0, _ = make_step_core(bundle, TrainConfig(lr=0.05,
+                                                   optimizer="adamw"))(
+        params, opt, batch, tc.lr)
+    assert not bool(m1["skipped"])
+    for a, b in zip(tree_leaves((p1, o1)), tree_leaves((p0, o0))):
+        assert torch.equal(a, b)
+    poisoned = dict(batch, weights=batch["weights"].clone())
+    poisoned["weights"][1] = float("nan")
+    p2, o2, m2 = make_step_core(bundle, tc)(p1, o1, poisoned, tc.lr)
+    assert bool(m2["skipped"]) and float(m2["loss"]) == 0.0
+    for a, b in zip(tree_leaves((p2, o2)), tree_leaves((p1, o1))):
         assert torch.equal(a, b)
 
 

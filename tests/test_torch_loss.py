@@ -4,7 +4,11 @@ three factor gradients (dze, dzp, dw_out) at rtol 1e-4 (the
 ``tests/test_rnnt_loss.py`` bar) over the edge lengths t_len 1, u_len 0,
 u_len U and ragged rows, with one vocab chunk and with chunks that pad
 the vocab.  The JAX lattice runs as its Pallas kernel in interpret mode
-in one case and through its XLA reference in the others."""
+in one case and through its XLA reference in the others.  The bundle's
+``loss_impl="dense"`` path (the dense logits of ``models/rnnt.py:forward``
+through the dense oracle, and its stage A from the dense factors) against
+the reference's dense bundle, and against the port's fused path, at 1e-4
+of the largest entry."""
 import numpy as np
 import pytest
 
@@ -143,3 +147,133 @@ def test_label_columns_match_the_index_add_scatter(Bq, U1, Jq, Vq):
     assert got.shape == (Jq, Vq)
     torch.testing.assert_close(got, want, rtol=0,
                                atol=1e-6 * float(want.abs().max()))
+
+
+# ---------------------------------------------------------------------------
+# loss_impl="dense": the bundle's opt-in oracle path against the reference's
+# ---------------------------------------------------------------------------
+
+ARCH = "rnnt-crdnn-smoke"
+
+
+def _bundles(loss_impl):
+    import dataclasses
+
+    from repro.configs import get_config as jax_get_config
+    from repro.models.api import build_model as jax_build
+    from repro_torch.configs import get_config
+    from repro_torch.models.api import build_model
+
+    def with_impl(cfg):
+        return dataclasses.replace(
+            cfg, rnnt=dataclasses.replace(cfg.rnnt, loss_impl=loss_impl))
+
+    return (jax_build(with_impl(jax_get_config(ARCH))),
+            build_model(with_impl(get_config(ARCH))))
+
+
+def _unit_and_params(seed=0):
+    from repro.configs import get_config as jax_get_config
+    from repro.data.pipeline import asr_units
+    from repro.data.synthetic import make_asr_corpus
+    r = jax_get_config(ARCH).rnnt
+    u = asr_units(make_asr_corpus(seed, 4, n_feats=r.n_feats,
+                                  vocab_size=r.vocab_size), 4)
+    batch = {k: v[0] for k, v in u.items()}
+    batch["weights"] = np.asarray([1.0, 0.5, 2.0, 0.25], np.float32)
+    mj, _ = _bundles("dense")
+    params = jax.tree.map(np.asarray,
+                          mj.init_params(jax.random.PRNGKey(seed)))
+    return batch, params
+
+
+def _port_loss_and_grads(bundle, params, batch):
+    from repro_torch.convert import from_numpy
+    from repro_torch.models.common import tree_leaves
+    p = from_numpy(params)
+    leaves = tree_leaves(p)
+    for l in leaves:
+        l.requires_grad_(True)
+    tb = {k: torch.from_numpy(v) for k, v in batch.items()}
+    per_ex = bundle.per_example_loss(p, tb)
+    total, _ = bundle.loss_fn(p, tb)
+    grads = torch.autograd.grad(total, leaves)
+    return per_ex.detach().numpy(), [g.numpy() for g in grads]
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_dense_bundle_matches_reference_dense_bundle(seed):
+    """``per_example_nll`` dispatches on ``loss_impl``: the port's dense
+    path (``forward`` -> ``rnnt_loss_from_logits``, autograd) against the
+    reference's dense path (``jax.grad``): per-example loss and every
+    parameter's gradient of the weighted training loss within 1e-4 of
+    the largest entry."""
+    fp32_numerics()
+    batch, params = _unit_and_params(seed)
+    mj, mt = _bundles("dense")
+    jb = jax.tree.map(jnp.asarray, batch)
+    want_ex = np.asarray(mj.per_example_loss(params, jb))
+    want_g = [np.asarray(g) for g in jax.tree.leaves(jax.grad(
+        lambda p: mj.loss_fn(p, jb)[0])(params))]
+    got_ex, got_g = _port_loss_and_grads(mt, params, batch)
+    assert _rel(got_ex, want_ex) < 1e-4
+    assert len(got_g) == len(want_g) == 21
+    for i, (g, w) in enumerate(zip(got_g, want_g)):
+        assert _rel(g, w) < 1e-4, (i, _rel(g, w))
+
+
+def test_dense_and_fused_bundles_agree():
+    """The same function twice in the port: per-example loss and every
+    gradient within 1e-4 of the largest entry (two fp32 summation
+    orders, the reference's dense-vs-fused bar)."""
+    fp32_numerics()
+    batch, params = _unit_and_params(2)
+    (_, fused), (_, dense) = _bundles("fused"), _bundles("dense")
+    l_f, g_f = _port_loss_and_grads(fused, params, batch)
+    l_d, g_d = _port_loss_and_grads(dense, params, batch)
+    assert _rel(l_d, l_f) < 1e-4
+    for i, (a, b) in enumerate(zip(g_d, g_f)):
+        assert _rel(a, b) < 1e-4, (i, _rel(a, b))
+
+
+@pytest.mark.parametrize("exact", [False, True])
+def test_dense_stage_a_matches_reference(exact):
+    """Stage A under ``loss_impl="dense"`` takes the dense oracle's
+    factors (joint activations, the logits' autograd gradient), as the
+    reference's does: the unit vector within 1e-4 of the largest
+    entry, and within 1e-4 of the fused stage A's."""
+    from repro.core.lastlayer import make_proj_for as jax_make_proj
+    from repro.core.lastlayer import unit_gradient as jax_unit_gradient
+    from repro_torch.convert import from_numpy
+    from repro_torch.core.lastlayer import unit_gradient
+    from repro_torch.core.sketch import Projections
+    fp32_numerics()
+    batch, params = _unit_and_params(3)
+    mj, mt = _bundles("dense")
+    proj = jax_make_proj(mj, jax.random.PRNGKey(17), 8, 16)
+    want = np.asarray(jax_unit_gradient(
+        mj, params, jax.tree.map(jnp.asarray, batch), proj, exact))
+    tb = {k: torch.from_numpy(v) for k, v in batch.items()}
+    tproj = Projections(*(torch.from_numpy(np.array(x)) for x in proj))
+    got = unit_gradient(mt, from_numpy(params), tb, tproj, exact).numpy()
+    assert got.shape == want.shape
+    assert _rel(got, want) < 1e-4
+    fused = unit_gradient(_bundles("fused")[1], from_numpy(params), tb,
+                          tproj, exact).numpy()
+    assert _rel(got, fused) < 1e-4
+
+
+def test_loss_impl_is_checked_and_survives_autotune():
+    from repro_torch.configs import get_config
+    from repro_torch.models.api import build_model
+    from repro_torch.train.engine import autotune_loss_vocab_chunk
+    with pytest.raises(ValueError, match="loss_impl"):
+        _bundles("sparse")
+    import dataclasses
+    cfg = get_config("rnnt-crdnn")
+    cfg = dataclasses.replace(
+        cfg, rnnt=dataclasses.replace(cfg.rnnt, loss_impl="dense"))
+    bundle, chunk = autotune_loss_vocab_chunk(
+        build_model(cfg), {"tokens": np.zeros((2, 4, 64), np.int32)}, 8)
+    assert chunk < 1000 and bundle.cfg.rnnt.loss_vocab_chunk == chunk
+    assert bundle.cfg.rnnt.loss_impl == "dense"
