@@ -96,14 +96,40 @@ failure exits non-zero, and no phase catches an error and carries on:
 12. main path, RWKV: the same loop on ``rwkv6-3b`` at full width and
    depth (32 layers, d_model 2560, 40 WKV heads of 64, vocab 65536, bf16
    compute, fp32 master weights), with the peak of device memory;
-13. profile, RWKV: one training step of that model, as in 7.
+13. profile, RWKV: one training step of that model, as in 7;
+14. the scanned epoch engine (``engine="scan"``: one captured CUDA graph
+   of the training step, replayed once a plan row; phases 5, 6, 9 and 12
+   run ``engine="host"``): (a) phase 5's RNN-T main path through it twice
+   with one seed, bitwise equal, with phase 5's subsets and weights and
+   losses within rtol 1e-3 (whether bitwise equal printed), one capture
+   a run; then on a fresh engine one eager step under the profiler (its
+   counted launches equal to its traced lattice kernels), a full epoch
+   whose counters see per-step launches x (warm-up steps + the capture),
+   three rows replayed against the same rows without the graph
+   (bitwise), two padding rows through the graph (state bitwise held),
+   and a full replayed epoch under the profiler: its lattice kernels
+   traced per-step launches x rows times, the counters unchanged (a
+   replay makes no host call), its wall and busy time a step beside
+   phase 7's eager step;
+   (b) the same loop with ``epoch_chunk=2`` against (a); (c)
+   ``starcoder2-3b`` and ``rwkv6-3b`` at full width with 2 layers, 2
+   epochs, host engine against scan engine (same subsets, losses within
+   1e-3), then the checks of (a) on a fresh engine (the WKV forward and
+   backward kernels traced per step x rows); (d) ``python -m
+   repro_torch.examples.train_asr_pgm --engine scan --epoch-chunk 2``,
+   its selection and TER lines beside 6f's.
 
 Each main path runs with its kernels' launch counters set to 0 just
 before and read just after, and fails if a kernel of the path was never
 launched.  The script ends with a JSON line of per-kernel numbers (one
 row per kernel and main path: the Gram, which all three training paths
 run, has three and a fourth for phase 6's exact stage B, and the grad
-sketch, which both LM paths run, two), the card's name and power limit
+sketch, which both LM paths run, two; then one row per kernel and scan
+path of phase 14, ``rnnt-scan``, ``lm-scan`` and ``rwkv-scan``: a kernel
+of the captured step with the launches of a traced replayed epoch and,
+as ``counted``, its scan run's count (the warm-up steps and the
+capture), a kernel outside the step with its scan run's count), the
+card's name and power limit
 as ``nvidia-smi`` prints them, and the line ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
@@ -787,10 +813,14 @@ def serve_lm(torch, bundle, params, dev, swa_op, other_ops):
     return launches
 
 
-def profile_call(torch, fn, tag: str, what: str) -> None:
+def profile_call(torch, fn, tag: str, what: str, per: int = 1,
+                 count=None):
     """``fn()`` once under ``torch.profiler`` after a warm-up call: host
     wall time, summed kernel time (device busy share), and the kernels
-    that take the most device time."""
+    that take the most device time, each over ``per`` (the steps ``fn``
+    runs) -> (wall ms, busy ms, device ops, {name: instances}), the
+    instances, of the whole call, those of each kernel whose name holds
+    ``count[name]``."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -801,7 +831,7 @@ def profile_call(torch, fn, tag: str, what: str) -> None:
         t0 = time.time()
         fn()
         torch.cuda.synchronize()
-        wall_ms = (time.time() - t0) * 1e3
+        wall_ms = (time.time() - t0) * 1e3 / per
     rows = []
     for ev in prof.key_averages():
         if ev.device_type != DeviceType.CUDA:
@@ -810,26 +840,31 @@ def profile_call(torch, fn, tag: str, what: str) -> None:
         if dt is None:
             dt = ev.self_cuda_time_total
         rows.append((dt / 1e3, ev.count, ev.key))
-    busy_ms = sum(r[0] for r in rows)
-    n_kernels = sum(r[1] for r in rows)
+    busy_ms = sum(r[0] for r in rows) / per
+    n_kernels = sum(r[1] for r in rows) // per
+    counts = {n: sum(c for _, c, key in rows if sym in key)
+              for n, sym in (count or {}).items()}
     print(f"[profile {tag}] {what}: wall {wall_ms:.1f} ms, device busy "
           f"{busy_ms:.1f} ms ({100 * busy_ms / wall_ms:.1f}%), {n_kernels} "
-          f"device ops", flush=True)
-    for dt, count, key in sorted(rows, reverse=True)[:8]:
-        print(f"[profile {tag}]   {dt:8.3f} ms  x{count:<6d} {key[:80]}",
-              flush=True)
+          f"device ops{' a step' if per > 1 else ''}", flush=True)
+    for dt, count_, key in sorted(rows, reverse=True)[:8]:
+        print(f"[profile {tag}]   {dt / per:8.3f} ms  x{count_ // per:<6d} "
+              f"{key[:80]}", flush=True)
+    return wall_ms, busy_ms, n_kernels, counts
 
 
-def profile_step(torch, bundle, tc, units, dev, params, tag) -> None:
-    """One training step on one unit under the profiler."""
+def profile_step(torch, bundle, tc, units, dev, params, tag):
+    """One training step on one unit under the profiler -> (wall ms, busy
+    ms, device ops)."""
     from repro_torch.train.engine import make_step_core, to_device
     from repro_torch.train.optim import make_update_for
 
     opt_state = make_update_for(tc)[0](params)
     step = make_step_core(bundle, tc)
     batch = to_device({k: v[0] for k, v in units.items()}, dev)
-    profile_call(torch, lambda: step(params, opt_state, batch, tc.lr), tag,
-                 f"one training step (B={UNIT_SIZE})")
+    return profile_call(torch, lambda: step(params, opt_state, batch,
+                                            tc.lr), tag,
+                        f"one training step (B={UNIT_SIZE})")
 
 
 def greedy_with_margin(torch, greedy_decode, bundle, params, feats, lens):
@@ -863,7 +898,7 @@ def reference_loop(torch, np, bundle, tc, units, val_units, val_corpus,
     the Gram at (4, 4, 1,024,000); (e) greedy decode and TER, card
     against CPU; (f) the twin of ``examples/train_asr_pgm.py`` in a
     process of its own.  -> (launches of (a)'s run, the exact Gram's
-    kernels row)."""
+    kernels row, the twin's output lines)."""
     import tempfile
 
     from repro_torch.configs.base import PGMConfig, TrainConfig
@@ -1077,10 +1112,12 @@ def reference_loop(torch, np, bundle, tc, units, val_units, val_corpus,
         require(same, f"6e: card and CPU hypotheses differ ({tag})")
     mark("6e greedy decode")
 
-    # (f) the twin at its reference settings, in a process of its own
+    # (f) the twin at its reference settings on the host engine, in a
+    # process of its own
     t0 = time.time()
     run = subprocess.run(
-        [sys.executable, "-m", "repro_torch.examples.train_asr_pgm"],
+        [sys.executable, "-m", "repro_torch.examples.train_asr_pgm",
+         "--engine", "host"],
         cwd=str(ROOT), env=dict(os.environ, PYTHONPATH=str(SRC)),
         capture_output=True, text=True, timeout=600)
     out = run.stdout.strip().splitlines()
@@ -1089,16 +1126,308 @@ def reference_loop(torch, np, bundle, tc, units, val_units, val_corpus,
             f"{run.stderr[-2000:]}")
     for line in filter(None, out):
         print(f"[6f] {line}", flush=True)
-    print(f"[6f] python -m repro_torch.examples.train_asr_pgm on the card: "
-          f"{time.time() - t0:.1f} s (process start and kernel load "
-          f"included)", flush=True)
+    print(f"[6f] python -m repro_torch.examples.train_asr_pgm --engine host "
+          f"on the card: {time.time() - t0:.1f} s (process start and kernel "
+          f"load included)", flush=True)
     mark("6f twin")
-    return launches, gram_row
+    return launches, gram_row, out
+
+
+#: a kernel that each call of a wrapper launches once, by launch counter
+KERNEL_MARKERS = {"rnnt_lattice": "rnnt_lattice_kernel",
+                  "rwkv6_wkv": "wkv_out_kernel",
+                  "rwkv6_wkv_bwd": "wkv_bwd_grad_kernel"}
+
+
+def replay_check(torch, np, bundle, tc, units, dev, params, ops, tag):
+    """The scan engine on the card, on a fresh ``EpochEngine`` over
+    ``units`` from ``params``.  The launch counters of ``ops`` ({name:
+    (wrapper, attribute)}) count at the launch site, so: (1) one eager
+    step under the profiler: its counts, and its traced marker kernels
+    (``KERNEL_MARKERS``) the same numbers; (2) a full epoch: the counts
+    per step x (warm-up steps + the capture), one capture; then a second
+    full epoch timed; (3) three rows of the next plan, the third made
+    padding, replayed and run on the card without the graph from the same
+    state: params, optimizer state and losses bitwise equal; (4) a plan
+    of two padding rows through the graph: the state bitwise held, losses
+    0, still one capture; (5) a full epoch of replays under the profiler:
+    the counts unchanged, each marker kernel traced per-step launches x
+    rows times.  -> (per-step launches, the replayed epoch's profile a
+    step, ms a step of the timed epoch, the traced epoch's launches)."""
+    from repro_torch.models.common import tree_leaves, tree_map
+    from repro_torch.train.engine import (EpochEngine, make_step_core,
+                                          to_device)
+    from repro_torch.train.optim import make_update_for
+
+    class Eager(EpochEngine):
+        """The same step body on the card without the graph."""
+
+        def _ensure_graph(self):
+            pass
+
+    def read():
+        return {n: getattr(op, a) for n, (op, a) in ops.items()}
+
+    def bitwise(a, b):
+        return all(bool(torch.equal(x, y))
+                   for x, y in zip(tree_leaves(a), tree_leaves(b)))
+
+    markers = {n: KERNEL_MARKERS[n] for n in ops}
+    opt_init = make_update_for(tc)[0]
+    opt0 = opt_init(params)
+    batch = to_device({k: v[0] for k, v in units.items()}, dev)
+    step = make_step_core(bundle, tc)
+    n0 = read()
+    _, _, _, traced = profile_call(
+        torch, lambda: step(params, opt0, batch, tc.lr), tag,
+        "one eager step", count=markers)
+    per_step = {n: (c - n0[n]) // 2 for n, c in read().items()}
+    print(f"[{tag}] one eager step: launches {per_step}, its traced "
+          f"kernels {traced}", flush=True)
+    require(all(v > 0 for v in per_step.values()) and traced == per_step,
+            f"{tag}: an eager step's launches {per_step} against its "
+            f"traced kernels {traced}")
+    del opt0, batch
+    EpochEngine.captures = EpochEngine.replays = 0
+    EpochEngine.warmup_steps = 0
+    eng = EpochEngine(bundle, tc, units, device=dev)
+    plan = eng.full_plan(0)
+    n_rows = len(plan[0])
+    n0 = read()
+    torch.cuda.synchronize()
+    t0 = time.time()
+    eng.run_epoch(params, opt_init(params), tc.lr, plan)
+    torch.cuda.synchronize()
+    first_s = time.time() - t0
+    got = {n: c - n0[n] for n, c in read().items()}
+    want = {n: d * (EpochEngine.WARMUP_STEPS + 1)
+            for n, d in per_step.items()}
+    print(f"[{tag}] first epoch ({EpochEngine.WARMUP_STEPS} warm-up steps, "
+          f"the capture, {n_rows} replays): {first_s:.2f} s; launches "
+          f"counted {got} = per step {per_step} x "
+          f"({EpochEngine.WARMUP_STEPS} warm-up steps + the capture) "
+          f"{want}; captures {EpochEngine.captures}, replays "
+          f"{EpochEngine.replays}", flush=True)
+    require(got == want and EpochEngine.captures == 1
+            and EpochEngine.replays == n_rows,
+            f"{tag}: launches {got} against {want} or captures "
+            f"{EpochEngine.captures}")
+    torch.cuda.synchronize()
+    t0 = time.time()
+    eng.run_epoch(eng.params, eng.opt_state, tc.lr, eng.full_plan(1))
+    torch.cuda.synchronize()
+    step_ms = (time.time() - t0) * 1e3 / n_rows
+    idx, w = eng.full_plan(2)
+    idx, w = idx[:3].copy(), w[:3].copy()
+    idx[2], w[2] = -1, 0.0
+    start = tree_map(lambda x: x.clone(), (eng.params, eng.opt_state))
+    _, _, l_graph = eng.run_epoch(eng.params, eng.opt_state, tc.lr, (idx, w))
+    eager = Eager(bundle, tc, units, device=dev)
+    p_e, o_e, l_eager = eager.run_epoch(*start, tc.lr, (idx, w))
+    torch.cuda.synchronize()
+    same = (bitwise((eng.params, eng.opt_state), (p_e, o_e))
+            and l_graph.tolist() == l_eager.tolist())
+    del eager, p_e, o_e, start
+    before = tree_map(lambda x: x.clone(), (eng.params, eng.opt_state))
+    pad = (np.full((2, eng.batch_units), -1, np.int32),
+           np.zeros((2, eng.batch_units), np.float32))
+    _, _, l_pad = eng.run_epoch(eng.params, eng.opt_state, tc.lr, pad)
+    torch.cuda.synchronize()
+    held = bitwise(before, (eng.params, eng.opt_state))
+    del before
+    print(f"[{tag}] second epoch {step_ms:.1f} ms a step ({n_rows} "
+          f"replays); 3 rows (the third padding) replayed against the same "
+          f"rows without the graph: params, optimizer state and losses "
+          f"bitwise equal: {same} (losses {l_graph.tolist()}); 2 padding "
+          f"rows through the graph: state bitwise held: {held}, losses "
+          f"{l_pad.tolist()}; captures {EpochEngine.captures}", flush=True)
+    require(same and l_graph[2] == 0.0,
+            f"{tag}: the replayed rows differ from the eager rows")
+    require(held and l_pad.tolist() == [0.0, 0.0]
+            and EpochEngine.captures == 1,
+            f"{tag}: padding rows are not bitwise no-ops through the graph")
+    full = eng.full_plan(3)
+    n0 = read()
+    t0 = time.time()
+    *prof, traced = profile_call(
+        torch, lambda: eng.run_epoch(eng.params, eng.opt_state, tc.lr, full),
+        tag, f"a replayed epoch ({n_rows} rows)", per=n_rows,
+        count=markers)
+    counted = {n: c - n0[n] for n, c in read().items()}
+    want = {n: d * n_rows for n, d in per_step.items()}
+    print(f"[{tag}] a replayed epoch under the profiler ({time.time() - t0:.1f} "
+          f"s with its warm-up epoch and the trace): traced kernels "
+          f"{traced} = per step x {n_rows} rows {want}; launches counted "
+          f"over its two epochs {counted} (replays make no host call); "
+          f"captures {EpochEngine.captures}", flush=True)
+    require(traced == want and all(v == 0 for v in counted.values())
+            and EpochEngine.captures == 1,
+            f"{tag}: a replayed epoch ran {traced} kernels, not {want}, "
+            f"or counted {counted} launches")
+    return per_step, prof, step_ms, traced
+
+
+def scan_engine_phase(torch, np, bundle, tc, units, val_units, first,
+                      eager_step, twin_host, models, dev, mark):
+    """Phase 14: the scanned epoch engine (``engine="scan"``, one captured
+    CUDA graph of the step replayed over each plan).  (a) phase 5's RNN-T
+    main path through it, twice with one seed (bitwise equal), against
+    phase 5's host run, then ``replay_check``; (b) the same with
+    ``epoch_chunk=2``; (c) ``starcoder2-3b`` and ``rwkv6-3b`` at full
+    width with 2 layers, 2 epochs, host against scan, then
+    ``replay_check``; (d) the twin with ``--engine scan --epoch-chunk
+    2``.  ``models``: {"lm"|"rwkv": (config, units, val units, counters)}.
+    -> ({path: launches}, {path: launches counted in its scan run}):
+    a kernel of the captured step has the launches of ``replay_check``'s
+    traced replayed epoch, one outside it its scan run's count."""
+    from repro_torch.configs.base import PGMConfig, TrainConfig
+    from repro_torch.kernels.omp_gram.ops import omp_gram_batched_op
+    from repro_torch.kernels.rnnt_lattice.ops import rnnt_lattice_op
+    from repro_torch.models.api import build_model
+    from repro_torch.train.engine import EpochEngine
+    from repro_torch.train.loop import train_with_selection
+
+    rnnt_ops = {"rnnt_lattice": (rnnt_lattice_op, "launches"),
+                "omp_gram": (omp_gram_batched_op, "launches")}
+
+    def scan_run(b, us, vs, tc_, ops, tag, **kw):
+        for op, a in ops.values():
+            setattr(op, a, 0)
+        EpochEngine.captures = EpochEngine.replays = 0
+        EpochEngine.warmup_steps = 0
+        torch.cuda.synchronize()
+        t0 = time.time()
+        h = train_with_selection(
+            b, us, tc_, method="pgm", val_units=vs, device="cuda",
+            log_fn=lambda s: print(f"[{tag} +{time.time() - t0:.1f}s] {s}",
+                                   flush=True), **kw)
+        torch.cuda.synchronize()
+        secs = time.time() - t0
+        launches = {n: getattr(op, a) for n, (op, a) in ops.items()}
+        print(f"[{tag}] {secs:.1f} s ({h.wall_time:.1f} s after the init) "
+              f"on engine={kw['engine']!r}{', epoch_chunk ' + str(kw['epoch_chunk']) if 'epoch_chunk' in kw else ''}; "
+              f"launches {launches}; captures {EpochEngine.captures}, "
+              f"replays {EpochEngine.replays}, warm-up steps "
+              f"{EpochEngine.warmup_steps}; cost {h.cost_units:.3f} epoch "
+              f"units", flush=True)
+        require(all(v > 0 for v in launches.values()),
+                f"{tag}: a kernel of the path was never launched: {launches}")
+        if kw["engine"] == "scan":
+            require(EpochEngine.captures == 1,
+                    f"{tag}: {EpochEngine.captures} captures, not 1")
+        return h, launches, secs
+
+    def agree(rec, ref, tag, ref_tag):
+        """Same subsets; weights and losses within rtol 1e-3."""
+        (tl, vl, sels), (tl0, vl0, sels0) = rec, ref
+        subsets = [(e, i) for e, i, _ in sels] == [(e, i) for e, i, _ in
+                                                   sels0]
+        weights = len(sels) == len(sels0) and all(
+            np.allclose(w, w0, rtol=1e-3, atol=1e-6)
+            for (_, _, w), (_, _, w0) in zip(sels, sels0))
+        loss_rel = max(abs(a - b) / abs(b) for a, b in zip(tl + vl,
+                                                           tl0 + vl0))
+        print(f"[{tag}] against {ref_tag}: same subsets {subsets}, weights "
+              f"within rtol 1e-3 {weights}, losses at most {loss_rel:.2e} "
+              f"apart (rtol 1e-3), every loss, index and weight bitwise "
+              f"equal: {rec == ref}", flush=True)
+        require(subsets and weights and len(tl) == len(tl0)
+                and loss_rel < 1e-3, f"{tag}: {rec} against {ref_tag} {ref}")
+
+    # (a) the RNN-T main path through the scan engine, twice
+    runs = []
+    for tag in ("14a", "14a again"):
+        h, launches, secs = scan_run(bundle, units, val_units, tc, rnnt_ops,
+                                     tag, engine="scan")
+        runs.append((rnnt_run_record(h), launches, secs, h.final_params))
+        del h
+    print(f"[14a] two scan runs of seed {tc.seed}: every loss, index and "
+          f"weight equal: {runs[0][0] == runs[1][0]}", flush=True)
+    require(runs[0][0] == runs[1][0], "14a: two scan runs of one seed "
+                                      "differ")
+    agree(runs[0][0], first, "14a", "phase 5's host run")
+    per_step, replayed, step_ms, traced = replay_check(
+        torch, np, bundle, tc, units, dev, runs[0][3],
+        {"rnnt_lattice": (rnnt_lattice_op, "launches")}, "14a replay")
+    print(f"[14a] one RNN-T step (B={UNIT_SIZE}): eager (phase 7) wall "
+          f"{eager_step[0]:.1f} ms, busy {eager_step[1]:.1f} ms "
+          f"({100 * eager_step[1] / eager_step[0]:.1f}%), {eager_step[2]} "
+          f"device ops; replayed (a traced epoch, a step) wall "
+          f"{replayed[0]:.1f} ms, busy {replayed[1]:.1f} ms "
+          f"({100 * replayed[1] / replayed[0]:.1f}%), {replayed[2]} device "
+          f"ops; a replayed full epoch untraced {step_ms:.1f} ms a step",
+          flush=True)
+    # the captured step's kernels: the launches of a traced replayed
+    # epoch; the rest (stage B's Gram): the scan run's counters
+    launches = {"rnnt": dict(runs[0][1], **traced)}
+    host_launches = {"rnnt": runs[0][1]}
+    rec_a = runs[0][0]
+    del runs
+    gc.collect()
+    mark("14a scan engine, RNN-T")
+
+    # (b) the same loop in chunks of two epochs
+    h, _, _ = scan_run(bundle, units, val_units, tc, rnnt_ops, "14b",
+                       engine="scan", epoch_chunk=2)
+    agree(rnnt_run_record(h), rec_a, "14b", "14a (chunks of 1)")
+    del h
+    gc.collect()
+    mark("14b epoch chunks")
+
+    # (c) the LM and RWKV at full width, 2 layers, host against scan
+    for path, (cfg, us, vs, ops) in models.items():
+        b2 = build_model(dataclasses.replace(cfg, n_layers=2))
+        tc2 = TrainConfig(lr=0.05, optimizer="sgd", epochs=2, seed=0,
+                          pgm=PGMConfig(subset_fraction=0.5,
+                                        n_partitions=tc.pgm.n_partitions,
+                                        select_every=1, warm_start_epochs=1,
+                                        val_matching=True))
+        tag = f"14c {path}"
+        h_host, _, _ = scan_run(b2, us, vs, tc2, ops, f"{tag} host",
+                                engine="host")
+        rec_host = rnnt_run_record(h_host)
+        del h_host
+        gc.collect()
+        h, counted, _ = scan_run(b2, us, vs, tc2, ops, f"{tag} scan",
+                                 engine="scan")
+        agree(rnnt_run_record(h), rec_host, f"{tag} scan", "the host run")
+        step_ops = {n: v for n, v in ops.items() if n.startswith("rwkv6")}
+        traced = replay_check(torch, np, b2, tc2, us, dev, h.final_params,
+                              step_ops, f"{tag} replay")[3]
+        launches[path] = dict(counted, **traced)
+        host_launches[path] = counted
+        del h, b2
+        gc.collect()
+        torch.cuda.empty_cache()
+    mark("14c scan engine, LM and RWKV (2 layers)")
+
+    # (d) the twin on the scan engine in chunks of two, beside 6f
+    t0 = time.time()
+    run = subprocess.run(
+        [sys.executable, "-m", "repro_torch.examples.train_asr_pgm",
+         "--engine", "scan", "--epoch-chunk", "2"],
+        cwd=str(ROOT), env=dict(os.environ, PYTHONPATH=str(SRC)),
+        capture_output=True, text=True, timeout=600)
+    out = run.stdout.strip().splitlines()
+    require(run.returncode == 0 and out and "token error rate" in out[-1],
+            f"14d: the twin failed (rc {run.returncode}): "
+            f"{run.stderr[-2000:]}")
+    for line in filter(None, out):
+        print(f"[14d] {line}", flush=True)
+    picked = lambda lines: [l for l in lines if "selected" in l
+                            or "token error rate" in l]
+    print(f"[14d] python -m repro_torch.examples.train_asr_pgm --engine scan "
+          f"--epoch-chunk 2 on the card: {time.time() - t0:.1f} s; its "
+          f"selection and TER lines {picked(out)}; 6f's (--engine host) "
+          f"{picked(twin_host)}", flush=True)
+    mark("14d twin, scan engine")
+    return launches, host_launches
 
 
 def train_with_selection_logged(bundle, units, tc, val_units, logs, tag, t0,
                                 **kw):
-    """Phase 5's run with options, its log lines printed and kept."""
+    """Phase 5's run (the host engine) with options, its log lines
+    printed and kept."""
     from repro_torch.train.loop import train_with_selection
 
     def log(s):
@@ -1107,7 +1436,7 @@ def train_with_selection_logged(bundle, units, tc, val_units, logs, tag, t0,
 
     return train_with_selection(bundle, units, tc, method="pgm",
                                 val_units=val_units, device="cuda",
-                                log_fn=log, **kw)
+                                engine="host", log_fn=log, **kw)
 
 
 def main() -> None:
@@ -1575,6 +1904,7 @@ def main() -> None:
     t0 = time.time()
     hist = train_with_selection(
         bundle, units, tc, method="pgm", val_units=val_units, device="cuda",
+        engine="host",
         log_fn=lambda s: print(f"[main +{time.time() - t0:.1f}s] {s}",
                                flush=True))
     torch.cuda.synchronize()
@@ -1609,7 +1939,7 @@ def main() -> None:
     t0 = time.time()
     hist2 = train_with_selection(
         bundle, units, tc, method="pgm", val_units=val_units, device="cuda",
-        log_fn=lambda s: print(f"[main again +{time.time() - t0:.1f}s] {s}",
+        engine="host", log_fn=lambda s: print(f"[main again +{time.time() - t0:.1f}s] {s}",
                                flush=True))
     torch.cuda.synchronize()
     again_launches = {"rnnt_lattice": rnnt_lattice_op.launches,
@@ -1631,12 +1961,13 @@ def main() -> None:
 
     # -- 6. the reference's own loop: preemption and resume, the guard,
     # the dense loss, exact stage B, greedy decode and TER, the twin ----
-    loop_launches, exact_gram = reference_loop(
+    loop_launches, exact_gram, twin_host = reference_loop(
         torch, np, bundle, tc, units, val_units, val_corpus, first,
         hist.final_params, dev, mark)
 
     # -- 7. where a training step's time goes (outside the counted run) --
-    profile_step(torch, bundle, tc, units, dev, hist.final_params, "rnnt")
+    eager_step = profile_step(torch, bundle, tc, units, dev,
+                              hist.final_params, "rnnt")
 
     mark("profile, RNN-T")
 
@@ -1676,7 +2007,7 @@ def main() -> None:
     t0 = time.time()
     hist = train_with_selection(
         lm, lm_units, tc_lm, method="pgm", val_units=lm_val, device="cuda",
-        log_fn=lambda s: print(f"[main lm +{time.time() - t0:.1f}s] {s}",
+        engine="host", log_fn=lambda s: print(f"[main lm +{time.time() - t0:.1f}s] {s}",
                                flush=True))
     torch.cuda.synchronize()
     lm_s = time.time() - t0
@@ -1753,7 +2084,7 @@ def main() -> None:
     t0 = time.time()
     hist = train_with_selection(
         rw, rw_units, tc_lm, method="pgm", val_units=rw_val, device="cuda",
-        log_fn=lambda s: print(f"[main rwkv +{time.time() - t0:.1f}s] {s}",
+        engine="host", log_fn=lambda s: print(f"[main rwkv +{time.time() - t0:.1f}s] {s}",
                                flush=True))
     torch.cuda.synchronize()
     rw_s = time.time() - t0
@@ -1792,13 +2123,29 @@ def main() -> None:
     del hist
 
     mark("profile, RWKV")
+
+    # -- 14. the scanned epoch engine: captured steps, replayed ---------
+    gc.collect()
+    torch.cuda.empty_cache()
+    sketch_gram = {"grad_sketch": (grad_sketch_units_op, "launches"),
+                   "omp_gram": (omp_gram_batched_op, "launches")}
+    scan_launches, scan_counted = scan_engine_phase(
+        torch, np, bundle, tc, units, val_units, first, eager_step,
+        twin_host, {"lm": (lm_cfg, lm_units, lm_val, sketch_gram),
+                    "rwkv": (rw_cfg, rw_units, rw_val, dict(
+                        sketch_gram,
+                        rwkv6_wkv=(rwkv6_wkv_op, "launches"),
+                        rwkv6_wkv_bwd=(rwkv6_wkv_op, "bwd_launches")))},
+        dev, mark)
+
     g_err, g_ms, g_plain, g_lib, g_bound, g_by = \
         gram_rows[(P_main, n_units // P_main, D_sk)]
     print(f"[launches] RNN-T path {launches}, its preempted and resumed "
           f"runs {loop_launches}, exact stage B {{'omp_gram': "
           f"{exact_gram['launches']}}}, LM path {lm_launches}, RWKV "
-          f"path {rw_launches}, serving path {{'swa_attn': {swa_launches}}}",
-          flush=True)
+          f"path {rw_launches}, serving path {{'swa_attn': {swa_launches}}}, "
+          f"scan engine {scan_launches} (counted in its runs "
+          f"{scan_counted})", flush=True)
     # one row per kernel and main path, "launches" from that path's run;
     # the Gram's stage-B shape (4, 4, 4096) is the same on both paths
     gram = {"name": "omp_gram_batched", "route": "cuda",
@@ -1848,6 +2195,21 @@ def main() -> None:
          "plain_ms": swa_plain, "bound_ms": swa_bound, "bound_by": swa_by,
          "library_ms": swa_lib},
     ]
+    # the scan engine's runs (phase 14) launch the same kernels at the
+    # same shapes (the 2-layer models have the full width): one row per
+    # kernel and scan path.  A kernel of the captured step has the
+    # launches of a traced replayed epoch ("launches", from the trace) and
+    # the warm-up steps' and the capture's ("counted", its scan run's
+    # counter); a kernel outside the step has its scan run's count in both
+    for row in list(kernels):
+        base, kernel = row.get("path"), row["name"]
+        src = {"rnnt": "rnnt", "lm": "lm", "rwkv": "rwkv"}.get(base)
+        key = {"omp_gram_batched": "omp_gram",
+               "grad_sketch_units": "grad_sketch"}.get(kernel, kernel)
+        if src is not None and key in scan_launches.get(src, {}):
+            kernels.append(dict(row, path=f"{src}-scan",
+                                launches=scan_launches[src][key],
+                                counted=scan_counted[src][key]))
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -6,13 +6,15 @@ greedy decode.
 
   PYTHONPATH=src python -m repro_torch.examples.train_asr_pgm
       [--method pgm|random|full] [--noise 0.2] [--snr-db 10]
-      [--subset 0.3] [--epochs 8] [--n 64] [--ckpt DIR] [--device cpu]
+      [--subset 0.3] [--epochs 8] [--n 64] [--engine scan|host]
+      [--epoch-chunk N] [--ckpt DIR] [--device cpu]
 
 Runs on the card unless ``--device cpu`` is given.  ``--noise F``
 corrupts a fraction F of the training utterances with additive feature
 noise at ``--snr-db`` dB; validation stays clean and PGM matches against
-its gradient.  ``--engine`` defaults to the host loop, the only engine
-ported: ``--engine scan`` and ``--epoch-chunk`` above 1 raise.
+its gradient.  ``--engine`` defaults to the scanned epoch engine, as the
+reference's does; ``--epoch-chunk N`` runs up to N epochs as one
+scan-engine call.
 """
 from __future__ import annotations
 
@@ -92,8 +94,8 @@ def token_error_rate(hyp, n_sym, refs, ref_lens):
 
 def train_and_decode(*, method: str = "pgm", noise: float = 0.2,
                      snr_db: float = 10.0, subset: float = 0.3,
-                     epochs: int = 8, n: int = 64, engine: str = "host",
-                     ckpt: Optional[str] = None,
+                     epochs: int = 8, n: int = 64, engine: str = "scan",
+                     epoch_chunk: int = 1, ckpt: Optional[str] = None,
                      device: Optional[str] = None, params=None, proj=None,
                      log_fn: Callable[[str], None] = print):
     """The example's run: the noisy training corpus (seed 0) in units of
@@ -123,7 +125,7 @@ def train_and_decode(*, method: str = "pgm", noise: float = 0.2,
                       val_matching=noise > 0))
     h = train_with_selection(bundle, units, tc, method=method,
                              val_units=val, ckpt_dir=ckpt, engine=engine,
-                             device=str(dev),
+                             epoch_chunk=epoch_chunk, device=str(dev),
                              params=params, proj=proj, log_fn=log_fn)
     hyp, n_sym = greedy_decode(bundle, h.final_params, val_c.feats,
                                val_c.feat_lens)
@@ -144,24 +146,19 @@ def main(argv=None):
     ap.add_argument("--subset", type=float, default=0.3)
     ap.add_argument("--epochs", type=int, default=8)
     ap.add_argument("--n", type=int, default=64)
-    ap.add_argument("--engine", default="host", choices=["scan", "host"],
-                    help="the host loop; 'scan' is not ported and raises")
+    ap.add_argument("--engine", default="scan", choices=["scan", "host"])
     ap.add_argument("--epoch-chunk", type=int, default=1,
-                    help="epochs a scan dispatch; above 1 raises")
+                    help="fold N epochs into one scan-engine call")
     ap.add_argument("--ckpt", default=None)
     ap.add_argument("--device", default=None,
                     help="'cuda' (default; fails without a card) or 'cpu'")
     args = ap.parse_args(argv)
-    if args.epoch_chunk != 1:
-        raise ValueError(
-            f"--epoch-chunk {args.epoch_chunk}: epoch chunks run only on "
-            f"the scanned engine, which is not ported yet (ROADMAP.md "
-            f"queue 1, item 2); use --epoch-chunk 1")
     fp32_numerics()
     return train_and_decode(method=args.method, noise=args.noise,
                             snr_db=args.snr_db, subset=args.subset,
                             epochs=args.epochs, n=args.n, engine=args.engine,
-                            ckpt=args.ckpt, device=args.device)
+                            epoch_chunk=args.epoch_chunk, ckpt=args.ckpt,
+                            device=args.device)
 
 
 if __name__ == "__main__":

@@ -10,7 +10,7 @@ the reference's ``repro.launch.train``):
   PYTHONPATH=src python -m repro_torch.launch.train --arch rnnt-crdnn \
       --optimizer adamw --lr 0.05 --ckpt DIR [--resume] \
       [--nonfinite-guard --max-skipped-steps 4] [--loss-impl dense] \
-      [--exact-gradients]
+      [--exact-gradients] [--engine scan|host] [--epoch-chunk N]
 
 Runs on the card unless ``--device cpu`` is given, and prints the same
 ``epoch N: train X val Y lr Z`` lines as the reference.  RNN-T archs
@@ -21,8 +21,11 @@ labels for LM) and turns validation matching on.  ``--ckpt DIR`` writes
 a checkpoint after every epoch in the reference's format, ``--resume``
 continues from the newest intact one; ``--nonfinite-guard`` gates
 non-finite steps off on the device and ``--max-skipped-steps K`` arms
-the divergence watchdog.  ``--engine`` has the host loop only: ``scan``
-raises.
+the divergence watchdog.  ``--engine scan`` (the default) trains
+through the scanned epoch engine, one captured CUDA graph of the step
+replayed over each epoch's plan, and ``--epoch-chunk N`` runs up to N
+epochs at a time with validation and newbob on the device;
+``--engine host`` is the per-batch loop.
 """
 from __future__ import annotations
 
@@ -61,7 +64,8 @@ def make_units_for(cfg, *, n: int, noise: float, seq: int = 24,
 def launch_train(arch: str, tc: TrainConfig, *, method: str = "pgm",
                  n: int = 96, seq: int = 24, noise: float = 0.0,
                  snr_db: float = 10.0, loss_impl: Optional[str] = None,
-                 engine: str = "host", ckpt_dir: Optional[str] = None,
+                 engine: str = "scan", epoch_chunk: int = 1,
+                 ckpt_dir: Optional[str] = None,
                  resume: bool = False, device: Optional[str] = None,
                  log_fn=print) -> History:
     cfg = get_config(arch)
@@ -72,7 +76,8 @@ def launch_train(arch: str, tc: TrainConfig, *, method: str = "pgm",
                                 seed=tc.seed, snr_db=snr_db)
     return train_with_selection(build_model(cfg), units, tc, method=method,
                                 val_units=val, ckpt_dir=ckpt_dir,
-                                resume=resume, engine=engine, device=device,
+                                resume=resume, engine=engine,
+                                epoch_chunk=epoch_chunk, device=device,
                                 log_fn=log_fn)
 
 
@@ -80,9 +85,14 @@ def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", required=True)
     ap.add_argument("--method", default="pgm", choices=list(METHODS))
-    ap.add_argument("--engine", default="host", choices=["host", "scan"],
-                    help="the per-batch host loop; 'scan' (the scanned "
-                         "epoch engine) is not ported and raises")
+    ap.add_argument("--engine", default="scan", choices=["scan", "host"],
+                    help="'scan': the scanned epoch engine (a captured "
+                         "CUDA graph of the step replayed over the plan); "
+                         "'host': the per-batch loop")
+    ap.add_argument("--epoch-chunk", type=int, default=1,
+                    help="run up to N epochs as one scan-engine call "
+                         "(validation and newbob on the device; metrics "
+                         "read once a chunk)")
     ap.add_argument("--subset", type=float, default=0.3)
     ap.add_argument("--partitions", type=int, default=4)
     ap.add_argument("--select-every", type=int, default=5)
@@ -137,8 +147,8 @@ def main(argv=None):
     h = launch_train(args.arch, tc, method=args.method, n=args.n,
                      seq=args.seq, noise=args.noise, snr_db=args.snr_db,
                      loss_impl=args.loss_impl, engine=args.engine,
-                     ckpt_dir=args.ckpt, resume=args.resume,
-                     device=str(device))
+                     epoch_chunk=args.epoch_chunk, ckpt_dir=args.ckpt,
+                     resume=args.resume, device=str(device))
     if h.val_loss:
         print(f"done: val {h.val_loss[-1]:.4f}, "
               f"cost {h.cost_units:.2f} epoch-units, "

@@ -1,10 +1,18 @@
-"""Per-batch training engine of the port (the reference's
-``train/engine.py``: ``make_step_core`` on the single-device path,
-``autotune_loss_vocab_chunk`` and ``HostEngine``, its parity oracle).
+"""Training engines of the port (the reference's ``train/engine.py`` on
+one device: ``make_step_core``, ``newbob_step``,
+``autotune_loss_vocab_chunk``, ``EpochEngine``, ``HostEngine`` and
+``make_engine``).
 
-``HostEngine`` runs one step per host-assembled batch of the
-(seed, epoch)-keyed plans, so its batch order is byte-identical to the
-reference's.  The scanned, device-resident ``EpochEngine`` is later work.
+``HostEngine`` runs one step per host-assembled batch of the (seed,
+epoch)-keyed plans and reads each step's loss back: the parity oracle.
+``EpochEngine`` (``engine="scan"``) keeps the units on the device and
+runs an epoch as one captured CUDA graph of the training step, replayed
+once per plan row; it reads the losses back once an epoch, or once a
+chunk of epochs with ``run_epochs`` (validation and the newbob update
+then run on the device between epochs).  On the CPU, which only the
+tests ask for, it runs the same device-resident loop without a graph.
+The reference's mesh, pod and compression parts of ``EpochEngine`` are
+not ported (ROADMAP.md queue 1, item 10).
 
 The non-finite guard (``TrainConfig.nonfinite_guard``) checks each
 step's loss and clipped gradient norm on the device and folds the result
@@ -25,14 +33,18 @@ from repro_torch.core.chunking import auto_vocab_chunk
 from repro_torch.data.pipeline import epoch_plan, subset_epoch_plan
 from repro_torch.models.api import build_model
 from repro_torch.models.common import tree_leaves, tree_map
-from repro_torch.train.optim import clip_by_global_norm, make_update_for
+from repro_torch.train.optim import (clip_by_global_norm, commit_,
+                                     make_update_for, make_update_in_place)
 
 
-def make_step_core(bundle, cfg: TrainConfig):
+def make_step_core(bundle, cfg: TrainConfig, update=None):
     """One weighted SGD step: ``step(params, opt_state, batch, lr,
     step_on=None) -> (params, opt_state, metrics)``.  Gradients come from
-    autograd through the fused loss's analytic backward; the inputs are
-    left untouched.  ``step_on`` (0-dim bool tensor) gates the update.
+    autograd through the fused loss's analytic backward, and ``update``
+    (default: the functional ``optim.make_update_for(cfg)`` update, which
+    leaves its inputs untouched) applies them; ``EpochEngine`` passes
+    ``optim.make_update_in_place(cfg)``, which writes into the trees and
+    returns them.  ``step_on`` (0-dim bool tensor) gates the update.
 
     With ``cfg.nonfinite_guard`` the step also gates on ``isfinite(loss)
     & isfinite(gnorm)`` (the clip's global norm: any NaN/Inf gradient
@@ -40,7 +52,7 @@ def make_step_core(bundle, cfg: TrainConfig):
     too), zeroes the metrics of a gated-off step and reports
     ``metrics["skipped"]``, whether a live step was suppressed.  Nothing
     is read back to the host."""
-    _, opt_update = make_update_for(cfg)
+    opt_update = make_update_for(cfg)[1] if update is None else update
     guard = bool(cfg.nonfinite_guard)
 
     def step(params, opt_state, batch, lr, step_on=None):
@@ -111,6 +123,330 @@ def to_device(units: Dict[str, np.ndarray], device: torch.device
             for k, v in units.items()}
 
 
+def newbob_step(lr: torch.Tensor, prev_loss: torch.Tensor,
+                val_loss: torch.Tensor, anneal_factor: float,
+                threshold: float):
+    """The device-side newbob update (the reference's ``newbob_step``,
+    twin of ``optim.NewbobState.update``) on 0-dim fp32 tensors: anneal
+    ``lr`` by ``anneal_factor`` when the relative validation improvement
+    over ``prev_loss`` falls below ``threshold``.  ``prev_loss = inf``
+    (the first epoch) and a NaN ``val_loss`` (no validation set) leave
+    ``lr`` as it is.  -> (lr, new prev_loss); nothing is read back."""
+    rel = (prev_loss - val_loss) / torch.clamp(torch.abs(prev_loss),
+                                               min=1e-9)
+    anneal = (prev_loss != float("inf")) & (rel < threshold)
+    return torch.where(anneal, lr * anneal_factor, lr), val_loss
+
+
+def _plan_tensor(x, dtype, device) -> torch.Tensor:
+    if isinstance(x, torch.Tensor):
+        return x.to(device=device, dtype=dtype)
+    return torch.as_tensor(np.asarray(x)).to(device=device, dtype=dtype)
+
+
+class EpochEngine:
+    """The scanned epoch engine on one device (``engine="scan"``).
+
+    Residency: ``units`` and ``val_units`` move to the device once; each
+    step gathers its batch from them with the plan row's ids.
+
+    Plans: ``full_plan`` / ``subset_plan`` return host arrays ``(idx, w)``
+    of shape ``(n_steps, batch_units)``, pure functions of ``(seed, salt,
+    epoch)`` (so a prefetch thread can build them).  Full plans have
+    ``steps_per_epoch_max`` rows; subset plans are padded with rows of id
+    -1 and weight 0 up to ``bucket_steps(live)``, the next multiple of
+    ``plan_granule``.  A padding row runs the step on unit 0 and gates
+    it off (``step_on = idx[0] >= 0`` through ``optim.gate_step``): a
+    bitwise no-op on params and optimizer state, its loss reported as 0.
+    ``epoch_cost`` charges the rows run, padding included.
+
+    Capture: the engine owns static buffers for params, optimizer state,
+    ``lr``, one plan of ``steps_per_epoch_max`` rows, a step cursor and
+    the per-step loss and skip outputs.  On the card, at its first run,
+    it warms the step up on a side stream on padding rows (gated off, so
+    no copy of the state is needed) and captures one step with
+    ``torch.cuda.graph``; every plan of every bucket replays that graph,
+    once per row, since a row only changes what the replay reads.
+    Selection rounds and resume do not recapture.  A capture or replay
+    that fails raises: nothing falls back to eager steps or to
+    ``HostEngine``.  On the CPU the same step body runs once per row
+    without a graph.  A replay makes no Python call, so the kernels'
+    launch counters, which count at the launch site, see the warm-up
+    steps and the capture only; what a replay launches is read from a
+    profiler trace of it.
+
+    Aliasing: ``run_epoch`` / ``run_epochs`` copy the caller's params
+    and state into the buffers when they are not those buffers, and
+    return the buffers themselves, which the next run updates in place
+    (the reference donates its carry): a caller that keeps an epoch's
+    state copies it.
+
+    Guard: with ``cfg.nonfinite_guard`` each step's skip flag and the
+    count ride device buffers; ``last_skipped`` (per step, ``(n,)`` or
+    ``(E, n)``) and ``last_n_skipped`` are device tensors of the last
+    run, read by the caller once an epoch or chunk.  ``plan_salt``
+    re-keys the plans after a watchdog rollback.
+    """
+
+    kind = "scan"
+    #: gated-off steps run before the capture
+    WARMUP_STEPS = 2
+    #: totals over every engine, reset by the caller like the kernels'
+    #: launch counters: graphs captured, replays, warm-up steps on the card
+    captures = 0
+    replays = 0
+    warmup_steps = 0
+
+    def __init__(self, bundle, cfg: TrainConfig, units: Dict[str, np.ndarray],
+                 val_units: Optional[Dict[str, np.ndarray]] = None,
+                 batch_units: int = 1,
+                 device: torch.device = torch.device("cpu"), mesh=None):
+        if mesh is not None:
+            raise ValueError(
+                "EpochEngine(mesh=...): the mesh, pod and compression parts "
+                "of the scanned engine are not ported yet (ROADMAP.md queue "
+                "1, item 10)")
+        bundle, self.loss_vocab_chunk = autotune_loss_vocab_chunk(
+            bundle, units, batch_units)
+        self.bundle = bundle
+        self.cfg = cfg
+        self.device = dev = torch.device(device)
+        self.batch_units = int(batch_units)
+        self.units = to_device(units, dev)
+        self.val_units = (None if val_units is None
+                          else to_device(val_units, dev))
+        self.n_units = int(self.units["tokens"].shape[0])
+        self.unit_size = int(self.units["tokens"].shape[1])
+        #: full-data step count, the rows of every plan at most
+        self.steps_per_epoch_max = n = self.n_units // self.batch_units
+        #: bucket granule of padded subset plans (1/8 of a full epoch)
+        self.plan_granule = max(n // 8, 1)
+        self.guard = bool(cfg.nonfinite_guard)
+        self.plan_salt = 0
+        self.last_skipped: Optional[torch.Tensor] = None
+        self.last_n_skipped: Optional[torch.Tensor] = None
+        self._step = make_step_core(bundle, cfg,
+                                    update=make_update_in_place(cfg))
+        self._plan_idx = torch.full((n, self.batch_units), -1,
+                                    dtype=torch.int32, device=dev)
+        self._plan_w = torch.zeros((n, self.batch_units), device=dev)
+        self._k = torch.zeros((1,), dtype=torch.long, device=dev)
+        self._lr = torch.zeros((), device=dev)
+        self._losses = torch.zeros((n,), device=dev)
+        self._skipped = torch.zeros((n,), device=dev)
+        self._n_skipped = torch.zeros((), dtype=torch.int32, device=dev)
+        #: the params and optimizer-state buffers (from the first run on)
+        self.params = None
+        self.opt_state = None
+        self._graph = None
+
+    # -- plans -------------------------------------------------------------
+    def _plan_seed(self) -> int:
+        return self.cfg.seed + 1_000_003 * self.plan_salt
+
+    def full_plan(self, epoch: int):
+        idx = epoch_plan(self.n_units, self._plan_seed(), epoch,
+                         self.batch_units)
+        return idx, np.ones(idx.shape, np.float32)
+
+    def bucket_steps(self, n_live_steps: int) -> int:
+        """A live step count rounded up to the next ``plan_granule``
+        multiple, at least one granule, at most ``steps_per_epoch_max``."""
+        g = self.plan_granule
+        return min(max(-(-n_live_steps // g) * g, g),
+                   self.steps_per_epoch_max)
+
+    def subset_plan(self, indices, weights, epoch: int):
+        """The weighted-subset plan padded to ``bucket_steps(live)``
+        rows."""
+        n_live = int((np.asarray(indices) >= 0).sum())
+        return subset_epoch_plan(
+            np.asarray(indices), np.asarray(weights), self._plan_seed(),
+            epoch, self.batch_units,
+            pad_to_steps=self.bucket_steps(n_live // self.batch_units))
+
+    plan_live_steps = staticmethod(plan_live_steps)
+
+    def epoch_cost(self, plan, use_full: bool = False,
+                   n_selected: Optional[int] = None) -> float:
+        """The rows run over a full epoch's, padding included: a padding
+        row runs a whole step before it is gated off."""
+        return np.shape(plan[0])[0] / self.steps_per_epoch_max
+
+    # -- the step and its graph --------------------------------------------
+    def _load(self, params, opt_state) -> None:
+        """Make the buffers hold ``params`` and ``opt_state``: copies at
+        the first run, leaf-by-leaf copies into them later (a restored or
+        re-initialised state), nothing when they are the buffers."""
+        if self.params is None:
+            own = lambda x: x.detach().to(self.device, copy=True)
+            self.params = tree_map(own, params)
+            self.opt_state = tree_map(own, opt_state)
+            return
+        if params is not self.params:
+            commit_(self.params, params)
+        if opt_state is not self.opt_state:
+            commit_(self.opt_state, opt_state)
+
+    def _set_lr(self, lr) -> None:
+        if isinstance(lr, torch.Tensor):
+            self._lr.copy_(lr)
+        else:
+            self._lr.fill_(float(lr))
+
+    def _body(self) -> None:
+        """One step on plan row ``_k`` of the buffers, committed in place;
+        the row's loss (and skip flag) written out and the cursor
+        advanced.  What the graph captures: no host read."""
+        k = self._k
+        idx = self._plan_idx.index_select(0, k)[0]
+        w = self._plan_w.index_select(0, k)[0]
+        # a row is wholly real or wholly padding (ids -1, weight 0)
+        live = idx[0] >= 0
+        gidx = torch.clamp(idx, min=0).long()
+        batch = {name: v.index_select(0, gidx).reshape((-1,) + v.shape[2:])
+                 for name, v in self.units.items()}
+        if "weights" in batch:
+            batch["weights"] = batch["weights"] * w[:, None].expand(
+                -1, self.unit_size).reshape(-1)
+        _, _, metrics = self._step(self.params, self.opt_state, batch,
+                                   self._lr, step_on=live)
+        self._losses.index_copy_(
+            0, k, metrics["loss"].to(torch.float32).reshape(1))
+        if self.guard:
+            sk = metrics["skipped"]
+            self._skipped.index_copy_(0, k, sk.to(torch.float32).reshape(1))
+            self._n_skipped.add_(sk.to(torch.int32))
+        k.add_(1)
+
+    def _ensure_graph(self) -> None:
+        """On the card, at the first run: warm the step up on a side
+        stream on padding rows, then capture it once."""
+        if self.device.type != "cuda" or self._graph is not None:
+            return
+        self._plan_idx.fill_(-1)
+        self._plan_w.zero_()
+        cur = torch.cuda.current_stream(self.device)
+        side = torch.cuda.Stream(self.device)
+        side.wait_stream(cur)
+        with torch.cuda.stream(side):
+            for _ in range(self.WARMUP_STEPS):
+                self._k.zero_()
+                self._body()
+        cur.wait_stream(side)
+        EpochEngine.warmup_steps += self.WARMUP_STEPS
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            self._body()
+        self._graph = graph
+        EpochEngine.captures += 1
+
+    def _run_rows(self, idx: torch.Tensor, w: torch.Tensor) -> int:
+        """Copy one plan into the plan buffer on the engine's stream
+        (ordered before the replays that read it) and run every row."""
+        n = int(idx.shape[0])
+        if n > self.steps_per_epoch_max or \
+                tuple(idx.shape[1:]) != (self.batch_units,):
+            raise ValueError(
+                f"plan of shape {tuple(idx.shape)}: at most "
+                f"{self.steps_per_epoch_max} rows of {self.batch_units}")
+        self._plan_idx[:n].copy_(idx)
+        self._plan_w[:n].copy_(w)
+        self._k.zero_()
+        self._losses.zero_()
+        self._skipped.zero_()
+        if self._graph is None:
+            for _ in range(n):
+                self._body()
+            return n
+        for _ in range(n):
+            self._graph.replay()
+        EpochEngine.replays += n
+        return n
+
+    def _val_mean(self, params) -> torch.Tensor:
+        """Mean of the per-unit mean validation losses, on the device."""
+        n_val = int(self.val_units["tokens"].shape[0])
+        with torch.no_grad():
+            per_unit = [self.bundle.per_example_loss(
+                params, {k: v[i] for k, v in self.val_units.items()}).mean()
+                for i in range(n_val)]
+        return torch.stack(per_unit).to(torch.float32).mean()
+
+    # -- epochs ------------------------------------------------------------
+    def run_epoch(self, params, opt_state, lr, plan):
+        """Every row of ``plan`` -> (params, opt_state, each row's loss as
+        a float64 host array, 0 on padding rows), read back once.  The
+        returned trees are the engine's buffers (see the class)."""
+        idx = _plan_tensor(plan[0], torch.int32, self.device)
+        w = _plan_tensor(plan[1], torch.float32, self.device)
+        self._load(params, opt_state)
+        self._set_lr(lr)
+        self._ensure_graph()
+        self._n_skipped.zero_()
+        n = self._run_rows(idx, w)
+        losses = self._losses[:n].cpu().numpy().astype(np.float64)
+        if self.guard:
+            self.last_skipped = self._skipped[:n].clone()
+            self.last_n_skipped = self._n_skipped.clone()
+        return self.params, self.opt_state, losses
+
+    def run_epochs(self, params, opt_state, lr, prev_loss, plans):
+        """A chunk of epochs, the reference's ``chunk_epoch_body``: each
+        epoch's rows, then validation and ``newbob_step`` on the device
+        (the next epoch reads the annealed lr from the buffer); one read
+        back for the whole chunk.  ``plans`` share one shape.  ->
+        (params, opt_state, losses (E, n), val losses (E,), lrs (E,) after
+        each epoch's update, lr_out, prev_loss_out); val losses are NaN
+        without ``val_units``."""
+        shapes = {tuple(np.shape(p[0])) for p in plans}
+        if len(shapes) != 1:
+            raise ValueError(f"chunked plans must share one shape, got "
+                             f"{sorted(shapes)}")
+        dev = self.device
+        idx_all = torch.stack([_plan_tensor(p[0], torch.int32, dev)
+                               for p in plans])
+        w_all = torch.stack([_plan_tensor(p[1], torch.float32, dev)
+                             for p in plans])
+        prev = torch.tensor(prev_loss, dtype=torch.float32, device=dev)
+        self._load(params, opt_state)
+        self._set_lr(lr)
+        self._ensure_graph()
+        E, n = int(idx_all.shape[0]), int(idx_all.shape[1])
+        losses = torch.zeros((E, n), device=dev)
+        skipped = torch.zeros((E, n), device=dev)
+        vls = torch.full((E,), float("nan"), device=dev)
+        lrs = torch.zeros((E,), device=dev)
+        self._n_skipped.zero_()
+        cfg = self.cfg
+        for e in range(E):
+            self._run_rows(idx_all[e], w_all[e])
+            losses[e].copy_(self._losses[:n])
+            skipped[e].copy_(self._skipped[:n])
+            if self.val_units is not None:
+                vl = self._val_mean(self.params)
+                lr_n, prev = newbob_step(self._lr, prev, vl,
+                                         cfg.anneal_factor,
+                                         cfg.improvement_threshold)
+                self._lr.copy_(lr_n)
+                vls[e].copy_(vl)
+            lrs[e].copy_(self._lr)
+        host = torch.cat([losses.reshape(-1), vls, lrs, self._lr.reshape(1),
+                          prev.reshape(1)]).cpu().numpy().astype(np.float64)
+        if self.guard:
+            self.last_skipped = skipped
+            self.last_n_skipped = self._n_skipped.clone()
+        return (self.params, self.opt_state, host[:E * n].reshape(E, n),
+                host[E * n:E * n + E], host[E * n + E:E * n + 2 * E],
+                float(host[-2]), float(host[-1]))
+
+    def validate(self, params) -> float:
+        """Mean per-unit validation loss (NaN without ``val_units``)."""
+        if self.val_units is None:
+            return float("nan")
+        return float(self._val_mean(params))
+
+
 class HostEngine:
     """The per-batch host loop: one step per host-assembled batch, one
     evaluation per validation unit.  Units are kept on the host (to
@@ -121,6 +457,8 @@ class HostEngine:
     (``seed + 1_000_003 * plan_salt``).  With the guard on,
     ``last_skipped`` holds the last epoch's per-step skip flags and
     ``last_n_skipped`` their count."""
+
+    kind = "host"
 
     def __init__(self, bundle, cfg: TrainConfig, units: Dict[str, np.ndarray],
                  val_units: Optional[Dict[str, np.ndarray]] = None,
@@ -156,7 +494,9 @@ class HostEngine:
         return subset_epoch_plan(np.asarray(indices), np.asarray(weights),
                                  self._plan_seed(), epoch, self.batch_units)
 
-    def epoch_cost(self, use_full: bool = False,
+    plan_live_steps = staticmethod(plan_live_steps)
+
+    def epoch_cost(self, plan, use_full: bool = False,
                    n_selected: Optional[int] = None) -> float:
         """Paper-style charge: the fraction of units trained on."""
         if use_full or n_selected is None:
@@ -191,3 +531,20 @@ class HostEngine:
                 float(self.bundle.per_example_loss(
                     params, {k: v[i] for k, v in self.val_units.items()}
                 ).mean()) for i in range(n_val)]))
+
+
+def make_engine(name: str, bundle, cfg: TrainConfig, units,
+                val_units=None, batch_units: int = 1,
+                device: torch.device = torch.device("cpu"), mesh=None):
+    """The engine factory the training loop consumes: ``"scan"`` (the
+    default of ``train_with_selection``) or ``"host"``."""
+    if name == "scan":
+        return EpochEngine(bundle, cfg, units, val_units=val_units,
+                           batch_units=batch_units, device=device, mesh=mesh)
+    if name == "host":
+        if mesh is not None:
+            raise ValueError("engine='host' with a mesh: distribution is not "
+                             "ported yet (ROADMAP.md queue 1, item 10)")
+        return HostEngine(bundle, cfg, units, val_units=val_units,
+                          batch_units=batch_units, device=device)
+    raise ValueError(f"unknown engine {name!r}; 'scan' or 'host'")

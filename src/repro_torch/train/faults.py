@@ -6,9 +6,11 @@ each recovery path can be held exactly:
   * ``FaultPlan.poison_plan``   -> the step's non-finite guard gates the
                                    step off bit for bit (``engine.py``)
   * ``FaultPlan.maybe_fail_prefetch`` -> raises out of the plan build;
-                                   the host loop has no prefetcher to
-                                   retry it (the scanned engine's
-                                   prefetcher is later work)
+                                   on the scan engine the plan
+                                   prefetcher retries it in place
+                                   (``data/plan_prefetch.py``), on the
+                                   host engine, which has none, it
+                                   raises out of the run
   * ``FaultPlan.maybe_preempt`` -> ``PreemptionHandler``: the loop ends
                                    the epoch, writes an emergency
                                    checkpoint and returns resumably

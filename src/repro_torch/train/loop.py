@@ -1,9 +1,23 @@
 """Training loop of paper Algorithm 1 (the reference's
-``train/loop.py:train_with_selection`` on its host-engine branch, the
-only engine ported): warm start on full data, re-selection every R
-epochs by PGM or a baseline, weighted mini-batch SGD on the subset,
-newbob lr annealing on validation loss, cost accounting, and the
-reference's fault tolerance:
+``train/loop.py:train_with_selection`` on one device): warm start on
+full data, re-selection every R epochs by PGM or a baseline, weighted
+mini-batch SGD on the subset, newbob lr annealing on validation loss,
+cost accounting, and the reference's fault tolerance.
+
+Execution goes through one engine interface (``train/engine.py:
+make_engine``):
+
+* ``engine="scan"`` (the default): ``EpochEngine``, units on the device
+  and each epoch one captured CUDA graph of the step replayed over the
+  plan (on the CPU the same loop without a graph).  ``epoch_chunk > 1``
+  runs up to that many epochs of one selection context as one
+  ``run_epochs`` call (validation and the fp32 newbob update on the
+  device, metrics read once a chunk; chunk boundaries at selection
+  epochs); a plan prefetcher builds the next plans on a worker thread
+  (``data/plan_prefetch.py``), which also retries a failed build.
+* ``engine="host"``: ``HostEngine``, the per-batch parity oracle.
+
+The fault tolerance:
 
 * a checkpoint after every epoch (``ckpt_dir``, the reference's format
   and ``extra`` keys), and ``resume`` from the newest intact one, the
@@ -39,11 +53,12 @@ from repro_torch.core.metrics import overlap_index
 from repro_torch.core.pgm import Selection, pgm_select
 from repro_torch.core.sketch import Projections
 from repro_torch.data.pipeline import unit_durations
+from repro_torch.data.plan_prefetch import PlanPrefetcher
 from repro_torch.kernels.backend import resolve_device
 from repro_torch.models.common import tree_map
 from repro_torch.train import checkpoint as ckpt_mod
 from repro_torch.train import faults as faults_mod
-from repro_torch.train.engine import HostEngine, plan_live_steps
+from repro_torch.train.engine import make_engine
 from repro_torch.train.optim import NewbobState, make_update_for
 
 METHODS = ("pgm", "random", "large_only", "large_small", "gradmatch_pb",
@@ -104,6 +119,10 @@ def _select(method, bundle, params, units, tc: TrainConfig, epoch: int,
     raise ValueError(method)
 
 
+def _host(x) -> np.ndarray:
+    return x.cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
+
+
 def train_with_selection(
     bundle,
     units: Dict[str, np.ndarray],
@@ -114,7 +133,8 @@ def train_with_selection(
     batch_units: int = 1,
     ckpt_dir: Optional[str] = None,
     resume: bool = False,
-    engine: str = "host",
+    engine: str = "scan",
+    epoch_chunk: int = 1,
     fault_plan: Optional[faults_mod.FaultPlan] = None,
     device: Optional[str] = None,
     params=None,
@@ -122,20 +142,16 @@ def train_with_selection(
     log_fn: Callable[[str], None] = lambda s: None,
 ) -> History:
     """Run Algorithm 1 on ``device`` (the card unless ``"cpu"`` is asked
-    for).  ``params``/``proj``: optional initial params tree and sketch
-    projections (moved to the device).  ``engine="scan"`` raises: the
-    scanned engine is not ported."""
+    for) through ``engine`` (``"scan"`` or ``"host"``).  ``params``/
+    ``proj``: optional initial params tree and sketch projections (moved
+    to the device).  On the scan engine ``History.final_params`` are the
+    engine's buffers."""
     if method not in METHODS:
         raise ValueError(f"unknown method {method!r}; one of {METHODS}")
-    if engine == "scan":      # never fall back to the host loop quietly
-        raise ValueError(
-            "engine='scan': the scanned epoch engine is not ported yet "
-            "(ROADMAP.md queue 1, item 2); use engine='host'")
-    if engine != "host":
-        raise ValueError(f"unknown engine {engine!r}; the port has 'host'")
     dev = resolve_device(device)
-    eng = HostEngine(bundle, tc, units, val_units=val_units,
-                     batch_units=batch_units, device=dev)
+    eng = make_engine(engine, bundle, tc, units, val_units=val_units,
+                      batch_units=batch_units, device=dev)
+    is_scan = eng.kind == "scan"
     # the engine may rebuild the bundle (loss_vocab_chunk auto-tune)
     bundle = eng.bundle
     key_seed = tc.seed
@@ -189,22 +205,45 @@ def train_with_selection(
 
     warm = tc.pgm.warm_start_epochs
     R = tc.pgm.select_every
+    prefetcher = (PlanPrefetcher(max_pending=max(2, epoch_chunk))
+                  if is_scan else None)
+    sel_round = 0          # prefetch key component: one per selection
 
     def _use_full(e: int) -> bool:
         return method == "full" or e < warm
 
-    def _plan(e: int):
+    def _is_sel_epoch(e: int) -> bool:
+        return not _use_full(e) and (e - warm) % R == 0
+
+    def _plan_builder(e: int, sel: Optional[Selection]):
+        """A pure, host-only builder of epoch ``e``'s plan (safe on the
+        prefetch thread: the selection is copied to the host here)."""
         if _use_full(e):
-            plan = eng.full_plan(e)
+            base = lambda: eng.full_plan(e)
         else:
-            plan = eng.subset_plan(selection.indices.cpu().numpy(),
-                                   selection.weights.cpu().numpy(), e)
-        if fault_plan is not None:
-            # the host loop has no prefetcher: an injected plan-build
-            # failure raises out of the run
+            idx, w = _host(sel.indices), _host(sel.weights)
+            base = lambda: eng.subset_plan(idx, w, e)
+        if fault_plan is None:
+            return base
+
+        def build():
+            # the scan engine's prefetcher retries an injected failure;
+            # the host engine has none, so it raises out of the run
             fault_plan.maybe_fail_prefetch(e)
-            plan = fault_plan.poison_plan(e, plan)
-        return plan
+            return fault_plan.poison_plan(e, base())
+        return build
+
+    def _plan_key(e: int, rnd: int):
+        # the watchdog re-keys plans by bumping plan_salt; keys carry it
+        # so a stale pending plan never resolves
+        return (("full", eng.plan_salt, e) if _use_full(e)
+                else ("subset", eng.plan_salt, rnd, e))
+
+    def _get_plan(e: int):
+        build = _plan_builder(e, selection)
+        if prefetcher is None:
+            return build()
+        return prefetcher.get(_plan_key(e, sel_round), build)
 
     writer = ckpt_mod.AsyncCheckpointer(ckpt_dir) if ckpt_dir else None
     preempt = faults_mod.PreemptionHandler(log_fn=log_fn).install()
@@ -214,8 +253,7 @@ def train_with_selection(
         while epoch < tc.epochs:
             use_full = _use_full(epoch)
             # --- selection round ---
-            if not use_full and (selection is None
-                                 or (epoch - warm) % R == 0):
+            if not use_full and (selection is None or _is_sel_epoch(epoch)):
                 t_sel = time.time()
                 new_sel = _select(method, bundle, params, eng.units, tc,
                                   epoch, key_seed, proj, eng.val_units,
@@ -224,6 +262,9 @@ def train_with_selection(
                                     new_sel.indices.cpu().numpy())
                       if selection is not None else float("nan"))
                 selection = new_sel
+                sel_round += 1
+                if prefetcher is not None:
+                    prefetcher.invalidate()
                 # a gradient pass over all units costs ~1/3 epoch
                 if method in ("pgm", "gradmatch_pb"):
                     hist.cost_units += 1.0 / 3.0
@@ -238,33 +279,79 @@ def train_with_selection(
                 log_fn(f"epoch {epoch}: selected {selection.n_selected} "
                        f"units (OI={oi:.3f})")
 
-            # --- one SGD epoch ---
-            plan = _plan(epoch)
-            hist.cost_units += eng.epoch_cost(
-                use_full=use_full,
-                n_selected=None if use_full else selection.n_selected)
-            params, opt_state, step_losses = eng.run_epoch(
-                params, opt_state, newbob.lr, plan)
-            losses = step_losses[plan_live_steps(plan)]
-            tl = float(losses.mean()) if losses.size else float("nan")
-            if eng.val_units is not None:
-                vl = eng.validate(params)
-                newbob = newbob.update(vl, tc.anneal_factor,
-                                       tc.improvement_threshold)
+            # --- a chunk of SGD epochs sharing this selection context ---
+            if method == "full":
+                boundary = tc.epochs
+            elif epoch < warm:
+                boundary = warm
             else:
-                vl = float("nan")
+                boundary = warm + ((epoch - warm) // R + 1) * R
+            boundary = min(boundary, tc.epochs)
+            chunk = (max(1, min(epoch_chunk, boundary - epoch))
+                     if is_scan else 1)
+            chunk_epochs = list(range(epoch, epoch + chunk))
+            plans = [_get_plan(e) for e in chunk_epochs]
+            # every later epoch whose selection context is decided can be
+            # built on the prefetch thread while this chunk runs
+            if prefetcher is not None:
+                e_next = epoch + chunk
+                while e_next < tc.epochs and not _is_sel_epoch(e_next):
+                    if not prefetcher.schedule(
+                            _plan_key(e_next, sel_round),
+                            _plan_builder(e_next, selection)):
+                        break
+                    e_next += 1
+
+            n_sel = None if use_full else int(selection.n_selected)
+            for p in plans:
+                hist.cost_units += eng.epoch_cost(p, use_full=use_full,
+                                                  n_selected=n_sel)
+            if epoch_chunk == 1 or not is_scan:
+                # per-epoch: validation and newbob on the host.  Keyed off
+                # the requested chunk size, so a chunked run uses the fp32
+                # device newbob everywhere, size-1 chunks included
+                params, opt_state, step_losses = eng.run_epoch(
+                    params, opt_state, newbob.lr, plans[0])
+                losses = step_losses[eng.plan_live_steps(plans[0])]
+                train_losses = [float(losses.mean()) if losses.size
+                                else float("nan")]
+                has_live = [losses.size > 0]
+                if eng.val_units is not None:
+                    vl = eng.validate(params)
+                    newbob = newbob.update(vl, tc.anneal_factor,
+                                           tc.improvement_threshold)
+                else:
+                    vl = float("nan")
+                val_losses, lrs = [vl], [newbob.lr]
+            else:
+                (params, opt_state, step_losses, vls, lrs_out, lr_out,
+                 prev_out) = eng.run_epochs(params, opt_state, newbob.lr,
+                                            newbob.prev_loss, plans)
+                train_losses, has_live = [], []
+                for i, p in enumerate(plans):
+                    l = step_losses[i][eng.plan_live_steps(p)]
+                    train_losses.append(float(l.mean()) if l.size
+                                        else float("nan"))
+                    has_live.append(l.size > 0)
+                val_losses = [float(v) for v in vls]
+                lrs = [float(v) for v in lrs_out]
+                newbob = NewbobState(lr_out, prev_out)
 
             # --- divergence watchdog ---
             if guard_on:
-                skm = (eng.last_skipped > 0.5 if eng.last_skipped is not None
+                skm = (_host(eng.last_skipped).reshape(-1) > 0.5
+                       if eng.last_skipped is not None
                        else np.zeros(0, bool))
                 n_sk = int(skm.sum())
                 hist.skipped_steps += n_sk
+                span = f"epochs {chunk_epochs[0]}..{chunk_epochs[-1]}"
                 if n_sk:
                     log_fn(f"guard: skipped {n_sk} non-finite step(s) in "
-                           f"epochs {epoch}..{epoch}")
-                bad_train = losses.size > 0 and not np.isfinite(tl)
-                bad_val = eng.val_units is not None and not np.isfinite(vl)
+                           f"{span}")
+                bad_train = any(not np.isfinite(tl) for tl, h
+                                in zip(train_losses, has_live) if h)
+                bad_val = (eng.val_units is not None
+                           and any(not np.isfinite(v) for v in val_losses))
                 K = int(tc.max_skipped_steps or 0)
                 consec = _max_consecutive(skm)
                 if (K > 0 and consec >= K) or bad_train or bad_val:
@@ -276,8 +363,8 @@ def train_with_selection(
                     reason = (f"{consec} consecutive skipped steps"
                               if K > 0 and consec >= K
                               else "non-finite loss")
-                    log_fn(f"watchdog: {reason} in epochs {epoch}..{epoch}; "
-                           f"rolling back with a re-keyed batch plan")
+                    log_fn(f"watchdog: {reason} in {span}; rolling back "
+                           f"with a re-keyed batch plan")
                     if writer is not None:
                         try:
                             writer.wait()
@@ -285,6 +372,9 @@ def train_with_selection(
                             log_fn(f"warning: async checkpoint write "
                                    f"failed: {e}")
                     eng.plan_salt += 1
+                    sel_round += 1
+                    if prefetcher is not None:
+                        prefetcher.invalidate()
                     if (ckpt_dir
                             and ckpt_mod.latest_step(ckpt_dir) is not None):
                         (params, opt_state, newbob, selection,
@@ -303,17 +393,20 @@ def train_with_selection(
                                "re-initialised state")
                     continue
 
-            hist.train_loss.append(tl)
-            hist.val_loss.append(vl)
-            hist.lr.append(newbob.lr)
-            log_fn(f"epoch {epoch}: train {tl:.4f} val {vl:.4f} "
-                   f"lr {newbob.lr:.4f}")
+            for e, tl, vl, lr in zip(chunk_epochs, train_losses,
+                                     val_losses, lrs):
+                hist.train_loss.append(tl)
+                hist.val_loss.append(vl)
+                hist.lr.append(lr)
+                log_fn(f"epoch {e}: train {tl:.4f} val {vl:.4f} "
+                       f"lr {lr:.4f}")
 
+            last = chunk_epochs[-1]
             if fault_plan is not None:
-                fault_plan.maybe_preempt(epoch)
+                fault_plan.maybe_preempt(last)
             preempted = preempt.triggered
             if writer is not None:
-                extra = {"epoch": epoch, "lr": newbob.lr,
+                extra = {"epoch": last, "lr": newbob.lr,
                          "prev_loss": newbob.prev_loss,
                          "sel_indices": (selection.indices.cpu().tolist()
                                          if selection is not None else None),
@@ -321,20 +414,22 @@ def train_with_selection(
                                          if selection is not None else None)}
                 if preempted:
                     extra["preempted"] = True
-                writer.submit(epoch, {"params": params, "opt": opt_state},
+                writer.submit(last, {"params": params, "opt": opt_state},
                               extra)
             if preempted:
                 if writer is not None:
                     writer.wait()
                 hist.preempted = True
                 log_fn(f"preemption: emergency checkpoint at epoch "
-                       f"{epoch}; exiting resumably")
+                       f"{last}; exiting resumably")
                 break
-            epoch += 1
+            epoch += chunk
         if writer is not None:
             writer.wait()    # raise a deferred write error before returning
     finally:
         preempt.uninstall()
+        if prefetcher is not None:
+            prefetcher.close()
         if writer is not None:
             try:
                 writer.close()

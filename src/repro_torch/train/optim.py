@@ -4,7 +4,13 @@ the paper's "newbob" scheduler (the reference's ``train/optim.py``).
 Params, grads and optimizer states are nested dicts of tensors; updates
 are functional (they return new trees and leave their inputs as they
 were), like the reference's, so a parity test can hold the state before
-and after one step side by side.
+and after one step side by side.  ``make_update_in_place`` commits the
+same arithmetic into the existing tensors leaf by leaf, the counterpart
+of the reference's donated scan carry.
+
+``lr`` is a Python float or a 0-dim fp32 tensor on the params' device
+(what a captured step reads); the two give the same bits for the same
+fp32 value, since a Python scalar enters an fp32 op rounded to fp32.
 """
 from __future__ import annotations
 
@@ -130,6 +136,43 @@ def make_update_for(cfg):
                 gate_step(step_on, new_s, state))
 
     return init_fn, update_fn
+
+
+def commit_(dst, new) -> None:
+    """Copy every leaf of ``new`` into the matching leaf of ``dst`` (trees
+    of one structure), in place: ``dst``'s tensors keep their storage."""
+    for d, n in zip(tree_leaves(dst), tree_leaves(new)):
+        d.copy_(n)
+
+
+def make_update_in_place(cfg):
+    """``update_(params, grads, state, lr[, step_on]) -> (params,
+    state)``: the update of ``make_update_for(cfg)`` written into
+    ``params`` and ``state`` in place, which it returns.  Every optimizer here is leafwise, so it runs the
+    functional update on one leaf at a time (with that leaf's moments and
+    the shared step counter) and commits the result before the next leaf:
+    the bits are the functional update's, the tensors keep their
+    addresses, and at most one leaf's update exists twice at any moment.
+    The step counter is committed last, after every leaf has read it."""
+    _, update = make_update_for(cfg)
+
+    def update_(params, grads, state, lr, step_on=None):
+        slots = {k: tree_leaves(v) for k, v in state.items() if k != "step"}
+        new_step = None
+        for i, (p, g) in enumerate(zip(tree_leaves(params),
+                                       tree_leaves(grads))):
+            sub = {"step": state["step"],
+                   **{k: leaves[i] for k, leaves in slots.items()}}
+            new_p, new_s = update(p, g, sub, lr, step_on=step_on)
+            p.copy_(new_p)
+            for k, leaves in slots.items():
+                leaves[i].copy_(new_s[k])
+            new_step = new_s["step"]
+        if new_step is not None:
+            state["step"].copy_(new_step)
+        return params, state
+
+    return update_
 
 
 # newbob scheduler (paper: lr 2.0, anneal 0.8 on rel. improvement < 0.0025)

@@ -10,8 +10,8 @@ same TER.  ``greedy_decode`` (E1) is held exactly on random params whose
 hypotheses hold non-blank symbols; ``token_error_rate`` (E2) to equal
 floats on fixed arrays.  ``--exact-gradients`` (unsketched stage A,
 D = joint_dim x vocab) picks the reference's subsets; ``--method
-random`` keeps its invariants (G3); the scanned engine and epoch chunks
-raise."""
+random`` keeps its invariants (G3).  The scanned engine's entry points
+are held against the reference in ``tests/test_torch_engine.py``."""
 import importlib.util
 import os
 import subprocess
@@ -97,8 +97,8 @@ def test_twin_matches_reference_example(monkeypatch, capsys):
     params, proj = _reference_draws(32, 32)
     lines = []
     h_t, hyp_t, n_t, ter_t = twin.train_and_decode(
-        n=32, epochs=4, device="cpu", params=params, proj=proj,
-        log_fn=lines.append)
+        n=32, epochs=4, engine="host", device="cpu", params=params,
+        proj=proj, log_fn=lines.append)
     assert lines[0] == ref_lines[0]           # the corrupted-corpus line
     assert len(h_t.selections) == len(h_j.selections) == 1
     for st, sj in zip(h_t.selections, h_j.selections):
@@ -178,7 +178,7 @@ def test_exact_gradients_pick_the_reference_subsets():
     h_t = train_with_selection(
         build_model(get_config(ARCH)), units,
         TrainConfig(**run, pgm=PGMConfig(**sel)), method="pgm",
-        val_units=val, device="cpu", params=params)
+        val_units=val, engine="host", device="cpu", params=params)
     assert len(h_t.selections) == len(h_j.selections) == 3
     for st, sj in zip(h_t.selections, h_j.selections):
         assert st["indices"] == sj["indices"], (st, sj)
@@ -202,20 +202,6 @@ def test_random_method_keeps_its_invariants():
         assert s["weights"] == [1.0] * budget
     assert h.cost_units == pytest.approx(2 + 2 * budget / n_units)
     assert hyp.shape == (16, 20) and 0.0 <= ter
-
-
-@pytest.mark.parametrize("call", [
-    lambda: twin.main(["--engine", "scan", "--device", "cpu"]),
-    lambda: twin.main(["--epoch-chunk", "2", "--device", "cpu"]),
-    lambda: launcher.main(["--arch", ARCH, "--engine", "scan",
-                           "--device", "cpu", "--n", "16"]),
-    lambda: train_with_selection(
-        build_model(get_config(ARCH)), _units(0, 16), TrainConfig(),
-        engine="scan", device="cpu"),
-])
-def test_scan_engine_and_epoch_chunks_raise(call):
-    with pytest.raises(ValueError, match=r"queue 1, item 2"):
-        call()
 
 
 def test_twin_cli_prints_the_reference_lines(tmp_path):
@@ -257,7 +243,7 @@ def test_launcher_passes_the_reference_flags(monkeypatch, tmp_path):
     assert seen["tc"].pgm.use_sketch is False
     assert seen["tc"].nonfinite_guard and seen["tc"].max_skipped_steps == 3
     assert (seen["ckpt_dir"], seen["resume"], seen["engine"]) == \
-        (d, True, "host")
+        (d, True, "scan")
     launcher.main(["--arch", ARCH, "--n", "16", "--device", "cpu"])
     assert seen["bundle"].cfg.rnnt.loss_impl == "fused"
     assert seen["tc"].pgm.use_sketch and not seen["tc"].nonfinite_guard

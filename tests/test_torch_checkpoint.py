@@ -254,8 +254,8 @@ def test_port_resumes_from_reference_checkpoint(tmp_path):
     h_t = train_with_selection(
         build_model(get_config(ARCH)), units,
         TrainConfig(**run, pgm=PGMConfig(**sel)), method="pgm",
-        val_units=val, ckpt_dir=d_port, resume=True, device="cpu",
-        proj=proj, log_fn=logs.append)
+        val_units=val, ckpt_dir=d_port, resume=True, engine="host",
+        device="cpu", proj=proj, log_fn=logs.append)
     assert logs[0] == "resumed at epoch 2"
     assert len(h_t.train_loss) == len(h_j.train_loss) == 2
     assert [s["epoch"] for s in h_t.selections] == [3]

@@ -9,7 +9,12 @@ card tensors (which the CPU tests hold against the JAX reference), at
 ragged edge shapes; the WKV backward kernel against autograd of the
 plain chunk algebra; the sliding-window attention kernel against its
 plain band gather (and its refused backward); the fused loss against the
-same loss on the CPU.  TF32 is off throughout (``backend.fp32_numerics``).
+same loss on the CPU.  The scanned epoch engine: a replayed epoch equals
+the same epoch run on the card without the graph bit for bit, padding
+rows are bitwise no-ops through the graph, a traced replayed epoch
+runs each step kernel per-step launches x rows times while the launch
+counters (which count at the launch site) see only the warm-up and the
+capture, and a host sync planted in the step makes the capture raise.  TF32 is off throughout (``backend.fp32_numerics``).
 """
 import numpy as np
 import pytest
@@ -32,6 +37,7 @@ from repro_torch.kernels.rwkv6_scan.ref import (  # noqa: E402
     log_decay, wkv_chunked_lw)
 from repro_torch.kernels.swa_attn.ops import swa_attn_op  # noqa: E402
 from repro_torch.kernels.swa_attn.ref import swa_attn_ref  # noqa: E402
+from repro_torch.train.engine import EpochEngine  # noqa: E402
 
 pytestmark = pytest.mark.cuda
 
@@ -487,3 +493,173 @@ def test_swa_backward_raises_and_wrapper_refuses(card):
                      dtype=torch.bfloat16)[1:].view(1, 128, 1, 2, 32)
     with pytest.raises(RuntimeError):
         swa_attn_op(qm, k.bfloat16(), v.bfloat16(), window=64)
+
+
+class _EagerOnCard(EpochEngine):
+    """The scan engine's step body on the card without a graph."""
+
+    def _ensure_graph(self):
+        pass
+
+
+def _scan_setup(card, arch, guard=False):
+    """Units of ``arch``'s smoke config (RNN-T: 4 units of 4 utterances;
+    RWKV: 8 units of 2 rows of 128 tokens, the WKV kernels' branch), an
+    AdamW config and seed-0 params on the card."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.data.pipeline import asr_units, lm_units
+    from repro_torch.data.synthetic import make_asr_corpus, make_lm_corpus
+    from repro_torch.models.api import build_model
+
+    cfg = get_config(arch)
+    if cfg.family == "rnnt":
+        units = asr_units(make_asr_corpus(0, 16, n_feats=cfg.rnnt.n_feats,
+                                          vocab_size=cfg.rnnt.vocab_size,
+                                          noise_fraction=0.25), 4)
+    else:
+        units = lm_units(make_lm_corpus(0, 16, 128, cfg.vocab_size), 2)
+    bundle = build_model(cfg)
+    tc = TrainConfig(lr=0.05, optimizer="adamw", nonfinite_guard=guard)
+    return bundle, tc, units, bundle.init_params(
+        torch.Generator().manual_seed(0), card)
+
+
+def _same_bits(a, b) -> bool:
+    from repro_torch.models.common import tree_leaves
+    return all(torch.equal(x, y) for x, y in zip(tree_leaves(a),
+                                                 tree_leaves(b)))
+
+
+def test_replayed_epoch_equals_eager_epoch_bitwise(card):
+    """A guarded epoch with a padding row, replayed through the captured
+    graph and run eagerly on the card from the same state: the same
+    params, AdamW state and losses bit for bit; then an all-padding plan
+    through the graph holds the state bitwise and reports 0 losses."""
+    from repro_torch.models.common import tree_map
+    from repro_torch.train.optim import make_update_for
+
+    bundle, tc, units, params = _scan_setup(card, "rnnt-crdnn-smoke",
+                                            guard=True)
+    init = make_update_for(tc)[0]
+    outs = []
+    for cls in (EpochEngine, _EagerOnCard):
+        eng = cls(bundle, tc, units, device=card)
+        idx, w = eng.full_plan(0)
+        idx[2], w[2] = -1, 0.0
+        p, o, losses = eng.run_epoch(params, init(params), tc.lr, (idx, w))
+        torch.cuda.synchronize()
+        outs.append((p, o, losses, eng))
+    assert outs[0][3]._graph is not None and outs[1][3]._graph is None
+    assert _same_bits(outs[0][:2], outs[1][:2])
+    assert outs[0][2].tolist() == outs[1][2].tolist()
+    assert outs[0][2][2] == 0.0 and (outs[0][2][[0, 1, 3]] > 0).all()
+    assert int(outs[0][3].last_n_skipped) == 0
+    eng = outs[0][3]
+    before = tree_map(lambda x: x.clone(), (eng.params, eng.opt_state))
+    pad = (np.full((4, 1), -1, np.int32), np.zeros((4, 1), np.float32))
+    p, o, losses = eng.run_epoch(eng.params, eng.opt_state, tc.lr, pad)
+    torch.cuda.synchronize()
+    assert losses.tolist() == [0.0] * 4
+    assert _same_bits(before, (p, o))
+
+
+#: a kernel that each call of a wrapper launches once, by launch counter
+_MARKERS = {"rnnt_lattice": "rnnt_lattice_kernel",
+            "rwkv6_wkv": "wkv_out_kernel",
+            "rwkv6_wkv_bwd": "wkv_bwd_grad_kernel"}
+
+
+def _traced(fn, names):
+    """``fn()`` under ``torch.profiler`` -> {name: instances of its marker
+    kernel that ran on the card}."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    evs = [ev for ev in prof.key_averages()
+           if ev.device_type == DeviceType.CUDA]
+    return {n: sum(ev.count for ev in evs if _MARKERS[n] in ev.key)
+            for n in names}
+
+
+@pytest.mark.parametrize("arch", ["rnnt-crdnn-smoke", "rwkv6-3b-smoke"])
+def test_replays_launch_the_kernels(card, arch):
+    """The launch counters count at the launch site: an eager step's
+    counts equal its traced marker kernels; the first epoch counts the
+    warm-up steps and the capture; replays add nothing to them, and a
+    traced replayed epoch holds per-step launches x rows of each kernel.
+    A plan of another bucket replays the same graph (one capture)."""
+    from repro_torch.train.engine import make_step_core, to_device
+    from repro_torch.train.optim import make_update_for
+
+    bundle, tc, units, params = _scan_setup(card, arch)
+    counters = ({"rnnt_lattice": (rnnt_lattice_op, "launches")}
+                if "rnnt" in arch else
+                {"rwkv6_wkv": (rwkv6_wkv_op, "launches"),
+                 "rwkv6_wkv_bwd": (rwkv6_wkv_op, "bwd_launches")})
+    read = lambda: {n: getattr(op, a) for n, (op, a) in counters.items()}
+    delta = lambda n0: {n: c - n0[n] for n, c in read().items()}
+    opt = make_update_for(tc)[0](params)
+    batch = to_device({k: v[0] for k, v in units.items()}, card)
+    n0 = read()
+    traced = _traced(lambda: make_step_core(bundle, tc)(params, opt, batch,
+                                                       tc.lr), counters)
+    per_step = delta(n0)
+    assert all(d > 0 for d in per_step.values()) and traced == per_step
+    EpochEngine.captures = EpochEngine.replays = EpochEngine.warmup_steps = 0
+    eng = EpochEngine(bundle, tc, units, device=card)
+    plan = eng.full_plan(0)
+    n0 = read()
+    eng.run_epoch(params, opt, tc.lr, plan)
+    torch.cuda.synchronize()
+    assert delta(n0) == {n: d * (EpochEngine.WARMUP_STEPS + 1)
+                         for n, d in per_step.items()}
+    assert (EpochEngine.captures, EpochEngine.replays,
+            EpochEngine.warmup_steps) == (1, len(plan[0]),
+                                          EpochEngine.WARMUP_STEPS)
+    for p in (eng.full_plan(1), eng.subset_plan(
+            np.arange(eng.n_units // 2),
+            np.ones(eng.n_units // 2, np.float32), 2)):
+        n0 = read()
+        traced = _traced(lambda: eng.run_epoch(eng.params, eng.opt_state,
+                                               tc.lr, p), counters)
+        assert delta(n0) == {n: 0 for n in per_step}
+        assert traced == {n: d * len(p[0]) for n, d in per_step.items()}
+    assert 0 < len(p[0]) < len(plan[0]) and EpochEngine.captures == 1
+
+
+class _SyncingBundle:
+    """A bundle whose loss reads its value back to the host."""
+
+    def __init__(self, bundle):
+        self._bundle = bundle
+        self.cfg = bundle.cfg
+
+    def loss_fn(self, params, batch):
+        total, metrics = self._bundle.loss_fn(params, batch)
+        if float(total) < 0:                     # the planted host sync
+            raise AssertionError("negative loss")
+        return total, metrics
+
+    def __getattr__(self, name):
+        return getattr(self._bundle, name)
+
+
+def test_host_sync_in_the_step_makes_capture_raise(card):
+    """The warm-up runs (eager steps may read back), the capture raises,
+    and nothing falls back to an eager epoch.  Last in this file: the
+    capture it breaks is abandoned."""
+    from repro_torch.train.optim import make_update_for
+
+    bundle, tc, units, params = _scan_setup(card, "starcoder2-3b-smoke")
+    eng = EpochEngine(_SyncingBundle(bundle), tc, units, device=card)
+    with pytest.raises(RuntimeError):
+        eng.run_epoch(params, make_update_for(tc)[0](params), tc.lr,
+                      eng.full_plan(0))
+    assert eng._graph is None
+    torch.cuda.synchronize()

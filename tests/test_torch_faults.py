@@ -92,8 +92,9 @@ def _run_both(data, fault, fault_ref, ckpt_dirs=(None, None), **run):
     h_t = train_with_selection(
         build_model(get_config(ARCH)), units,
         TrainConfig(**kw, pgm=PGMConfig(**SEL)), method="pgm",
-        val_units=val, device="cpu", params=params, proj=proj,
-        fault_plan=fault, ckpt_dir=ckpt_dirs[1], log_fn=logs_t.append)
+        val_units=val, engine="host", device="cpu", params=params,
+        proj=proj, fault_plan=fault, ckpt_dir=ckpt_dirs[1],
+        log_fn=logs_t.append)
     return h_j, h_t, logs_j, logs_t
 
 
@@ -244,7 +245,7 @@ def test_plan_build_failure_raises_out_of_both_host_loops(data):
         train_with_selection(
             build_model(get_config(ARCH)), units,
             TrainConfig(**RUN, pgm=PGMConfig(**SEL)), val_units=val,
-            device="cpu", params=params, proj=proj,
+            engine="host", device="cpu", params=params, proj=proj,
             fault_plan=faults.FaultPlan(prefetch_fail_epochs=(1,)))
 
 

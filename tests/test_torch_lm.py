@@ -241,8 +241,8 @@ def test_train_with_selection_matches_reference_host_engine():
     h_t = train_with_selection(
         build_model(get_config(ARCH)), units,
         TrainConfig(**run, pgm=PGMConfig(**sel)), method="pgm",
-        val_units=val, device="cpu", params=params, proj=proj,
-        log_fn=logs.append)
+        val_units=val, engine="host", device="cpu", params=params,
+        proj=proj, log_fn=logs.append)
 
     assert len(h_t.selections) == len(h_j.selections) == 2
     for st, sj in zip(h_t.selections, h_j.selections):

@@ -414,7 +414,8 @@ def test_train_with_selection_matches_reference_host_engine():
     h_t = train_with_selection(
         build_model(get_config(ARCH)), units,
         TrainConfig(**run, pgm=PGMConfig(**sel)), method="pgm",
-        val_units=val, device="cpu", params=params, proj=proj)
+        val_units=val, engine="host", device="cpu", params=params,
+        proj=proj)
 
     assert len(h_t.selections) == len(h_j.selections) == 2
     for i, (st, sj) in enumerate(zip(h_t.selections, h_j.selections)):
