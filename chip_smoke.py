@@ -25,7 +25,8 @@ failure exits non-zero, and no phase catches an error and carries on:
    grad-sketch kernel also launched twice on the same inputs, which
    must agree bit for bit, timed in turns with its plain version, its
    rate printed against two bounds (the fp32 FMA route and the 3xTF32
-   tensor-core route it takes); the RWKV6 WKV kernels (forward and
+   tensor-core route it takes), at both LM units' shapes and at the LM
+   resident path's chunk of 4 units; the RWKV6 WKV kernels (forward and
    backward) against the plain chunk algebra and its autograd, twice
    bitwise, at the RWKV path's shape and the reference kernel tests'
    shapes, at decays in (0.4, 0.99), of 1e-6, at the 1e-8 clip and
@@ -117,7 +118,24 @@ failure exits non-zero, and no phase catches an error and carries on:
    1e-3), then the checks of (a) on a fresh engine (the WKV forward and
    backward kernels traced per step x rows); (d) ``python -m
    repro_torch.examples.train_asr_pgm --engine scan --epoch-chunk 2``,
-   its selection and TER lines beside 6f's.
+   its selection and TER lines beside 6f's;
+15. resident selection (``resident_selection=True``: stage A of a round
+   one captured CUDA graph a unit corpus, of one chunk at a cursor over
+   the resident units, replayed a chunk at a time every round): (a)
+   phase 14a's run with it, twice with one seed, bitwise equal, with
+   14a's subsets and weights (1e-4) and losses (rtol 1e-3), 2 captures
+   a run and none after the first round, each round's time and stage A
+   alone printed; (b) on its trained params a fresh selector against
+   host ``units_gradients`` (1e-5 of the largest entry, the same
+   selection), two replays bitwise, stage A and a round timed, a
+   replayed round under the profiler: its lattice kernels 2 a unit, the
+   counters unchanged; (c) ``starcoder2-3b`` at full width and depth on
+   the scan engine with resident selection, 2 epochs, its peak device
+   memory, then (b)'s checks, and ``chunk_units=4`` against 1 (1e-5 of
+   each unit vector's largest entry; the kernel counted once a chunk);
+   (d) ``rwkv6-3b`` at full width with 2 layers, (b)'s checks, the WKV
+   forward traced a unit x layer; (e) an injected failure of the
+   ``"cuda"`` route raises out of the round, no round degraded.
 
 Each main path runs with its kernels' launch counters set to 0 just
 before and read just after, and fails if a kernel of the path was never
@@ -128,8 +146,12 @@ sketch, which both LM paths run, two; then one row per kernel and scan
 path of phase 14, ``rnnt-scan``, ``lm-scan`` and ``rwkv-scan``: a kernel
 of the captured step with the launches of a traced replayed epoch and,
 as ``counted``, its scan run's count (the warm-up steps and the
-capture), a kernel outside the step with its scan run's count), the
-card's name and power limit
+capture), a kernel outside the step with its scan run's count; then
+one row per kernel and resident path of phase 15, ``rnnt-resident``,
+``lm-resident``, ``rwkv-resident`` and ``lm-resident-chunk4``: a kernel
+inside the stage-A graphs with the instances traced in one replayed
+round and, as ``counted``, the selector's warm-up and capture launches,
+stage B's Gram with its count), the card's name and power limit
 as ``nvidia-smi`` prints them, and the line ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
@@ -171,6 +193,8 @@ LM_SEQ = 512
 SKETCH_MAIN = (1, UNIT_SIZE * (LM_SEQ - 1), 3072, 49152, 64, 64)
 # the RWKV path's stage-A unit: rwkv6-3b's d 2560, vocab 65536
 SKETCH_RWKV = (1, UNIT_SIZE * (LM_SEQ - 1), 2560, 65536, 64, 64)
+# the LM resident path's chunk of 4 units (chunk_units 4, phase 15c)
+SKETCH_CHUNK = (4,) + SKETCH_MAIN[1:]
 SKETCH_EDGES = ((1, 1, 1, 1, 1, 1), (1, 17, 16, 64, 8, 8),
                 (3, 130, 72, 1001, 24, 40), (2, 65, 33, 4099, 64, 100),
                 (4, 511, 256, 8195, 70, 64), (2, 300, 128, 1000, 32, 72))
@@ -1136,7 +1160,8 @@ def reference_loop(torch, np, bundle, tc, units, val_units, val_corpus,
 #: a kernel that each call of a wrapper launches once, by launch counter
 KERNEL_MARKERS = {"rnnt_lattice": "rnnt_lattice_kernel",
                   "rwkv6_wkv": "wkv_out_kernel",
-                  "rwkv6_wkv_bwd": "wkv_bwd_grad_kernel"}
+                  "rwkv6_wkv_bwd": "wkv_bwd_grad_kernel",
+                  "grad_sketch": "gs_partial"}
 
 
 def replay_check(torch, np, bundle, tc, units, dev, params, ops, tag):
@@ -1277,9 +1302,10 @@ def scan_engine_phase(torch, np, bundle, tc, units, val_units, first,
     width with 2 layers, 2 epochs, host against scan, then
     ``replay_check``; (d) the twin with ``--engine scan --epoch-chunk
     2``.  ``models``: {"lm"|"rwkv": (config, units, val units, counters)}.
-    -> ({path: launches}, {path: launches counted in its scan run}):
-    a kernel of the captured step has the launches of ``replay_check``'s
-    traced replayed epoch, one outside it its scan run's count."""
+    -> ({path: launches}, {path: launches counted in its scan run},
+    14a's run record): a kernel of the captured step has the launches of
+    ``replay_check``'s traced replayed epoch, one outside it its scan
+    run's count."""
     from repro_torch.configs.base import PGMConfig, TrainConfig
     from repro_torch.kernels.omp_gram.ops import omp_gram_batched_op
     from repro_torch.kernels.rnnt_lattice.ops import rnnt_lattice_op
@@ -1421,7 +1447,274 @@ def scan_engine_phase(torch, np, bundle, tc, units, val_units, first,
           f"selection and TER lines {picked(out)}; 6f's (--engine host) "
           f"{picked(twin_host)}", flush=True)
     mark("14d twin, scan engine")
-    return launches, host_launches
+    return launches, host_launches, rec_a
+
+
+def resident_phase(torch, np, bundle, tc, units, val_units, rec_14a, models,
+                   dev, mark):
+    """Phase 15: resident selection rounds (``ResidentSelector``: stage A
+    one captured CUDA graph a unit corpus, of one chunk at a cursor over
+    the units, replayed a chunk at a time every round).  (a)
+    phase 5's RNN-T path on the scan engine with ``resident_selection``,
+    twice with one seed; (b) on its trained params, resident against host
+    stage A, two replays bitwise, a replayed round traced; (c)
+    ``starcoder2-3b`` at full width and depth, 2 epochs, its peak memory,
+    resident against host stage A, ``chunk_units`` 4 against 1; (d)
+    ``rwkv6-3b`` at full width with 2 layers, resident against host
+    stage A, a replayed round traced; (e) an injected failure of the
+    kernel route raises.  ``models``: {"lm"|"rwkv": (config, units, val
+    units)}.  -> {path: {kernel: (launches, counted)}}: a kernel inside
+    the graphs has the instances traced in one replayed round and, as
+    counted, the launches of the selector's warm-ups and captures; stage
+    B's Gram (eager) has its count in both."""
+    import repro_torch.train.loop as loop_mod
+    from repro_torch.configs.base import PGMConfig, TrainConfig
+    from repro_torch.core.lastlayer import (_chunk_size, make_proj_for,
+                                            units_gradients)
+    from repro_torch.core.pgm import ResidentSelector, pgm_select
+    from repro_torch.kernels.grad_sketch.ops import grad_sketch_units_op
+    from repro_torch.kernels.omp_gram.ops import omp_gram_batched_op
+    from repro_torch.kernels.rnnt_lattice.ops import rnnt_lattice_op
+    from repro_torch.kernels.rwkv6_scan.ops import rwkv6_wkv_op
+    from repro_torch.models.api import build_model
+    from repro_torch.train.engine import EpochEngine, to_device
+    from repro_torch.train.faults import failing_selection_kernels
+    from repro_torch.train.loop import train_with_selection
+
+    ops = {"rnnt_lattice": rnnt_lattice_op, "grad_sketch": grad_sketch_units_op,
+           "rwkv6_wkv": rwkv6_wkv_op, "omp_gram": omp_gram_batched_op}
+    read = lambda: {n: op.launches for n, op in ops.items()}
+    delta = lambda n0: {n: c - n0[n] for n, c in read().items() if c - n0[n]}
+    out = {}
+    stage_a_log = []
+
+    class Timed(ResidentSelector):
+        """Each stage-A call timed on the host clock after a synchronize,
+        with the captures so far."""
+
+        def stage_a(self, params, units_):
+            torch.cuda.synchronize()
+            t0 = time.time()
+            g = super().stage_a(params, units_)
+            torch.cuda.synchronize()
+            stage_a_log.append((ResidentSelector.captures, time.time() - t0))
+            return g
+
+    def resident_run(b, us, vs, tc_, tag):
+        for op in ops.values():
+            op.launches = 0
+        ResidentSelector.captures = ResidentSelector.replays = 0
+        EpochEngine.captures = EpochEngine.replays = 0
+        stage_a_log.clear()
+        loop_mod.ResidentSelector = Timed
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.time()
+        try:
+            h = train_with_selection(
+                b, us, tc_, method="pgm", val_units=vs, device="cuda",
+                engine="scan", resident_selection=True,
+                log_fn=lambda s: print(f"[{tag} +{time.time() - t0:.1f}s] "
+                                       f"{s}", flush=True))
+        finally:
+            loop_mod.ResidentSelector = ResidentSelector
+        torch.cuda.synchronize()
+        secs = time.time() - t0
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        n = len(h.selections)
+        rounds = [round(s["seconds"], 3) for s in h.selections]
+        per_round = [round(sum(t for _, t in stage_a_log[2 * i:2 * i + 2]),
+                           3) for i in range(n)]
+        caps = [c for c, _ in stage_a_log]
+        print(f"[{tag}] {secs:.1f} s ({h.wall_time:.1f} s after the init) "
+              f"on engine='scan' with resident selection; rounds (stage A + "
+              f"B, host clock) {rounds} s; stage A alone (train + val) "
+              f"{per_round} s; captures after each stage-A call {caps}; "
+              f"stage-A captures {ResidentSelector.captures}, replays "
+              f"{ResidentSelector.replays}; step captures "
+              f"{EpochEngine.captures}; launches {read()}; peak device memory {peak:.2f} GB "
+              f"(torch.cuda.max_memory_allocated)", flush=True)
+        chunks = sum(x["tokens"].shape[0] // _chunk_size(
+            x["tokens"].shape[0], None) for x in (us, vs))
+        require(ResidentSelector.captures == 2
+                and ResidentSelector.replays == chunks * n
+                and caps[:2] == [1, 2] and all(c == 2 for c in caps[2:]),
+                f"{tag}: stage-A captures {caps}, not 2 in the first round "
+                f"and none after")
+        require(all(np.isfinite(h.train_loss))
+                and all(np.isfinite(h.val_loss)), f"{tag}: non-finite loss")
+        return h, read(), peak
+
+    def round_check(b, pgm_cfg, params, us, vs, proj, tag, markers):
+        """A fresh selector on ``params``: resident against host stage A
+        (1e-5 of the largest entry) and the same selection; two replays
+        bitwise; stage A and a round timed; one replayed round traced ->
+        (train vectors, {kernel: (traced, counted)})."""
+        n0 = read()
+        sel = ResidentSelector(b, pgm_cfg, proj)
+        g1, gv1 = sel.stage_a(params, us), sel.stage_a(params, vs)
+        counted = delta(n0)
+        g2, gv2 = sel.stage_a(params, us), sel.stage_a(params, vs)
+        torch.cuda.synchronize()
+        bitwise = bool(torch.equal(g1, g2) and torch.equal(gv1, gv2))
+        host, host_v = (units_gradients(b, params, us, proj),
+                        units_gradients(b, params, vs, proj))
+        err = max(float((g1 - host).abs().max() / host.abs().max()),
+                  float((gv1 - host_v).abs().max() / host_v.abs().max()))
+        s_res = sel(params, us, val_units=vs)
+        s_host = pgm_select(b, params, us, pgm_cfg, proj, val_units=vs)
+        same = (s_res.indices.tolist() == s_host.indices.tolist()
+                and bool(torch.allclose(s_res.weights, s_host.weights,
+                                        rtol=0, atol=1e-4)))
+        torch.cuda.synchronize()
+        t0 = time.time()
+        sel.stage_a(params, us)
+        sel.stage_a(params, vs)
+        torch.cuda.synchronize()
+        t_a = time.time() - t0
+        t0 = time.time()
+        sel(params, us, val_units=vs)
+        torch.cuda.synchronize()
+        t_round = time.time() - t0
+        n1 = read()
+        *_, traced = profile_call(
+            torch, lambda: sel(params, us, val_units=vs), tag,
+            f"a replayed round ({us['tokens'].shape[0]} + "
+            f"{vs['tokens'].shape[0]} units, stage B eager)",
+            count={k: KERNEL_MARKERS[k] for k in markers})
+        moved = {k: v for k, v in delta(n1).items() if k in markers}
+        print(f"[{tag}] resident stage A against host units_gradients: max "
+              f"err {err:.2e} of the largest entry (1e-5); same subsets and "
+              f"weights (1e-4): {same}; two replays bitwise equal: "
+              f"{bitwise}; a replayed stage A (train + val) {t_a:.3f} s, a "
+              f"replayed round {t_round:.3f} s (host clock); launches "
+              f"counted at the warm-ups and captures {counted}; traced in a "
+              f"replayed round {traced}; counted during the traced replays "
+              f"{moved}", flush=True)
+        require(err <= 1e-5 and same and bitwise and not moved,
+                f"{tag}: resident stage A disagrees with the host's, two "
+                f"replays differ, or a replay moved a counter")
+        return g1, {k: (traced[k], counted.get(k, 0)) for k in markers}
+
+    # (a) the RNN-T main path, resident, twice with one seed
+    runs = []
+    for tag in ("15a", "15a again"):
+        h, launches, _ = resident_run(bundle, units, val_units, tc, tag)
+        runs.append((rnnt_run_record(h), launches, h.final_params))
+        del h
+    (tl, vl, sels), (tl0, vl0, sels0) = runs[0][0], rec_14a
+    same = [(e, i) for e, i, _ in sels] == [(e, i) for e, i, _ in sels0]
+    w_ok = all(np.allclose(w, w0, rtol=0, atol=1e-4)
+               for (_, _, w), (_, _, w0) in zip(sels, sels0))
+    loss_rel = max(abs(a - b) / abs(b) for a, b in zip(tl + vl, tl0 + vl0))
+    print(f"[15a] two resident runs of seed {tc.seed} bitwise equal: "
+          f"{runs[0][0] == runs[1][0]}; against 14a (host stage A, scan "
+          f"engine): same subsets {same}, weights within 1e-4 {w_ok}, losses "
+          f"at most {loss_rel:.2e} apart (rtol 1e-3), bitwise equal: "
+          f"{runs[0][0] == rec_14a}", flush=True)
+    require(runs[0][0] == runs[1][0], "15a: two resident runs differ")
+    require(same and w_ok and loss_rel < 1e-3 and len(tl) == len(tl0),
+            f"15a: {runs[0][0]} against 14a {rec_14a}")
+    omp_a = runs[0][1]["omp_gram"]
+    mark("15a resident selection, RNN-T")
+
+    # (b) on the trained params: a fresh selector against host stage A
+    us, vs = to_device(units, dev), to_device(val_units, dev)
+    proj = make_proj_for(bundle, torch.Generator().manual_seed(0),
+                         tc.pgm.sketch_dim_h, tc.pgm.sketch_dim_v, dev)
+    _, rows = round_check(bundle, tc.pgm, runs[0][2], us, vs, proj, "15b",
+                          ["rnnt_lattice"])
+    n_units = us["tokens"].shape[0] + vs["tokens"].shape[0]
+    require(rows["rnnt_lattice"][0] == 2 * n_units,
+            f"15b: {rows['rnnt_lattice'][0]} lattice kernels traced in a "
+            f"replayed round, not 2 a unit x {n_units}")
+    out["rnnt-resident"] = dict(rows, omp_gram=(omp_a, omp_a))
+    del runs, us, vs
+    gc.collect()
+    torch.cuda.empty_cache()
+    mark("15b resident stage A on the trained RNN-T params")
+
+    # (c) starcoder2-3b at full width and depth on the scan engine
+    lm_cfg, lm_us, lm_vs = models["lm"]
+    lm = build_model(lm_cfg)
+    pc_lm = PGMConfig(subset_fraction=0.5, n_partitions=tc.pgm.n_partitions,
+                      select_every=1, warm_start_epochs=1, val_matching=True)
+    tc_lm = TrainConfig(lr=0.05, optimizer="sgd", epochs=2, seed=0,
+                        pgm=pc_lm)
+    h, launches, peak = resident_run(lm, lm_us, lm_vs, tc_lm, "15c")
+    require(len(h.selections) == 1 and len(h.train_loss) == 2,
+            "15c: the LM run did not run its round and epochs")
+    params = h.final_params
+    del h
+    us, vs = to_device(lm_us, dev), to_device(lm_vs, dev)
+    proj = make_proj_for(lm, torch.Generator().manual_seed(0),
+                         pc_lm.sketch_dim_h, pc_lm.sketch_dim_v, dev)
+    g1, rows = round_check(lm, pc_lm, params, us, vs, proj, "15c",
+                           ["grad_sketch"])
+    out["lm-resident"] = dict(rows, omp_gram=(launches["omp_gram"],) * 2)
+    gc.collect()
+    n0 = read()
+    sel4 = ResidentSelector(lm, pc_lm, proj, chunk_units=4)
+    g4 = sel4.stage_a(params, us)
+    counted = delta(n0).get("grad_sketch", 0)
+    *_, traced = profile_call(torch, lambda: sel4.stage_a(params, us), "15c",
+                              "a replayed stage A at chunk_units 4",
+                              count={"grad_sketch": "gs_partial"})
+    per_unit = float(((g4 - g1).abs().amax(dim=1)
+                      / g1.abs().amax(dim=1)).max())
+    n_u = us["tokens"].shape[0]
+    print(f"[15c] chunk_units 4 against 1: per unit vector at most "
+          f"{per_unit:.2e} of its largest entry apart (1e-5); grad-sketch "
+          f"launches counted {counted} (the warm-up's chunk and the "
+          f"captured chunk, U = 4 each), traced in a replayed stage A of "
+          f"{n_u} units {traced['grad_sketch']}", flush=True)
+    require(per_unit <= 1e-5 and counted == 2
+            and traced["grad_sketch"] == n_u // 4,
+            "15c: chunk_units 4 disagrees with 1 or launches the kernel "
+            "another number of times than once a chunk")
+    out["lm-resident-chunk4"] = {"grad_sketch": (traced["grad_sketch"],
+                                                 counted)}
+    del sel4, g4, g1, params, lm, us, vs
+    gc.collect()
+    torch.cuda.empty_cache()
+    mark("15c resident selection, starcoder2-3b full depth")
+
+    # (d) rwkv6-3b at full width with 2 layers, init params
+    rw_cfg, rw_us, rw_vs = models["rwkv"]
+    rw2 = build_model(dataclasses.replace(rw_cfg, n_layers=2))
+    params = rw2.init_params(torch.Generator().manual_seed(0), dev)
+    us, vs = to_device(rw_us, dev), to_device(rw_vs, dev)
+    proj = make_proj_for(rw2, torch.Generator().manual_seed(1),
+                         pc_lm.sketch_dim_h, pc_lm.sketch_dim_v, dev)
+    n0 = read()
+    _, rows = round_check(rw2, pc_lm, params, us, vs, proj, "15d",
+                          ["rwkv6_wkv", "grad_sketch"])
+    n_units = us["tokens"].shape[0] + vs["tokens"].shape[0]
+    require(rows["rwkv6_wkv"][0] == 2 * n_units,
+            f"15d: {rows['rwkv6_wkv'][0]} WKV forwards traced in a replayed "
+            f"round, not a unit x 2 layers x {n_units}")
+    omp_d = read()["omp_gram"] - n0["omp_gram"]
+    out["rwkv-resident"] = dict(rows, omp_gram=(omp_d, omp_d))
+    mark("15d resident stage A, rwkv6-3b 2 layers")
+
+    # (e) an injected failure of the kernel route raises on the card
+    sel = ResidentSelector(rw2, pc_lm, proj, on_failure="soft_random")
+    raised = None
+    with failing_selection_kernels(("cuda",)):
+        try:
+            sel(params, us, val_units=vs)
+        except RuntimeError as err:
+            raised = err
+    print(f"[15e] an injected failure of the 'cuda' route: raised "
+          f"{raised!r}; degraded rounds {sel.degraded_rounds}", flush=True)
+    require(raised is not None and "injected kernel failure" in str(raised)
+            and sel.degraded_rounds == 0,
+            "15e: a failed kernel route did not raise out of the round")
+    del sel, params, rw2, us, vs
+    gc.collect()
+    torch.cuda.empty_cache()
+    mark("15e injected kernel failure")
+    return out
 
 
 def train_with_selection_logged(bundle, units, tc, val_units, logs, tag, t0,
@@ -1590,6 +1883,9 @@ def main() -> None:
     skr_err, skr_ms, skr_plain, skr_bound, skr_by = sketch_row(
         torch, grad_sketch_units_op, grad_sketch_units_ref, SKETCH_RWKV, 1,
         dev, "rwkv")
+    sk4_err, sk4_ms, sk4_plain, sk4_bound, sk4_by = sketch_row(
+        torch, grad_sketch_units_op, grad_sketch_units_ref, SKETCH_CHUNK, 2,
+        dev, "lm chunk of 4 units")
 
     for shape in WKV_EDGES:
         wkv_err(torch, rwkv6_wkv_op, shape, dev)
@@ -2129,7 +2425,7 @@ def main() -> None:
     torch.cuda.empty_cache()
     sketch_gram = {"grad_sketch": (grad_sketch_units_op, "launches"),
                    "omp_gram": (omp_gram_batched_op, "launches")}
-    scan_launches, scan_counted = scan_engine_phase(
+    scan_launches, scan_counted, rec_14a = scan_engine_phase(
         torch, np, bundle, tc, units, val_units, first, eager_step,
         twin_host, {"lm": (lm_cfg, lm_units, lm_val, sketch_gram),
                     "rwkv": (rw_cfg, rw_units, rw_val, dict(
@@ -2138,6 +2434,14 @@ def main() -> None:
                         rwkv6_wkv_bwd=(rwkv6_wkv_op, "bwd_launches")))},
         dev, mark)
 
+    # -- 15. resident selection: stage A one graph a corpus, replayed ---
+    gc.collect()
+    torch.cuda.empty_cache()
+    resident = resident_phase(
+        torch, np, bundle, tc, units, val_units, rec_14a,
+        {"lm": (lm_cfg, lm_units, lm_val), "rwkv": (rw_cfg, rw_units,
+                                                    rw_val)}, dev, mark)
+
     g_err, g_ms, g_plain, g_lib, g_bound, g_by = \
         gram_rows[(P_main, n_units // P_main, D_sk)]
     print(f"[launches] RNN-T path {launches}, its preempted and resumed "
@@ -2145,7 +2449,9 @@ def main() -> None:
           f"{exact_gram['launches']}}}, LM path {lm_launches}, RWKV "
           f"path {rw_launches}, serving path {{'swa_attn': {swa_launches}}}, "
           f"scan engine {scan_launches} (counted in its runs "
-          f"{scan_counted})", flush=True)
+          f"{scan_counted}), resident selection (traced in a replayed "
+          f"round, counted at the warm-ups and captures) {resident}",
+          flush=True)
     # one row per kernel and main path, "launches" from that path's run;
     # the Gram's stage-B shape (4, 4, 4096) is the same on both paths
     gram = {"name": "omp_gram_batched", "route": "cuda",
@@ -2210,6 +2516,28 @@ def main() -> None:
             kernels.append(dict(row, path=f"{src}-scan",
                                 launches=scan_launches[src][key],
                                 counted=scan_counted[src][key]))
+    # phase 15's resident rounds: a kernel inside the stage-A graphs has
+    # the instances traced in one replayed round ("launches") and the
+    # selector's warm-up and capture launches ("counted"); stage B's Gram
+    # its count in both.  The kernels run at the same shapes as on the
+    # host paths, but for the LM's chunk of 4 units (phase 3's U = 4 row)
+    for row in list(kernels):
+        base, kernel = row.get("path"), row["name"]
+        key = {"omp_gram_batched": "omp_gram",
+               "grad_sketch_units": "grad_sketch"}.get(kernel, kernel)
+        got = resident.get(f"{base}-resident", {}).get(key)
+        if got is not None:
+            kernels.append(dict(row, path=f"{base}-resident",
+                                launches=got[0], counted=got[1]))
+    sk4 = resident["lm-resident-chunk4"]["grad_sketch"]
+    kernels.append(
+        {"name": "grad_sketch_units", "path": "lm-resident-chunk4",
+         "route": "cuda",
+         "source": "src/repro_torch/kernels/grad_sketch/csrc/grad_sketch.cu",
+         "replaces": "src/repro/kernels/grad_sketch/kernel.py:128",
+         "launches": sk4[0], "counted": sk4[1], "max_abs_err": sk4_err,
+         "ms": sk4_ms, "plain_ms": sk4_plain, "bound_ms": sk4_bound,
+         "bound_by": sk4_by, "library_ms": None})
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -19,6 +19,12 @@ unit's tokens, scale = mask / (max(sum mask, 1) * B) (the training loss's
 per-example token mean, then the mean over examples).  The sketch
 ``(H R1)^T (E R2)`` goes through the fused ``grad_sketch`` kernel on the
 card and through ``streamed_er2`` on the CPU; neither forms E or G.
+
+``units_gradients`` takes the units one at a time (the host rounds'
+oracle); ``units_gradients_batched`` takes them a chunk at a time, the
+stage A of ``core/pgm.py:ResidentSelector`` (the LM's chunk one
+``final_hidden`` call and one kernel launch, the RNN-T's one encoder
+pass), with each unit's vector the one it has alone.
 """
 from __future__ import annotations
 
@@ -110,10 +116,17 @@ def rnnt_joint_grad(bundle, params, batch) -> torch.Tensor:
     """(J, V) joint-head gradient of the unit's training loss: ``dw_out``
     from the fused backward, with the encoder and prediction factors held
     constant."""
-    cfg = bundle.cfg
     with torch.no_grad():
-        ze, zp = rnnt_mod.joint_factors(params, cfg, batch["feats"],
+        ze, zp = rnnt_mod.joint_factors(params, bundle.cfg, batch["feats"],
                                         batch["tokens"])
+    return _joint_grad_of_factors(bundle, params, ze, zp, batch)
+
+
+def _joint_grad_of_factors(bundle, params, ze, zp, batch) -> torch.Tensor:
+    """``rnnt_joint_grad`` from the unit's joint factors ze (B,T',J) and
+    zp (B,U+1,J): the fused loss's ``dw_out`` sums over its whole batch,
+    so ``batch`` (and the factors) hold one unit's B examples."""
+    cfg = bundle.cfg
     B = batch["token_lens"].shape[0]
     scale = 1.0 / (torch.clamp(batch["token_lens"].to(torch.float32),
                                min=1.0) * B)
@@ -184,10 +197,113 @@ def units_gradients(bundle, params, units, proj: Optional[Projections],
     (n_units, D) fp32, one unit at a time (peak memory of one unit's
     forward, the paper's partition rationale)."""
     n_units = units["tokens"].shape[0]
-    return torch.stack([
-        unit_gradient(bundle, params, {k: v[i] for k, v in units.items()},
-                      proj, exact)
-        for i in range(n_units)])
+    return torch.stack([unit_gradient(bundle, params, _unit(units, i), proj,
+                                      exact) for i in range(n_units)])
+
+
+def _chunk_size(U: int, chunk_units: Optional[int]) -> int:
+    """Largest chunk size <= the requested one that divides U (by default
+    U // 16, at least 1)."""
+    cu = min(chunk_units or max(U // 16, 1), U)
+    while U % cu:
+        cu -= 1
+    return cu
+
+
+def _unit(units, i: int):
+    return {k: v[i] for k, v in units.items()}
+
+
+def _chunks(units, cu: int):
+    """The corpus as consecutive chunks of ``cu`` units."""
+    U = units["tokens"].shape[0]
+    return [{k: v[c:c + cu] for k, v in units.items()}
+            for c in range(0, U, cu)]
+
+
+def _flat(chunk):
+    """A chunk's (cu, b, ...) leaves as one batch of cu*b examples."""
+    return {k: v.reshape((-1,) + v.shape[2:]) for k, v in chunk.items()}
+
+
+def _chunk_gradients(bundle, params, chunk, proj, exact) -> torch.Tensor:
+    """One chunk of units -> (cu, D).  The fused RNN-T path runs the
+    encoder and prediction network once over the chunk's cu*b examples,
+    then one fused loss and backward per unit on that unit's slice of the
+    factors (its ``dw_out`` and its scale over its own b examples); every
+    other case takes ``unit_gradient`` unit by unit."""
+    cu, b = chunk["tokens"].shape[:2]
+    if bundle.cfg.family != "rnnt" or bundle.cfg.rnnt.loss_impl != "fused":
+        return torch.stack([unit_gradient(bundle, params, _unit(chunk, i),
+                                          proj, exact) for i in range(cu)])
+    flat = _flat(chunk)
+    with torch.no_grad():
+        ze, zp = rnnt_mod.joint_factors(params, bundle.cfg, flat["feats"],
+                                        flat["tokens"])
+    out = []
+    for i in range(cu):
+        rows = slice(i * b, (i + 1) * b)
+        g = _joint_grad_of_factors(bundle, params, ze[rows], zp[rows],
+                                   _unit(chunk, i))
+        out.append(g.reshape(-1) if exact
+                   else (proj.r_h.t() @ g @ proj.r_v).reshape(-1))
+    return torch.stack(out)
+
+
+def units_gradients_scanned(bundle, params, units,
+                            proj: Optional[Projections], exact: bool = False,
+                            chunk_units: Optional[int] = None
+                            ) -> torch.Tensor:
+    """Batched stage A over chunks of ``chunk_units`` units (the
+    reference's scan over chunks with a ``vmap`` within one): the RNN-T
+    family and the exact path.  -> (U, D) fp32, each unit's vector the
+    one ``units_gradients`` gives it."""
+    cu = _chunk_size(units["tokens"].shape[0], chunk_units)
+    return torch.cat([_chunk_gradients(bundle, params, chunk, proj, exact)
+                      for chunk in _chunks(units, cu)])
+
+
+def units_gradients_batched(bundle, params, units,
+                            proj: Optional[Projections] = None,
+                            chunk_units: Optional[int] = None,
+                            vocab_chunk: int = 8192,
+                            exact: bool = False,
+                            head_rows: Optional[torch.Tensor] = None
+                            ) -> torch.Tensor:
+    """Batched stage A of ``core/pgm.ResidentSelector``: (U, D) fp32.
+
+    RNN-T and the exact path go through ``units_gradients_scanned``.  A
+    decoder LM's units are flattened to examples, ``chunk_units`` units
+    (cu*b examples) a ``final_hidden`` call, and each chunk's sketches
+    come from one ``grad_sketch_units_op`` call with U = cu.  The scale
+    divides by b, the unit's example count, not by the chunk's cu*b, so
+    each unit's sketch is the one it has alone.  ``vocab_chunk`` is the
+    streaming width of the plain path (the kernel tiles the vocab its
+    own way).  The kernel reads the LM head as contiguous (V, d) rows:
+    the tied embedding is; an untied (d, V) head is copied once a call
+    (671 MB at rwkv6-3b's width), unless the caller passes that copy as
+    ``head_rows`` (the selector's graphs, whose body is one chunk, do)."""
+    if bundle.cfg.family == "rnnt" or exact:
+        return units_gradients_scanned(bundle, params, units, proj,
+                                       exact=exact, chunk_units=chunk_units)
+    from repro_torch.kernels.grad_sketch.ops import grad_sketch_units_op
+    U, b = units["tokens"].shape[:2]
+    cu = _chunk_size(U, chunk_units)
+    w = (bundle.head_weight(params).detach().t().contiguous().t()
+         if head_rows is None else head_rows.t())
+    out = []
+    for chunk in _chunks(units, cu):
+        with torch.no_grad():
+            h, targets, mask = bundle.final_hidden(params, _flat(chunk))
+        n, d = b * h.shape[1], h.shape[-1]
+        denom = torch.clamp(mask.sum(dim=-1, keepdim=True), min=1.0)
+        scale = (mask / (denom * b)).to(torch.float32)
+        out.append(grad_sketch_units_op(
+            h.to(torch.float32).reshape(cu, n, d).contiguous(), w,
+            proj.r_h, proj.r_v, targets.reshape(cu, n),
+            scale.reshape(cu, n).contiguous(),
+            vocab_chunk=vocab_chunk).reshape(cu, -1))
+    return torch.cat(out)
 
 
 def make_proj_for(bundle, gen: torch.Generator, k1: int = 64, k2: int = 64,

@@ -12,6 +12,14 @@ Every ``R`` epochs:
 
 Stage B builds all D Gram matrices in one call of the ``omp_gram``
 kernel (the Hopper kernel on the card, its plain version on the CPU).
+
+Residency: ``ResidentSelector`` runs stage A as one batched pass
+(``units_gradients_batched``) over the engine's device-resident units.
+On the card each unit corpus (train, val) has one CUDA graph of one
+chunk of that pass, captured at the first round against the params' and
+units' tensors and the projections, with a cursor over the units on the
+card, and replayed a chunk at a time every round: the counterpart of
+the reference's one jitted stage-A scan reused across rounds.
 """
 from __future__ import annotations
 
@@ -20,9 +28,12 @@ from typing import NamedTuple, Optional
 import torch
 
 from repro_torch.core import gm
-from repro_torch.core.lastlayer import units_gradients
+from repro_torch.core.lastlayer import (_chunk_size, units_gradients,
+                                        units_gradients_batched)
 from repro_torch.core.sketch import Projections
 from repro_torch.kernels.omp_gram.ops import omp_gram_batched_op
+from repro_torch.models.common import tree_leaves
+from repro_torch.train.optim import commit_
 
 
 class Selection(NamedTuple):
@@ -93,3 +104,213 @@ def pgm_select(bundle, params, units, pgm_cfg,
         gv = units_gradients(bundle, params, val_units, proj, exact=exact)
         g_val = _val_target(gv, n_units, pgm_cfg)
     return _stage_b(g, pgm_cfg, g_val=g_val)
+
+
+def _router_term_for(bundle, pgm_cfg) -> bool:
+    """The MoE router-aware term applies only to sparse-expert bundles;
+    other families ignore the flag (the reference's rule)."""
+    return bool(getattr(pgm_cfg, "moe_router_term", False)
+                and bundle.cfg.family == "moe")
+
+
+def _soft_random_selection(gen: torch.Generator, n_units: int, pgm_cfg,
+                           device: torch.device) -> Selection:
+    """A degraded round: a uniform subset of the budget with unit weights
+    (``baselines.random_subset``'s convention), drawn from ``gen``."""
+    budget = max(int(pgm_cfg.subset_fraction * n_units), 1)
+    idx = torch.randperm(n_units, generator=gen)[:budget].to(torch.int32)
+    return Selection(idx.to(device), torch.ones((budget,), device=device),
+                     budget, torch.zeros((1,), device=device))
+
+
+class _Captured(NamedTuple):
+    units: dict                    # the corpus the graph reads
+    graph: "torch.cuda.CUDAGraph"  # one chunk at the cursor
+    out: torch.Tensor              # (n_units, D), a chunk a replay
+    n_chunks: int                  # replays a round
+    cursor: tuple                  # the cursor and the chunk's row
+                                   # offsets the graph reads, kept alive
+
+
+class ResidentSelector:
+    """Selection rounds over the engine's device-resident units.
+
+    Stage A is ``units_gradients_batched`` over every unit of a corpus,
+    ``chunk_units`` units a chunk (the reference's scan over chunks),
+    then stage B as in ``pgm_select``.
+
+    On the card each corpus (train, val) gets one CUDA graph, captured at
+    its first round and replayed every round: the graph gathers one chunk
+    of units at a cursor on the card, runs the chunk's pass, writes its
+    vectors into the corpus's output at the cursor's rows and advances
+    the cursor modulo the corpus, so a round is one replay a chunk and
+    the cursor is back at 0 after it (the counterpart of the reference's
+    one jitted scan body).  A replay makes no Python call, so the
+    kernels' launch counters see only the warm-up (the first chunk, on a
+    side stream) and the capture.  The graph reads fixed addresses:
+
+    * the params: the first call's tensors are adopted (the scan engine's
+      buffers, which its optimizer updates in place); a later call with
+      other tensors (the host engine, a restored or re-initialised state)
+      has them copied into the adopted ones leaf by leaf, so a replay
+      never reads stale params;
+    * the units: each corpus is the tensors it was captured against; a
+      corpus of other tensors gets a graph of its own;
+    * the projections, fixed at construction;
+    * an untied LM head as the (V, d) rows the grad-sketch kernel reads:
+      a buffer that a small graph of its own copies the head into, once
+      a pass before the chunks (in the chunk graph the copy would run
+      once a chunk).
+
+    Graphs share one memory pool; each round's vectors are cloned out of
+    the output.  ``captures`` (the corpus graphs) and ``replays`` (chunks
+    run through them) are totals over every selector, reset by the caller
+    as ``EpochEngine``'s are.  On the CPU the same function runs over the
+    whole corpus without a graph.
+
+    Failure: on the card a round that fails raises, whatever
+    ``on_failure`` says (a fallback would hide the kernel).  On the CPU,
+    the plain route, ``on_failure="soft_random"`` (the default) degrades
+    a failed round to a uniform subset of the budget with unit weights,
+    drawn from a generator keyed on the round, and counts it in
+    ``degraded_rounds``; ``"raise"`` re-raises.
+    """
+
+    captures = 0
+    replays = 0
+
+    def __init__(self, bundle, pgm_cfg, proj: Optional[Projections] = None,
+                 *, chunk_units: Optional[int] = None, mesh=None,
+                 vocab_chunk: int = 8192,
+                 on_failure: str = "soft_random", log_fn=None):
+        if mesh is not None:
+            raise ValueError(
+                "ResidentSelector(mesh=...): the sharded stage B is not "
+                "ported yet (ROADMAP.md queue 1, item 10)")
+        if on_failure not in ("soft_random", "raise"):
+            raise ValueError(f"on_failure must be 'soft_random' or 'raise', "
+                             f"got {on_failure!r}")
+        if _router_term_for(bundle, pgm_cfg):
+            raise NotImplementedError(
+                "the MoE router term is not ported yet (ROADMAP.md queue 1, "
+                "item 9)")
+        self.bundle = bundle
+        self.cfg = pgm_cfg
+        self.on_failure = on_failure
+        self._log = log_fn or (lambda s: None)
+        self._proj = proj
+        self._chunk_units = chunk_units
+        self._vocab_chunk = vocab_chunk
+        self._exact = not pgm_cfg.use_sketch
+        self.degraded_rounds = 0
+        self._round = 0
+        self._params = None            # the tensors the graphs read
+        self._captured = []            # one _Captured per corpus
+        self._pool = None
+        self._head_rows = None         # an untied head's (V, d) copy
+        self._head_graph = None        # ... and the graph refreshing it
+
+    def _fn(self, params, units) -> torch.Tensor:
+        # the module global, looked up at each call: the fault injector
+        # (train/faults.py:failing_selection_kernels) patches it
+        return units_gradients_batched(
+            self.bundle, params, units, self._proj,
+            chunk_units=self._chunk_units, vocab_chunk=self._vocab_chunk,
+            exact=self._exact, head_rows=self._head_rows)
+
+    def _bind(self, params) -> None:
+        if self._params is None:
+            self._params = params
+            self._pool = torch.cuda.graph_pool_handle()
+            self._capture_head_copy()
+        elif any(a is not b for a, b in zip(tree_leaves(self._params),
+                                             tree_leaves(params))):
+            commit_(self._params, params)
+
+    def _capture_head_copy(self) -> None:
+        """For an untied LM head on the sketch path: copy it to (V, d)
+        rows and capture that copy (the kernel reads the tied embedding in
+        place)."""
+        if self.bundle.cfg.family == "rnnt" or self._exact:
+            return
+        w = self.bundle.head_weight(self._params).detach()
+        if w.t().is_contiguous():
+            return
+        self._head_rows = w.t().contiguous()
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph, pool=self._pool):
+            self._head_rows.copy_(w.t())
+        self._head_graph = graph
+
+    def _capture(self, units) -> _Captured:
+        """Warm up on the first chunk on a side stream, then capture one
+        chunk at the cursor; a failure raises."""
+        dev = units["tokens"].device
+        U = units["tokens"].shape[0]
+        cu = _chunk_size(U, self._chunk_units)
+        cursor = torch.zeros((), dtype=torch.long, device=dev)
+        offsets = torch.arange(cu, device=dev)
+        cur = torch.cuda.current_stream(dev)
+        side = torch.cuda.Stream(dev)
+        side.wait_stream(cur)
+        with torch.cuda.stream(side):
+            first = self._fn(self._params,
+                             {k: v[:cu] for k, v in units.items()})
+        cur.wait_stream(side)
+        out = torch.empty((U,) + first.shape[1:], dtype=first.dtype,
+                          device=dev)
+        del first
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph, pool=self._pool):
+            rows = cursor + offsets
+            out.index_copy_(0, rows, self._fn(
+                self._params,
+                {k: v.index_select(0, rows) for k, v in units.items()}))
+            cursor.add_(cu).remainder_(U)
+        ResidentSelector.captures += 1
+        self._log(f"resident stage A: one CUDA graph captured over a chunk "
+                  f"of {cu} of {U} units")
+        return _Captured(units, graph, out, U // cu, (cursor, offsets))
+
+    def stage_a(self, params, units) -> torch.Tensor:
+        """(n_units, D) stage-A gradient representations: on the card one
+        replay of the corpus's graph a chunk (captured at its first
+        round)."""
+        if units["tokens"].device.type != "cuda":
+            return self._fn(params, units)
+        self._bind(params)
+        entry = next((c for c in self._captured
+                      if c.units.keys() == units.keys()
+                      and all(c.units[k] is units[k] for k in units)), None)
+        if entry is None:
+            entry = self._capture(units)
+            self._captured.append(entry)
+        if self._head_graph is not None:
+            self._head_graph.replay()
+        for _ in range(entry.n_chunks):
+            entry.graph.replay()
+        ResidentSelector.replays += entry.n_chunks
+        return entry.out.clone()
+
+    def _select_round(self, params, units, val_units) -> Selection:
+        g = self.stage_a(params, units)
+        g_val = None
+        if self.cfg.val_matching:
+            gv = self.stage_a(params, val_units)
+            g_val = _val_target(gv, g.shape[0], self.cfg)
+        return _stage_b(g, self.cfg, g_val=g_val)
+
+    def __call__(self, params, units, val_units=None) -> Selection:
+        self._round += 1
+        try:
+            return self._select_round(params, units, val_units)
+        except Exception as err:
+            dev = units["tokens"].device
+            if dev.type == "cuda" or self.on_failure != "soft_random":
+                raise
+            self.degraded_rounds += 1
+            self._log(f"warning: selection scorer failed ({err}); "
+                      f"degrading this round to a soft-random subset")
+            return _soft_random_selection(
+                torch.Generator().manual_seed(self._round),
+                units["tokens"].shape[0], self.cfg, dev)

@@ -61,13 +61,13 @@ def vocab_splits(U: int, n: int, V: int):
     return -(-n_tiles // per), per
 
 
-def _plain(h, w, r_h, r_v, targets, scale):
+def _plain(h, w, r_h, r_v, targets, scale, vocab_chunk):
     U, n, d = h.shape
     k1, k2 = r_h.shape[1], r_v.shape[1]
     hf = h.reshape(-1, d).to(torch.float32)
     er2 = streamed_er2(hf, w, targets.reshape(-1).long(),
                        scale.reshape(-1).to(torch.float32), r_v,
-                       PLAIN_VOCAB_CHUNK)
+                       vocab_chunk)
     hr = hf @ r_h.to(torch.float32)
     return torch.einsum("unk,unl->ukl", hr.reshape(U, n, k1),
                         er2.reshape(U, n, k2))
@@ -75,12 +75,15 @@ def _plain(h, w, r_h, r_v, targets, scale):
 
 def grad_sketch_units_op(h: torch.Tensor, w: torch.Tensor,
                          r_h: torch.Tensor, r_v: torch.Tensor,
-                         targets: torch.Tensor, scale: torch.Tensor
+                         targets: torch.Tensor, scale: torch.Tensor,
+                         vocab_chunk: int = PLAIN_VOCAB_CHUNK
                          ) -> torch.Tensor:
     """Per-unit fused sketch: h (U,n,d); w (d,V); r_h (d,k1); r_v (V,k2);
-    targets, scale (U,n) -> (U, k1, k2) fp32."""
+    targets, scale (U,n) -> (U, k1, k2) fp32.  ``vocab_chunk`` is the
+    plain path's streaming width; the kernel tiles the vocab its own
+    way."""
     if not backend.on_card(h, w, r_h, r_v, targets, scale):
-        return _plain(h, w, r_h, r_v, targets, scale)
+        return _plain(h, w, r_h, r_v, targets, scale, vocab_chunk)
     backend.check_input(NAME, h, 3)
     wt = w.t()
     backend.check_input(NAME, wt, 2)

@@ -10,7 +10,8 @@ the reference's ``repro.launch.train``):
   PYTHONPATH=src python -m repro_torch.launch.train --arch rnnt-crdnn \
       --optimizer adamw --lr 0.05 --ckpt DIR [--resume] \
       [--nonfinite-guard --max-skipped-steps 4] [--loss-impl dense] \
-      [--exact-gradients] [--engine scan|host] [--epoch-chunk N]
+      [--exact-gradients] [--engine scan|host] [--epoch-chunk N] \
+      [--resident-selection]
 
 Runs on the card unless ``--device cpu`` is given, and prints the same
 ``epoch N: train X val Y lr Z`` lines as the reference.  RNN-T archs
@@ -25,7 +26,9 @@ the divergence watchdog.  ``--engine scan`` (the default) trains
 through the scanned epoch engine, one captured CUDA graph of the step
 replayed over each epoch's plan, and ``--epoch-chunk N`` runs up to N
 epochs at a time with validation and newbob on the device;
-``--engine host`` is the per-batch loop.
+``--engine host`` is the per-batch loop.  ``--resident-selection`` runs
+PGM stage A over the engine's device-resident units, on the card as one
+captured CUDA graph per unit corpus replayed every round.
 """
 from __future__ import annotations
 
@@ -64,7 +67,8 @@ def make_units_for(cfg, *, n: int, noise: float, seq: int = 24,
 def launch_train(arch: str, tc: TrainConfig, *, method: str = "pgm",
                  n: int = 96, seq: int = 24, noise: float = 0.0,
                  snr_db: float = 10.0, loss_impl: Optional[str] = None,
-                 engine: str = "scan", epoch_chunk: int = 1,
+                 engine: str = "scan", resident_selection: bool = False,
+                 epoch_chunk: int = 1,
                  ckpt_dir: Optional[str] = None,
                  resume: bool = False, device: Optional[str] = None,
                  log_fn=print) -> History:
@@ -77,6 +81,7 @@ def launch_train(arch: str, tc: TrainConfig, *, method: str = "pgm",
     return train_with_selection(build_model(cfg), units, tc, method=method,
                                 val_units=val, ckpt_dir=ckpt_dir,
                                 resume=resume, engine=engine,
+                                resident_selection=resident_selection,
                                 epoch_chunk=epoch_chunk, device=device,
                                 log_fn=log_fn)
 
@@ -89,6 +94,11 @@ def main(argv=None):
                     help="'scan': the scanned epoch engine (a captured "
                          "CUDA graph of the step replayed over the plan); "
                          "'host': the per-batch loop")
+    ap.add_argument("--resident-selection", action="store_true",
+                    help="PGM stage A as one batched pass over the "
+                         "device-resident units (no host round-trip per "
+                         "selection round; on the card one captured CUDA "
+                         "graph a unit corpus, replayed every round)")
     ap.add_argument("--epoch-chunk", type=int, default=1,
                     help="run up to N epochs as one scan-engine call "
                          "(validation and newbob on the device; metrics "
@@ -147,6 +157,7 @@ def main(argv=None):
     h = launch_train(args.arch, tc, method=args.method, n=args.n,
                      seq=args.seq, noise=args.noise, snr_db=args.snr_db,
                      loss_impl=args.loss_impl, engine=args.engine,
+                     resident_selection=args.resident_selection,
                      epoch_chunk=args.epoch_chunk, ckpt_dir=args.ckpt,
                      resume=args.resume, device=str(device))
     if h.val_loss:

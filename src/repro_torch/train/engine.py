@@ -274,6 +274,15 @@ class EpochEngine:
         return np.shape(plan[0])[0] / self.steps_per_epoch_max
 
     # -- the step and its graph --------------------------------------------
+    def adopt(self, params, opt_state) -> None:
+        """Take the caller's tensors (on the engine's device) as the
+        buffers, without a copy: the counterpart of the reference's
+        donation.  The caller hands them over; the runs update them in
+        place.  ``train_with_selection`` adopts its fresh initial state,
+        so a 3B model's fp32 weights are not held twice at its first
+        epoch."""
+        self.params, self.opt_state = params, opt_state
+
     def _load(self, params, opt_state) -> None:
         """Make the buffers hold ``params`` and ``opt_state``: copies at
         the first run, leaf-by-leaf copies into them later (a restored or

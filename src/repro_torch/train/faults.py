@@ -17,6 +17,10 @@ each recovery path can be held exactly:
   * ``corrupt_checkpoint`` / ``tamper_arrays`` -> ``restore`` refuses
                                    the step, ``restore_latest_intact``
                                    falls back to the previous one
+  * ``failing_selection_kernels`` -> ``ResidentSelector``: on the CPU
+                                   the round degrades to a soft-random
+                                   subset (or raises), on the card it
+                                   raises (``core/pgm.py``)
 
 Injectors fire once per ``FaultPlan``: after a watchdog rollback the
 replayed epochs run clean, the transient fault model the recovery is
@@ -24,6 +28,7 @@ written for.
 """
 from __future__ import annotations
 
+import contextlib
 import os
 import signal
 import threading
@@ -169,3 +174,28 @@ def tamper_arrays(ckpt_dir: str, step: Optional[int] = None, keys=None):
         arrays[k] = arrays[k] + np.ones((), arrays[k].dtype)
     np.savez(path, **arrays)
     return targets
+
+
+@contextlib.contextmanager
+def failing_selection_kernels(routes=("cuda",)):
+    """Patch ``repro_torch.core.pgm.units_gradients_batched`` so stage A
+    raises on the listed routes: ``"cuda"`` (units on the card, the
+    kernel route), ``"plain"`` (units on the CPU), or ``"all"``.
+    ``ResidentSelector`` calls the module global at its warm-up and
+    capture on the card and at every round on the CPU, so a selector that
+    has not captured yet sees the failure (a captured graph makes no
+    call)."""
+    from repro_torch.core import pgm as pgm_mod
+    orig = pgm_mod.units_gradients_batched
+
+    def wrapper(bundle, params, units, *args, **kwargs):
+        route = "cuda" if units["tokens"].device.type == "cuda" else "plain"
+        if "all" in routes or route in routes:
+            raise RuntimeError(f"injected kernel failure ({route!r})")
+        return orig(bundle, params, units, *args, **kwargs)
+
+    pgm_mod.units_gradients_batched = wrapper
+    try:
+        yield
+    finally:
+        pgm_mod.units_gradients_batched = orig

@@ -17,6 +17,12 @@ make_engine``):
   (``data/plan_prefetch.py``), which also retries a failed build.
 * ``engine="host"``: ``HostEngine``, the per-batch parity oracle.
 
+With ``resident_selection=True`` (and ``method="pgm"``) stage A of each
+round runs through ``core/pgm.ResidentSelector`` over the engine's
+device-resident units: on the card one captured CUDA graph per unit
+corpus (train, val), replayed every round, instead of ``pgm_select``'s
+unit-by-unit eager pass.
+
 The fault tolerance:
 
 * a checkpoint after every epoch (``ckpt_dir``, the reference's format
@@ -50,7 +56,7 @@ from repro_torch.configs.base import TrainConfig
 from repro_torch.core import baselines as bl
 from repro_torch.core.lastlayer import make_proj_for, units_gradients
 from repro_torch.core.metrics import overlap_index
-from repro_torch.core.pgm import Selection, pgm_select
+from repro_torch.core.pgm import ResidentSelector, Selection, pgm_select
 from repro_torch.core.sketch import Projections
 from repro_torch.data.pipeline import unit_durations
 from repro_torch.data.plan_prefetch import PlanPrefetcher
@@ -89,13 +95,16 @@ def _max_consecutive(mask: np.ndarray) -> int:
 
 
 def _select(method, bundle, params, units, tc: TrainConfig, epoch: int,
-            key_seed: int, proj, val_units, durations) -> Selection:
+            key_seed: int, proj, val_units, durations,
+            resident: Optional[ResidentSelector] = None) -> Selection:
     """One selection round of ``method`` over the device-resident units
     (the reference's ``train/loop.py:_select`` without a mesh)."""
     pc = tc.pgm
     n_units = units["tokens"].shape[0]
     budget = max(int(pc.subset_fraction * n_units), 1)
     if method == "pgm":
+        if resident is not None:
+            return resident(params, units, val_units=val_units)
         return pgm_select(bundle, params, units, pc, proj,
                           val_units=val_units)
     if method == "random":
@@ -134,6 +143,7 @@ def train_with_selection(
     ckpt_dir: Optional[str] = None,
     resume: bool = False,
     engine: str = "scan",
+    resident_selection: bool = False,
     epoch_chunk: int = 1,
     fault_plan: Optional[faults_mod.FaultPlan] = None,
     device: Optional[str] = None,
@@ -161,8 +171,14 @@ def train_with_selection(
     proj = (make_proj_for(bundle, gen, tc.pgm.sketch_dim_h,
                           tc.pgm.sketch_dim_v, dev) if proj is None
             else Projections(*(torch.tensor(x, device=dev) for x in proj)))
+    # resident rounds: one selector (on the card, one graph a corpus)
+    # for the whole run, built on the engine's tuned bundle
+    resident = (ResidentSelector(bundle, tc.pgm, proj, log_fn=log_fn)
+                if resident_selection and method == "pgm" else None)
     opt_init, _ = make_update_for(tc)
     opt_state = opt_init(params)
+    if is_scan:
+        eng.adopt(params, opt_state)
     durations = torch.as_tensor(unit_durations(
         {k: np.asarray(v) for k, v in units.items()})).to(dev)
 
@@ -257,7 +273,7 @@ def train_with_selection(
                 t_sel = time.time()
                 new_sel = _select(method, bundle, params, eng.units, tc,
                                   epoch, key_seed, proj, eng.val_units,
-                                  durations)
+                                  durations, resident=resident)
                 oi = (overlap_index(selection.indices.cpu().numpy(),
                                     new_sel.indices.cpu().numpy())
                       if selection is not None else float("nan"))

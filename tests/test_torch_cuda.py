@@ -14,7 +14,12 @@ the same epoch run on the card without the graph bit for bit, padding
 rows are bitwise no-ops through the graph, a traced replayed epoch
 runs each step kernel per-step launches x rows times while the launch
 counters (which count at the launch site) see only the warm-up and the
-capture, and a host sync planted in the step makes the capture raise.  TF32 is off throughout (``backend.fp32_numerics``).
+capture, and a host sync planted in the step makes the capture raise.
+Resident selection: stage A captured once a corpus and replayed bitwise,
+within 1e-5 of the host stage A, on fresh params after they change; an
+injected kernel failure raises on the card; the grad-sketch kernel at
+U = 4 inside a graph equals its eager launch.  TF32 is off throughout
+(``backend.fp32_numerics``).
 """
 import numpy as np
 import pytest
@@ -631,6 +636,115 @@ def test_replays_launch_the_kernels(card, arch):
         assert delta(n0) == {n: 0 for n in per_step}
         assert traced == {n: d * len(p[0]) for n, d in per_step.items()}
     assert 0 < len(p[0]) < len(plan[0]) and EpochEngine.captures == 1
+
+
+def _selector_setup(card, arch):
+    """``_scan_setup``'s units on the card, seed-0 params and 16 x 16
+    projections, and a stage-B config of 2 partitions."""
+    from repro_torch.configs.base import PGMConfig
+    from repro_torch.core.lastlayer import make_proj_for
+    from repro_torch.train.engine import to_device
+
+    bundle, _, units, params = _scan_setup(card, arch)
+    proj = make_proj_for(bundle, torch.Generator().manual_seed(1), 16, 16,
+                         card)
+    pc = PGMConfig(subset_fraction=0.5, n_partitions=2, sketch_dim_h=16,
+                   sketch_dim_v=16)
+    return bundle, pc, proj, to_device(units, card), params
+
+
+@pytest.mark.parametrize("arch,cu", [("rnnt-crdnn-smoke", None),
+                                     ("starcoder2-3b-smoke", 4),
+                                     ("rwkv6-3b-smoke", 2)])
+def test_resident_stage_a_replays_one_graph_a_corpus(card, arch, cu):
+    """Stage A captured once for a corpus (one chunk at a cursor) and
+    replayed a chunk at a time: two rounds of replays on the same params
+    bit for bit equal and within 1e-5 of the largest entry of the host
+    ``units_gradients``; a replay moves no launch counter; other param tensors are copied into the captured ones, so
+    the next replay equals eager stage A on them (never stale params);
+    a second corpus gets a graph of its own.  The LM case runs the
+    grad-sketch kernel at U = 4 inside the graph."""
+    from repro_torch.core.lastlayer import (_chunk_size, units_gradients,
+                                            units_gradients_batched)
+    from repro_torch.core.pgm import ResidentSelector
+
+    bundle, pc, proj, units, params = _selector_setup(card, arch)
+    counters = (rnnt_lattice_op, grad_sketch_units_op, rwkv6_wkv_op)
+    read = lambda: [op.launches for op in counters]
+    ResidentSelector.captures = ResidentSelector.replays = 0
+    sel = ResidentSelector(bundle, pc, proj, chunk_units=cu)
+    g1 = sel.stage_a(params, units)
+    n0 = read()
+    g2 = sel.stage_a(params, units)
+    torch.cuda.synchronize()
+    assert read() == n0
+    assert torch.equal(g1, g2)
+    host = units_gradients(bundle, params, units, proj)
+    scale = float(host.abs().max())
+    assert float((g1 - host).abs().max()) <= 1e-5 * scale
+    other = bundle.init_params(torch.Generator().manual_seed(2), card)
+    g3 = sel.stage_a(other, units)
+    eager = units_gradients_batched(bundle, other, units, proj,
+                                    chunk_units=cu)
+    torch.cuda.synchronize()
+    assert not torch.equal(g3, g1)
+    assert float((g3 - eager).abs().max()) <= \
+        1e-5 * float(eager.abs().max())
+    n_chunks = units["tokens"].shape[0] // _chunk_size(
+        units["tokens"].shape[0], cu)
+    assert (ResidentSelector.captures, ResidentSelector.replays) == \
+        (1, 3 * n_chunks)
+    val = {k: v[:2].clone() for k, v in units.items()}
+    assert sel.stage_a(other, val).shape == (2, g1.shape[1])
+    assert ResidentSelector.captures == 2
+
+
+def test_failed_cuda_round_raises(card):
+    """An injected failure of the kernel route raises out of the round,
+    whatever ``on_failure`` says: no soft-random subset on the card."""
+    from repro_torch.core.pgm import ResidentSelector
+    from repro_torch.train import faults
+
+    bundle, pc, proj, units, params = _selector_setup(card,
+                                                      "starcoder2-3b-smoke")
+    ResidentSelector.captures = 0
+    sel = ResidentSelector(bundle, pc, proj, on_failure="soft_random")
+    with faults.failing_selection_kernels(("cuda",)):
+        with pytest.raises(RuntimeError, match="injected kernel failure"):
+            sel(params, units)
+    assert sel.degraded_rounds == 0 and ResidentSelector.captures == 0
+
+
+def test_grad_sketch_units_in_a_graph_matches_eager(card):
+    """The grad-sketch kernel at U = 4 captured in a CUDA graph (its
+    212 KB shared-memory attribute set and its scratch allocated inside
+    the capture): a replay equals the eager launch bit for bit, and after
+    the inputs change in place, the eager launch on the new inputs."""
+    g = torch.Generator().manual_seed(5)
+    U, n, d, V, k = 4, 300, 128, 1000, 32
+    h = torch.randn(U, n, d, generator=g).to(card)
+    wt = (torch.randn(V, d, generator=g) / d ** 0.5).to(card)
+    rh, rv = (torch.randn(d, k, generator=g).to(card),
+              torch.randn(V, k, generator=g).to(card))
+    t = torch.randint(0, V, (U, n), generator=g).to(card)
+    s = (torch.rand(U, n, generator=g) + 0.5).to(card)
+    eager = grad_sketch_units_op(h, wt.t(), rh, rv, t, s)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        grad_sketch_units_op(h, wt.t(), rh, rv, t, s)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = grad_sketch_units_op(h, wt.t(), rh, rv, t, s)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(out, eager)
+    h.copy_(torch.randn(U, n, d, generator=g).to(card))
+    graph.replay()
+    eager = grad_sketch_units_op(h, wt.t(), rh, rv, t, s)
+    torch.cuda.synchronize()
+    assert torch.equal(out, eager)
 
 
 class _SyncingBundle:
