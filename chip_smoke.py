@@ -37,7 +37,11 @@ failure exits non-zero, and no phase catches an error and carries on:
    of both bodies, twice bitwise, timed in turns with
    ``scaled_dot_product_attention`` under the band mask as its library
    time, its rate printed against both the function's FLOPs and the
-   tensor cores' (p . v runs twice, p split into bf16 hi + lo);
+   tensor cores' (p . v runs twice, p split into bf16 hi + lo); then the
+   shapes phase 16 gives them: the band at gemma3-27b's prefill (B 2 x S
+   8,192 x 16 KV heads x G 2, window 1024) and the grad sketch at the
+   stage-A units of gemma-7b, minitron-8b and gemma3-27b (V 256,000 and
+   262,144, d 3,072 to 5,376);
 4. agreement: one full-width ``rnnt-crdnn`` unit, and one unit each of
    ``starcoder2-3b`` and ``rwkv6-3b`` at full width with 2 layers in
    fp32, through the kernels on the card against the same unit through
@@ -135,7 +139,27 @@ failure exits non-zero, and no phase catches an error and carries on:
    each unit vector's largest entry; the kernel counted once a chunk);
    (d) ``rwkv6-3b`` at full width with 2 layers, (b)'s checks, the WKV
    forward traced a unit x layer; (e) an injected failure of the
-   ``"cuda"`` route raises out of the round, no round degraded.
+   ``"cuda"`` route raises out of the round, no round degraded;
+16. the reference's other dense archs and examples: (a) ``gemma3-27b`` at
+   full width and depth (62 layers, 27.0B params) served from bf16
+   weights drawn on the card layer by layer (no fp32 masters, which
+   would not fit): ``generate`` on 2 x 8,192 prompts and ``SlotEngine``
+   (4 slots) on the launcher's 8 requests, 32 new tokens each, the band
+   kernel once a local layer a prefill, the peak device memory; (b) at
+   full width with 6 layers, the bundle's prefill of 3,072 tokens and 16
+   greedy decode steps from fp32 masters and from their
+   ``serving_params``, every logit bitwise equal; (c) ``gemma3-27b``,
+   ``gemma-7b`` and ``minitron-8b`` at full width and 6, 2 and 2 layers
+   (their fp32 masters at full depth would not fit one card for
+   training) trained 2 epochs on the scan engine with resident
+   selection, each run's peak memory, then resident against host stage
+   A on the trained params (P7); (d) the twins of the reference's
+   quickstart and ``train_lm_pgm`` (``--n 32 --epochs 4``) on the card,
+   ``--selection-kernels`` auto against xla: auto launches the grad
+   sketch and the Gram, xla neither, losses within 1e-3.
+
+Phases 9, 12 and 15c draw their 3B models' initial weights with a
+generator on the card (the host generator took ~20 s a model).
 
 Each main path runs with its kernels' launch counters set to 0 just
 before and read just after, and fails if a kernel of the path was never
@@ -151,7 +175,10 @@ one row per kernel and resident path of phase 15, ``rnnt-resident``,
 ``lm-resident``, ``rwkv-resident`` and ``lm-resident-chunk4``: a kernel
 inside the stage-A graphs with the instances traced in one replayed
 round and, as ``counted``, the selector's warm-up and capture launches,
-stage B's Gram with its count), the card's name and power limit
+stage B's Gram with its count; then phase 16's rows: the band kernel at
+gemma3-27b's prefill with its serving launches, and for each dense arch's
+resident run the grad sketch at its stage-A unit and the Gram, with the
+run's counts), the card's name and power limit
 as ``nvidia-smi`` prints them, and the line ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
@@ -195,6 +222,15 @@ SKETCH_MAIN = (1, UNIT_SIZE * (LM_SEQ - 1), 3072, 49152, 64, 64)
 SKETCH_RWKV = (1, UNIT_SIZE * (LM_SEQ - 1), 2560, 65536, 64, 64)
 # the LM resident path's chunk of 4 units (chunk_units 4, phase 15c)
 SKETCH_CHUNK = (4,) + SKETCH_MAIN[1:]
+# the dense archs' stage-A units (phase 16c, 512-token examples): d and V
+# of gemma-7b and gemma3-27b (tied heads) and minitron-8b (its untied
+# head as the selector's (V, d) buffer)
+SKETCH_DENSE = {"gemma-7b": (1, UNIT_SIZE * (LM_SEQ - 1), 3072, 256000, 64,
+                             64),
+                "minitron-8b": (1, UNIT_SIZE * (LM_SEQ - 1), 4096, 256000,
+                                64, 64),
+                "gemma3-27b": (1, UNIT_SIZE * (LM_SEQ - 1), 5376, 262144,
+                               64, 64)}
 SKETCH_EDGES = ((1, 1, 1, 1, 1, 1), (1, 17, 16, 64, 8, 8),
                 (3, 130, 72, 1001, 24, 40), (2, 65, 33, 4099, 64, 100),
                 (4, 511, 256, 8195, 70, 64), (2, 300, 128, 1000, 32, 72))
@@ -242,6 +278,16 @@ SERVE_PROMPT = 8192
 SERVE_NEW = 32
 SERVE_SLOTS = 4
 SERVE_REQUESTS = 8
+# gemma3-27b served at full width and depth (phase 16a): generate's 2 x
+# 8,192 prefill takes the band in its 52 local layers, at this shape
+SWA_GEMMA3 = (2, SERVE_PROMPT, 16, 2, 128, 1024, "bfloat16", None)
+# phase 16b: gemma3-27b at full width with one group of layers (5 local, 1
+# global), fp32 masters against serving weights on a prompt past the band
+GEMMA3_AGREE_LAYERS = 6
+GEMMA3_AGREE_S = 3072
+GEMMA3_AGREE_STEPS = 16
+# phase 16c: the dense archs trained at full width, at these depths
+DENSE_TRAIN = (("gemma3-27b", 6), ("gemma-7b", 2), ("minitron-8b", 2))
 # RNN-T serving: the launcher's utterances of 256-512 frames
 RNNT_SERVE_FRAMES = 512
 RNNT_MAX_SYMBOLS = 8
@@ -311,18 +357,21 @@ def gram_err(torch, got, want):
     return err
 
 
-def sketch_inputs(torch, U, n, d, V, k1, k2, seed, dev):
+def sketch_inputs(torch, U, n, d, V, k1, k2, seed, dev, on_card=False):
     """Logits of std 4 (the head scaled by 4/sqrt(d)), so the softmax is
     peaked and its p.R2 term carries a good part of the sketch; the head
     is passed as the (d, V) view of a contiguous (V, d) tensor, as the
-    tied embedding gives it; unit 1 (when there is one) has scale 0."""
-    g = torch.Generator().manual_seed(seed)
-    h = torch.randn(U, n, d, generator=g)
-    wt = torch.randn(V, d, generator=g) * (4 / math.sqrt(d))
-    rh = torch.randn(d, k1, generator=g)
-    rv = torch.randn(V, k2, generator=g)
-    t = torch.randint(0, V, (U, n), generator=g, dtype=torch.int32)
-    s = torch.rand(U, n, generator=g) + 0.5
+    tied embedding gives it; unit 1 (when there is one) has scale 0.
+    ``on_card``: drawn by a generator on the card (a head of 1.4B entries
+    takes seconds to draw on the host)."""
+    g = torch.Generator(device=dev if on_card else "cpu").manual_seed(seed)
+    kw = dict(generator=g, device=g.device)
+    h = torch.randn(U, n, d, **kw)
+    wt = torch.randn(V, d, **kw) * (4 / math.sqrt(d))
+    rh = torch.randn(d, k1, **kw)
+    rv = torch.randn(V, k2, **kw)
+    t = torch.randint(0, V, (U, n), dtype=torch.int32, **kw)
+    s = torch.rand(U, n, **kw) + 0.5
     if U > 1:
         s[1] = 0.0
     h, wt, rh, rv, t, s = (x.to(dev) for x in (h, wt, rh, rv, t, s))
@@ -358,7 +407,7 @@ def sketch_err(torch, op, ref, ins):
             err / v_scale if v_scale else 0.0)
 
 
-def sketch_row(torch, op, ref, shape, seed, dev, tag):
+def sketch_row(torch, op, ref, shape, seed, dev, tag, on_card=False):
     """The grad-sketch kernel at one main path's stage-A shape (one unit):
     its error (``sketch_err``), its and the plain version's distance from
     the same function in float64, kernel and plain version timed in
@@ -368,7 +417,7 @@ def sketch_row(torch, op, ref, shape, seed, dev, tag):
     TF32 tensor-core peak, h.R1 and hr^T er2 at the fp32 peak), each the
     larger of its operations time and the bytes time.  -> (err, kernel
     ms, plain ms, the lesser bound, what bounds it)."""
-    ins = sketch_inputs(torch, *shape, seed=seed, dev=dev)
+    ins = sketch_inputs(torch, *shape, seed=seed, dev=dev, on_card=on_card)
     err, rel, vrel = sketch_err(torch, op, ref, ins)
     # both against the same function in float64 (the reference's formula)
     h, w, rh, rv, t, s = ins
@@ -603,6 +652,97 @@ def swa_err(torch, op, ref, shape, dev):
             f"swa_attn {shape}: an element is {margin:.2f} x its bar "
             f"(max abs err {err})")
     return err, margin
+
+
+def swa_timed(torch, swa_attn_op, swa_attn_ref, shape, swa_abs, swa_margin,
+              dev):
+    """The band kernel at one prefill shape timed in turns with PyTorch's
+    SDPA under the band mask (the library yardstick), its plain version
+    once, its bound, and its rate on the function's and the tensor
+    cores' FLOPs, printed with its error (``swa_err``'s) -> (kernel ms,
+    plain ms, library ms, bound ms, what bounds it)."""
+    B, S, KV, G, hd, W, dtype, _ = shape
+    (q, k, v), _ = swa_inputs(torch, B, S, KV, G, hd, dtype, None, seed=0,
+                              dev=dev)
+    # the library yardstick, timed only: PyTorch's SDPA on (B, H, S, hd)
+    # with k, v repeated over the group and the band as a boolean mask
+    H = KV * G
+    qh = q.reshape(B, S, H, hd).transpose(1, 2).contiguous()
+    kh, vh = (x.transpose(1, 2).repeat_interleave(G, dim=1).contiguous()
+              for x in (k, v))
+    pos = torch.arange(S, device=dev)
+    band = ((pos[:, None] - pos[None, :]) >= 0) \
+        & ((pos[:, None] - pos[None, :]) < W)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    with torch.no_grad():
+        lib = sdpa(qh, kh, vh, attn_mask=band)
+        lib_err = float((lib.transpose(1, 2).reshape(q.shape).float()
+                         - swa_attn_op(q, k, v, window=W).float()).abs().max())
+        # kernel and library in turns, twice; the plain version once
+        swa_runs, lib_runs = [], []
+        for _ in range(2):
+            swa_runs.append(cuda_ms(
+                torch, lambda: swa_attn_op(q, k, v, window=W), reps=20))
+            lib_runs.append(cuda_ms(
+                torch, lambda: sdpa(qh, kh, vh, attn_mask=band), reps=5))
+        swa_plain = cuda_ms(torch, lambda: swa_attn_ref(q, k, v, window=W),
+                            reps=3)
+    swa_ms, swa_lib = sum(swa_runs) / 2, sum(lib_runs) / 2
+    del qh, kh, vh, band, lib
+    # what the function needs: q, k, v read once and o written once (bf16);
+    # q.k and p.v over the band's pairs, 4 hd FLOP a pair and head, at the
+    # bf16 tensor-core peak since the inputs are bf16.  The bf16 kernel
+    # runs p.v twice (p split into bf16 hi + lo): 6 hd FLOP a pair on the
+    # tensor cores
+    swa_ops = 4 * hd * band_pairs(S, W) * H * B
+    swa_tc_ops = swa_ops * 3 // 2
+    swa_bound, swa_by = bound(2 * (2 * q.numel() + k.numel() + v.numel()),
+                              swa_ops, BF16_FLOP_PER_S)
+    print(f"[kernels] swa_attn {shape[:7]}: max_abs_err {swa_abs:.3e} "
+          f"({swa_margin:.3f} of the one-ulp bar) "
+          f"kernel_ms {swa_ms:.4f} ({swa_runs[0]:.4f}, {swa_runs[1]:.4f}) "
+          f"plain_ms {swa_plain:.4f} library_ms "
+          f"(scaled_dot_product_attention, band mask; max abs diff to the "
+          f"kernel {lib_err:.3e}) {swa_lib:.4f} ({lib_runs[0]:.4f}, "
+          f"{lib_runs[1]:.4f}); kernel / library {swa_ms / swa_lib:.3f}; "
+          f"bound_ms {swa_bound:.4f} ({swa_by}, bf16 peak; "
+          f"{swa_ops / FP32_FLOP_PER_S * 1e3:.3f} ms at the fp32 peak) "
+          f"achieved {swa_ops / swa_ms / 1e9:.2f} TFLOP/s on the function's "
+          f"{swa_ops / 1e9:.1f} GFLOP, {swa_tc_ops / swa_ms / 1e9:.2f} on the "
+          f"{swa_tc_ops / 1e9:.1f} GFLOP the tensor cores run", flush=True)
+    del q, k, v
+    return swa_ms, swa_plain, swa_lib, swa_bound, swa_by
+
+
+def dense_kernel_rows(torch, dev):
+    """Phase 3 at the shapes phase 16 gives the kernels: the band kernel
+    at gemma3-27b's 2 x 8,192 prefill (``SWA_GEMMA3``: G = 2, window
+    1024) and the grad sketch at each dense arch's stage-A unit
+    (``SKETCH_DENSE``: V of 256,000 and 262,144), each held against its
+    plain version and timed -> {"swa_attn": {err, ms, plain_ms,
+    library_ms, bound_ms, bound_by}, "grad_sketch": {arch: {...}}}."""
+    from repro_torch.kernels.grad_sketch.ops import grad_sketch_units_op
+    from repro_torch.kernels.grad_sketch.ref import grad_sketch_units_ref
+    from repro_torch.kernels.swa_attn.ops import swa_attn_op
+    from repro_torch.kernels.swa_attn.ref import swa_attn_ref
+
+    keys = ("max_abs_err", "ms", "plain_ms", "library_ms", "bound_ms",
+            "bound_by")
+    err, margin = swa_err(torch, swa_attn_op, swa_attn_ref, SWA_GEMMA3, dev)
+    print(f"[kernels] swa_attn {SWA_GEMMA3}: max abs err {err:.3e}, "
+          f"{margin:.3f} of the bar at most; two launches bitwise equal",
+          flush=True)
+    swa = swa_timed(torch, swa_attn_op, swa_attn_ref, SWA_GEMMA3, err,
+                    margin, dev)
+    out = {"swa_attn": dict(zip(keys, (err,) + swa)), "grad_sketch": {}}
+    for i, (arch, shape) in enumerate(SKETCH_DENSE.items()):
+        e, k_ms, p_ms, b_ms, b_by = sketch_row(
+            torch, grad_sketch_units_op, grad_sketch_units_ref, shape,
+            10 + i, dev, arch, on_card=True)
+        out["grad_sketch"][arch] = dict(zip(keys, (e, k_ms, p_ms, None,
+                                                   b_ms, b_by)))
+        torch.cuda.empty_cache()
+    return out
 
 
 def band_pairs(S: int, W: int) -> int:
@@ -1450,6 +1590,38 @@ def scan_engine_phase(torch, np, bundle, tc, units, val_units, first,
     return launches, host_launches, rec_a
 
 
+def resident_against_host(torch, b, pgm_cfg, params, us, vs, proj, read):
+    """P7 on one params tree: a fresh ``ResidentSelector``'s stage A of
+    the train and val units (warm-up and capture, then a replay of each)
+    against host ``units_gradients``, and its round against host
+    ``pgm_select``.  ``read()`` -> the kernels' launch counts.  -> (the
+    selector, its train vectors, the larger max error over the largest
+    entry, whether the subsets and the weights (1e-4) are the same,
+    whether two replays are bitwise equal, the launches counted at the
+    warm-ups and captures)."""
+    from repro_torch.core.lastlayer import units_gradients
+    from repro_torch.core.pgm import ResidentSelector, pgm_select
+
+    n0 = read()
+    sel = ResidentSelector(b, pgm_cfg, proj)
+    g1, gv1 = sel.stage_a(params, us), sel.stage_a(params, vs)
+    counted = {n: c - n0[n] for n, c in read().items() if c - n0[n]}
+    g2, gv2 = sel.stage_a(params, us), sel.stage_a(params, vs)
+    torch.cuda.synchronize()
+    bitwise = bool(torch.equal(g1, g2) and torch.equal(gv1, gv2))
+    host, host_v = (units_gradients(b, params, us, proj),
+                    units_gradients(b, params, vs, proj))
+    err = max(float((g1 - host).abs().max() / host.abs().max()),
+              float((gv1 - host_v).abs().max() / host_v.abs().max()))
+    s_res = sel(params, us, val_units=vs)
+    s_host = pgm_select(b, params, us, pgm_cfg, proj, val_units=vs)
+    same = (s_res.indices.tolist() == s_host.indices.tolist()
+            and bool(torch.allclose(s_res.weights, s_host.weights,
+                                    rtol=0, atol=1e-4)))
+    torch.cuda.synchronize()
+    return sel, g1, err, same, bitwise, counted
+
+
 def resident_phase(torch, np, bundle, tc, units, val_units, rec_14a, models,
                    dev, mark):
     """Phase 15: resident selection rounds (``ResidentSelector``: stage A
@@ -1469,9 +1641,8 @@ def resident_phase(torch, np, bundle, tc, units, val_units, rec_14a, models,
     B's Gram (eager) has its count in both."""
     import repro_torch.train.loop as loop_mod
     from repro_torch.configs.base import PGMConfig, TrainConfig
-    from repro_torch.core.lastlayer import (_chunk_size, make_proj_for,
-                                            units_gradients)
-    from repro_torch.core.pgm import ResidentSelector, pgm_select
+    from repro_torch.core.lastlayer import _chunk_size, make_proj_for
+    from repro_torch.core.pgm import ResidentSelector
     from repro_torch.kernels.grad_sketch.ops import grad_sketch_units_op
     from repro_torch.kernels.omp_gram.ops import omp_gram_batched_op
     from repro_torch.kernels.rnnt_lattice.ops import rnnt_lattice_op
@@ -1500,7 +1671,10 @@ def resident_phase(torch, np, bundle, tc, units, val_units, rec_14a, models,
             stage_a_log.append((ResidentSelector.captures, time.time() - t0))
             return g
 
-    def resident_run(b, us, vs, tc_, tag):
+    def resident_run(b, us, vs, tc_, tag, init=None):
+        # ``init``: a callable drawing the initial params, called inside
+        # the run's call so that no frame here holds them while the run
+        # copies them into its engine
         for op in ops.values():
             op.launches = 0
         ResidentSelector.captures = ResidentSelector.replays = 0
@@ -1514,6 +1688,7 @@ def resident_phase(torch, np, bundle, tc, units, val_units, rec_14a, models,
             h = train_with_selection(
                 b, us, tc_, method="pgm", val_units=vs, device="cuda",
                 engine="scan", resident_selection=True,
+                params=None if init is None else init(),
                 log_fn=lambda s: print(f"[{tag} +{time.time() - t0:.1f}s] "
                                        f"{s}", flush=True))
         finally:
@@ -1550,23 +1725,8 @@ def resident_phase(torch, np, bundle, tc, units, val_units, rec_14a, models,
         (1e-5 of the largest entry) and the same selection; two replays
         bitwise; stage A and a round timed; one replayed round traced ->
         (train vectors, {kernel: (traced, counted)})."""
-        n0 = read()
-        sel = ResidentSelector(b, pgm_cfg, proj)
-        g1, gv1 = sel.stage_a(params, us), sel.stage_a(params, vs)
-        counted = delta(n0)
-        g2, gv2 = sel.stage_a(params, us), sel.stage_a(params, vs)
-        torch.cuda.synchronize()
-        bitwise = bool(torch.equal(g1, g2) and torch.equal(gv1, gv2))
-        host, host_v = (units_gradients(b, params, us, proj),
-                        units_gradients(b, params, vs, proj))
-        err = max(float((g1 - host).abs().max() / host.abs().max()),
-                  float((gv1 - host_v).abs().max() / host_v.abs().max()))
-        s_res = sel(params, us, val_units=vs)
-        s_host = pgm_select(b, params, us, pgm_cfg, proj, val_units=vs)
-        same = (s_res.indices.tolist() == s_host.indices.tolist()
-                and bool(torch.allclose(s_res.weights, s_host.weights,
-                                        rtol=0, atol=1e-4)))
-        torch.cuda.synchronize()
+        sel, g1, err, same, bitwise, counted = resident_against_host(
+            torch, b, pgm_cfg, params, us, vs, proj, read)
         t0 = time.time()
         sel.stage_a(params, us)
         sel.stage_a(params, vs)
@@ -1641,7 +1801,8 @@ def resident_phase(torch, np, bundle, tc, units, val_units, rec_14a, models,
                       select_every=1, warm_start_epochs=1, val_matching=True)
     tc_lm = TrainConfig(lr=0.05, optimizer="sgd", epochs=2, seed=0,
                         pgm=pc_lm)
-    h, launches, peak = resident_run(lm, lm_us, lm_vs, tc_lm, "15c")
+    h, launches, peak = resident_run(lm, lm_us, lm_vs, tc_lm, "15c",
+                                     lambda: card_init(torch, lm, dev))
     require(len(h.selections) == 1 and len(h.train_loss) == 2,
             "15c: the LM run did not run its round and epochs")
     params = h.final_params
@@ -1714,6 +1875,290 @@ def resident_phase(torch, np, bundle, tc, units, val_units, rec_14a, models,
     gc.collect()
     torch.cuda.empty_cache()
     mark("15e injected kernel failure")
+    return out
+
+
+def card_init(torch, bundle, dev, seed: int = 0):
+    """fp32 master weights of ``bundle`` drawn by a generator on the card
+    (seconds, where a host generator takes ~20 s for 3B params), for a
+    run's ``params=``."""
+    return bundle.init_params(torch.Generator(device=dev).manual_seed(seed),
+                              dev)
+
+
+def greedy_logits(torch, bundle, params, prompt, steps: int):
+    """The bundle's own prefill, then ``steps`` greedy decode calls ->
+    (every step's logits, the tokens): the hooks the serving engines
+    call, on exactly the tree given (the engines would cast it first)."""
+    with torch.no_grad():
+        logits, cache = bundle.prefill(params, {"tokens": prompt},
+                                       cache_len=prompt.shape[1] + steps)
+        out, toks = [logits], []
+        for _ in range(steps):
+            tok = torch.argmax(logits, dim=-1).to(torch.int32)
+            toks.append(tok)
+            logits, cache = bundle.decode(params, cache, tok)
+            out.append(logits)
+    return out, torch.stack(toks, dim=1)
+
+
+def dense_phase(torch, np, dev, mark):
+    """Phase 16: the reference's other dense archs and examples.  (a)
+    ``gemma3-27b`` at full width and depth served from bf16 weights drawn
+    on the card (no fp32 masters): ``generate`` on 2 x 8,192 prompts, then
+    ``SlotEngine`` on the launcher's 8 requests; (b) at full width and
+    one group of 6 layers, fp32 masters against their ``serving_params``:
+    prefill and greedy decode logits bitwise; (c) ``gemma3-27b``,
+    ``gemma-7b`` and ``minitron-8b`` at full width and reduced depth,
+    trained on the scan engine with resident selection for 2 epochs,
+    each held against host stage A (P7); (d) the twins of the reference's
+    quickstart and ``train_lm_pgm`` on the card, ``--selection-kernels``
+    auto against xla.  -> {path: {kernel: launches}}."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import PGMConfig, TrainConfig
+    from repro_torch.core.lastlayer import make_proj_for
+    from repro_torch.core.pgm import ResidentSelector
+    from repro_torch.examples import quickstart, train_lm_pgm
+    from repro_torch.kernels.grad_sketch.ops import grad_sketch_units_op
+    from repro_torch.kernels.omp_gram.ops import omp_gram_batched_op
+    from repro_torch.kernels.rnnt_lattice.ops import rnnt_lattice_op
+    from repro_torch.kernels.rwkv6_scan.ops import rwkv6_wkv_op
+    from repro_torch.kernels.swa_attn.ops import swa_attn_op
+    from repro_torch.launch.serve import make_requests
+    from repro_torch.launch.train import make_units_for
+    from repro_torch.models.api import build_model
+    from repro_torch.models.common import tree_leaves
+    from repro_torch.serve.engine import SlotEngine, generate
+    from repro_torch.train.engine import EpochEngine, to_device
+    from repro_torch.train.loop import train_with_selection
+
+    ops = {"rnnt_lattice": rnnt_lattice_op, "omp_gram": omp_gram_batched_op,
+           "grad_sketch": grad_sketch_units_op, "rwkv6_wkv": rwkv6_wkv_op,
+           "swa_attn": swa_attn_op}
+
+    def zero():
+        for op in ops.values():
+            op.launches = 0
+
+    def read():
+        return {n: op.launches for n, op in ops.items()}
+
+    out = {}
+    gb = lambda: torch.cuda.max_memory_allocated() / 1e9
+
+    # (a) gemma3-27b at full width and depth, bf16 weights only
+    cfg = get_config("gemma3-27b")
+    b27 = build_model(cfg)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.time()
+    params = b27.init_params(torch.Generator(device=dev).manual_seed(0), dev,
+                             dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    init_s = time.time() - t0
+    n_par = sum(l.numel() for l in tree_leaves(params))
+    w_gb = sum(l.numel() * l.element_size()
+               for l in tree_leaves(params)) / 1e9
+    print(f"[16a] gemma3-27b at full width and depth ({cfg.n_layers} "
+          f"layers: {cfg.layer_kinds().count('local')} local (window "
+          f"{cfg.window}), {cfg.layer_kinds().count('global')} global; "
+          f"d_model {cfg.d_model}, {cfg.n_heads} heads over "
+          f"{cfg.n_kv_heads} KV heads of {cfg.head_dim}, GeGLU "
+          f"{cfg.d_ff}, vocab {cfg.vocab_size}, QK-norm, tied head): "
+          f"{n_par:,} params ({cfg.n_params():,} by the reference's "
+          f"formula), {w_gb:.2f} GB of bf16 serving weights drawn on the "
+          f"card in {init_s:.1f} s, no fp32 masters", flush=True)
+    require(all(l.dtype == torch.bfloat16 for k, v in params.items()
+                if k != "final_norm" for l in tree_leaves(v))
+            and params["final_norm"].dtype == torch.float32,
+            "16a: the serving weights are not bf16 (final norm fp32)")
+    prompts = torch.randint(0, cfg.vocab_size, (2, SERVE_PROMPT),
+                            dtype=torch.int32, device=dev,
+                            generator=torch.Generator(device=dev).manual_seed(1))
+    zero()
+    toks, st = generate(b27, params, prompts, SERVE_NEW)
+    torch.cuda.synchronize()
+    n_gen = read()
+    per_step = st.decode_s * 1e3 / max(st.decode_steps, 1)
+    print(f"[16a] generate 2 x {SERVE_PROMPT} -> {tuple(toks.shape)}: "
+          f"prefill {st.prefill_s * 1e3:.1f} ms, decode "
+          f"{st.decode_s * 1e3:.1f} ms / {st.decode_steps} steps "
+          f"({per_step:.1f} ms a step, {st.tokens_per_s:.1f} live tok/s); "
+          f"launches {n_gen}", flush=True)
+    n_local = cfg.layer_kinds().count("local")
+    require(n_gen["swa_attn"] == n_local
+            and sum(n_gen.values()) == n_local,
+            f"16a: generate's prefill launched {n_gen}, not the band kernel "
+            f"once a local layer ({n_local})")
+    require(toks.shape == (2, SERVE_NEW) and bool((toks >= 0).all())
+            and bool((toks < cfg.vocab_size).all()), "16a: tokens")
+    reqs = make_requests(cfg, SERVE_REQUESTS, SERVE_PROMPT, SERVE_NEW, 0)
+    lens = sorted(len(r.inputs["tokens"]) for r in reqs)
+    zero()
+    eng = SlotEngine(b27, params, n_slots=SERVE_SLOTS,
+                     max_new_tokens=SERVE_NEW, max_prompt_len=SERVE_PROMPT)
+    torch.cuda.synchronize()
+    t0 = time.time()
+    comps = eng.run(reqs)
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    n_slot = read()
+    lat = sorted(c.latency_s for c in comps)
+    peak_a = gb()
+    print(f"[16a] SlotEngine, {SERVE_SLOTS} slots, {len(reqs)} requests of "
+          f"{lens[0]}-{lens[-1]} tokens, {SERVE_NEW} new each: {wall:.2f} s, "
+          f"{len(comps) / wall:.2f} req/s, p50 latency "
+          f"{lat[len(lat) // 2] * 1e3:.0f} ms, {eng.n_decode_dispatches} "
+          f"decode dispatches; launches {n_slot}; peak device memory "
+          f"{peak_a:.2f} GB (torch.cuda.max_memory_allocated; weights "
+          f"{w_gb:.2f} GB)", flush=True)
+    require(len(comps) == len(reqs)
+            and all(len(c.tokens) == SERVE_NEW for c in comps),
+            "16a: the slot engine did not complete every request")
+    require(n_slot["swa_attn"] == n_local * len(reqs)
+            and sum(n_slot.values()) == n_slot["swa_attn"],
+            f"16a: the slot engine launched {n_slot}, not the band kernel "
+            f"once a local layer a request")
+    out["serve-gemma3-27b"] = {"swa_attn": n_gen["swa_attn"]
+                               + n_slot["swa_attn"]}
+    del params, eng, comps, toks, prompts
+    gc.collect()
+    torch.cuda.empty_cache()
+    mark("16a gemma3-27b served at full width and depth")
+
+    # (b) one group at full width: fp32 masters against serving weights
+    b6 = build_model(dataclasses.replace(cfg, n_layers=GEMMA3_AGREE_LAYERS))
+    masters = b6.init_params(torch.Generator(device=dev).manual_seed(2), dev)
+    served = b6.serving_params(masters)
+    prompt = torch.randint(0, cfg.vocab_size, (1, GEMMA3_AGREE_S),
+                           dtype=torch.int32, device=dev,
+                           generator=torch.Generator(device=dev).manual_seed(3))
+    zero()
+    lm_, tm_ = greedy_logits(torch, b6, masters, prompt, GEMMA3_AGREE_STEPS)
+    ls_, ts_ = greedy_logits(torch, b6, served, prompt, GEMMA3_AGREE_STEPS)
+    torch.cuda.synchronize()
+    n_b = read()
+    same = [bool(torch.equal(a, c)) for a, c in zip(lm_, ls_)]
+    print(f"[16b] gemma3-27b at full width, {GEMMA3_AGREE_LAYERS} layers "
+          f"({b6.cfg.layer_kinds().count('local')} local, "
+          f"{b6.cfg.layer_kinds().count('global')} global): prefill of "
+          f"{GEMMA3_AGREE_S} tokens and {GEMMA3_AGREE_STEPS} greedy decode "
+          f"steps from the fp32 masters (cast a block call) and from "
+          f"serving_params of them (bf16, cast once): logits bitwise equal "
+          f"at {sum(same)} of {len(same)} steps, tokens equal "
+          f"{bool(torch.equal(tm_, ts_))}; launches {n_b}", flush=True)
+    require(all(same) and bool(torch.equal(tm_, ts_)),
+            "16b: serving weights give other logits than the fp32 masters")
+    require(n_b["swa_attn"] == 2 * b6.cfg.layer_kinds().count("local"),
+            f"16b: the prefill did not take the band: {n_b}")
+    del b6, masters, served, lm_, ls_, prompt
+    gc.collect()
+    torch.cuda.empty_cache()
+    mark("16b serving weights bitwise the fp32 masters")
+
+    # (c) full width, reduced depth, trained on the scan engine with
+    # resident rounds, then held against host stage A
+    pc = PGMConfig(subset_fraction=0.5, n_partitions=4, select_every=1,
+                   warm_start_epochs=1, val_matching=True)
+    tc = TrainConfig(lr=0.05, optimizer="sgd", epochs=2, seed=0, pgm=pc)
+    for arch, layers in DENSE_TRAIN:
+        c = dataclasses.replace(get_config(arch), n_layers=layers)
+        bd = build_model(c)
+        us_np, vs_np = make_units_for(c, n=LM_N, seq=LM_SEQ, noise=0.0)
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        zero()
+        ResidentSelector.captures = ResidentSelector.replays = 0
+        EpochEngine.captures = EpochEngine.replays = 0
+        torch.cuda.synchronize()
+        t0 = time.time()
+        init = [card_init(torch, bd, dev)]
+        n_par = sum(l.numel() for l in tree_leaves(init[0]))
+        h = train_with_selection(
+            bd, us_np, tc, method="pgm", val_units=vs_np, device="cuda",
+            engine="scan", resident_selection=True, params=init.pop(),
+            log_fn=lambda s: print(f"[16c {arch} +{time.time() - t0:.1f}s] "
+                                   f"{s}", flush=True))
+        torch.cuda.synchronize()
+        secs, peak = time.time() - t0, gb()
+        n_run = read()
+        print(f"[16c] {arch} at full width, {layers} layers ({n_par:,} "
+              f"params; cut from {get_config(arch).n_layers} layers), "
+              f"{us_np['tokens'].shape[0]} units of {UNIT_SIZE} x {LM_SEQ} "
+              f"tokens, 2 epochs, scan engine, resident rounds: {secs:.1f} s "
+              f"({h.wall_time:.1f} s after the init); rounds "
+              f"{[round(s['seconds'], 3) for s in h.selections]} s; "
+              f"stage-A captures {ResidentSelector.captures}, replays "
+              f"{ResidentSelector.replays}; step captures "
+              f"{EpochEngine.captures}; losses train "
+              f"{[round(x, 4) for x in h.train_loss]} val "
+              f"{[round(x, 4) for x in h.val_loss]}; launches {n_run}; peak "
+              f"device memory {peak:.2f} GB", flush=True)
+        require(len(h.selections) == 1 and len(h.train_loss) == 2
+                and all(np.isfinite(h.train_loss + h.val_loss)),
+                f"16c {arch}: the run did not finish its round and epochs")
+        require(n_run["grad_sketch"] > 0 and n_run["omp_gram"] > 0
+                and n_run["swa_attn"] == 0,
+                f"16c {arch}: a kernel of the path was not launched: {n_run}")
+        params = h.final_params
+        del h
+        gc.collect()
+        us, vs = to_device(us_np, dev), to_device(vs_np, dev)
+        proj = make_proj_for(bd, torch.Generator().manual_seed(0),
+                             pc.sketch_dim_h, pc.sketch_dim_v, dev)
+        sel, _, err, same, bitwise, counted = resident_against_host(
+            torch, bd, pc, params, us, vs, proj, read)
+        print(f"[16c] {arch}: resident stage A against host units_gradients "
+              f"on the trained params: max err {err:.2e} of the largest "
+              f"entry (1e-5); same subsets and weights (1e-4): {same}; two "
+              f"replays bitwise equal: {bitwise}; launches counted at the "
+              f"warm-ups and captures {counted}", flush=True)
+        require(err <= 1e-5 and same and bitwise,
+                f"16c {arch}: resident stage A disagrees with the host's")
+        out[f"{arch}-resident"] = {"grad_sketch": n_run["grad_sketch"],
+                                   "omp_gram": n_run["omp_gram"]}
+        del sel, params, us, vs, proj, bd
+        gc.collect()
+        torch.cuda.empty_cache()
+        mark(f"16c {arch} trained at full width, {layers} layers")
+
+    # (d) the twins on the card
+    t0 = time.time()
+    qs = quickstart.run(device="cuda", log_fn=lambda s: print(
+        f"[16d quickstart] {s}", flush=True))
+    require(all(np.isfinite(h.val_loss).all() for h in qs.values())
+            and len(qs["pgm"].selections) == 2,
+            "16d: the quickstart twin did not run")
+    print(f"[16d] quickstart twin: {time.time() - t0:.1f} s", flush=True)
+    runs = {}
+    for impl in ("auto", "xla"):
+        zero()
+        t0 = time.time()
+        h = train_lm_pgm.run(n=32, epochs=4, kernel_impl=impl,
+                             device="cuda", log_fn=lambda s: print(
+                                 f"[16d train_lm_pgm {impl}] {s}",
+                                 flush=True))
+        runs[impl] = (h, read(), time.time() - t0)
+    (ha, na, ta), (hx, nx, tx) = runs["auto"], runs["xla"]
+    rel = max(abs(a - x) / abs(x) for a, x in
+              zip(ha.train_loss + ha.val_loss, hx.train_loss + hx.val_loss))
+    same = [sa["indices"] for sa in ha.selections] == \
+        [sx["indices"] for sx in hx.selections]
+    print(f"[16d] train_lm_pgm twin --n 32 --epochs 4, --selection-kernels "
+          f"auto ({ta:.1f} s, launches {na}) against xla ({tx:.1f} s, "
+          f"launches {nx}): losses at most {rel:.2e} apart (rtol 1e-3); "
+          f"same subsets {same}", flush=True)
+    require(na["grad_sketch"] > 0 and na["omp_gram"] > 0,
+            f"16d: auto did not launch the selection kernels: {na}")
+    require(nx["grad_sketch"] == 0 and nx["omp_gram"] == 0,
+            f"16d: xla launched a selection kernel: {nx}")
+    require(rel <= 1e-3, "16d: auto and xla losses differ")
+    out["lm-twin"] = {"grad_sketch": na["grad_sketch"],
+                      "omp_gram": na["omp_gram"]}
+    mark("16d the twins on the card")
     return out
 
 
@@ -1963,56 +2408,12 @@ def main() -> None:
         print(f"[kernels] swa_attn {shape}: max abs err {swa_abs:.3e}, "
               f"{swa_margin:.3f} of the bar at most; two launches bitwise "
               f"equal", flush=True)
-    B, S, KV, G, hd, W, dtype, _ = SWA_MAIN
-    (q, k, v), _ = swa_inputs(torch, B, S, KV, G, hd, dtype, None, seed=0,
-                              dev=dev)
-    # the library yardstick, timed only: PyTorch's SDPA on (B, H, S, hd)
-    # with k, v repeated over the group and the band as a boolean mask
-    H = KV * G
-    qh = q.reshape(B, S, H, hd).transpose(1, 2).contiguous()
-    kh, vh = (x.transpose(1, 2).repeat_interleave(G, dim=1).contiguous()
-              for x in (k, v))
-    pos = torch.arange(S, device=dev)
-    band = ((pos[:, None] - pos[None, :]) >= 0) \
-        & ((pos[:, None] - pos[None, :]) < W)
-    sdpa = torch.nn.functional.scaled_dot_product_attention
-    with torch.no_grad():
-        lib = sdpa(qh, kh, vh, attn_mask=band)
-        lib_err = float((lib.transpose(1, 2).reshape(q.shape).float()
-                         - swa_attn_op(q, k, v, window=W).float()).abs().max())
-        # kernel and library in turns, twice; the plain version once
-        swa_runs, lib_runs = [], []
-        for _ in range(2):
-            swa_runs.append(cuda_ms(
-                torch, lambda: swa_attn_op(q, k, v, window=W), reps=20))
-            lib_runs.append(cuda_ms(
-                torch, lambda: sdpa(qh, kh, vh, attn_mask=band), reps=5))
-        swa_plain = cuda_ms(torch, lambda: swa_attn_ref(q, k, v, window=W),
-                            reps=3)
-    swa_ms, swa_lib = sum(swa_runs) / 2, sum(lib_runs) / 2
-    del qh, kh, vh, band, lib
-    # what the function needs: q, k, v read once and o written once (bf16);
-    # q.k and p.v over the band's pairs, 4 hd FLOP a pair and head, at the
-    # bf16 tensor-core peak since the inputs are bf16.  The bf16 kernel
-    # runs p.v twice (p split into bf16 hi + lo): 6 hd FLOP a pair on the
-    # tensor cores
-    swa_ops = 4 * hd * band_pairs(S, W) * H * B
-    swa_tc_ops = swa_ops * 3 // 2
-    swa_bound, swa_by = bound(2 * (2 * q.numel() + k.numel() + v.numel()),
-                              swa_ops, BF16_FLOP_PER_S)
-    print(f"[kernels] swa_attn {SWA_MAIN[:7]}: max_abs_err {swa_abs:.3e} "
-          f"({swa_margin:.3f} of the one-ulp bar) "
-          f"kernel_ms {swa_ms:.4f} ({swa_runs[0]:.4f}, {swa_runs[1]:.4f}) "
-          f"plain_ms {swa_plain:.4f} library_ms "
-          f"(scaled_dot_product_attention, band mask; max abs diff to the "
-          f"kernel {lib_err:.3e}) {swa_lib:.4f} ({lib_runs[0]:.4f}, "
-          f"{lib_runs[1]:.4f}); kernel / library {swa_ms / swa_lib:.3f}; "
-          f"bound_ms {swa_bound:.4f} ({swa_by}, bf16 peak; "
-          f"{swa_ops / FP32_FLOP_PER_S * 1e3:.3f} ms at the fp32 peak) "
-          f"achieved {swa_ops / swa_ms / 1e9:.2f} TFLOP/s on the function's "
-          f"{swa_ops / 1e9:.1f} GFLOP, {swa_tc_ops / swa_ms / 1e9:.2f} on the "
-          f"{swa_tc_ops / 1e9:.1f} GFLOP the tensor cores run", flush=True)
-    del q, k, v
+    swa_ms, swa_plain, swa_lib, swa_bound, swa_by = swa_timed(
+        torch, swa_attn_op, swa_attn_ref, SWA_MAIN, swa_abs, swa_margin,
+        dev)
+    # the dense archs' shapes (phase 16): gemma3-27b's prefill band, and
+    # the three archs' stage-A units
+    dense_rows = dense_kernel_rows(torch, dev)
 
     mark("kernels")
 
@@ -2303,7 +2704,8 @@ def main() -> None:
     t0 = time.time()
     hist = train_with_selection(
         lm, lm_units, tc_lm, method="pgm", val_units=lm_val, device="cuda",
-        engine="host", log_fn=lambda s: print(f"[main lm +{time.time() - t0:.1f}s] {s}",
+        engine="host", params=card_init(torch, lm, dev),
+        log_fn=lambda s: print(f"[main lm +{time.time() - t0:.1f}s] {s}",
                                flush=True))
     torch.cuda.synchronize()
     lm_s = time.time() - t0
@@ -2380,7 +2782,8 @@ def main() -> None:
     t0 = time.time()
     hist = train_with_selection(
         rw, rw_units, tc_lm, method="pgm", val_units=rw_val, device="cuda",
-        engine="host", log_fn=lambda s: print(f"[main rwkv +{time.time() - t0:.1f}s] {s}",
+        engine="host", params=card_init(torch, rw, dev),
+        log_fn=lambda s: print(f"[main rwkv +{time.time() - t0:.1f}s] {s}",
                                flush=True))
     torch.cuda.synchronize()
     rw_s = time.time() - t0
@@ -2442,6 +2845,13 @@ def main() -> None:
         {"lm": (lm_cfg, lm_units, lm_val), "rwkv": (rw_cfg, rw_units,
                                                     rw_val)}, dev, mark)
 
+    # -- 16. the other dense archs and examples: gemma3-27b served at
+    # full width and depth from bf16 weights, the serving weights bitwise
+    # the masters, the three archs trained at full width, the twins ------
+    gc.collect()
+    torch.cuda.empty_cache()
+    dense = dense_phase(torch, np, dev, mark)
+
     g_err, g_ms, g_plain, g_lib, g_bound, g_by = \
         gram_rows[(P_main, n_units // P_main, D_sk)]
     print(f"[launches] RNN-T path {launches}, its preempted and resumed "
@@ -2450,8 +2860,8 @@ def main() -> None:
           f"path {rw_launches}, serving path {{'swa_attn': {swa_launches}}}, "
           f"scan engine {scan_launches} (counted in its runs "
           f"{scan_counted}), resident selection (traced in a replayed "
-          f"round, counted at the warm-ups and captures) {resident}",
-          flush=True)
+          f"round, counted at the warm-ups and captures) {resident}, the "
+          f"dense archs (phase 16) {dense}", flush=True)
     # one row per kernel and main path, "launches" from that path's run;
     # the Gram's stage-B shape (4, 4, 4096) is the same on both paths
     gram = {"name": "omp_gram_batched", "route": "cuda",
@@ -2538,6 +2948,26 @@ def main() -> None:
          "launches": sk4[0], "counted": sk4[1], "max_abs_err": sk4_err,
          "ms": sk4_ms, "plain_ms": sk4_plain, "bound_ms": sk4_bound,
          "bound_by": sk4_by, "library_ms": None})
+    # phase 16: the band kernel at gemma3-27b's prefill, the grad sketch
+    # at each dense arch's stage-A unit, with the Gram of each run's stage
+    # B; launches counted in phase 16's runs (in a resident run, the
+    # selector's warm-ups and captures)
+    kernels.append(dict(
+        dense_rows["swa_attn"], name="swa_attn", path="serve-gemma3-27b",
+        route="cuda",
+        source="src/repro_torch/kernels/swa_attn/csrc/swa_attn.cu",
+        replaces="src/repro/kernels/swa_attn/kernel.py:79",
+        launches=dense["serve-gemma3-27b"]["swa_attn"]))
+    for arch, _ in DENSE_TRAIN:
+        got = dense[f"{arch}-resident"]
+        kernels.append(dict(
+            dense_rows["grad_sketch"][arch], name="grad_sketch_units",
+            path=f"{arch}-resident", route="cuda",
+            source="src/repro_torch/kernels/grad_sketch/csrc/grad_sketch.cu",
+            replaces="src/repro/kernels/grad_sketch/kernel.py:128",
+            launches=got["grad_sketch"]))
+        kernels.append(dict(gram, path=f"{arch}-resident",
+                            launches=got["omp_gram"]))
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -157,6 +157,10 @@ class PGMConfig:
     sketch_dim_v: int = 64
     use_sketch: bool = True          # False -> exact last-layer gradients
     nonneg_weights: bool = True      # clip OMP weights at 0
+    # selection-round kernels (grad sketch, Gram): "auto" and "pallas"
+    # launch the CUDA kernels on the card, "xla" runs their plain
+    # versions there; on the CPU every value runs the plain versions
+    kernel_impl: str = "auto"
 
 
 @dataclass(frozen=True)

@@ -86,16 +86,16 @@ def streamed_er2(h, w_head, targets, scale, r_v, chunk: int = 8192
     return er2 * scale[:, None]
 
 
-def lm_unit_sketch(bundle, params, batch, proj: Projections
-                   ) -> torch.Tensor:
+def lm_unit_sketch(bundle, params, batch, proj: Projections,
+                   kernel_impl: str = "auto") -> torch.Tensor:
     # ops imports streamed_er2 from here for its CPU path
     from repro_torch.kernels.grad_sketch.ops import grad_sketch_op
     h, targets, scale = lm_unit_factors(bundle, params, batch)
     # the kernel reads the head as contiguous (V, d) rows: the tied
     # embedding already is (no copy); an untied (d, V) head is copied
     w = bundle.head_weight(params).detach().t().contiguous().t()
-    return grad_sketch_op(h, w, proj.r_h, proj.r_v, targets,
-                          scale).reshape(-1)
+    return grad_sketch_op(h, w, proj.r_h, proj.r_v, targets, scale,
+                          impl=kernel_impl).reshape(-1)
 
 
 def lm_unit_exact(bundle, params, batch) -> torch.Tensor:
@@ -182,23 +182,27 @@ def rnnt_unit_exact(bundle, params, batch) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 def unit_gradient(bundle, params, batch, proj: Optional[Projections],
-                  exact: bool = False) -> torch.Tensor:
-    """One selection unit -> gradient representation vector."""
+                  exact: bool = False,
+                  kernel_impl: str = "auto") -> torch.Tensor:
+    """One selection unit -> gradient representation vector.
+    ``kernel_impl`` (``PGMConfig.kernel_impl``) routes the LM sketch."""
     if bundle.cfg.family == "rnnt":
         return (rnnt_unit_exact(bundle, params, batch) if exact
                 else rnnt_unit_sketch(bundle, params, batch, proj))
     return (lm_unit_exact(bundle, params, batch) if exact
-            else lm_unit_sketch(bundle, params, batch, proj))
+            else lm_unit_sketch(bundle, params, batch, proj, kernel_impl))
 
 
 def units_gradients(bundle, params, units, proj: Optional[Projections],
-                    exact: bool = False) -> torch.Tensor:
+                    exact: bool = False,
+                    kernel_impl: str = "auto") -> torch.Tensor:
     """units: dict of tensors with a leading (n_units, ...) axis ->
     (n_units, D) fp32, one unit at a time (peak memory of one unit's
     forward, the paper's partition rationale)."""
     n_units = units["tokens"].shape[0]
     return torch.stack([unit_gradient(bundle, params, _unit(units, i), proj,
-                                      exact) for i in range(n_units)])
+                                      exact, kernel_impl)
+                        for i in range(n_units)])
 
 
 def _chunk_size(U: int, chunk_units: Optional[int]) -> int:
@@ -268,8 +272,8 @@ def units_gradients_batched(bundle, params, units,
                             chunk_units: Optional[int] = None,
                             vocab_chunk: int = 8192,
                             exact: bool = False,
-                            head_rows: Optional[torch.Tensor] = None
-                            ) -> torch.Tensor:
+                            head_rows: Optional[torch.Tensor] = None,
+                            kernel_impl: str = "auto") -> torch.Tensor:
     """Batched stage A of ``core/pgm.ResidentSelector``: (U, D) fp32.
 
     RNN-T and the exact path go through ``units_gradients_scanned``.  A
@@ -302,7 +306,7 @@ def units_gradients_batched(bundle, params, units,
             h.to(torch.float32).reshape(cu, n, d).contiguous(), w,
             proj.r_h, proj.r_v, targets.reshape(cu, n),
             scale.reshape(cu, n).contiguous(),
-            vocab_chunk=vocab_chunk).reshape(cu, -1))
+            vocab_chunk=vocab_chunk, impl=kernel_impl).reshape(cu, -1))
     return torch.cat(out)
 
 

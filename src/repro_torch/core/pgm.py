@@ -12,6 +12,10 @@ Every ``R`` epochs:
 
 Stage B builds all D Gram matrices in one call of the ``omp_gram``
 kernel (the Hopper kernel on the card, its plain version on the CPU).
+``PGMConfig.kernel_impl`` routes the round's kernels, as the reference's
+does: ``"auto"`` and ``"pallas"`` launch the grad sketch and the Gram
+on the card, ``"xla"`` runs their plain versions there; on the CPU
+every value runs the plain versions (``kernels/backend.py:use_kernel``).
 
 Residency: ``ResidentSelector`` runs stage A as one batched pass
 (``units_gradients_batched``) over the engine's device-resident units.
@@ -48,7 +52,8 @@ def partitioned_gm(g_units: torch.Tensor, n_partitions: int,
                    eps: float = 1e-10, nonneg: bool = True,
                    val_matching: bool = False,
                    g_val: Optional[torch.Tensor] = None,
-                   solver: str = "chol") -> Selection:
+                   solver: str = "chol",
+                   kernel_impl: str = "auto") -> Selection:
     n, D_sk = g_units.shape
     P = n_partitions
     if n % P:
@@ -61,7 +66,7 @@ def partitioned_gm(g_units: torch.Tensor, n_partitions: int,
         # the partition's own summed gradient (sum, not mean, so that
         # sum_i w_i g_i reaches it with O(1) weights per unit)
         target = gp.sum(dim=1)
-    K = omp_gram_batched_op(gp)
+    K = omp_gram_batched_op(gp, impl=kernel_impl)
     c = torch.einsum("pnd,pd->pn", gp, target)
     tsq = torch.einsum("pd,pd->p", target, target)
     res = [gm.gram_omp(K[p], c[p], tsq[p], budget_per_part, lam, eps,
@@ -82,7 +87,7 @@ def _stage_b(g_units, pgm_cfg, g_val=None) -> Selection:
     budget_per = max(budget_total // D, 1)
     return partitioned_gm(g_units, D, budget_per, pgm_cfg.lam, pgm_cfg.eps,
                           pgm_cfg.nonneg_weights, pgm_cfg.val_matching,
-                          g_val)
+                          g_val, kernel_impl=pgm_cfg.kernel_impl)
 
 
 def _val_target(gv: torch.Tensor, n_units: int, pgm_cfg) -> torch.Tensor:
@@ -98,10 +103,13 @@ def pgm_select(bundle, params, units, pgm_cfg,
     """One selection round (stages A + B) over device-resident units."""
     n_units = units["tokens"].shape[0]
     exact = not pgm_cfg.use_sketch
-    g = units_gradients(bundle, params, units, proj, exact=exact)
+    impl = pgm_cfg.kernel_impl
+    g = units_gradients(bundle, params, units, proj, exact=exact,
+                        kernel_impl=impl)
     g_val = None
     if pgm_cfg.val_matching:
-        gv = units_gradients(bundle, params, val_units, proj, exact=exact)
+        gv = units_gradients(bundle, params, val_units, proj, exact=exact,
+                             kernel_impl=impl)
         g_val = _val_target(gv, n_units, pgm_cfg)
     return _stage_b(g, pgm_cfg, g_val=g_val)
 
@@ -216,7 +224,8 @@ class ResidentSelector:
         return units_gradients_batched(
             self.bundle, params, units, self._proj,
             chunk_units=self._chunk_units, vocab_chunk=self._vocab_chunk,
-            exact=self._exact, head_rows=self._head_rows)
+            exact=self._exact, head_rows=self._head_rows,
+            kernel_impl=self.cfg.kernel_impl)
 
     def _bind(self, params) -> None:
         if self._params is None:

@@ -1,7 +1,9 @@
 """Device and kernel selection, and the build of the hand-written kernels.
 
-One rule, no knob: a tensor on the card goes to the CUDA kernel, a
-tensor on the CPU goes to the kernel's plain PyTorch version.  Entry
+One rule: a tensor on the card goes to the CUDA kernel, a tensor on the
+CPU goes to the kernel's plain PyTorch version.  The one knob is the
+selection kernels' ``PGMConfig.kernel_impl`` (:func:`use_kernel`), with
+which a user asks for the plain version on the card by name.  Entry
 points resolve their device with :func:`resolve_device`, which returns
 the card unless the caller asked for the CPU by name, and raises when no
 card is present — nothing carries on quietly on the CPU.
@@ -58,6 +60,9 @@ def resolve_device(device: Optional[str] = None) -> torch.device:
     return dev
 
 
+KERNEL_IMPLS = ("auto", "pallas", "xla")
+
+
 def on_card(*tensors: torch.Tensor) -> bool:
     """True when every tensor lies on the card (the kernel path), False
     when every one lies on the CPU (the plain path); raises on a mix or
@@ -68,6 +73,19 @@ def on_card(*tensors: torch.Tensor) -> bool:
     if kinds == {"cpu"}:
         return False
     raise ValueError(f"tensors on mixed or unsupported devices: {kinds}")
+
+
+def use_kernel(impl: str, *tensors: torch.Tensor) -> bool:
+    """The route of a selection kernel (grad sketch, Gram) under
+    ``PGMConfig.kernel_impl``: on the card ``"auto"`` and ``"pallas"``
+    launch the CUDA kernel and ``"xla"`` runs its plain version (the
+    user's own request, never a fallback); on the CPU every value runs
+    the plain version, as the reference's interpret mode runs a kernel's
+    math off the TPU.  Raises on any other value."""
+    if impl not in KERNEL_IMPLS:
+        raise ValueError(f"kernel_impl must be one of {KERNEL_IMPLS}, got "
+                         f"{impl!r}")
+    return on_card(*tensors) and impl != "xla"
 
 
 def fp32_numerics() -> None:

@@ -76,13 +76,14 @@ def _plain(h, w, r_h, r_v, targets, scale, vocab_chunk):
 def grad_sketch_units_op(h: torch.Tensor, w: torch.Tensor,
                          r_h: torch.Tensor, r_v: torch.Tensor,
                          targets: torch.Tensor, scale: torch.Tensor,
-                         vocab_chunk: int = PLAIN_VOCAB_CHUNK
-                         ) -> torch.Tensor:
+                         vocab_chunk: int = PLAIN_VOCAB_CHUNK,
+                         impl: str = "auto") -> torch.Tensor:
     """Per-unit fused sketch: h (U,n,d); w (d,V); r_h (d,k1); r_v (V,k2);
     targets, scale (U,n) -> (U, k1, k2) fp32.  ``vocab_chunk`` is the
     plain path's streaming width; the kernel tiles the vocab its own
-    way."""
-    if not backend.on_card(h, w, r_h, r_v, targets, scale):
+    way.  ``impl`` is ``PGMConfig.kernel_impl`` (``backend.use_kernel``:
+    ``"xla"`` runs the plain path on the card)."""
+    if not backend.use_kernel(impl, h, w, r_h, r_v, targets, scale):
         return _plain(h, w, r_h, r_v, targets, scale, vocab_chunk)
     backend.check_input(NAME, h, 3)
     wt = w.t()
@@ -133,8 +134,9 @@ def grad_sketch_units_op(h: torch.Tensor, w: torch.Tensor,
 grad_sketch_units_op.launches = 0
 
 
-def grad_sketch_op(h, w, r_h, r_v, targets, scale) -> torch.Tensor:
+def grad_sketch_op(h, w, r_h, r_v, targets, scale,
+                   impl: str = "auto") -> torch.Tensor:
     """h (N,d); targets, scale (N,) -> the (k1, k2) sketch: the U = 1
     case of ``grad_sketch_units_op`` (whose counter it moves)."""
     return grad_sketch_units_op(h[None], w, r_h, r_v, targets[None],
-                                scale[None])[0]
+                                scale[None], impl=impl)[0]

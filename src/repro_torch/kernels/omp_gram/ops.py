@@ -83,9 +83,11 @@ def _sm_count(device: torch.device) -> int:
     return torch.cuda.get_device_properties(device).multi_processor_count
 
 
-def omp_gram_batched_op(g: torch.Tensor) -> torch.Tensor:
-    """(P, n, D) fp32 -> (P, n, n) fp32 per-partition Gram matrices."""
-    if not backend.on_card(g):
+def omp_gram_batched_op(g: torch.Tensor, impl: str = "auto") -> torch.Tensor:
+    """(P, n, D) fp32 -> (P, n, n) fp32 per-partition Gram matrices.
+    ``impl`` is ``PGMConfig.kernel_impl`` (``backend.use_kernel``:
+    ``"xla"`` runs the plain version on the card)."""
+    if not backend.use_kernel(impl, g):
         return omp_gram_batched_ref(g)
     backend.check_input(NAME, g, 3)
     P, n, D = g.shape

@@ -15,10 +15,11 @@ routes here):
 
 Runs on the card unless ``--device cpu`` is given, and prints the
 reference's summary line.  Weights come from the port's ``init_params``
-with a ``torch.Generator`` seeded by ``--seed``, so they (and the
-one-shot prompts) differ from the reference launcher's; the slot
-engine's requests are drawn with numpy exactly as the reference draws
-them.
+with a ``torch.Generator`` on the device seeded by ``--seed``, drawn
+in the compute dtype (an LM's serving weights: ``--arch gemma3-27b``
+builds its 54 GB of bf16 on one card), so they (and the one-shot
+prompts) differ from the reference launcher's; the slot engine's
+requests are drawn with numpy exactly as the reference draws them.
 """
 from __future__ import annotations
 
@@ -32,6 +33,7 @@ import torch
 from repro_torch.configs import get_config
 from repro_torch.kernels.backend import fp32_numerics, resolve_device
 from repro_torch.models.api import build_model
+from repro_torch.models.common import compute_dtype
 from repro_torch.serve.engine import Request, SlotEngine, generate
 
 
@@ -111,7 +113,16 @@ def main(argv=None):
     fp32_numerics()
     cfg = get_config(args.arch)
     bundle = build_model(cfg)
-    params = bundle.init_params(torch.Generator().manual_seed(args.seed), dev)
+    if cfg.family == "rnnt":
+        params = bundle.init_params(
+            torch.Generator().manual_seed(args.seed), dev)
+    else:
+        # an LM's serving weights, drawn on the device in the compute
+        # dtype layer by layer (no fp32 masters: gemma3-27b's 108 GB
+        # would not fit one card)
+        params = bundle.init_params(
+            torch.Generator(device=dev).manual_seed(args.seed), dev,
+            dtype=compute_dtype(cfg))
     if args.engine == "slots" or cfg.family == "rnnt":
         return _slots(args, cfg, bundle, params, dev)
     return _oneshot(args, cfg, bundle, params, dev)

@@ -11,7 +11,7 @@ the reference's ``repro.launch.train``):
       --optimizer adamw --lr 0.05 --ckpt DIR [--resume] \
       [--nonfinite-guard --max-skipped-steps 4] [--loss-impl dense] \
       [--exact-gradients] [--engine scan|host] [--epoch-chunk N] \
-      [--resident-selection]
+      [--resident-selection] [--selection-kernels auto|pallas|xla]
 
 Runs on the card unless ``--device cpu`` is given, and prints the same
 ``epoch N: train X val Y lr Z`` lines as the reference.  RNN-T archs
@@ -29,6 +29,9 @@ epochs at a time with validation and newbob on the device;
 ``--engine host`` is the per-batch loop.  ``--resident-selection`` runs
 PGM stage A over the engine's device-resident units, on the card as one
 captured CUDA graph per unit corpus replayed every round.
+``--selection-kernels xla`` runs the selection round's grad sketch and
+Gram as their plain versions on the card (``auto`` and ``pallas``, the
+reference's other values, launch the kernels).
 """
 from __future__ import annotations
 
@@ -124,6 +127,13 @@ def main(argv=None):
     ap.add_argument("--exact-gradients", action="store_true",
                     help="paper-faithful exact last-layer gradients "
                          "(no sketching)")
+    ap.add_argument("--selection-kernels", default="auto",
+                    choices=["auto", "pallas", "xla"],
+                    help="selection-round kernels (PGMConfig.kernel_impl): "
+                         "'auto' and 'pallas' launch the CUDA grad-sketch "
+                         "and Gram kernels on the card, 'xla' runs their "
+                         "plain versions there; the CPU always runs the "
+                         "plain versions")
     ap.add_argument("--nonfinite-guard", action="store_true",
                     help="gate NaN/Inf steps off on the device (a "
                          "bit-exact no-op, no host branch) and count them")
@@ -153,7 +163,8 @@ def main(argv=None):
                       select_every=args.select_every,
                       warm_start_epochs=args.warm_start,
                       val_matching=args.noise > 0,
-                      use_sketch=not args.exact_gradients))
+                      use_sketch=not args.exact_gradients,
+                      kernel_impl=args.selection_kernels))
     h = launch_train(args.arch, tc, method=args.method, n=args.n,
                      seq=args.seq, noise=args.noise, snr_db=args.snr_db,
                      loss_impl=args.loss_impl, engine=args.engine,

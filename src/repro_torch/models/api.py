@@ -89,6 +89,11 @@ class RNNTBundle:
     def head_weight(self, params) -> torch.Tensor:
         return params["joint"]["w_out"]
 
+    def serving_params(self, params):
+        """The RNN-T computes in fp32 from its masters: served as they
+        are."""
+        return params
+
     # -- streaming greedy transducer search (the reference's rnnt serve
     # hooks): the cache is one utterance's decode state -- the encoder
     # output, the frame cursor and limit, the prediction-net state and
@@ -187,8 +192,17 @@ class LMBundle:
                 f"{self.cfg.name}: {why} is not ported yet (ROADMAP.md "
                 f"queue 1, other families)")
 
-    def init_params(self, gen: torch.Generator, device: torch.device):
-        return tfm.init_params(self.cfg, gen, device)
+    def init_params(self, gen: torch.Generator, device: torch.device,
+                    dtype=None):
+        """fp32 masters, or with ``dtype`` the compute dtype the serving
+        weights (``transformer.init_params``)."""
+        return tfm.init_params(self.cfg, gen, device, dtype)
+
+    def serving_params(self, params):
+        """The serving weights of fp32 masters: each leaf the forward
+        casts, cast once (``transformer.serving_params``); training
+        refuses them."""
+        return tfm.serving_params(params, self.cfg)
 
     def assemble(self, params, batch: Batch):
         """-> (embedded tokens (B,S,d), targets (B,S-1), mask (B,S-1))."""

@@ -2,8 +2,10 @@
 
 ``dense_init``/``embed_init`` are the reference's (``models/common.py``)
 with a ``torch.Generator`` in place of a ``jax.random`` key.  Draws
-happen on the CPU generator and the result is moved to the target
-device, so a seed gives the same parameters on the CPU and on the card.
+happen on the generator's device and the result is moved to the target
+device: a CPU generator gives the same parameters on the CPU and on the
+card, a card generator draws on the card (another stream of numbers,
+and no host work for a model of billions of parameters).
 Params are trees of tensors (dicts, and tuples for the LM stack) with the
 reference's key layout and (in, out) weight layout.
 
@@ -12,7 +14,7 @@ reference's numerics: the norm in fp32 with a ``(1 + gamma)`` scale, cast
 back; half-split (not interleaved) RoPE with fp32 frequencies (exactly
 rounded, as the reference's jitted code folds them) and fp32 positions;
 and GELU in its tanh form, which is ``jax.nn.gelu``'s default (torch's
-default is the erf form).
+default is the erf form), written op by op as JAX writes it.
 """
 from __future__ import annotations
 
@@ -26,12 +28,14 @@ import torch.nn.functional as F
 def dense_init(gen: torch.Generator, d_in: int, d_out: int,
                device: torch.device, scale: float = 1.0) -> torch.Tensor:
     std = scale / math.sqrt(d_in)
-    return (torch.randn((d_in, d_out), generator=gen) * std).to(device)
+    return (torch.randn((d_in, d_out), generator=gen, device=gen.device)
+            * std).to(device)
 
 
 def embed_init(gen: torch.Generator, vocab: int, d: int,
                device: torch.device) -> torch.Tensor:
-    return torch.randn((vocab, d), generator=gen).to(device)
+    return torch.randn((vocab, d), generator=gen,
+                       device=gen.device).to(device)
 
 
 def tree_leaves(tree) -> List[torch.Tensor]:
@@ -91,7 +95,16 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
 
 
 def _gelu_tanh(x: torch.Tensor) -> torch.Tensor:
-    return F.gelu(x, approximate="tanh")
+    """``jax.nn.gelu``'s tanh form as the reference computes it: op by op
+    in x's dtype, its constants rounded to that dtype.  At bf16 each op
+    rounds, where torch's fused ``F.gelu`` rounds once: that differed
+    from the reference in ~40% of bf16 outputs (queue 3, F4).  The
+    constants are filled on x's device (no host copy, which a captured
+    CUDA graph cannot hold)."""
+    c = torch.full((), math.sqrt(2.0 / math.pi), dtype=x.dtype,
+                   device=x.device)
+    k = torch.full((), 0.044715, dtype=x.dtype, device=x.device)
+    return x * (0.5 * (1.0 + torch.tanh(c * (x + k * x ** 3))))
 
 
 def ffn_act(ffn_type: str) -> Callable[[torch.Tensor], torch.Tensor]:

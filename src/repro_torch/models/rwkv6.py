@@ -48,8 +48,8 @@ def init_tmix_params(gen: torch.Generator, d: int, n_heads: int,
         "mu_x": zeros(d), "mu_w": zeros(d), "mu_k": zeros(d),
         "mu_v": zeros(d), "mu_r": zeros(d), "mu_g": zeros(d),
         "ddlerp_w1": dense_init(gen, d, 5 * TM_EXTRA, device, scale=0.1),
-        "ddlerp_w2": (torch.randn((5, TM_EXTRA, d), generator=gen)
-                      * 0.01).to(device),
+        "ddlerp_w2": (torch.randn((5, TM_EXTRA, d), generator=gen,
+                                  device=gen.device) * 0.01).to(device),
         "decay_base": torch.full((n_heads, head_dim), -1.0, device=device),
         "decay_w1": dense_init(gen, d, TD_EXTRA, device, scale=0.1),
         "decay_w2": dense_init(gen, TD_EXTRA, hn, device, scale=0.1),

@@ -13,6 +13,11 @@ unbound once per forward (``torch.unbind``), so their backward stacks
 the per-layer gradients in one copy instead of scattering each layer's
 into a zero tensor of the whole stack.
 
+Training holds fp32 master weights and casts each block to the compute
+dtype at every call, as the reference does; serving holds them once in
+the compute dtype (``init_params(dtype=...)``, ``serving_params``), on
+which the same casts are no-ops, so the logits are bitwise the same.
+
 The decode cache has the reference's tree (``groups``/``tail``, one KV
 cache per attention layer) with the batch first in every leaf: a group
 leaf is (B, n_groups, ...), where the reference stacks the layer axis
@@ -25,7 +30,7 @@ MoE layers, and RWKV6 blocks in a prefill or decode.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, List
+from typing import Any, Dict, List, Optional
 
 import torch
 
@@ -34,7 +39,7 @@ from repro_torch.models import attention as attn
 from repro_torch.models import ffn as ffn_mod
 from repro_torch.models import rwkv6 as rwkv_mod
 from repro_torch.models.common import (compute_dtype, dense_init, embed_init,
-                                       rms_norm, tree_map)
+                                       rms_norm, tree_leaves, tree_map)
 
 
 def _init_block(gen: torch.Generator, cfg, kind: str,
@@ -53,28 +58,68 @@ def _init_block(gen: torch.Generator, cfg, kind: str,
     return p
 
 
-def init_params(cfg, gen: torch.Generator, device: torch.device) -> Dict:
+def _cast_fp32(tree, dt: torch.dtype):
+    """``tree`` (or one leaf) with its fp32 leaves cast to ``dt``, the
+    others kept."""
+    return tree_map(lambda l: l.to(dt) if l.dtype == torch.float32 else l,
+                    tree)
+
+
+def init_params(cfg, gen: torch.Generator, device: torch.device,
+                dtype: Optional[torch.dtype] = None) -> Dict:
     """The reference's tree and shapes, drawn from ``gen`` layer by layer
-    (each layer's draws moved to ``device`` before the next is drawn)."""
+    in the reference's order (the layers, ``embed.w``, ``lm_head.w``).
+
+    ``dtype`` (default fp32, the training masters) is the storage dtype
+    of every leaf the forward casts to the compute dtype: each block's
+    leaves, ``embed.w`` and ``lm_head.w``; ``final_norm`` stays fp32, as
+    the forward reads it.  Each layer is drawn in fp32, cast at once and
+    written into its group's leaves, which are allocated when the first
+    group is drawn, so no stacked copy is made: the peak is the tree plus
+    one layer's fp32 draws (and ``embed.w``'s, which are drawn whole).
+    The compute dtype gives the serving weights, bitwise
+    ``serving_params`` of the fp32 tree from the same generator."""
+    store = torch.float32 if dtype is None else dtype
     P = len(cfg.pattern)
     n_groups = cfg.n_layers // P
-    per_layer = [_init_block(gen, cfg, kind, device)
-                 for kind in cfg.layer_kinds()]
-    groups = tuple(
-        tree_map(lambda *xs: torch.stack(xs),
-                 *[per_layer[g * P + pos] for g in range(n_groups)])
-        for pos in range(P)) if n_groups else tuple()
-    tail = tuple(per_layer[n_groups * P:])
-    del per_layer
+    groups: List[Any] = [None] * P
+    tail = []
+    for i, kind in enumerate(cfg.layer_kinds()):
+        layer = _cast_fp32(_init_block(gen, cfg, kind, device), store)
+        g, pos = divmod(i, P)
+        if g >= n_groups:
+            tail.append(layer)
+            continue
+        if groups[pos] is None:
+            groups[pos] = tree_map(
+                lambda l: torch.empty((n_groups,) + l.shape, dtype=l.dtype,
+                                      device=l.device), layer)
+        for buf, leaf in zip(tree_leaves(groups[pos]), tree_leaves(layer)):
+            buf[g].copy_(leaf)
+        del layer
     params = {
-        "embed": {"w": embed_init(gen, cfg.vocab_size, cfg.d_model, device)},
-        "stack": {"groups": groups, "tail": tail},
+        "embed": {"w": _cast_fp32(embed_init(gen, cfg.vocab_size,
+                                             cfg.d_model, device), store)},
+        "stack": {"groups": tuple(groups) if n_groups else tuple(),
+                  "tail": tuple(tail)},
         "final_norm": torch.zeros((cfg.d_model,), device=device),
     }
     if not cfg.tie_embeddings:
-        params["lm_head"] = {"w": dense_init(gen, cfg.d_model,
-                                             cfg.vocab_size, device)}
+        params["lm_head"] = {"w": _cast_fp32(dense_init(
+            gen, cfg.d_model, cfg.vocab_size, device), store)}
     return params
+
+
+def serving_params(params, cfg) -> Dict:
+    """fp32 masters -> the serving weights: every leaf the forward casts
+    to the compute dtype cast once (each block's fp32 leaves, the norms'
+    gammas included, ``embed.w`` and ``lm_head.w``), ``final_norm`` left
+    fp32; leaves already in the compute dtype are kept, not copied.  The
+    forward casts only fp32 leaves, so its logits from these are bitwise
+    its logits from the masters."""
+    dt = compute_dtype(cfg)
+    return {k: v if k == "final_norm" else _cast_fp32(v, dt)
+            for k, v in params.items()}
 
 
 def cast_block_params(bp, cfg):
@@ -86,8 +131,7 @@ def cast_block_params(bp, cfg):
     dt = compute_dtype(cfg)
     if dt == torch.float32:
         return bp
-    return tree_map(lambda l: l.to(dt) if l.dtype == torch.float32 else l,
-                    bp)
+    return _cast_fp32(bp, dt)
 
 
 def block_forward(bp, cfg, kind: str, x: torch.Tensor, *,

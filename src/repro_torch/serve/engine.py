@@ -27,6 +27,11 @@ one joint step, blanks advance the frame cursor and are never emitted):
 streaming greedy transducer search, token for token the textbook loop of
 :func:`rnnt_greedy_reference`.
 
+Both hold the weights in the compute dtype (``bundle.serving_params``:
+fp32 masters are cast once a call or engine, weights built in the
+compute dtype are taken as they are); the logits are bitwise those of
+the masters, since the forward casts exactly those leaves.
+
 ``jit``, ``lax.scan`` and ``vmap`` of the reference become eager calls,
 a Python loop and a batch dimension.  Temperature sampling draws from a
 ``torch.Generator`` (not ``jax.random``), so sampled tokens differ from
@@ -113,6 +118,7 @@ def generate(bundle, params, prompts: torch.Tensor, max_new_tokens: int, *,
             "rnnt_greedy_reference")
     dev = prompts.device
     B, Sp = prompts.shape
+    params = bundle.serving_params(params)
     _sync(dev)
     t0 = time.perf_counter()
     logits, cache = bundle.prefill(params, {"tokens": prompts},
@@ -211,7 +217,9 @@ class SlotEngine:
                  max_queue: Optional[int] = None, clock=time.time):
         cfg = bundle.cfg
         self.bundle = bundle
-        self.params = params
+        # the weights in the compute dtype, cast once here (a no-op for
+        # weights built in it) instead of once a block call
+        self.params = bundle.serving_params(params)
         self.cfg = cfg
         self.device = _device_of(params)
         self.n_slots = int(n_slots)

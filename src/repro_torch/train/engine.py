@@ -34,7 +34,8 @@ from repro_torch.data.pipeline import epoch_plan, subset_epoch_plan
 from repro_torch.models.api import build_model
 from repro_torch.models.common import tree_leaves, tree_map
 from repro_torch.train.optim import (clip_by_global_norm, commit_,
-                                     make_update_for, make_update_in_place)
+                                     make_update_for, make_update_in_place,
+                                     require_masters)
 
 
 def make_step_core(bundle, cfg: TrainConfig, update=None):
@@ -51,11 +52,13 @@ def make_step_core(bundle, cfg: TrainConfig, update=None):
     leaf poisons it, and a finite tree whose norm overflows is gated off
     too), zeroes the metrics of a gated-off step and reports
     ``metrics["skipped"]``, whether a live step was suppressed.  Nothing
-    is read back to the host."""
+    is read back to the host.  Params that are not fp32 masters are
+    refused (``optim.require_masters``)."""
     opt_update = make_update_for(cfg)[1] if update is None else update
     guard = bool(cfg.nonfinite_guard)
 
     def step(params, opt_state, batch, lr, step_on=None):
+        require_masters(params)
         live = tree_map(lambda p: p.detach().requires_grad_(True), params)
         leaves = tree_leaves(live)
         with torch.enable_grad():

@@ -128,6 +128,14 @@ def _select(method, bundle, params, units, tc: TrainConfig, epoch: int,
     raise ValueError(method)
 
 
+def _copy_to(x, dev: torch.device) -> torch.Tensor:
+    """A copy of an initial leaf (numpy or a tensor) on ``dev``: the
+    engines update their params in place, never the caller's."""
+    if isinstance(x, torch.Tensor):
+        return x.detach().to(dev, copy=True)
+    return torch.tensor(x, device=dev)
+
+
 def _host(x) -> np.ndarray:
     return x.cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
 
@@ -167,7 +175,7 @@ def train_with_selection(
     key_seed = tc.seed
     gen = torch.Generator().manual_seed(key_seed)
     params = (bundle.init_params(gen, dev) if params is None
-              else tree_map(lambda p: torch.tensor(p, device=dev), params))
+              else tree_map(lambda p: _copy_to(p, dev), params))
     proj = (make_proj_for(bundle, gen, tc.pgm.sketch_dim_h,
                           tc.pgm.sketch_dim_v, dev) if proj is None
             else Projections(*(torch.tensor(x, device=dev) for x in proj)))

@@ -40,6 +40,21 @@ def tree_all_finite(tree) -> torch.Tensor:
     return ok
 
 
+def require_masters(params) -> None:
+    """Training updates fp32 master weights: refuse a tree with any other
+    floating leaf, such as the serving weights that
+    ``LMBundle.serving_params`` or ``init_params(dtype=...)`` make (an
+    update of bf16 masters would round every step and give another
+    run)."""
+    odd = sorted({str(l.dtype) for l in tree_leaves(params)
+                  if l.is_floating_point() and l.dtype != torch.float32})
+    if odd:
+        raise ValueError(
+            f"training needs fp32 master weights; these params hold {odd} "
+            f"leaves (serving weights in the compute dtype cannot be "
+            f"trained)")
+
+
 def clip_by_global_norm(grads, max_norm: float):
     n = global_norm(grads)
     scale = torch.clamp(max_norm / torch.clamp(n, min=1e-9), max=1.0)
