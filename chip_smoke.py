@@ -41,7 +41,8 @@ failure exits non-zero, and no phase catches an error and carries on:
    shapes phase 16 gives them: the band at gemma3-27b's prefill (B 2 x S
    8,192 x 16 KV heads x G 2, window 1024) and the grad sketch at the
    stage-A units of gemma-7b, minitron-8b and gemma3-27b (V 256,000 and
-   262,144, d 3,072 to 5,376);
+   262,144, d 3,072 to 5,376); and the shapes phase 17 gives them (see
+   17);
 4. agreement: one full-width ``rnnt-crdnn`` unit, and one unit each of
    ``starcoder2-3b`` and ``rwkv6-3b`` at full width with 2 layers in
    fp32, through the kernels on the card against the same unit through
@@ -156,7 +157,30 @@ failure exits non-zero, and no phase catches an error and carries on:
    A on the trained params (P7); (d) the twins of the reference's
    quickstart and ``train_lm_pgm`` (``--n 32 --epochs 4``) on the card,
    ``--selection-kernels`` auto against xla: auto launches the grad
-   sketch and the Gram, xla neither, losses within 1e-3.
+   sketch and the Gram, xla neither, losses within 1e-3;
+17. the MoE family (ROADMAP hazards M1-M6): (a) ``olmoe-1b-7b`` at full
+   width and depth (16 layers, 64 experts top-8, 6.92B params) served
+   from bf16 weights drawn on the card layer by layer: ``generate`` on
+   2 x 2,048 prompts and ``SlotEngine`` (4 slots) on the launcher's 8
+   requests at ``--prompt-len 2048`` (power-of-two buckets, each slot
+   prefill one MoE group), the peak device memory; at full width and one
+   layer, fp32 masters against their ``serving_params``, prefill and 16
+   greedy decode steps, every logit bitwise equal; (b) ``mixtral-8x7b``
+   at full width and 21 of its 32 layers (the peak held to 72 GB):
+   ``generate`` on 2 x 8,192 (the band kernel once a local layer) and
+   ``SlotEngine`` at ``--prompt-len 2048`` (exact lengths); (c)
+   ``olmoe-1b-7b`` at 6 layers and ``mixtral-8x7b`` at 2, full width,
+   trained 2 epochs on the scan engine with resident rounds and
+   ``moe_router_term``, twice with one seed (losses, the round and
+   every final leaf's bits equal), then resident stage A against host
+   (P7) and at ``chunk_units`` 1 each unit's head block bitwise the
+   head-only vector, each run's round time and peak; (e) one ``olmoe``
+   prefill and one eager step of each arch under the profiler, the
+   device time split into the dispatch/combine einsums, the expert
+   GEMMs, attention and the rest.  Phase 3 holds (d), the kernels at
+   phase 17's shapes: the grad sketch at both archs' stage-A units, the
+   Gram at their router-term D (28,672 and 5,120, M6) and the band at
+   ``mixtral-8x7b``'s prefill (2, 8192, 8, 4, 128, 4096) against SDPA.
 
 Phases 9, 12 and 15c draw their 3B models' initial weights with a
 generator on the card (the host generator took ~20 s a model).
@@ -178,7 +202,9 @@ round and, as ``counted``, the selector's warm-up and capture launches,
 stage B's Gram with its count; then phase 16's rows: the band kernel at
 gemma3-27b's prefill with its serving launches, and for each dense arch's
 resident run the grad sketch at its stage-A unit and the Gram, with the
-run's counts), the card's name and power limit
+run's counts; then phase 17's: the band at mixtral-8x7b's prefill, and
+for each MoE arch's resident run the grad sketch at its unit and the
+Gram at its router-term D), the card's name and power limit
 as ``nvidia-smi`` prints them, and the line ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
@@ -288,6 +314,30 @@ GEMMA3_AGREE_S = 3072
 GEMMA3_AGREE_STEPS = 16
 # phase 16c: the dense archs trained at full width, at these depths
 DENSE_TRAIN = (("gemma3-27b", 6), ("gemma-7b", 2), ("minitron-8b", 2))
+# phase 17, the MoE archs: slot prompts of at most 2,048 tokens, one MoE
+# group (ROADMAP M1: the reference asserts that the tokens split into
+# groups of 2,048); mixtral-8x7b served at this depth of its 32 layers
+# (bf16 weights of 2.90 GB a layer; on an H100 80GB 22 layers peaked at
+# 71.43 GB on their own and at 73.33 GB after phases 1-16), the peak
+# held to MOE_PEAK_GB
+MOE_SLOT_PROMPT = 2048
+MIXTRAL_SERVE_LAYERS = 21
+MOE_PEAK_GB = 72.0
+MOE_AGREE_STEPS = 16
+# phase 17c: trained at full width, at these depths (olmoe-1b-7b at 8
+# layers ran out of an H100 80GB's memory in its first resident round,
+# its step and stage-A graphs' pools holding 53.4 GB)
+MOE_TRAIN = (("olmoe-1b-7b", 6), ("mixtral-8x7b", 2))
+# their stage-A units (untied heads: the selector's (V, d) buffer) and
+# stage-B Grams with the router term (M6: D = 64 x 64 + layers x 64 x E)
+SKETCH_MOE = {"olmoe-1b-7b": (1, UNIT_SIZE * (LM_SEQ - 1), 2048, 50304, 64,
+                              64),
+              "mixtral-8x7b": (1, UNIT_SIZE * (LM_SEQ - 1), 4096, 32000, 64,
+                               64)}
+GRAM_MOE = {"olmoe-1b-7b": (4, 4, 64 * 64 + 6 * 64 * 64),
+            "mixtral-8x7b": (4, 4, 64 * 64 + 2 * 64 * 8)}
+# mixtral-8x7b's 2 x 8,192 prefill takes the band in every local layer
+SWA_MIXTRAL = (2, SERVE_PROMPT, 8, 4, 128, 4096, "bfloat16", None)
 # RNN-T serving: the launcher's utterances of 256-512 frames
 RNNT_SERVE_FRAMES = 512
 RNNT_MAX_SYMBOLS = 8
@@ -355,6 +405,46 @@ def gram_err(torch, got, want):
     require(err <= 1e-4 * scale, f"omp_gram: max abs err {err} > 1e-4 * "
                                  f"{scale}")
     return err
+
+
+def gram_row(torch, shape, dev):
+    """The Gram kernel at one stage-B shape (P, n, D): twice bitwise,
+    exactly symmetric, against its plain version, timed in turns with
+    ``torch.bmm`` -> (err, kernel ms, plain ms, library ms, bound ms,
+    what bounds it)."""
+    from repro_torch.kernels.omp_gram.ops import omp_gram_batched_op
+    from repro_torch.kernels.omp_gram.ref import omp_gram_batched_ref
+
+    g = torch.randn(*shape, generator=torch.Generator().manual_seed(1)
+                    ).to(dev)
+    got, again = omp_gram_batched_op(g), omp_gram_batched_op(g)
+    torch.cuda.synchronize()
+    require(bool(torch.equal(got, again)),
+            f"omp_gram {shape}: two launches on the same inputs differ")
+    require(bool(torch.equal(got, got.transpose(1, 2))),
+            f"omp_gram {shape}: K is not exactly symmetric")
+    err = gram_err(torch, got, omp_gram_batched_ref(g))
+    P, n, D = shape
+    reps = 50 if n >= 256 else 500
+    gt = g.transpose(1, 2)
+    # kernel and library in turns, twice; the plain version once
+    k_ms, l_ms = [], []
+    for _ in range(2):
+        k_ms.append(cuda_ms(torch, lambda: omp_gram_batched_op(g), reps))
+        l_ms.append(cuda_ms(torch, lambda: torch.bmm(g, gt), reps))
+    p_ms = cuda_ms(torch, lambda: omp_gram_batched_ref(g), reps)
+    k_ms, l_ms = sum(k_ms) / 2, sum(l_ms) / 2
+    # K is symmetric: the function needs its upper triangle only,
+    # n (n + 1) / 2 entries of 2 D FLOPs a partition
+    g_ops = P * n * (n + 1) * D
+    b_ms, b_by = bound(4 * (P * n * D + P * n * n), g_ops)
+    print(f"[kernels] omp_gram {shape}: max_abs_err {err:.3e} kernel_ms "
+          f"{k_ms:.4f} plain_ms {p_ms:.4f} library_ms (torch.bmm) "
+          f"{l_ms:.4f} (kernel / library {k_ms / l_ms:.3f}) bound_ms "
+          f"{b_ms:.6f} ({b_by}) achieved {g_ops / k_ms / 1e9:.2f} "
+          f"TFLOP/s (counting the upper triangle); two launches bitwise "
+          f"equal, K exactly symmetric", flush=True)
+    return err, k_ms, p_ms, l_ms, b_ms, b_by
 
 
 def sketch_inputs(torch, U, n, d, V, k1, k2, seed, dev, on_card=False):
@@ -1593,15 +1683,18 @@ def scan_engine_phase(torch, np, bundle, tc, units, val_units, first,
 def resident_against_host(torch, b, pgm_cfg, params, us, vs, proj, read):
     """P7 on one params tree: a fresh ``ResidentSelector``'s stage A of
     the train and val units (warm-up and capture, then a replay of each)
-    against host ``units_gradients``, and its round against host
+    against host ``units_gradients`` (with the MoE router term when
+    ``pgm_cfg`` asks for it), and its round against host
     ``pgm_select``.  ``read()`` -> the kernels' launch counts.  -> (the
     selector, its train vectors, the larger max error over the largest
     entry, whether the subsets and the weights (1e-4) are the same,
     whether two replays are bitwise equal, the launches counted at the
     warm-ups and captures)."""
     from repro_torch.core.lastlayer import units_gradients
-    from repro_torch.core.pgm import ResidentSelector, pgm_select
+    from repro_torch.core.pgm import (ResidentSelector, _router_term_for,
+                                      pgm_select)
 
+    rt = _router_term_for(b, pgm_cfg)
     n0 = read()
     sel = ResidentSelector(b, pgm_cfg, proj)
     g1, gv1 = sel.stage_a(params, us), sel.stage_a(params, vs)
@@ -1609,8 +1702,8 @@ def resident_against_host(torch, b, pgm_cfg, params, us, vs, proj, read):
     g2, gv2 = sel.stage_a(params, us), sel.stage_a(params, vs)
     torch.cuda.synchronize()
     bitwise = bool(torch.equal(g1, g2) and torch.equal(gv1, gv2))
-    host, host_v = (units_gradients(b, params, us, proj),
-                    units_gradients(b, params, vs, proj))
+    host, host_v = (units_gradients(b, params, us, proj, router_term=rt),
+                    units_gradients(b, params, vs, proj, router_term=rt))
     err = max(float((g1 - host).abs().max() / host.abs().max()),
               float((gv1 - host_v).abs().max() / host_v.abs().max()))
     s_res = sel(params, us, val_units=vs)
@@ -2162,6 +2255,473 @@ def dense_phase(torch, np, dev, mark):
     return out
 
 
+def moe_kernel_rows(torch, dev):
+    """Phase 3 at the shapes phase 17 gives the kernels: the grad sketch
+    at both MoE archs' stage-A units (``SKETCH_MOE``, untied heads), the
+    Gram at their router-term stage-B shapes (``GRAM_MOE``, M6) and the
+    band at ``mixtral-8x7b``'s 2 x 8,192 prefill (``SWA_MIXTRAL``), each
+    held against its plain version and timed -> {"grad_sketch": {arch:
+    row}, "omp_gram": {arch: row}, "swa_attn": row}, a row {max_abs_err,
+    ms, plain_ms, library_ms, bound_ms, bound_by}."""
+    from repro_torch.kernels.grad_sketch.ops import grad_sketch_units_op
+    from repro_torch.kernels.grad_sketch.ref import grad_sketch_units_ref
+    from repro_torch.kernels.swa_attn.ops import swa_attn_op
+    from repro_torch.kernels.swa_attn.ref import swa_attn_ref
+
+    keys = ("max_abs_err", "ms", "plain_ms", "library_ms", "bound_ms",
+            "bound_by")
+    out = {"grad_sketch": {}, "omp_gram": {}}
+    for i, (arch, shape) in enumerate(SKETCH_MOE.items()):
+        e, k_ms, p_ms, b_ms, b_by = sketch_row(
+            torch, grad_sketch_units_op, grad_sketch_units_ref, shape,
+            20 + i, dev, arch, on_card=True)
+        out["grad_sketch"][arch] = dict(zip(keys, (e, k_ms, p_ms, None,
+                                                   b_ms, b_by)))
+        torch.cuda.empty_cache()
+    for arch, shape in GRAM_MOE.items():
+        err, k_ms, p_ms, l_ms, b_ms, b_by = gram_row(torch, shape, dev)
+        out["omp_gram"][arch] = dict(zip(keys, (err, k_ms, p_ms, l_ms, b_ms,
+                                                b_by)))
+    err, margin = swa_err(torch, swa_attn_op, swa_attn_ref, SWA_MIXTRAL, dev)
+    print(f"[kernels] swa_attn {SWA_MIXTRAL}: max abs err {err:.3e}, "
+          f"{margin:.3f} of the bar at most; two launches bitwise equal",
+          flush=True)
+    swa = swa_timed(torch, swa_attn_op, swa_attn_ref, SWA_MIXTRAL, err,
+                    margin, dev)
+    out["swa_attn"] = dict(zip(keys, (err,) + swa))
+    torch.cuda.empty_cache()
+    return out
+
+
+def moe_split(torch, prof, cfg, group: int, capacity: int):
+    """Device time of a call profiled with ``record_shapes``, by part ->
+    ({part: ms}, total ms).  An op is placed by its operands' shapes (the
+    card's profiler records no Python frames), or, for the matmul and the
+    copies inside an ``aten::einsum``, by that einsum's matmul: one that
+    contracts or produces the experts' slots, E x C wide, is the dispatch
+    or combine einsum's, else the expert GEMMs'.  The experts' hidden
+    (E, G, C, d_ff_expert) and their weights' matmuls are the experts';
+    the router's matmul and the (G, g, E), (G, E) and (G, g, E, C) passes
+    of the top-k and the aux are the routing; the scores and p.v (a
+    batched matmul with the head dim), the 5-D masks and softmax and the
+    band kernel are attention; the rest (norms, projections, the LM head,
+    casts, the optimizer, most of the backward's elementwise passes) is
+    the total less the parts."""
+    from torch.autograd import DeviceType
+
+    m = cfg.moe
+    E, C, f, hd = m.n_experts, capacity, m.d_ff_expert, cfg.head_dim
+    mm = ("aten::mm", "aten::bmm", "aten::addmm", "aten::baddbmm")
+
+    def dev_ms(ev):
+        t = getattr(ev, "self_device_time_total", None)
+        return (ev.self_cuda_time_total if t is None else t) / 1e3
+
+    def by_shapes(ev):
+        sh = [tuple(x) for x in (ev.input_shapes or []) if x]
+        if ev.name in mm:
+            if any(E * C in s for s in sh):
+                return "dispatch/combine einsums"
+            if any(len(s) == 3 and s[0] == E and f in s[1:] for s in sh):
+                return "expert GEMMs"
+            if any(len(s) == 2 and s[-1] == E for s in sh):
+                return "routing"
+            if any(len(s) == 3 and hd in s[1:] for s in sh):
+                return "attention"
+            return None
+        if any(len(s) == 4 and s[0] == E and s[-1] == f for s in sh):
+            return "expert GEMMs"
+        if any(len(s) == 4 and s[-2:] == (E, C)
+               or len(s) == 3 and s[1:] == (group, E)
+               or len(s) == 2 and s[-1] == E for s in sh):
+            return "routing"
+        if any(len(s) == 5 for s in sh):
+            return "attention"
+        return None
+
+    def part_of(ev):
+        p = ev
+        while p is not None:
+            if p.name == "aten::einsum":
+                bmm = [c for c in p.cpu_children if c.name in mm]
+                return (by_shapes(bmm[0]) if bmm else None) \
+                    or "expert GEMMs"
+            p = p.cpu_parent
+        return by_shapes(ev)
+
+    split = {"dispatch/combine einsums": 0.0, "expert GEMMs": 0.0,
+             "routing": 0.0, "attention": 0.0, "rest": 0.0}
+    total = 0.0
+    for ev in prof.key_averages():
+        if ev.device_type == DeviceType.CUDA:
+            total += dev_ms(ev)
+            if "swa" in ev.key:
+                split["attention"] += dev_ms(ev)
+    for ev in prof.events():
+        if ev.device_type == DeviceType.CUDA:
+            continue
+        t = dev_ms(ev)
+        if t > 0:
+            part = part_of(ev)
+            if part is not None:
+                split[part] += t
+    split["rest"] = total - sum(v for k, v in split.items() if k != "rest")
+    return split, total
+
+
+def moe_profile(torch, fn, cfg, tokens: int, tag: str, what: str):
+    """``fn()`` (over ``tokens`` tokens of ``cfg``) once under the
+    profiler after a warm-up call, shapes recorded: host wall time,
+    device busy time and its split by part (``moe_split``) -> (wall ms,
+    busy ms, split)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.models.moe import DEFAULT_GROUP
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 record_shapes=True) as prof:
+        t0 = time.time()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.time() - t0) * 1e3
+    g = min(DEFAULT_GROUP, tokens)
+    capacity = max(1, int(cfg.moe.capacity_factor * g * cfg.moe.top_k
+                          / cfg.moe.n_experts))
+    split, busy = moe_split(torch, prof, cfg, g, capacity)
+    print(f"[profile {tag}] {what}: wall {wall_ms:.1f} ms, device busy "
+          f"{busy:.1f} ms ({100 * busy / wall_ms:.1f}%); device time by "
+          f"part: " + ", ".join(f"{k} {v:.1f} ms ({100 * v / busy:.1f}%)"
+                                for k, v in split.items()), flush=True)
+    kernels = sorted(((ev.self_device_time_total / 1e3, ev.count, ev.key)
+                      for ev in prof.key_averages()
+                      if ev.device_type == DeviceType.CUDA), reverse=True)
+    for ms, n, key in kernels[:8]:
+        print(f"[profile {tag}]   {ms:8.3f} ms  x{n:<6d} {key[:80]}",
+              flush=True)
+    return wall_ms, busy, split
+
+
+def run_fingerprint(torch, hist):
+    """A training run's record for 'two runs bitwise equal': each epoch's
+    losses, each round's indices and weights, and each final leaf's bits
+    summed as int64 with their positions weighted in."""
+    from repro_torch.models.common import tree_leaves
+
+    def bits(x):
+        # in slices of 2**24 entries: an expert stack has ~1e9
+        total = weighted = 0
+        for v in x.detach().reshape(-1).view(torch.int32).split(1 << 24):
+            v = v.to(torch.int64)
+            w = torch.arange(1, v.numel() + 1, device=v.device)
+            total += int(v.sum())
+            weighted += int((v * w).sum())
+        return total, weighted
+    return (tuple(hist.train_loss), tuple(hist.val_loss),
+            tuple((s["epoch"], tuple(s["indices"]), tuple(s["weights"]))
+                  for s in hist.selections),
+            tuple(bits(l) for l in tree_leaves(hist.final_params)))
+
+
+def moe_serve(torch, dev, arch, layers, prompt_len, ops, zero, read, gb,
+              mark):
+    """Phase 17a/b for one MoE arch at full width and ``layers`` layers,
+    from bf16 weights drawn on the card: ``generate`` on 2 prompts of
+    ``prompt_len``, ``SlotEngine`` on the launcher's 8 requests at
+    ``--prompt-len MOE_SLOT_PROMPT`` (M1: every slot prefill one group),
+    the peak memory -> (the run's launches, the bf16 bundle and weights
+    for the caller's profile)."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import make_requests
+    from repro_torch.models.api import build_model
+    from repro_torch.models.attention import Q_BLOCK
+    from repro_torch.models.common import tree_leaves
+    from repro_torch.serve.engine import SlotEngine, generate
+
+    full = get_config(arch)
+    cfg = dataclasses.replace(full, n_layers=layers)
+    b = build_model(cfg)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.time()
+    params = b.init_params(torch.Generator(device=dev).manual_seed(0), dev,
+                           dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    init_s, init_peak = time.time() - t0, gb()
+    n_par = sum(l.numel() for l in tree_leaves(params))
+    w_gb = sum(l.numel() * l.element_size()
+               for l in tree_leaves(params)) / 1e9
+    m = cfg.moe
+    tag = "17a" if arch == "olmoe-1b-7b" else "17b"
+    print(f"[{tag}] {arch} at full width, {layers} of {full.n_layers} "
+          f"layers ({cfg.layer_kinds()[0]} attention"
+          f"{', window ' + str(cfg.window) if cfg.window else ''}; d_model "
+          f"{cfg.d_model}, {cfg.n_heads} heads over {cfg.n_kv_heads} KV "
+          f"heads of {cfg.head_dim}, {m.n_experts} experts top-{m.top_k} of "
+          f"d_ff {m.d_ff_expert}, vocab {cfg.vocab_size}): {n_par:,} params "
+          f"({cfg.n_params():,} by the reference's formula; "
+          f"{full.n_params():,} at full depth), {w_gb:.2f} GB of bf16 "
+          f"serving weights drawn on the card layer by layer in "
+          f"{init_s:.1f} s (peak {init_peak:.2f} GB), no fp32 masters",
+          flush=True)
+    require(all(l.dtype == torch.bfloat16 for k, v in params.items()
+                if k != "final_norm" for l in tree_leaves(v)),
+            f"{tag}: the serving weights are not bf16")
+    prompts = torch.randint(0, cfg.vocab_size, (2, prompt_len),
+                            dtype=torch.int32, device=dev,
+                            generator=torch.Generator(device=dev).manual_seed(1))
+    zero()
+    toks, st = generate(b, params, prompts, SERVE_NEW)
+    torch.cuda.synchronize()
+    n_gen = read()
+    per_step = st.decode_s * 1e3 / max(st.decode_steps, 1)
+    print(f"[{tag}] generate 2 x {prompt_len} -> {tuple(toks.shape)}: "
+          f"prefill {st.prefill_s * 1e3:.1f} ms, decode "
+          f"{st.decode_s * 1e3:.1f} ms / {st.decode_steps} steps "
+          f"({per_step:.2f} ms a step, {st.tokens_per_s:.1f} live tok/s); "
+          f"launches {n_gen}", flush=True)
+    # the band branch: a local layer past window + Q_BLOCK tokens
+    band = cfg.window and prompt_len > cfg.window + Q_BLOCK
+    want = cfg.n_layers if band else 0
+    require(n_gen["swa_attn"] == want and sum(n_gen.values()) == want,
+            f"{tag}: generate launched {n_gen}, not the band kernel {want} "
+            f"times (once a local layer past the window)")
+    require(toks.shape == (2, SERVE_NEW) and bool((toks >= 0).all())
+            and bool((toks < cfg.vocab_size).all()), f"{tag}: tokens")
+    reqs = make_requests(cfg, SERVE_REQUESTS, MOE_SLOT_PROMPT, SERVE_NEW, 0)
+    lens = sorted(len(r.inputs["tokens"]) for r in reqs)
+    zero()
+    eng = SlotEngine(b, params, n_slots=SERVE_SLOTS,
+                     max_new_tokens=SERVE_NEW, max_prompt_len=MOE_SLOT_PROMPT)
+    torch.cuda.synchronize()
+    t0 = time.time()
+    comps = eng.run(reqs)
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    n_slot = read()
+    lat = sorted(c.latency_s for c in comps)
+    peak = gb()
+    print(f"[{tag}] SlotEngine, {SERVE_SLOTS} slots, {len(reqs)} requests of "
+          f"{lens[0]}-{lens[-1]} tokens ("
+          f"{'exact lengths' if eng.exact_lengths else 'power-of-two buckets'}"
+          f"), {SERVE_NEW} new each: {wall:.2f} s, {len(comps) / wall:.2f} "
+          f"req/s, p50 latency {lat[len(lat) // 2] * 1e3:.0f} ms, "
+          f"{eng.n_decode_dispatches} decode dispatches; launches {n_slot}; "
+          f"peak device memory {peak:.2f} GB (torch.cuda.max_memory_allocated;"
+          f" weights {w_gb:.2f} GB)", flush=True)
+    require(len(comps) == len(reqs)
+            and all(len(c.tokens) == SERVE_NEW for c in comps),
+            f"{tag}: the slot engine did not complete every request")
+    require(sum(n_slot.values()) == 0,
+            f"{tag}: slot prefills of <= {MOE_SLOT_PROMPT} tokens launched "
+            f"{n_slot}")
+    require(peak <= MOE_PEAK_GB, f"{tag}: peak {peak:.2f} GB over "
+                                 f"{MOE_PEAK_GB} GB")
+    del eng, comps, toks, prompts
+    mark(f"{tag} {arch} served at full width, {layers} layers")
+    return n_gen["swa_attn"] + n_slot["swa_attn"], b, params
+
+
+def moe_phase(torch, np, dev, mark):
+    """Phase 17: the MoE family.  (a) ``olmoe-1b-7b`` at full width and
+    depth and (b) ``mixtral-8x7b`` at full width and
+    ``MIXTRAL_SERVE_LAYERS`` layers served from bf16 weights drawn on the
+    card (``moe_serve``), with one ``olmoe`` prefill profiled (e) and, at
+    one layer, fp32 masters against their ``serving_params`` (logits
+    bitwise at every step); (c) both archs at full width and reduced
+    depth (``MOE_TRAIN``) trained 2 epochs on the scan engine with
+    resident rounds and the router term, twice with one seed (bitwise
+    equal), then resident stage A against the host's (P7) and at
+    ``chunk_units`` 1 the head blocks bitwise the head-only vectors, and
+    one step of each profiled (e).  -> {path: {kernel: launches}}."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import PGMConfig, TrainConfig
+    from repro_torch.core.lastlayer import make_proj_for
+    from repro_torch.core.pgm import ResidentSelector
+    from repro_torch.kernels.grad_sketch.ops import grad_sketch_units_op
+    from repro_torch.kernels.omp_gram.ops import omp_gram_batched_op
+    from repro_torch.kernels.rnnt_lattice.ops import rnnt_lattice_op
+    from repro_torch.kernels.rwkv6_scan.ops import rwkv6_wkv_op
+    from repro_torch.kernels.swa_attn.ops import swa_attn_op
+    from repro_torch.launch.train import make_units_for
+    from repro_torch.models.api import build_model
+    from repro_torch.models.common import tree_leaves
+    from repro_torch.train.engine import (EpochEngine, make_step_core,
+                                          to_device)
+    from repro_torch.train.loop import train_with_selection
+    from repro_torch.train.optim import make_update_for
+
+    ops = {"rnnt_lattice": rnnt_lattice_op, "omp_gram": omp_gram_batched_op,
+           "grad_sketch": grad_sketch_units_op, "rwkv6_wkv": rwkv6_wkv_op,
+           "swa_attn": swa_attn_op}
+
+    def zero():
+        for op in ops.values():
+            op.launches = 0
+
+    def read():
+        return {n: op.launches for n, op in ops.items()}
+
+    out = {}
+    gb = lambda: torch.cuda.max_memory_allocated() / 1e9
+
+    # (a) olmoe-1b-7b at full width and depth, and its prefill profiled
+    full = get_config("olmoe-1b-7b")
+    n, bo, po = moe_serve(torch, dev, "olmoe-1b-7b", full.n_layers,
+                          MOE_SLOT_PROMPT, ops, zero, read, gb, mark)
+    out["serve-olmoe-1b-7b"] = {"swa_attn": n}
+    prompts = torch.randint(0, full.vocab_size, (2, MOE_SLOT_PROMPT),
+                            dtype=torch.int32, device=dev,
+                            generator=torch.Generator(device=dev).manual_seed(5))
+    with torch.no_grad():
+        moe_profile(torch, lambda: bo.prefill(po, {"tokens": prompts}),
+                    full, 2 * MOE_SLOT_PROMPT, "17e",
+                    f"olmoe-1b-7b prefill of 2 x {MOE_SLOT_PROMPT} tokens, "
+                    f"bf16 serving weights, full depth")
+    del bo, po, prompts
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (a) at one layer: fp32 masters against serving weights
+    b1 = build_model(dataclasses.replace(full, n_layers=1))
+    masters = b1.init_params(torch.Generator(device=dev).manual_seed(2), dev)
+    served = b1.serving_params(masters)
+    prompt = torch.randint(0, full.vocab_size, (1, MOE_SLOT_PROMPT),
+                           dtype=torch.int32, device=dev,
+                           generator=torch.Generator(device=dev).manual_seed(3))
+    lm_, tm_ = greedy_logits(torch, b1, masters, prompt, MOE_AGREE_STEPS)
+    ls_, ts_ = greedy_logits(torch, b1, served, prompt, MOE_AGREE_STEPS)
+    torch.cuda.synchronize()
+    same = [bool(torch.equal(a, c)) for a, c in zip(lm_, ls_)]
+    print(f"[17a] olmoe-1b-7b at full width, 1 layer: prefill of "
+          f"{MOE_SLOT_PROMPT} tokens and {MOE_AGREE_STEPS} greedy decode "
+          f"steps from the fp32 masters (cast a block call) and from "
+          f"serving_params of them (bf16, cast once): logits bitwise equal "
+          f"at {sum(same)} of {len(same)} steps, tokens equal "
+          f"{bool(torch.equal(tm_, ts_))}", flush=True)
+    require(all(same) and bool(torch.equal(tm_, ts_)),
+            "17a: serving weights give other logits than the fp32 masters")
+    del b1, masters, served, lm_, ls_, prompt
+    gc.collect()
+    torch.cuda.empty_cache()
+    mark("17a serving weights bitwise the fp32 masters")
+
+    # (b) mixtral-8x7b at full width, reduced depth
+    n, bm, pm = moe_serve(torch, dev, "mixtral-8x7b", MIXTRAL_SERVE_LAYERS,
+                          SERVE_PROMPT, ops, zero, read, gb, mark)
+    out["serve-mixtral-8x7b"] = {"swa_attn": n}
+    del bm, pm
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (c) trained at full width, reduced depth, with the router term
+    pc = PGMConfig(subset_fraction=0.5, n_partitions=4, select_every=1,
+                   warm_start_epochs=1, val_matching=True,
+                   moe_router_term=True)
+    tc = TrainConfig(lr=0.05, optimizer="sgd", epochs=2, seed=0, pgm=pc)
+    for arch, layers in MOE_TRAIN:
+        c = dataclasses.replace(get_config(arch), n_layers=layers)
+        bd = build_model(c)
+        us_np, vs_np = make_units_for(c, n=LM_N, seq=LM_SEQ, noise=0.0)
+        runs = []
+        for rep in range(2):
+            gc.collect()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            zero()
+            ResidentSelector.captures = ResidentSelector.replays = 0
+            EpochEngine.captures = EpochEngine.replays = 0
+            torch.cuda.synchronize()
+            t0 = time.time()
+            h = train_with_selection(
+                bd, us_np, tc, method="pgm", val_units=vs_np, device="cuda",
+                engine="scan", resident_selection=True,
+                params=card_init(torch, bd, dev),
+                log_fn=lambda s: print(f"[17c {arch} +{time.time() - t0:.1f}"
+                                       f"s] {s}", flush=True))
+            torch.cuda.synchronize()
+            secs, peak = time.time() - t0, gb()
+            n_run = read()
+            n_par = sum(l.numel() for l in tree_leaves(h.final_params))
+            print(f"[17c] {arch} at full width, {layers} of "
+                  f"{get_config(arch).n_layers} layers ({n_par:,} params), "
+                  f"run {rep + 1}: {us_np['tokens'].shape[0]} units of "
+                  f"{UNIT_SIZE} x {LM_SEQ} tokens, 2 epochs, scan engine, "
+                  f"resident rounds with the router term: {secs:.1f} s "
+                  f"({h.wall_time:.1f} s after the init); rounds "
+                  f"{[round(s['seconds'], 3) for s in h.selections]} s; "
+                  f"stage-A captures {ResidentSelector.captures}, replays "
+                  f"{ResidentSelector.replays}; step captures "
+                  f"{EpochEngine.captures}; losses train "
+                  f"{[round(x, 4) for x in h.train_loss]} val "
+                  f"{[round(x, 4) for x in h.val_loss]}; launches {n_run}; "
+                  f"peak device memory {peak:.2f} GB", flush=True)
+            require(len(h.selections) == 1 and len(h.train_loss) == 2
+                    and all(np.isfinite(h.train_loss + h.val_loss)),
+                    f"17c {arch}: the run did not finish its round and "
+                    f"epochs")
+            require(n_run["grad_sketch"] > 0 and n_run["omp_gram"] > 0
+                    and n_run["swa_attn"] == 0,
+                    f"17c {arch}: a kernel of the path was not launched: "
+                    f"{n_run}")
+            runs.append((run_fingerprint(torch, h), n_run))
+            params = h.final_params
+            del h
+            if rep == 0:
+                del params
+        same = runs[0][0] == runs[1][0]
+        print(f"[17c] {arch}: two runs of seed {tc.seed}, every epoch's "
+              f"losses, the round's indices and weights and every final "
+              f"leaf's bits equal: {same}", flush=True)
+        require(same, f"17c {arch}: two runs of one seed differ")
+        gc.collect()
+        us, vs = to_device(us_np, dev), to_device(vs_np, dev)
+        proj = make_proj_for(bd, torch.Generator().manual_seed(0),
+                             pc.sketch_dim_h, pc.sketch_dim_v, dev)
+        sel, g1, err, same, bitwise, counted = resident_against_host(
+            torch, bd, pc, params, us, vs, proj, read)
+        head = ResidentSelector(bd, dataclasses.replace(
+            pc, moe_router_term=False), proj, chunk_units=1).stage_a(
+                params, us)
+        D_head = pc.sketch_dim_h * pc.sketch_dim_v
+        head_same = bool(torch.equal(g1[:, :D_head], head))
+        print(f"[17c] {arch}: resident stage A with the router term (D = "
+              f"{g1.shape[1]}: the head's {D_head} + {layers} layers x "
+              f"{pc.sketch_dim_h} x {c.moe.n_experts}, M6) against host "
+              f"units_gradients on the trained params: max err {err:.2e} of "
+              f"the largest entry (1e-5); same subsets and weights (1e-4): "
+              f"{same}; two replays bitwise equal: {bitwise}; head blocks "
+              f"bitwise the head-only vectors (chunk_units 1): {head_same}; "
+              f"launches counted at the warm-ups and captures {counted}",
+              flush=True)
+        require(err <= 1e-5 and same and bitwise and head_same,
+                f"17c {arch}: resident stage A disagrees with the host's")
+        require(g1.shape[1] == D_head + layers * pc.sketch_dim_h
+                * c.moe.n_experts, f"17c {arch}: D {g1.shape[1]}")
+        del sel, g1, head, us, vs, proj
+        gc.collect()
+        torch.cuda.empty_cache()
+        # (e) one step profiled, its device time by part
+        step = make_step_core(bd, tc)
+        opt_state = make_update_for(tc)[0](params)
+        batch = to_device({k: v[0] for k, v in us_np.items()}, dev)
+        moe_profile(torch, lambda: step(params, opt_state, batch, tc.lr), c,
+                    UNIT_SIZE * LM_SEQ, "17e",
+                    f"{arch} ({layers} layers) one training step (B="
+                    f"{UNIT_SIZE} x {LM_SEQ}), eager")
+        out[f"{arch}-resident"] = {"grad_sketch": runs[0][1]["grad_sketch"],
+                                   "omp_gram": runs[0][1]["omp_gram"]}
+        del params, opt_state, batch, step, bd
+        gc.collect()
+        torch.cuda.empty_cache()
+        mark(f"17c {arch} trained at full width, {layers} layers")
+    return out
+
+
 def train_with_selection_logged(bundle, units, tc, val_units, logs, tag, t0,
                                 **kw):
     """Phase 5's run (the host engine) with options, its log lines
@@ -2205,7 +2765,6 @@ def main() -> None:
     from repro_torch.launch.train import make_units_for
     from repro_torch.models.common import tree_leaves, tree_map
     from repro_torch.kernels.omp_gram.ops import omp_gram_batched_op
-    from repro_torch.kernels.omp_gram.ref import omp_gram_batched_ref
     from repro_torch.kernels.rnnt_lattice.ops import (ring_depth,
                                                       rnnt_lattice_op)
     from repro_torch.kernels.rnnt_lattice.ref import rnnt_lattice_ref
@@ -2283,38 +2842,9 @@ def main() -> None:
     n_units = CORPUS["n_examples"] // UNIT_SIZE
     P_main = 4
     D_sk = 64 * 64
-    gram_rows = {}
-    for shape in ((P_main, n_units // P_main, D_sk), (8, 512, 4096)):
-        g = torch.randn(*shape, generator=torch.Generator().manual_seed(1)
-                        ).to(dev)
-        got, again = omp_gram_batched_op(g), omp_gram_batched_op(g)
-        torch.cuda.synchronize()
-        require(bool(torch.equal(got, again)),
-                f"omp_gram {shape}: two launches on the same inputs differ")
-        require(bool(torch.equal(got, got.transpose(1, 2))),
-                f"omp_gram {shape}: K is not exactly symmetric")
-        err = gram_err(torch, got, omp_gram_batched_ref(g))
-        P, n, D = shape
-        reps = 50 if n >= 256 else 500
-        gt = g.transpose(1, 2)
-        # kernel and library in turns, twice; the plain version once
-        k_ms, l_ms = [], []
-        for _ in range(2):
-            k_ms.append(cuda_ms(torch, lambda: omp_gram_batched_op(g), reps))
-            l_ms.append(cuda_ms(torch, lambda: torch.bmm(g, gt), reps))
-        p_ms = cuda_ms(torch, lambda: omp_gram_batched_ref(g), reps)
-        k_ms, l_ms = sum(k_ms) / 2, sum(l_ms) / 2
-        # K is symmetric: the function needs its upper triangle only,
-        # n (n + 1) / 2 entries of 2 D FLOPs a partition
-        g_ops = P * n * (n + 1) * D
-        b_ms, b_by = bound(4 * (P * n * D + P * n * n), g_ops)
-        gram_rows[shape] = (err, k_ms, p_ms, l_ms, b_ms, b_by)
-        print(f"[kernels] omp_gram {shape}: max_abs_err {err:.3e} kernel_ms "
-              f"{k_ms:.4f} plain_ms {p_ms:.4f} library_ms (torch.bmm) "
-              f"{l_ms:.4f} (kernel / library {k_ms / l_ms:.3f}) bound_ms "
-              f"{b_ms:.6f} ({b_by}) achieved {g_ops / k_ms / 1e9:.2f} "
-              f"TFLOP/s (counting the upper triangle); two launches bitwise "
-              f"equal, K exactly symmetric", flush=True)
+    gram_rows = {shape: gram_row(torch, shape, dev)
+                 for shape in ((P_main, n_units // P_main, D_sk),
+                               (8, 512, 4096))}
 
     for shape in SKETCH_EDGES:
         sketch_err(torch, grad_sketch_units_op, grad_sketch_units_ref,
@@ -2414,6 +2944,9 @@ def main() -> None:
     # the dense archs' shapes (phase 16): gemma3-27b's prefill band, and
     # the three archs' stage-A units
     dense_rows = dense_kernel_rows(torch, dev)
+    # the MoE archs' shapes (phase 17): the two untied heads' stage-A
+    # units, the router-term Grams and mixtral-8x7b's prefill band
+    moe_rows = moe_kernel_rows(torch, dev)
 
     mark("kernels")
 
@@ -2852,6 +3385,12 @@ def main() -> None:
     torch.cuda.empty_cache()
     dense = dense_phase(torch, np, dev, mark)
 
+    # -- 17. the MoE family: olmoe-1b-7b served at full depth, mixtral-8x7b
+    # at 21 layers, both trained with the router term, profiled --------
+    gc.collect()
+    torch.cuda.empty_cache()
+    moe = moe_phase(torch, np, dev, mark)
+
     g_err, g_ms, g_plain, g_lib, g_bound, g_by = \
         gram_rows[(P_main, n_units // P_main, D_sk)]
     print(f"[launches] RNN-T path {launches}, its preempted and resumed "
@@ -2861,7 +3400,8 @@ def main() -> None:
           f"scan engine {scan_launches} (counted in its runs "
           f"{scan_counted}), resident selection (traced in a replayed "
           f"round, counted at the warm-ups and captures) {resident}, the "
-          f"dense archs (phase 16) {dense}", flush=True)
+          f"dense archs (phase 16) {dense}, the MoE archs (phase 17) {moe}",
+          flush=True)
     # one row per kernel and main path, "launches" from that path's run;
     # the Gram's stage-B shape (4, 4, 4096) is the same on both paths
     gram = {"name": "omp_gram_batched", "route": "cuda",
@@ -2968,6 +3508,30 @@ def main() -> None:
             launches=got["grad_sketch"]))
         kernels.append(dict(gram, path=f"{arch}-resident",
                             launches=got["omp_gram"]))
+    # phase 17: the band kernel at mixtral-8x7b's prefill with its serving
+    # launches, and for each MoE arch's resident run the grad sketch at
+    # its stage-A unit and the Gram at its router-term D (M6), with the
+    # first run's counts (the selector's warm-ups and captures)
+    kernels.append(dict(
+        moe_rows["swa_attn"], name="swa_attn", path="serve-mixtral-8x7b",
+        route="cuda",
+        source="src/repro_torch/kernels/swa_attn/csrc/swa_attn.cu",
+        replaces="src/repro/kernels/swa_attn/kernel.py:79",
+        launches=moe["serve-mixtral-8x7b"]["swa_attn"]))
+    for arch, _ in MOE_TRAIN:
+        got = moe[f"{arch}-resident"]
+        kernels.append(dict(
+            moe_rows["grad_sketch"][arch], name="grad_sketch_units",
+            path=f"{arch}-resident", route="cuda",
+            source="src/repro_torch/kernels/grad_sketch/csrc/grad_sketch.cu",
+            replaces="src/repro/kernels/grad_sketch/kernel.py:128",
+            launches=got["grad_sketch"]))
+        kernels.append(dict(
+            moe_rows["omp_gram"][arch], name="omp_gram_batched",
+            path=f"{arch}-resident", route="cuda",
+            source="src/repro_torch/kernels/omp_gram/csrc/omp_gram.cu",
+            replaces="src/repro/kernels/omp_gram/kernel.py:54",
+            launches=got["omp_gram"]))
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -1,11 +1,11 @@
 """Config dataclasses of the PyTorch port.
 
 A copy of the reference's ``repro/configs/base.py`` restricted to what
-the ported paths read (RNN-T, dense decoder-LM and RWKV6 training + PGM
-selection): the field names, defaults and the smoke reduction are the
-reference's, so a config built here and one built there describe the
-same model and run.  Fields of later slices (MoE, RG-LRU, encdec and
-VLM extras, mesh, compression) are not carried: the
+the ported paths read (RNN-T, dense and MoE decoder-LM and RWKV6
+training + PGM selection): the field names, defaults and the smoke
+reduction are the reference's, so a config built here and one built
+there describe the same model and run.  Fields of later slices (RG-LRU,
+encdec and VLM extras, mesh, compression) are not carried: the
 families that need them are refused by ``models/api.py:build_model``.
 """
 from __future__ import annotations
@@ -22,6 +22,15 @@ BLOCK_GLOBAL = "global"      # full attention inside a hybrid stack
 BLOCK_RWKV = "rwkv"          # RWKV6 time-mix + channel-mix block
 # the reference's other kind, "rec" (RG-LRU), is not ported
 ATTN_KINDS = (BLOCK_ATTN, BLOCK_LOCAL, BLOCK_GLOBAL)
+
+
+@dataclass(frozen=True)
+class MoEConfig:
+    n_experts: int
+    top_k: int
+    d_ff_expert: int
+    capacity_factor: float = 1.25
+    router_aux_coef: float = 0.01
 
 
 @dataclass(frozen=True)
@@ -73,11 +82,11 @@ class RNNTConfig:
 
 @dataclass(frozen=True)
 class ModelConfig:
-    """Architecture description (RNN-T and dense decoder LMs)."""
+    """Architecture description (RNN-T and decoder LMs)."""
 
     name: str
-    family: str                      # dense | ssm (rwkv stacks) | rnnt
-                                     # (moe | hybrid | encdec | vlm are
+    family: str                      # dense | moe | ssm (rwkv stacks) |
+                                     # rnnt (hybrid | encdec | vlm are
                                      # not ported)
     n_layers: int
     d_model: int
@@ -94,6 +103,7 @@ class ModelConfig:
     tie_embeddings: bool = False
     embed_scale: bool = False        # gemma-style sqrt(d_model) embedding scale
     norm_eps: float = 1e-6
+    moe: Optional[MoEConfig] = None
     # --- rwkv extras ---
     rwkv_head_dim: int = 64
     rnnt: Optional[RNNTConfig] = None
@@ -116,18 +126,19 @@ class ModelConfig:
 
     def n_params(self) -> int:
         """Analytic parameter count (embedding + stack + head), the
-        reference's formula for RNN-T, dense attention stacks and RWKV6
-        stacks.  Its RWKV term is the reference's as written: it leaves
-        out the channel-mix ``wr`` and most of the LoRA weights, so it is
-        below the count of the params tree's leaves."""
+        reference's formula for RNN-T, dense and MoE attention stacks and
+        RWKV6 stacks.  Its RWKV term is the reference's as written: it
+        leaves out the channel-mix ``wr`` and most of the LoRA weights,
+        so it is below the count of the params tree's leaves.  Its MoE
+        term counts three expert matrices whatever the FFN type."""
         if self.rnnt is not None:
             return self.rnnt.n_params()
         kinds = self.layer_kinds()
-        if self.family not in ("dense", "ssm") \
+        if self.family not in ("dense", "moe", "ssm") \
                 or set(kinds) - set(ATTN_KINDS) - {BLOCK_RWKV}:
             raise NotImplementedError(
-                f"{self.name}: n_params is ported for dense attention "
-                f"stacks, RWKV6 stacks and RNN-T only")
+                f"{self.name}: n_params is ported for dense and MoE "
+                f"attention stacks, RWKV6 stacks and RNN-T only")
         d, ff, V = self.d_model, self.d_ff, self.vocab_size
         n = V * d * (1 if self.tie_embeddings else 2)
         mult = 3 if self.ffn_type in ("swiglu", "geglu") else 2
@@ -137,8 +148,21 @@ class ModelConfig:
                 n += 5 * d * d + 2 * d * 96 + 6 * d
             else:
                 n += d * self.q_dim + 2 * d * self.kv_dim + self.q_dim * d
-            n += mult * d * ff
+            if self.moe is not None:
+                e = self.moe
+                n += e.n_experts * 3 * d * e.d_ff_expert + d * e.n_experts
+            else:
+                n += mult * d * ff
         return n
+
+    def n_active_params(self) -> int:
+        """Active params a token (MoE: only ``top_k`` experts count)."""
+        if self.moe is None:
+            return self.n_params()
+        e = self.moe
+        per_expert = len(self.layer_kinds()) * 3 * self.d_model \
+            * e.d_ff_expert
+        return self.n_params() - (e.n_experts - e.top_k) * per_expert
 
 
 @dataclass(frozen=True)
@@ -157,6 +181,12 @@ class PGMConfig:
     sketch_dim_v: int = 64
     use_sketch: bool = True          # False -> exact last-layer gradients
     nonneg_weights: bool = True      # clip OMP weights at 0
+    # sparse-expert (MoE) selection gradients: append the per-unit
+    # gradient of the total loss (task + load-balance aux) with respect
+    # to every router leaf, sketched on its d_model axis, to the head's
+    # representation.  Opt-in (one autograd backward a unit); ignored
+    # for other families
+    moe_router_term: bool = False
     # selection-round kernels (grad sketch, Gram): "auto" and "pallas"
     # launch the CUDA kernels on the card, "xla" runs their plain
     # versions there; on the CPU every value runs the plain versions
@@ -190,13 +220,17 @@ class TrainConfig:
 
 def reduce_for_smoke(cfg: ModelConfig) -> ModelConfig:
     """The reference's tiny same-family variant (CPU tests): few layers,
-    small widths and vocab, a window of at most 16, fp32 compute."""
+    small widths and vocab, a window of at most 16, 4 experts of 32 (top
+    at most 2), fp32 compute."""
     kw = dict(n_layers=min(cfg.n_layers, 2 * max(1, len(cfg.pattern))),
               d_model=64, n_heads=4,
               n_kv_heads=min(cfg.n_kv_heads, 4) if cfg.n_kv_heads > 1 else 1,
               head_dim=16, d_ff=128, vocab_size=277,
               window=min(cfg.window, 16) if cfg.window else 0,
               compute_dtype="float32")
+    if cfg.moe is not None:
+        kw["moe"] = MoEConfig(n_experts=4, top_k=min(cfg.moe.top_k, 2),
+                              d_ff_expert=32)
     if cfg.rnnt is not None:
         kw["rnnt"] = RNNTConfig(
             n_feats=8, cnn_channels=(4, 8), lstm_layers=1, lstm_hidden=16,

@@ -6,7 +6,10 @@ leading layer axis, ``stack.tail`` a tuple of per-layer dicts).  The
 port's params are the same tree of tensors, with the same keys, the same
 sequences, the same stacked layout and the same (in, out) weight layouts,
 so the conversion is a leafwise copy through numpy and nothing is
-transposed.  The round trip is bit-exact.
+transposed.  An MoE layer's leaves cross the same way: ``moe.router``
+(d, E), ``moe.w_in`` and ``moe.w_gate`` (E, d, d_ff_expert),
+``moe.w_out`` (E, d_ff_expert, d), each stacked on its group's layer
+axis.  The round trip is bit-exact.
 
 Checkpoints cross the same way: both packages write the same format
 (``train/checkpoint.py``), keyed by each leaf's ``keystr`` path, so

@@ -20,11 +20,21 @@ per-example token mean, then the mean over examples).  The sketch
 ``(H R1)^T (E R2)`` goes through the fused ``grad_sketch`` kernel on the
 card and through ``streamed_er2`` on the CPU; neither forms E or G.
 
+For a sparse-expert (MoE) LM with ``PGMConfig.moe_router_term`` the
+unit's vector is the head's followed by the per-unit gradient of the
+total training loss (task + load-balance aux) with respect to every
+``router`` leaf (``moe_router_grads``: one autograd backward through the
+stack, where the router's signal flows through the top-k combine weights
+and the aux, which the head gradient cannot see), each leaf sketched with
+``r_h`` on its d_model axis, flattened and concatenated in the params'
+flatten order; the exact variant concatenates the raw gradients.
+
 ``units_gradients`` takes the units one at a time (the host rounds'
 oracle); ``units_gradients_batched`` takes them a chunk at a time, the
 stage A of ``core/pgm.py:ResidentSelector`` (the LM's chunk one
 ``final_hidden`` call and one kernel launch, the RNN-T's one encoder
-pass), with each unit's vector the one it has alone.
+pass; a router-term MoE unit one forward and one backward of its own),
+with each unit's vector the one it has alone.
 """
 from __future__ import annotations
 
@@ -39,6 +49,7 @@ from repro_torch.core.rnnt_loss import (rnnt_loss_from_logits,
 from repro_torch.core.sketch import (Projections, exact_from_factors,
                                      make_projections, sketch_from_factors)
 from repro_torch.models import rnnt as rnnt_mod
+from repro_torch.models.common import tree_map
 
 
 # ---------------------------------------------------------------------------
@@ -87,15 +98,23 @@ def streamed_er2(h, w_head, targets, scale, r_v, chunk: int = 8192
 
 
 def lm_unit_sketch(bundle, params, batch, proj: Projections,
-                   kernel_impl: str = "auto") -> torch.Tensor:
+                   kernel_impl: str = "auto",
+                   head_rows: Optional[torch.Tensor] = None) -> torch.Tensor:
     # ops imports streamed_er2 from here for its CPU path
     from repro_torch.kernels.grad_sketch.ops import grad_sketch_op
     h, targets, scale = lm_unit_factors(bundle, params, batch)
-    # the kernel reads the head as contiguous (V, d) rows: the tied
-    # embedding already is (no copy); an untied (d, V) head is copied
-    w = bundle.head_weight(params).detach().t().contiguous().t()
-    return grad_sketch_op(h, w, proj.r_h, proj.r_v, targets, scale,
+    return grad_sketch_op(h, _head_cols(bundle, params, head_rows),
+                          proj.r_h, proj.r_v, targets, scale,
                           impl=kernel_impl).reshape(-1)
+
+
+def _head_cols(bundle, params, head_rows=None) -> torch.Tensor:
+    """The (d, V) head as the kernel reads it, contiguous (V, d) rows: the
+    tied embedding already is (no copy); an untied (d, V) head is copied,
+    unless the caller holds that copy (``head_rows``)."""
+    if head_rows is not None:
+        return head_rows.t()
+    return bundle.head_weight(params).detach().t().contiguous().t()
 
 
 def lm_unit_exact(bundle, params, batch) -> torch.Tensor:
@@ -106,6 +125,74 @@ def lm_unit_exact(bundle, params, batch) -> torch.Tensor:
     e = torch.softmax(h @ w, dim=-1)
     e[torch.arange(e.shape[0], device=e.device), targets.long()] -= 1.0
     return exact_from_factors(h, e * scale[:, None])
+
+
+# ---------------------------------------------------------------------------
+# sparse-expert (MoE) router term
+# ---------------------------------------------------------------------------
+
+def _router_paths(tree, path=()):
+    """Paths to the ``router`` leaves in the params' flatten order (dict
+    keys sorted, sequences in order: JAX's ``tree_flatten_with_path``
+    order, which the reference's router term follows)."""
+    if isinstance(tree, dict):
+        return [p for k in sorted(tree)
+                for p in _router_paths(tree[k], path + (k,))]
+    if isinstance(tree, (tuple, list)):
+        return [p for i, t in enumerate(tree)
+                for p in _router_paths(t, path + (i,))]
+    return [path] if "router" in path else []
+
+
+def moe_router_grads(bundle, params, batch):
+    """The unit's gradients of its total training loss (task + load-balance
+    aux, ``bundle.loss_fn``) with respect to every ``router`` leaf, fp32
+    tensors shaped like the leaves (a group's router keeps its layer
+    axis), in the params' flatten order.  One autograd backward through
+    the stack; no other leaf requires grad, so no other weight's gradient
+    is formed.  Params without ``router`` leaves raise ``ValueError``."""
+    paths = _router_paths(params)
+    if not paths:
+        raise ValueError(
+            f"{bundle.cfg.name}: moe_router_term set but the params tree "
+            f"has no 'router' leaves (family={bundle.cfg.family!r})")
+    # a tree of new containers over the same leaves; a router sits in an
+    # ``moe`` dict, so it is swapped in place there
+    live = tree_map(lambda l: l.detach(), params)
+    routers = []
+    for path in paths:
+        parent = live
+        for k in path[:-1]:
+            parent = parent[k]
+        leaf = parent[path[-1]]
+        r = leaf.to(torch.float32).requires_grad_(True)
+        routers.append(r)
+        parent[path[-1]] = r.to(leaf.dtype)
+    with torch.enable_grad():
+        total, _ = bundle.loss_fn(live, batch)
+        return list(torch.autograd.grad(total, routers))
+
+
+def moe_unit_sketch(bundle, params, batch, proj: Projections,
+                    kernel_impl: str = "auto",
+                    head_rows: Optional[torch.Tensor] = None
+                    ) -> torch.Tensor:
+    """The head's sketch followed by each router gradient projected
+    through ``r_h`` on its d_model axis (router leaves are (..., d, E)),
+    flattened in C order; only the head block goes through the grad-sketch
+    kernel."""
+    head = lm_unit_sketch(bundle, params, batch, proj, kernel_impl, head_rows)
+    rh = proj.r_h.to(torch.float32)
+    parts = [torch.einsum("...de,dk->...ke", g, rh).reshape(-1)
+             for g in moe_router_grads(bundle, params, batch)]
+    return torch.cat([head] + parts)
+
+
+def moe_unit_exact(bundle, params, batch) -> torch.Tensor:
+    """The flattened head gradient followed by the raw router gradients."""
+    head = lm_unit_exact(bundle, params, batch)
+    parts = [g.reshape(-1) for g in moe_router_grads(bundle, params, batch)]
+    return torch.cat([head] + parts)
 
 
 # ---------------------------------------------------------------------------
@@ -182,26 +269,33 @@ def rnnt_unit_exact(bundle, params, batch) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 def unit_gradient(bundle, params, batch, proj: Optional[Projections],
-                  exact: bool = False,
-                  kernel_impl: str = "auto") -> torch.Tensor:
+                  exact: bool = False, kernel_impl: str = "auto",
+                  router_term: bool = False,
+                  head_rows: Optional[torch.Tensor] = None) -> torch.Tensor:
     """One selection unit -> gradient representation vector.
-    ``kernel_impl`` (``PGMConfig.kernel_impl``) routes the LM sketch."""
+    ``kernel_impl`` (``PGMConfig.kernel_impl``) routes the LM sketch;
+    ``router_term`` (MoE family only) appends the router term."""
     if bundle.cfg.family == "rnnt":
         return (rnnt_unit_exact(bundle, params, batch) if exact
                 else rnnt_unit_sketch(bundle, params, batch, proj))
+    if router_term and bundle.cfg.family == "moe":
+        return (moe_unit_exact(bundle, params, batch) if exact
+                else moe_unit_sketch(bundle, params, batch, proj,
+                                     kernel_impl, head_rows))
     return (lm_unit_exact(bundle, params, batch) if exact
-            else lm_unit_sketch(bundle, params, batch, proj, kernel_impl))
+            else lm_unit_sketch(bundle, params, batch, proj, kernel_impl,
+                                head_rows))
 
 
 def units_gradients(bundle, params, units, proj: Optional[Projections],
-                    exact: bool = False,
-                    kernel_impl: str = "auto") -> torch.Tensor:
+                    exact: bool = False, kernel_impl: str = "auto",
+                    router_term: bool = False) -> torch.Tensor:
     """units: dict of tensors with a leading (n_units, ...) axis ->
     (n_units, D) fp32, one unit at a time (peak memory of one unit's
     forward, the paper's partition rationale)."""
     n_units = units["tokens"].shape[0]
     return torch.stack([unit_gradient(bundle, params, _unit(units, i), proj,
-                                      exact, kernel_impl)
+                                      exact, kernel_impl, router_term)
                         for i in range(n_units)])
 
 
@@ -230,7 +324,8 @@ def _flat(chunk):
     return {k: v.reshape((-1,) + v.shape[2:]) for k, v in chunk.items()}
 
 
-def _chunk_gradients(bundle, params, chunk, proj, exact) -> torch.Tensor:
+def _chunk_gradients(bundle, params, chunk, proj, exact, kernel_impl="auto",
+                     router_term=False, head_rows=None) -> torch.Tensor:
     """One chunk of units -> (cu, D).  The fused RNN-T path runs the
     encoder and prediction network once over the chunk's cu*b examples,
     then one fused loss and backward per unit on that unit's slice of the
@@ -239,7 +334,9 @@ def _chunk_gradients(bundle, params, chunk, proj, exact) -> torch.Tensor:
     cu, b = chunk["tokens"].shape[:2]
     if bundle.cfg.family != "rnnt" or bundle.cfg.rnnt.loss_impl != "fused":
         return torch.stack([unit_gradient(bundle, params, _unit(chunk, i),
-                                          proj, exact) for i in range(cu)])
+                                          proj, exact, kernel_impl,
+                                          router_term, head_rows)
+                            for i in range(cu)])
     flat = _flat(chunk)
     with torch.no_grad():
         ze, zp = rnnt_mod.joint_factors(params, bundle.cfg, flat["feats"],
@@ -256,14 +353,19 @@ def _chunk_gradients(bundle, params, chunk, proj, exact) -> torch.Tensor:
 
 def units_gradients_scanned(bundle, params, units,
                             proj: Optional[Projections], exact: bool = False,
-                            chunk_units: Optional[int] = None
+                            chunk_units: Optional[int] = None,
+                            kernel_impl: str = "auto",
+                            router_term: bool = False,
+                            head_rows: Optional[torch.Tensor] = None
                             ) -> torch.Tensor:
     """Batched stage A over chunks of ``chunk_units`` units (the
     reference's scan over chunks with a ``vmap`` within one): the RNN-T
-    family and the exact path.  -> (U, D) fp32, each unit's vector the
-    one ``units_gradients`` gives it."""
+    family, the exact path and the MoE router term (one autograd backward
+    a unit).  -> (U, D) fp32, each unit's vector the one
+    ``units_gradients`` gives it."""
     cu = _chunk_size(units["tokens"].shape[0], chunk_units)
-    return torch.cat([_chunk_gradients(bundle, params, chunk, proj, exact)
+    return torch.cat([_chunk_gradients(bundle, params, chunk, proj, exact,
+                                       kernel_impl, router_term, head_rows)
                       for chunk in _chunks(units, cu)])
 
 
@@ -273,10 +375,13 @@ def units_gradients_batched(bundle, params, units,
                             vocab_chunk: int = 8192,
                             exact: bool = False,
                             head_rows: Optional[torch.Tensor] = None,
-                            kernel_impl: str = "auto") -> torch.Tensor:
+                            kernel_impl: str = "auto",
+                            router_term: bool = False) -> torch.Tensor:
     """Batched stage A of ``core/pgm.ResidentSelector``: (U, D) fp32.
 
-    RNN-T and the exact path go through ``units_gradients_scanned``.  A
+    RNN-T, the exact path and the MoE router term (``router_term`` on an
+    ``moe`` bundle: the flattened examples below cannot express a
+    per-unit backward) go through ``units_gradients_scanned``.  A
     decoder LM's units are flattened to examples, ``chunk_units`` units
     (cu*b examples) a ``final_hidden`` call, and each chunk's sketches
     come from one ``grad_sketch_units_op`` call with U = cu.  The scale
@@ -287,14 +392,17 @@ def units_gradients_batched(bundle, params, units,
     the tied embedding is; an untied (d, V) head is copied once a call
     (671 MB at rwkv6-3b's width), unless the caller passes that copy as
     ``head_rows`` (the selector's graphs, whose body is one chunk, do)."""
-    if bundle.cfg.family == "rnnt" or exact:
+    if bundle.cfg.family == "rnnt" or exact or \
+            (router_term and bundle.cfg.family == "moe"):
         return units_gradients_scanned(bundle, params, units, proj,
-                                       exact=exact, chunk_units=chunk_units)
+                                       exact=exact, chunk_units=chunk_units,
+                                       kernel_impl=kernel_impl,
+                                       router_term=router_term,
+                                       head_rows=head_rows)
     from repro_torch.kernels.grad_sketch.ops import grad_sketch_units_op
     U, b = units["tokens"].shape[:2]
     cu = _chunk_size(U, chunk_units)
-    w = (bundle.head_weight(params).detach().t().contiguous().t()
-         if head_rows is None else head_rows.t())
+    w = _head_cols(bundle, params, head_rows)
     out = []
     for chunk in _chunks(units, cu):
         with torch.no_grad():

@@ -23,7 +23,11 @@ On the card each unit corpus (train, val) has one CUDA graph of one
 chunk of that pass, captured at the first round against the params' and
 units' tensors and the projections, with a cursor over the units on the
 card, and replayed a chunk at a time every round: the counterpart of
-the reference's one jitted stage-A scan reused across rounds.
+the reference's one jitted stage-A scan reused across rounds.  With the
+MoE router term (``PGMConfig.moe_router_term`` on an ``moe`` bundle,
+``_router_term_for``) each unit of a chunk is its head sketch and one
+``torch.autograd.grad`` of its total loss with respect to the router
+leaves alone, captured in the same graph.
 """
 from __future__ import annotations
 
@@ -104,12 +108,13 @@ def pgm_select(bundle, params, units, pgm_cfg,
     n_units = units["tokens"].shape[0]
     exact = not pgm_cfg.use_sketch
     impl = pgm_cfg.kernel_impl
+    rt = _router_term_for(bundle, pgm_cfg)
     g = units_gradients(bundle, params, units, proj, exact=exact,
-                        kernel_impl=impl)
+                        kernel_impl=impl, router_term=rt)
     g_val = None
     if pgm_cfg.val_matching:
         gv = units_gradients(bundle, params, val_units, proj, exact=exact,
-                             kernel_impl=impl)
+                             kernel_impl=impl, router_term=rt)
         g_val = _val_target(gv, n_units, pgm_cfg)
     return _stage_b(g, pgm_cfg, g_val=g_val)
 
@@ -198,10 +203,6 @@ class ResidentSelector:
         if on_failure not in ("soft_random", "raise"):
             raise ValueError(f"on_failure must be 'soft_random' or 'raise', "
                              f"got {on_failure!r}")
-        if _router_term_for(bundle, pgm_cfg):
-            raise NotImplementedError(
-                "the MoE router term is not ported yet (ROADMAP.md queue 1, "
-                "item 9)")
         self.bundle = bundle
         self.cfg = pgm_cfg
         self.on_failure = on_failure
@@ -210,6 +211,7 @@ class ResidentSelector:
         self._chunk_units = chunk_units
         self._vocab_chunk = vocab_chunk
         self._exact = not pgm_cfg.use_sketch
+        self._rt = _router_term_for(bundle, pgm_cfg)
         self.degraded_rounds = 0
         self._round = 0
         self._params = None            # the tensors the graphs read
@@ -225,7 +227,7 @@ class ResidentSelector:
             self.bundle, params, units, self._proj,
             chunk_units=self._chunk_units, vocab_chunk=self._vocab_chunk,
             exact=self._exact, head_rows=self._head_rows,
-            kernel_impl=self.cfg.kernel_impl)
+            kernel_impl=self.cfg.kernel_impl, router_term=self._rt)
 
     def _bind(self, params) -> None:
         if self._params is None:

@@ -1,12 +1,15 @@
 """Model bundles of the port: the RNN-T family (the reference's
 ``models/api.py:_build_rnnt``) and text decoder LMs (``_build_lm`` for
-text-only models: dense attention stacks and RWKV6 stacks).
+text-only models: dense and MoE attention stacks and RWKV6 stacks).
 
 A bundle is the surface the trainer and the PGM core build on:
 ``init_params``, the per-example loss, the weighted training loss and the
 last-layer head; the LM bundle also has ``final_hidden``, the hook of LM
-stage A.  Both carry the serving hooks (``prefill``, ``decode``,
-``init_cache``) the engines of ``serve/engine.py`` drive: for an LM, a
+stage A.  An MoE stack's load-balance aux joins the training loss
+(``loss_fn``: the weighted task loss plus the aux, not weighted), as the
+reference's does; ``per_example_loss`` and ``final_hidden`` drop it.
+Both carry the serving hooks (``prefill``, ``decode``, ``init_cache``)
+the engines of ``serve/engine.py`` drive: for an LM, a
 prompt prefill into per-layer KV caches and one-token decode; for the
 RNN-T, streaming greedy transducer search (the encoder runs once at
 prefill, a decode is one joint step).  Batches are dicts of tensors on
@@ -30,13 +33,16 @@ from repro_torch.models import transformer as tfm
 Batch = Dict[str, torch.Tensor]
 
 
-def _weighted(per_ex: torch.Tensor, batch: Batch) -> Tuple[torch.Tensor, Dict]:
-    """Weighted mean of the per-example losses; a batch without
+def _weighted(per_ex: torch.Tensor, batch: Batch, aux=None
+              ) -> Tuple[torch.Tensor, Dict]:
+    """Weighted mean of the per-example losses plus ``aux`` (the MoE
+    load-balance aux, unweighted; zero when None); a batch without
     ``weights`` counts every example once."""
     w = batch.get("weights")
     w = (torch.ones_like(per_ex) if w is None else w.to(torch.float32))
     loss = torch.sum(per_ex * w) / torch.clamp(torch.sum(w), min=1e-9)
-    aux = torch.zeros((), device=per_ex.device)
+    if aux is None:
+        aux = torch.zeros((), device=per_ex.device)
     total = loss + aux
     return total, {"loss": loss, "aux_loss": aux, "total_loss": total}
 
@@ -180,8 +186,8 @@ def softmax_xent(logits: torch.Tensor, targets: torch.Tensor,
 
 @dataclasses.dataclass(frozen=True)
 class LMBundle:
-    """Text decoder LM (dense attention or RWKV6 stack): position i
-    predicts token i+1."""
+    """Text decoder LM (dense or MoE attention stack, or RWKV6 stack):
+    position i predicts token i+1."""
 
     cfg: ModelConfig
 
@@ -215,19 +221,29 @@ class LMBundle:
                 else mask[:, 1:].to(torch.float32))
         return x, targets, mask
 
+    def _hidden(self, params, batch: Batch):
+        """-> (hidden states aligned with the next-token targets, targets,
+        mask, the stack's MoE aux)."""
+        x, targets, mask = self.assemble(params, batch)
+        h, aux, _ = tfm.forward_hidden(params, self.cfg, x)
+        return h[:, :-1], targets, mask, aux
+
     def final_hidden(self, params, batch: Batch):
         """-> (hidden states aligned with the next-token targets
-        (B,S-1,d) in the compute dtype, targets, mask)."""
-        x, targets, mask = self.assemble(params, batch)
-        h, _ = tfm.forward_hidden(params, self.cfg, x)
-        return h[:, :-1], targets, mask
+        (B,S-1,d) in the compute dtype, targets, mask); the MoE aux is
+        dropped."""
+        return self._hidden(params, batch)[:3]
 
     def per_example_loss(self, params, batch: Batch) -> torch.Tensor:
         h, targets, mask = self.final_hidden(params, batch)
         return softmax_xent(tfm.unembed(params, self.cfg, h), targets, mask)
 
     def loss_fn(self, params, batch: Batch) -> Tuple[torch.Tensor, Dict]:
-        return _weighted(self.per_example_loss(params, batch), batch)
+        """(weighted task loss + the stack's MoE aux, metrics ``loss``,
+        ``aux_loss``, ``total_loss``)."""
+        h, targets, mask, aux = self._hidden(params, batch)
+        per_ex = softmax_xent(tfm.unembed(params, self.cfg, h), targets, mask)
+        return _weighted(per_ex, batch, aux)
 
     def head_weight(self, params) -> torch.Tensor:
         return tfm.head_weight(params, self.cfg)
@@ -255,7 +271,7 @@ class LMBundle:
                 if prompt_lens is None else prompt_lens.to(tokens.device))
         pos = torch.arange(S, device=tokens.device).expand(B, S)
         pos = torch.where(pos < lens[:, None], pos, -1)
-        h, cache = tfm.forward_hidden(params, self.cfg, x, positions=pos,
+        h, _, cache = tfm.forward_hidden(params, self.cfg, x, positions=pos,
                                       collect_cache=True,
                                       cache_len=cache_len or S)
         last = torch.clamp(lens.long() - 1, 0, S - 1)
@@ -279,10 +295,11 @@ class LMBundle:
 
 def _unported(cfg: ModelConfig) -> str:
     """What of ``cfg`` the LM slices do not carry ('' when nothing): the
-    ``dense`` family with attention blocks and the ``ssm`` family with
-    RWKV6 blocks are ported; any other family (moe, hybrid, encdec,
-    vlm), or blocks of another kind in either, are not."""
-    allowed = {"dense": set(ATTN_KINDS), "ssm": {BLOCK_RWKV}}
+    ``dense`` and ``moe`` families with attention blocks and the ``ssm``
+    family with RWKV6 blocks are ported; any other family (hybrid,
+    encdec, vlm), or blocks of another kind in these, are not."""
+    allowed = {"dense": set(ATTN_KINDS), "moe": set(ATTN_KINDS),
+               "ssm": {BLOCK_RWKV}}
     if cfg.family not in allowed:
         return f"the {cfg.family!r} family"
     odd = sorted(set(cfg.layer_kinds()) - allowed[cfg.family])
@@ -290,8 +307,13 @@ def _unported(cfg: ModelConfig) -> str:
 
 
 def build_model(cfg: ModelConfig):
-    """The bundle of ``cfg.family``: ``rnnt``, ``dense`` or ``ssm`` (RWKV6
-    stacks); any other family raises ``NotImplementedError``."""
+    """The bundle of ``cfg.family``: ``rnnt``, ``dense``, ``moe`` or
+    ``ssm`` (RWKV6 stacks); any other family raises
+    ``NotImplementedError``, and an ``moe`` config without ``moe``
+    settings ``ValueError``."""
     if cfg.family == "rnnt":
         return RNNTBundle(cfg)
+    if cfg.family == "moe" and cfg.moe is None:
+        raise ValueError(f"{cfg.name}: the 'moe' family needs cfg.moe "
+                         f"(n_experts, top_k, d_ff_expert)")
     return LMBundle(cfg)

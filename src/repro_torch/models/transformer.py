@@ -1,7 +1,7 @@
-"""Decoder stack of the port for dense attention LMs and RWKV6 stacks
-(the reference's ``models/transformer.py``): the training/prefill
-forward, and for attention blocks the prefill cache and one-token
-decode.
+"""Decoder stack of the port for dense and MoE attention LMs and RWKV6
+stacks (the reference's ``models/transformer.py``): the training/prefill
+forward with the stack's MoE load-balance aux, and for attention blocks
+the prefill cache and one-token decode.
 
 The params tree is the reference's: ``stack.groups`` is a tuple with one
 dict per position of the config's ``pattern``, each leaf stacked over a
@@ -23,10 +23,12 @@ cache per attention layer) with the batch first in every leaf: a group
 leaf is (B, n_groups, ...), where the reference stacks the layer axis
 first.  So a serving slot is index 0 of every leaf.
 
-Attention blocks with a dense feed-forward, and RWKV6 blocks (time-mix
-and channel-mix, no attention and no MLP): the bundle
-(``models/api.py:LMBundle``) refuses configs with other block kinds or
-MoE layers, and RWKV6 blocks in a prefill or decode.
+Attention blocks with a dense or MoE feed-forward (``models/moe.py``:
+a prefill or training forward routes at the training capacity, a decode
+step at the no-drop capacity, as the reference's), and RWKV6 blocks
+(time-mix and channel-mix, no attention and no MLP): the bundle
+(``models/api.py:LMBundle``) refuses configs with other block kinds,
+and RWKV6 blocks in a prefill or decode.
 """
 from __future__ import annotations
 
@@ -37,13 +39,16 @@ import torch
 from repro_torch.configs.base import BLOCK_RWKV
 from repro_torch.models import attention as attn
 from repro_torch.models import ffn as ffn_mod
+from repro_torch.models import moe as moe_mod
 from repro_torch.models import rwkv6 as rwkv_mod
 from repro_torch.models.common import (compute_dtype, dense_init, embed_init,
                                        rms_norm, tree_leaves, tree_map)
 
 
-def _init_block(gen: torch.Generator, cfg, kind: str,
-                device: torch.device) -> Dict:
+def _init_block(gen: torch.Generator, cfg, kind: str, device: torch.device,
+                store: torch.dtype = torch.float32) -> Dict:
+    """One layer's params in fp32, but for the MoE experts, drawn in
+    ``store`` (each stack cast as soon as it is drawn)."""
     d = cfg.d_model
     p = {"ln1": torch.zeros((d,), device=device),
          "ln2": torch.zeros((d,), device=device)}
@@ -53,8 +58,12 @@ def _init_block(gen: torch.Generator, cfg, kind: str,
         p["cmix"] = rwkv_mod.init_cmix_params(gen, d, cfg.d_ff, device)
     else:
         p["attn"] = attn.init_attn_params(gen, cfg, device)
-        p["mlp"] = ffn_mod.init_ffn_params(gen, d, cfg.d_ff, cfg.ffn_type,
-                                           device)
+        if cfg.moe is not None:
+            p["moe"] = moe_mod.init_moe_params(gen, d, cfg.moe,
+                                               cfg.ffn_type, device, store)
+        else:
+            p["mlp"] = ffn_mod.init_ffn_params(gen, d, cfg.d_ff,
+                                               cfg.ffn_type, device)
     return p
 
 
@@ -76,7 +85,8 @@ def init_params(cfg, gen: torch.Generator, device: torch.device,
     the forward reads it.  Each layer is drawn in fp32, cast at once and
     written into its group's leaves, which are allocated when the first
     group is drawn, so no stacked copy is made: the peak is the tree plus
-    one layer's fp32 draws (and ``embed.w``'s, which are drawn whole).
+    one layer's fp32 draws (an MoE layer's expert stacks are cast as each
+    is drawn, so one stack's) and ``embed.w``'s, which are drawn whole.
     The compute dtype gives the serving weights, bitwise
     ``serving_params`` of the fp32 tree from the same generator."""
     store = torch.float32 if dtype is None else dtype
@@ -85,7 +95,7 @@ def init_params(cfg, gen: torch.Generator, device: torch.device,
     groups: List[Any] = [None] * P
     tail = []
     for i, kind in enumerate(cfg.layer_kinds()):
-        layer = _cast_fp32(_init_block(gen, cfg, kind, device), store)
+        layer = _cast_fp32(_init_block(gen, cfg, kind, device, store), store)
         g, pos = divmod(i, P)
         if g >= n_groups:
             tail.append(layer)
@@ -137,14 +147,15 @@ def cast_block_params(bp, cfg):
 def block_forward(bp, cfg, kind: str, x: torch.Tensor, *,
                   positions=None, collect_cache: bool = False,
                   cache_len: int = 0):
-    """-> (x, the layer's prefill KV cache when ``collect_cache``, else
-    None)."""
+    """-> (x, the layer's MoE aux (None for a layer without experts), the
+    layer's prefill KV cache when ``collect_cache``, else None)."""
     bp = cast_block_params(bp, cfg)
+    aux = None
     h = rms_norm(x, bp["ln1"], cfg.norm_eps)
     if kind == BLOCK_RWKV:
         x = x + rwkv_mod.tmix_forward(bp["tmix"], cfg, h)
         h2 = rms_norm(x, bp["ln2"], cfg.norm_eps)
-        return x + rwkv_mod.cmix_forward(bp["cmix"], h2), None
+        return x + rwkv_mod.cmix_forward(bp["cmix"], h2), aux, None
     y, kv = attn.attn_forward(bp["attn"], cfg, h, kind=kind,
                               q_positions=positions, kv_positions=positions)
     x = x + y
@@ -156,7 +167,11 @@ def block_forward(bp, cfg, kind: str, x: torch.Tensor, *,
                                    x.device)
         entry = attn.cache_prefill(cache, *kv)
     h2 = rms_norm(x, bp["ln2"], cfg.norm_eps)
-    return x + ffn_mod.ffn_forward(bp["mlp"], h2, cfg.ffn_type), entry
+    if "moe" in bp:
+        y2, aux = moe_mod.moe_forward(bp["moe"], cfg, h2)
+    else:
+        y2 = ffn_mod.ffn_forward(bp["mlp"], h2, cfg.ffn_type)
+    return x + y2, aux, entry
 
 
 def block_decode(bp, cfg, kind: str, x_t: torch.Tensor, entry, live=None):
@@ -168,6 +183,9 @@ def block_decode(bp, cfg, kind: str, x_t: torch.Tensor, entry, live=None):
     x_t = x_t + attn.attn_decode(bp["attn"], cfg, h, entry, kind=kind,
                                  live=live)
     h2 = rms_norm(x_t, bp["ln2"], cfg.norm_eps)
+    if "moe" in bp:
+        # the no-drop capacity: a decode step drops no token (M4)
+        return x_t + moe_mod.moe_forward(bp["moe"], cfg, h2, decode=True)[0]
     return x_t + ffn_mod.ffn_forward(bp["mlp"], h2, cfg.ffn_type)
 
 
@@ -207,30 +225,44 @@ def _stack(entries: List[Any]) -> Any:
 def forward_hidden(params, cfg, x: torch.Tensor, *, positions=None,
                    collect_cache: bool = False, cache_len: int = 0):
     """Runs the stack on embedded input ``x`` (B,S,d) -> (the final-normed
-    hidden states (B,S,d), the decode cache when ``collect_cache``, else
-    None).  ``positions`` (B,S) default to ``arange(S)``."""
+    hidden states (B,S,d), the MoE aux summed over the layers (an fp32
+    scalar; zero without MoE layers), the decode cache when
+    ``collect_cache``, else None).  ``positions`` (B,S) default to
+    ``arange(S)``."""
     pattern = cfg.pattern
     n_groups = cfg.n_layers // len(pattern)
     kw = dict(positions=positions, collect_cache=collect_cache,
               cache_len=cache_len)
     entries = [[] for _ in pattern]
+    aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
     if n_groups:
         layers = [_unstack(gp, n_groups) for gp in params["stack"]["groups"]]
+        # the reference sums each group's auxes, then the groups' sums
+        group_aux = []
         for g in range(n_groups):
+            auxes = []
             for pos, kind in enumerate(pattern):
-                x, ce = block_forward(layers[pos][g], cfg, kind, x, **kw)
+                x, aux, ce = block_forward(layers[pos][g], cfg, kind, x,
+                                           **kw)
+                auxes.append(aux)
                 entries[pos].append(ce)
+            if cfg.moe is not None:
+                group_aux.append(torch.stack(auxes).sum())
+        if group_aux:
+            aux_total = aux_total + torch.stack(group_aux).sum()
     kinds = cfg.layer_kinds()
     tail = []
     for i, bp in enumerate(params["stack"]["tail"]):
-        x, ce = block_forward(bp, cfg, kinds[n_groups * len(pattern) + i], x,
-                              **kw)
+        x, aux, ce = block_forward(bp, cfg, kinds[n_groups * len(pattern) + i],
+                                   x, **kw)
+        if aux is not None:
+            aux_total = aux_total + aux
         tail.append(ce)
     h = rms_norm(x, params["final_norm"], cfg.norm_eps)
     if not collect_cache:
-        return h, None
+        return h, aux_total, None
     groups = tuple(_stack(e) for e in entries) if n_groups else tuple()
-    return h, {"groups": groups, "tail": tuple(tail)}
+    return h, aux_total, {"groups": groups, "tail": tuple(tail)}
 
 
 def init_cache(cfg, batch: int, cache_len: int, dtype=None,

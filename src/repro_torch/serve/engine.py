@@ -20,6 +20,10 @@ Two surfaces:
   prefill written into the pool in place).  Windowed models prefill
   exact-length prompts (bucket padding would push real keys out of a
   full ring); others right-pad to power-of-two buckets with position -1.
+  An MoE model routes a bucket's pad rows with its prompt (they take
+  expert capacity after the prompt's first choices, as the reference's
+  do), and a prompt must split into MoE groups of 2,048 tokens, as the
+  reference asserts (ROADMAP hazards M4, M1).
 
 The slot engine serves decoder LMs (KV caches, eos termination) and the
 paper's RNN-T CRDNN (encoder buffer + prediction state; a micro-step is

@@ -53,7 +53,11 @@ def make_step_core(bundle, cfg: TrainConfig, update=None):
     too), zeroes the metrics of a gated-off step and reports
     ``metrics["skipped"]``, whether a live step was suppressed.  Nothing
     is read back to the host.  Params that are not fp32 masters are
-    refused (``optim.require_masters``)."""
+    refused (``optim.require_masters``).  The loss differentiated (and
+    guarded) is ``bundle.loss_fn``'s total: for an MoE bundle the
+    weighted task loss plus the load-balance aux, which
+    ``metrics["aux_loss"]`` carries; ``metrics["loss"]`` is the task
+    loss the epochs report, as the reference's engine has them."""
     opt_update = make_update_for(cfg)[1] if update is None else update
     guard = bool(cfg.nonfinite_guard)
 

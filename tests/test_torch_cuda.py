@@ -18,7 +18,9 @@ capture, and a host sync planted in the step makes the capture raise.
 Resident selection: stage A captured once a corpus and replayed bitwise,
 within 1e-5 of the host stage A, on fresh params after they change; an
 injected kernel failure raises on the card; the grad-sketch kernel at
-U = 4 inside a graph equals its eager launch.  TF32 is off throughout
+U = 4 inside a graph equals its eager launch; the MoE router term's
+captured backward replays bitwise.  The MoE layer: two runs bitwise,
+the card within 1e-5 of the CPU.  TF32 is off throughout
 (``backend.fp32_numerics``).
 """
 import numpy as np
@@ -697,6 +699,64 @@ def test_resident_stage_a_replays_one_graph_a_corpus(card, arch, cu):
     val = {k: v[:2].clone() for k, v in units.items()}
     assert sel.stage_a(other, val).shape == (2, g1.shape[1])
     assert ResidentSelector.captures == 2
+
+
+def test_moe_forward_is_repeatable_and_agrees_with_the_cpu(card):
+    """The MoE layer (``models/moe.py``: one-hot dispatch and combine as
+    plain products, no scatter, no atomics) at 16 experts top-8 with
+    drops: two runs on the card bit for bit equal, and within 1e-5 of the
+    same layer on the CPU (which the CPU tests hold against the
+    reference)."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import MoEConfig
+    from repro_torch.models import moe
+    from repro_torch.models.common import tree_map
+
+    cfg = dataclasses.replace(get_config("olmoe-1b-7b-smoke"), moe=MoEConfig(
+        n_experts=16, top_k=8, d_ff_expert=32, capacity_factor=0.5))
+    gen = torch.Generator().manual_seed(0)
+    p = moe.init_moe_params(gen, 64, cfg.moe, cfg.ffn_type,
+                            torch.device("cpu"))
+    x = torch.randn((4, 512, 64), generator=gen)
+    pd = tree_map(lambda t: t.to(card), p)
+    o1, a1 = moe.moe_forward(pd, cfg, x.to(card))
+    o2, a2 = moe.moe_forward(pd, cfg, x.to(card))
+    torch.cuda.synchronize()
+    assert torch.equal(o1, o2) and torch.equal(a1, a2)
+    oc, ac = moe.moe_forward(p, cfg, x)
+    torch.testing.assert_close(o1.cpu(), oc, rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(a1.cpu(), ac, rtol=1e-5, atol=0.0)
+
+
+@pytest.mark.parametrize("arch", ["mixtral-8x7b-smoke", "olmoe-1b-7b-smoke"])
+def test_resident_router_term_replays_and_matches_host(card, arch):
+    """The MoE router term in the resident graph (each unit its head
+    sketch and one captured ``autograd.grad`` with respect to the routers):
+    two replays bitwise, within 1e-5 of host ``units_gradients``, and at
+    ``chunk_units`` 1 each head block bitwise the head-only vector."""
+    import dataclasses
+
+    from repro_torch.core.lastlayer import units_gradients
+    from repro_torch.core.pgm import ResidentSelector
+
+    bundle, pc, proj, units, params = _selector_setup(card, arch)
+    pc = dataclasses.replace(pc, moe_router_term=True)
+    sel = ResidentSelector(bundle, pc, proj, chunk_units=1)
+    g1 = sel.stage_a(params, units)
+    g2 = sel.stage_a(params, units)
+    torch.cuda.synchronize()
+    assert torch.equal(g1, g2)
+    host = units_gradients(bundle, params, units, proj, router_term=True)
+    assert g1.shape == host.shape
+    assert float((g1 - host).abs().max()) <= 1e-5 * float(host.abs().max())
+    head = ResidentSelector(bundle, dataclasses.replace(
+        pc, moe_router_term=False), proj, chunk_units=1).stage_a(params,
+                                                                 units)
+    assert torch.equal(g1[:, :head.shape[1]], head)
+    s = sel(params, units)
+    assert s.n_selected == units["tokens"].shape[0] // 2
 
 
 def test_failed_cuda_round_raises(card):

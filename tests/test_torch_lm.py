@@ -162,11 +162,15 @@ def test_model_loss_and_grads_match_reference(setup, dtype):
 
 def test_attention_refuses_what_the_slice_does_not_port(setup):
     cfg = get_config(ARCH)
-    for bad in (dict(family="moe"), dict(family="vlm"),
+    for bad in (dict(family="vlm"),
                 dict(family="encdec"), dict(family="ssm"),
                 dict(family="hybrid"), dict(pattern=("rec", "rec", "local"))):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             build_model(dataclasses.replace(cfg, **bad))
+    # the MoE family is ported; without its experts' settings it is a
+    # misconfiguration
+    with pytest.raises(ValueError, match="cfg.moe"):
+        build_model(dataclasses.replace(cfg, family="moe", moe=None))
     rwkv = build_model(get_config("rwkv6-3b-smoke"))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         rwkv.prefill({}, {"tokens": torch.zeros((1, 4), dtype=torch.int32)})

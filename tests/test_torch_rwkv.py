@@ -414,10 +414,14 @@ def test_launcher_prints_the_reference_epoch_lines(capsys):
 
 def test_other_families_and_kinds_are_still_refused(monkeypatch):
     cfg = get_config(ARCH)
-    for bad in (dict(family="moe"), dict(family="hybrid"),
+    for bad in (dict(family="hybrid"),
                 dict(pattern=("rec",)), dict(pattern=("rwkv", "attn"))):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             build_model(dataclasses.replace(cfg, **bad))
+    # the MoE family is ported for attention blocks; without its experts'
+    # settings it is a misconfiguration
+    with pytest.raises(ValueError, match="cfg.moe"):
+        build_model(dataclasses.replace(cfg, family="moe", moe=None))
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         launch.main(["--arch", ARCH, "--epochs", "1"])
