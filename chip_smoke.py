@@ -3,7 +3,12 @@
 
     python3 chip_smoke.py
 
-run from the root of a checkout, on a machine with one NVIDIA H100.  It
+run from the root of a checkout, on a machine with one NVIDIA H100.
+``python3 chip_smoke.py --phase N`` (N in 15, 16, 17, 18) runs phases 1
+and 2, then phase N's kernel rows and phase N alone (phase 15 after the
+RNN-T run on the scan engine it is held against), and prints the card's
+name and power limit and the phase's launch counts; it is for trying a
+phase, and the contract below holds for the whole run only.  It
 imports no JAX and nothing of the JAX package, and runs in phases; any
 failure exits non-zero, and no phase catches an error and carries on:
 
@@ -44,21 +49,21 @@ failure exits non-zero, and no phase catches an error and carries on:
    262,144, d 3,072 to 5,376); and the shapes phase 17 gives them (see
    17);
 4. agreement: one full-width ``rnnt-crdnn`` unit, and one unit each of
-   ``starcoder2-3b`` and ``rwkv6-3b`` at full width with 2 layers in
-   fp32, through the kernels on the card against the same unit through
+   ``starcoder2-3b`` and ``rwkv6-3b`` at full width with 1 layer in
+   fp32 (the CPU side of a deeper unit costs the script's time budget), through the kernels on the card against the same unit through
    the plain versions on the CPU (per-example loss, the stage-A gradient
    or sketch, and for RWKV one layer's time-mix gradients), the RNN-T
    unit's fused backward twice on the card with the same dw_out bits,
    the RNN-T unit's whole training gradient twice, every leaf bit for
-   bit; and the 2-layer ``starcoder2-3b`` served on a 6,144-token prompt (the band
+   bit; and the 1-layer ``starcoder2-3b`` served on a 6,144-token prompt (the band
    branch), prefill and 8 teacher-forced greedy decode steps, card
    against CPU;
 5. main path, RNN-T: ``train_with_selection(method="pgm")`` at the full
    width of ``rnnt-crdnn`` on a synthetic corpus -- warm start, then a PGM
    round (stage A + stage B) before each subset epoch, each round's time
-   printed; the same path again with the same seed, its launches counted
-   apart, which must print the same losses and pick the same subsets and
-   weights; then two stage-A rounds on the trained params, timed, with
+   printed; its first two epochs again with the same seed, launches
+   counted apart, which must print the same losses and pick the same
+   subset and weights as the first run's first two; then two stage-A rounds on the trained params, timed, with
    whether their unit vectors agree bit for bit and whether they pick
    the same subsets (so also after the LM and RWKV profiles);
 6. the reference's own loop (``examples/train_asr_pgm.py`` and the
@@ -82,7 +87,8 @@ failure exits non-zero, and no phase catches an error and carries on:
    repro_torch.examples.train_asr_pgm`` at its reference settings, its
    TER line printed;
 7. profile, RNN-T: one training step under ``torch.profiler`` (host wall
-   time, device busy time, the kernels that take the most of it);
+   time, device busy time, the kernels that take the most of it), its
+   counted lattice launches equal to its traced lattice kernels;
 8. serving, RNN-T: ``rnnt-crdnn`` at full width (random weights; the
    3-epoch model emits only blanks) in the slot engine (streaming greedy
    transducer search) on 8 utterances, token for token against
@@ -105,23 +111,27 @@ failure exits non-zero, and no phase catches an error and carries on:
 13. profile, RWKV: one training step of that model, as in 7;
 14. the scanned epoch engine (``engine="scan"``: one captured CUDA graph
    of the training step, replayed once a plan row; phases 5, 6, 9 and 12
-   run ``engine="host"``): (a) phase 5's RNN-T main path through it twice
-   with one seed, bitwise equal, with phase 5's subsets and weights and
+   run ``engine="host"``): (a) phase 5's RNN-T main path through it, then
+   its first two epochs again with one seed, bitwise equal, with phase
+   5's subsets and weights and
    losses within rtol 1e-3 (whether bitwise equal printed), one capture
-   a run; then on a fresh engine one eager step under the profiler (its
-   counted launches equal to its traced lattice kernels), a full epoch
-   whose counters see per-step launches x (warm-up steps + the capture),
-   three rows replayed against the same rows without the graph
-   (bitwise), two padding rows through the graph (state bitwise held),
-   and a full replayed epoch under the profiler: its lattice kernels
-   traced per-step launches x rows times, the counters unchanged (a
-   replay makes no host call), its wall and busy time a step beside
+   a run; then on a fresh engine (phase 7's eager step under the profiler
+   having shown its counted launches equal to its traced lattice
+   kernels) a full epoch whose counters see per-step launches x (warm-up
+   steps + the capture), three rows replayed against the same rows
+   without the graph (bitwise), two padding rows through the graph
+   (state bitwise held), and ``TRACE_ROWS`` (3) rows of an epoch
+   replayed under the profiler (a whole epoch's trace took ~85 s of host
+   time beside an H100 80GB HBM3 at 700 W): its lattice
+   kernels traced per-step launches x rows times, the counters unchanged
+   (a replay makes no host call), its wall and busy time a step beside
    phase 7's eager step;
    (b) the same loop with ``epoch_chunk=2`` against (a); (c)
    ``starcoder2-3b`` and ``rwkv6-3b`` at full width with 2 layers, 2
    epochs, host engine against scan engine (same subsets, losses within
-   1e-3), then the checks of (a) on a fresh engine (the WKV forward and
-   backward kernels traced per step x rows); (d) ``python -m
+   1e-3), then the checks of (a) on a fresh engine with an eager step
+   of its own traced (the WKV forward and backward kernels traced per
+   step x rows); (d) ``python -m
    repro_torch.examples.train_asr_pgm --engine scan --epoch-chunk 2``,
    its selection and TER lines beside 6f's;
 15. resident selection (``resident_selection=True``: stage A of a round
@@ -132,9 +142,11 @@ failure exits non-zero, and no phase catches an error and carries on:
    a run and none after the first round, each round's time and stage A
    alone printed; (b) on its trained params a fresh selector against
    host ``units_gradients`` (1e-5 of the largest entry, the same
-   selection), two replays bitwise, stage A and a round timed, a
-   replayed round under the profiler: its lattice kernels 2 a unit, the
-   counters unchanged; (c) ``starcoder2-3b`` at full width and depth on
+   selection), two replays bitwise, stage A and a round timed, the
+   replayed stage A of the validation corpus under the profiler (a whole
+   round's trace took ~55 s of host time beside an H100 80GB HBM3 at 700
+   W): its lattice kernels 2 a unit, the counters
+   unchanged; (c) ``starcoder2-3b`` at full width and depth on
    the scan engine with resident selection, 2 epochs, its peak device
    memory, then (b)'s checks, and ``chunk_units=4`` against 1 (1e-5 of
    each unit vector's largest entry; the kernel counted once a chunk);
@@ -180,7 +192,29 @@ failure exits non-zero, and no phase catches an error and carries on:
    GEMMs, attention and the rest.  Phase 3 holds (d), the kernels at
    phase 17's shapes: the grad sketch at both archs' stage-A units, the
    Gram at their router-term D (28,672 and 5,120, M6) and the band at
-   ``mixtral-8x7b``'s prefill (2, 8192, 8, 4, 128, 4096) against SDPA.
+   ``mixtral-8x7b``'s prefill (2, 8192, 8, 4, 128, 4096) against SDPA;
+18. recurrent-state serving and the hybrid family (ROADMAP S10, RG1-RG5):
+   (a) ``recurrentgemma-9b`` (26 RG-LRU and 12 local layers, 9.40B
+   params) and (b) ``rwkv6-3b`` at full width and depth served from bf16
+   weights drawn on the card: ``generate`` on 2 x 8,192 (the band at
+   head dim 256 once a local layer; the WKV forward once a time-mix
+   layer) and ``SlotEngine`` (2 slots) on 4 requests whose lengths are
+   not powers of two (``recurrentgemma-9b`` at exact lengths,
+   ``rwkv6-3b`` in power-of-two buckets, its pads through the WKV
+   kernel), each completion token for token against ``generate`` on its
+   prompt alone, unpadded; the peak memory; (c) ``recurrentgemma-9b`` at
+   full width and 6 layers trained 2 epochs at S 2,048 (units of 2) on
+   the scan engine with resident rounds, twice with one seed (losses,
+   the round and every final leaf's bits equal), resident stage A
+   against host (P7), and a step at S 4,096 whose backward through the
+   band refuses (ROADMAP item 7); (e) one ``recurrentgemma-9b`` prefill
+   and one eager step under the profiler, the RG-LRU scan's device share
+   from its ``rglru.scan`` / ``rglru.scan_bwd`` ranges.  Phase 3 holds
+   (d): the band at head dim 256 (edge shapes, then (2, 8192, 1, 16, 256,
+   2048) in fp32 and bf16, the bf16 timed against SDPA), the WKV forward
+   at ``rwkv6-3b``'s prefill with pad rows (the padded row's state
+   bitwise its live prefix's), the grad sketch at ``recurrentgemma-9b``'s
+   stage-A unit (V 256,000) and its stage-B Gram.
 
 Phases 9, 12 and 15c draw their 3B models' initial weights with a
 generator on the card (the host generator took ~20 s a model).
@@ -192,19 +226,24 @@ row per kernel and main path: the Gram, which all three training paths
 run, has three and a fourth for phase 6's exact stage B, and the grad
 sketch, which both LM paths run, two; then one row per kernel and scan
 path of phase 14, ``rnnt-scan``, ``lm-scan`` and ``rwkv-scan``: a kernel
-of the captured step with the launches of a traced replayed epoch and,
+of the captured step with the launches of ``TRACE_ROWS`` traced replayed
+rows and,
 as ``counted``, its scan run's count (the warm-up steps and the
 capture), a kernel outside the step with its scan run's count; then
 one row per kernel and resident path of phase 15, ``rnnt-resident``,
 ``lm-resident``, ``rwkv-resident`` and ``lm-resident-chunk4``: a kernel
 inside the stage-A graphs with the instances traced in one replayed
-round and, as ``counted``, the selector's warm-up and capture launches,
+round (for ``rnnt-resident``, one replayed stage A of the validation
+corpus) and, as ``counted``, the selector's warm-up and capture launches,
 stage B's Gram with its count; then phase 16's rows: the band kernel at
 gemma3-27b's prefill with its serving launches, and for each dense arch's
 resident run the grad sketch at its stage-A unit and the Gram, with the
 run's counts; then phase 17's: the band at mixtral-8x7b's prefill, and
 for each MoE arch's resident run the grad sketch at its unit and the
-Gram at its router-term D), the card's name and power limit
+Gram at its router-term D; then phase 18's: the band at
+recurrentgemma-9b's prefill and the WKV forward with pad rows, each
+with its serving launches, and the grad sketch and the Gram of
+recurrentgemma-9b's resident run), the card's name and power limit
 as ``nvidia-smi`` prints them, and the line ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
@@ -297,6 +336,9 @@ SWA_EDGES = ((1, 1100, 2, 12, 128, 256, "bfloat16", None),
              (1, 1100, 1, 3, 64, 200, "bfloat16", None),
              (2, 700, 2, 2, 128, 300, "bfloat16", (1, 700)),
              (2, 700, 1, 3, 64, 63, "bfloat16", (699, 70)))
+# phase 4's full-width LM and RWKV units (and the LM's serve agreement),
+# card against CPU: one layer, whose CPU side is the phase's cost
+AGREE_LAYERS = 1
 # serving: the agreement prompt, and the full-depth run's prompts
 SERVE_AGREE_S = 6144
 SERVE_AGREE_STEPS = 8
@@ -341,6 +383,55 @@ SWA_MIXTRAL = (2, SERVE_PROMPT, 8, 4, 128, 4096, "bfloat16", None)
 # RNN-T serving: the launcher's utterances of 256-512 frames
 RNNT_SERVE_FRAMES = 512
 RNNT_MAX_SYMBOLS = 8
+# phase 18, the recurrent families.  recurrentgemma-9b's 2 x 8,192 prefill
+# takes the band at head dim 256 (MQA: 1 KV head, G 16) in its 12 local
+# layers; the head-dim-256 tiles' edges (S off the 128-row q tile, windows
+# off the 64-key tile, per-row lengths), bf16 and fp32
+SWA_RG = (2, SERVE_PROMPT, 1, 16, 256, 2048, "bfloat16", None)
+SWA_RG_EDGES = ((1, 129, 1, 2, 256, 63, "bfloat16", None),
+                (2, 1100, 1, 16, 256, 200, "bfloat16", (1100, 70)),
+                (1, 700, 2, 2, 256, 1, "bfloat16", None),
+                (2, 300, 1, 4, 256, 64, "float32", (300, 1)),
+                (1, 1100, 1, 16, 256, 5000, "float32", None))
+# rwkv6-3b's 2 x 8,192 prefill through the WKV kernel with pad rows (k 0
+# and a log-decay of 0 from the second row's length on, S10)
+WKV_PAD = (2, SERVE_PROMPT, 40, 64, 64, (SERVE_PROMPT, 5000))
+# the slot engines' requests, of lengths that are not powers of two:
+# recurrentgemma-9b prefills exact lengths (local layers; 3 of 4 past the
+# band's start at 3,072), rwkv6-3b right-pads to power-of-two buckets.
+# An unpadded rwkv6-3b prefill whose length is not a multiple of 64 takes
+# the sequential WKV scan, the padded one the chunked kernel; in bf16 the
+# two roundings can flip a greedy token (3 of 4 requests of 1,179-1,842
+# tokens in one run on an H100).  So 1,559, one of those (its last chunk
+# 23 live and 41 pad rows), is held token for token against the same
+# padded prefill and greedy decode outside the engine, and every
+# request's padded prefill against its unpadded one by logits and
+# recurrent cache within a bar of each one's largest entry that the
+# reference's padded prefill (pads through the recurrence, S10) must
+# miss: in bf16 0.25 (on an H100 80GB HBM3 at 700 W the two roundings put
+# 1,559 at 5.9e-2-7.6e-2 and the S10 fault at 1.26-2.96), and, for a
+# length that ends inside a chunk, at fp32 (TF32 off) at full depth too,
+# 1e-3, where only the summation order differs
+RG_SLOT_LENS = (2500, 3300, 4100, 5000)
+RWKV_SLOT_LENS = (1088, 1559, 2496, 3008)
+RWKV_PAD_BARS = {"bfloat16": 0.25, "float32": 1e-3}
+HYBRID_SLOTS = 2
+HYBRID_NEW = 8
+# phase 18c: recurrentgemma-9b trained at full width and two groups of its
+# layers (its fp32 masters at full depth, 37.6 GB, would not fit with
+# their gradients and activations), at S 2,048, below the band's start
+# (training past it needs the band's backward, ROADMAP item 7), on 32
+# examples in units of 2 (units of 4 ran out of memory in the step's
+# capture on an H100 80GB HBM3 at 700 W, at 65.4 GB allocated); its
+# stage-A unit (tied head,
+# V 256,000) and stage-B Gram
+RG_TRAIN_LAYERS = 6
+RG_TRAIN_SEQ = 2048
+RG_TRAIN_N = 32
+RG_TRAIN_UNIT = 2
+RG_BAND_SEQ = 4096
+SKETCH_RG = (1, RG_TRAIN_UNIT * (RG_TRAIN_SEQ - 1), 4096, 256000, 64, 64)
+GRAM_RG = (4, 4, 64 * 64)
 
 
 def fail(msg: str) -> None:
@@ -522,8 +613,8 @@ def sketch_row(torch, op, ref, shape, seed, dev, tag, on_card=False):
     p64 = float((ref(*ins)[0].double() - truth).abs().max()) / t_scale
     runs = []
     for _ in range(2):
-        runs.append(cuda_ms(torch, lambda: op(*ins), reps=10))
-        runs.append(cuda_ms(torch, lambda: ref(*ins), reps=5))
+        runs.append(cuda_ms(torch, lambda: op(*ins), reps=6))
+        runs.append(cuda_ms(torch, lambda: ref(*ins), reps=3))
     k_ms, p_ms = (runs[0] + runs[2]) / 2, (runs[1] + runs[3]) / 2
     U, n, d, V, k1, k2 = shape
     # inputs h, w, r_h, r_v, targets, scale read once, the sketch written
@@ -570,6 +661,18 @@ def rnnt_run_record(hist):
     return (list(hist.train_loss), list(hist.val_loss),
             [(s["epoch"], list(s["indices"]), list(s["weights"]))
              for s in hist.selections])
+
+
+# a same-seed repeat of a 3-epoch RNN-T run takes its first REPEAT_EPOCHS
+# (the warm-start epoch and one round), held against that prefix of the
+# first run: a run's first epochs do not depend on how many follow
+REPEAT_EPOCHS = 2
+
+
+def run_prefix(rec, epochs: int = REPEAT_EPOCHS):
+    """A run record's first ``epochs`` epochs and the rounds before them."""
+    tl, vl, sels = rec
+    return tl[:epochs], vl[:epochs], [x for x in sels if x[0] < epochs]
 
 
 def kernel_times(torch, fn, reps: int):
@@ -841,7 +944,7 @@ def band_pairs(S: int, W: int) -> int:
 
 
 def serve_agreement(torch, bundle, p_cpu, dev, tree_map) -> None:
-    """The 2-layer model served on one SERVE_AGREE_S-token prompt on the
+    """The 1-layer model served on one SERVE_AGREE_S-token prompt on the
     card (band kernel) and on the CPU (plain band gather): last logits
     within 1e-4 of their largest entry, the cache's k/v within 1e-5 of
     theirs, then SERVE_AGREE_STEPS greedy decode steps teacher-forced with
@@ -893,7 +996,8 @@ def serve_agreement(torch, bundle, p_cpu, dev, tree_map) -> None:
             forks += 1
     require(kv_rel <= 1e-5, f"serve agreement: cache k/v err {kv_rel} of "
                             f"the largest entry > 1e-5")
-    print(f"[agree] starcoder2-3b served at full width, 2 layers, fp32, one "
+    print(f"[agree] starcoder2-3b served at full width, "
+          f"{bundle.cfg.n_layers} layer(s), fp32, one "
           f"prompt of {SERVE_AGREE_S} (band) + {SERVE_AGREE_STEPS} "
           f"teacher-forced decode steps: logits err at most {worst:.2e} of "
           f"the largest entry, cache k/v err {kv_rel:.2e} of their "
@@ -1107,9 +1211,9 @@ def profile_call(torch, fn, tag: str, what: str, per: int = 1,
     return wall_ms, busy_ms, n_kernels, counts
 
 
-def profile_step(torch, bundle, tc, units, dev, params, tag):
+def profile_step(torch, bundle, tc, units, dev, params, tag, count=None):
     """One training step on one unit under the profiler -> (wall ms, busy
-    ms, device ops)."""
+    ms, device ops, {name: traced instances of ``count[name]``})."""
     from repro_torch.train.engine import make_step_core, to_device
     from repro_torch.train.optim import make_update_for
 
@@ -1118,7 +1222,7 @@ def profile_step(torch, bundle, tc, units, dev, params, tag):
     batch = to_device({k: v[0] for k, v in units.items()}, dev)
     return profile_call(torch, lambda: step(params, opt_state, batch,
                                             tc.lr), tag,
-                        f"one training step (B={UNIT_SIZE})")
+                        f"one training step (B={UNIT_SIZE})", count=count)
 
 
 def greedy_with_margin(torch, greedy_decode, bundle, params, feats, lens):
@@ -1387,6 +1491,11 @@ def reference_loop(torch, np, bundle, tc, units, val_units, val_corpus,
     return launches, gram_row, out
 
 
+#: rows of an epoch that ``replay_check`` replays under the profiler (an
+#: RNN-T row is ~44,200 kernels, whose trace took ~5 s of host time beside
+#: an H100 80GB HBM3 at 700 W)
+TRACE_ROWS = 3
+
 #: a kernel that each call of a wrapper launches once, by launch counter
 KERNEL_MARKERS = {"rnnt_lattice": "rnnt_lattice_kernel",
                   "rwkv6_wkv": "wkv_out_kernel",
@@ -1394,21 +1503,25 @@ KERNEL_MARKERS = {"rnnt_lattice": "rnnt_lattice_kernel",
                   "grad_sketch": "gs_partial"}
 
 
-def replay_check(torch, np, bundle, tc, units, dev, params, ops, tag):
+def replay_check(torch, np, bundle, tc, units, dev, params, ops, tag,
+                 eager=None):
     """The scan engine on the card, on a fresh ``EpochEngine`` over
     ``units`` from ``params``.  The launch counters of ``ops`` ({name:
     (wrapper, attribute)}) count at the launch site, so: (1) one eager
     step under the profiler: its counts, and its traced marker kernels
-    (``KERNEL_MARKERS``) the same numbers; (2) a full epoch: the counts
+    (``KERNEL_MARKERS``) the same numbers (or ``eager``, the per-step
+    counts of a step already traced so, phase 7's); (2) a full epoch: the
+    counts
     per step x (warm-up steps + the capture), one capture; then a second
     full epoch timed; (3) three rows of the next plan, the third made
     padding, replayed and run on the card without the graph from the same
     state: params, optimizer state and losses bitwise equal; (4) a plan
     of two padding rows through the graph: the state bitwise held, losses
-    0, still one capture; (5) a full epoch of replays under the profiler:
-    the counts unchanged, each marker kernel traced per-step launches x
-    rows times.  -> (per-step launches, the replayed epoch's profile a
-    step, ms a step of the timed epoch, the traced epoch's launches)."""
+    0, still one capture; (5) ``TRACE_ROWS`` rows of an epoch replayed
+    under the profiler: the counts unchanged, each marker kernel traced
+    per-step launches x rows times.  -> (per-step launches, the replayed
+    rows' profile a step, ms a step of the timed epoch, the traced rows'
+    launches)."""
     from repro_torch.models.common import tree_leaves, tree_map
     from repro_torch.train.engine import (EpochEngine, make_step_core,
                                           to_device)
@@ -1429,20 +1542,23 @@ def replay_check(torch, np, bundle, tc, units, dev, params, ops, tag):
 
     markers = {n: KERNEL_MARKERS[n] for n in ops}
     opt_init = make_update_for(tc)[0]
-    opt0 = opt_init(params)
-    batch = to_device({k: v[0] for k, v in units.items()}, dev)
-    step = make_step_core(bundle, tc)
-    n0 = read()
-    _, _, _, traced = profile_call(
-        torch, lambda: step(params, opt0, batch, tc.lr), tag,
-        "one eager step", count=markers)
-    per_step = {n: (c - n0[n]) // 2 for n, c in read().items()}
-    print(f"[{tag}] one eager step: launches {per_step}, its traced "
-          f"kernels {traced}", flush=True)
-    require(all(v > 0 for v in per_step.values()) and traced == per_step,
-            f"{tag}: an eager step's launches {per_step} against its "
-            f"traced kernels {traced}")
-    del opt0, batch
+    if eager is None:
+        opt0 = opt_init(params)
+        batch = to_device({k: v[0] for k, v in units.items()}, dev)
+        step = make_step_core(bundle, tc)
+        n0 = read()
+        _, _, _, traced = profile_call(
+            torch, lambda: step(params, opt0, batch, tc.lr), tag,
+            "one eager step", count=markers)
+        per_step = {n: (c - n0[n]) // 2 for n, c in read().items()}
+        print(f"[{tag}] one eager step: launches {per_step}, its traced "
+              f"kernels {traced}", flush=True)
+        require(all(v > 0 for v in per_step.values()) and traced == per_step,
+                f"{tag}: an eager step's launches {per_step} against its "
+                f"traced kernels {traced}")
+        del opt0, batch
+    else:
+        per_step = dict(eager)
     EpochEngine.captures = EpochEngine.replays = 0
     EpochEngine.warmup_steps = 0
     eng = EpochEngine(bundle, tc, units, device=dev)
@@ -1501,24 +1617,25 @@ def replay_check(torch, np, bundle, tc, units, dev, params, ops, tag):
     require(held and l_pad.tolist() == [0.0, 0.0]
             and EpochEngine.captures == 1,
             f"{tag}: padding rows are not bitwise no-ops through the graph")
-    full = eng.full_plan(3)
+    idx, w = eng.full_plan(3)
+    rows = (idx[:TRACE_ROWS].copy(), w[:TRACE_ROWS].copy())
     n0 = read()
     t0 = time.time()
     *prof, traced = profile_call(
-        torch, lambda: eng.run_epoch(eng.params, eng.opt_state, tc.lr, full),
-        tag, f"a replayed epoch ({n_rows} rows)", per=n_rows,
-        count=markers)
+        torch, lambda: eng.run_epoch(eng.params, eng.opt_state, tc.lr, rows),
+        tag, f"{TRACE_ROWS} replayed rows of an epoch of {n_rows}",
+        per=TRACE_ROWS, count=markers)
     counted = {n: c - n0[n] for n, c in read().items()}
-    want = {n: d * n_rows for n, d in per_step.items()}
-    print(f"[{tag}] a replayed epoch under the profiler ({time.time() - t0:.1f} "
-          f"s with its warm-up epoch and the trace): traced kernels "
-          f"{traced} = per step x {n_rows} rows {want}; launches counted "
-          f"over its two epochs {counted} (replays make no host call); "
-          f"captures {EpochEngine.captures}", flush=True)
+    want = {n: d * TRACE_ROWS for n, d in per_step.items()}
+    print(f"[{tag}] {TRACE_ROWS} replayed rows under the profiler "
+          f"({time.time() - t0:.1f} s with their warm-up and the trace): "
+          f"traced kernels {traced} = per step x {TRACE_ROWS} rows {want}; "
+          f"launches counted over both passes {counted} (replays make no "
+          f"host call); captures {EpochEngine.captures}", flush=True)
     require(traced == want and all(v == 0 for v in counted.values())
             and EpochEngine.captures == 1,
-            f"{tag}: a replayed epoch ran {traced} kernels, not {want}, "
-            f"or counted {counted} launches")
+            f"{tag}: {TRACE_ROWS} replayed rows ran {traced} kernels, not "
+            f"{want}, or counted {counted} launches")
     return per_step, prof, step_ms, traced
 
 
@@ -1590,25 +1707,30 @@ def scan_engine_phase(torch, np, bundle, tc, units, val_units, first,
         require(subsets and weights and len(tl) == len(tl0)
                 and loss_rel < 1e-3, f"{tag}: {rec} against {ref_tag} {ref}")
 
-    # (a) the RNN-T main path through the scan engine, twice
+    # (a) the RNN-T main path through the scan engine, then its first
+    # REPEAT_EPOCHS epochs again
     runs = []
-    for tag in ("14a", "14a again"):
-        h, launches, secs = scan_run(bundle, units, val_units, tc, rnnt_ops,
-                                     tag, engine="scan")
+    for tag, tc_ in (("14a", tc), ("14a again", dataclasses.replace(
+            tc, epochs=REPEAT_EPOCHS))):
+        h, launches, secs = scan_run(bundle, units, val_units, tc_,
+                                     rnnt_ops, tag, engine="scan")
         runs.append((rnnt_run_record(h), launches, secs, h.final_params))
         del h
+    same = runs[1][0] == run_prefix(runs[0][0])
     print(f"[14a] two scan runs of seed {tc.seed}: every loss, index and "
-          f"weight equal: {runs[0][0] == runs[1][0]}", flush=True)
-    require(runs[0][0] == runs[1][0], "14a: two scan runs of one seed "
-                                      "differ")
+          f"weight of the second's {REPEAT_EPOCHS} epochs equal to the "
+          f"first's: {same}", flush=True)
+    require(same, "14a: two scan runs of one seed differ")
     agree(runs[0][0], first, "14a", "phase 5's host run")
+    # the eager step was traced and counted in phase 7
     per_step, replayed, step_ms, traced = replay_check(
         torch, np, bundle, tc, units, dev, runs[0][3],
-        {"rnnt_lattice": (rnnt_lattice_op, "launches")}, "14a replay")
+        {"rnnt_lattice": (rnnt_lattice_op, "launches")}, "14a replay",
+        eager=eager_step[3])
     print(f"[14a] one RNN-T step (B={UNIT_SIZE}): eager (phase 7) wall "
           f"{eager_step[0]:.1f} ms, busy {eager_step[1]:.1f} ms "
           f"({100 * eager_step[1] / eager_step[0]:.1f}%), {eager_step[2]} "
-          f"device ops; replayed (a traced epoch, a step) wall "
+          f"device ops; replayed ({TRACE_ROWS} traced rows, a step) wall "
           f"{replayed[0]:.1f} ms, busy {replayed[1]:.1f} ms "
           f"({100 * replayed[1] / replayed[0]:.1f}%), {replayed[2]} device "
           f"ops; a replayed full epoch untraced {step_ms:.1f} ms a step",
@@ -1813,11 +1935,15 @@ def resident_phase(torch, np, bundle, tc, units, val_units, rec_14a, models,
                 and all(np.isfinite(h.val_loss)), f"{tag}: non-finite loss")
         return h, read(), peak
 
-    def round_check(b, pgm_cfg, params, us, vs, proj, tag, markers):
+    def round_check(b, pgm_cfg, params, us, vs, proj, tag, markers,
+                    trace_round=True):
         """A fresh selector on ``params``: resident against host stage A
         (1e-5 of the largest entry) and the same selection; two replays
-        bitwise; stage A and a round timed; one replayed round traced ->
-        (train vectors, {kernel: (traced, counted)})."""
+        bitwise; stage A and a round timed; one replayed round traced (or,
+        without ``trace_round``, the replayed stage A of the validation
+        corpus: an RNN-T round is ~432,700 kernels, whose trace took ~55 s
+        of host time beside an H100 80GB HBM3 at 700 W) -> (train vectors,
+        {kernel: (traced, counted)})."""
         sel, g1, err, same, bitwise, counted = resident_against_host(
             torch, b, pgm_cfg, params, us, vs, proj, read)
         t0 = time.time()
@@ -1830,10 +1956,16 @@ def resident_phase(torch, np, bundle, tc, units, val_units, rec_14a, models,
         torch.cuda.synchronize()
         t_round = time.time() - t0
         n1 = read()
+        if trace_round:
+            fn, what = (lambda: sel(params, us, val_units=vs),
+                        f"a replayed round ({us['tokens'].shape[0]} + "
+                        f"{vs['tokens'].shape[0]} units, stage B eager)")
+        else:
+            fn, what = (lambda: sel.stage_a(params, vs),
+                        f"a replayed stage A of the validation corpus "
+                        f"({vs['tokens'].shape[0]} units)")
         *_, traced = profile_call(
-            torch, lambda: sel(params, us, val_units=vs), tag,
-            f"a replayed round ({us['tokens'].shape[0]} + "
-            f"{vs['tokens'].shape[0]} units, stage B eager)",
+            torch, fn, tag, what,
             count={k: KERNEL_MARKERS[k] for k in markers})
         moved = {k: v for k, v in delta(n1).items() if k in markers}
         print(f"[{tag}] resident stage A against host units_gradients: max "
@@ -1842,8 +1974,9 @@ def resident_phase(torch, np, bundle, tc, units, val_units, rec_14a, models,
               f"{bitwise}; a replayed stage A (train + val) {t_a:.3f} s, a "
               f"replayed round {t_round:.3f} s (host clock); launches "
               f"counted at the warm-ups and captures {counted}; traced in a "
-              f"replayed round {traced}; counted during the traced replays "
-              f"{moved}", flush=True)
+              f"replayed {'round' if trace_round else 'validation stage A'} "
+              f"{traced}; counted during the traced replays {moved}",
+              flush=True)
         require(err <= 1e-5 and same and bitwise and not moved,
                 f"{tag}: resident stage A disagrees with the host's, two "
                 f"replays differ, or a replay moved a counter")
@@ -1876,11 +2009,11 @@ def resident_phase(torch, np, bundle, tc, units, val_units, rec_14a, models,
     proj = make_proj_for(bundle, torch.Generator().manual_seed(0),
                          tc.pgm.sketch_dim_h, tc.pgm.sketch_dim_v, dev)
     _, rows = round_check(bundle, tc.pgm, runs[0][2], us, vs, proj, "15b",
-                          ["rnnt_lattice"])
-    n_units = us["tokens"].shape[0] + vs["tokens"].shape[0]
+                          ["rnnt_lattice"], trace_round=False)
+    n_units = vs["tokens"].shape[0]
     require(rows["rnnt_lattice"][0] == 2 * n_units,
             f"15b: {rows['rnnt_lattice'][0]} lattice kernels traced in a "
-            f"replayed round, not 2 a unit x {n_units}")
+            f"replayed validation stage A, not 2 a unit x {n_units}")
     out["rnnt-resident"] = dict(rows, omp_gram=(omp_a, omp_a))
     del runs, us, vs
     gc.collect()
@@ -1995,6 +2128,28 @@ def greedy_logits(torch, bundle, params, prompt, steps: int):
     return out, torch.stack(toks, dim=1)
 
 
+def launch_counters():
+    """(zero, read) over every kernel wrapper's launch counter:
+    ``zero()`` sets each to 0, ``read()`` -> {kernel: launches}."""
+    from repro_torch.kernels.grad_sketch.ops import grad_sketch_units_op
+    from repro_torch.kernels.omp_gram.ops import omp_gram_batched_op
+    from repro_torch.kernels.rnnt_lattice.ops import rnnt_lattice_op
+    from repro_torch.kernels.rwkv6_scan.ops import rwkv6_wkv_op
+    from repro_torch.kernels.swa_attn.ops import swa_attn_op
+
+    ops = {"rnnt_lattice": rnnt_lattice_op, "omp_gram": omp_gram_batched_op,
+           "grad_sketch": grad_sketch_units_op, "rwkv6_wkv": rwkv6_wkv_op,
+           "swa_attn": swa_attn_op}
+
+    def zero():
+        for op in ops.values():
+            op.launches = 0
+
+    def read():
+        return {n: op.launches for n, op in ops.items()}
+    return zero, read
+
+
 def dense_phase(torch, np, dev, mark):
     """Phase 16: the reference's other dense archs and examples.  (a)
     ``gemma3-27b`` at full width and depth served from bf16 weights drawn
@@ -2012,11 +2167,6 @@ def dense_phase(torch, np, dev, mark):
     from repro_torch.core.lastlayer import make_proj_for
     from repro_torch.core.pgm import ResidentSelector
     from repro_torch.examples import quickstart, train_lm_pgm
-    from repro_torch.kernels.grad_sketch.ops import grad_sketch_units_op
-    from repro_torch.kernels.omp_gram.ops import omp_gram_batched_op
-    from repro_torch.kernels.rnnt_lattice.ops import rnnt_lattice_op
-    from repro_torch.kernels.rwkv6_scan.ops import rwkv6_wkv_op
-    from repro_torch.kernels.swa_attn.ops import swa_attn_op
     from repro_torch.launch.serve import make_requests
     from repro_torch.launch.train import make_units_for
     from repro_torch.models.api import build_model
@@ -2025,16 +2175,7 @@ def dense_phase(torch, np, dev, mark):
     from repro_torch.train.engine import EpochEngine, to_device
     from repro_torch.train.loop import train_with_selection
 
-    ops = {"rnnt_lattice": rnnt_lattice_op, "omp_gram": omp_gram_batched_op,
-           "grad_sketch": grad_sketch_units_op, "rwkv6_wkv": rwkv6_wkv_op,
-           "swa_attn": swa_attn_op}
-
-    def zero():
-        for op in ops.values():
-            op.launches = 0
-
-    def read():
-        return {n: op.launches for n, op in ops.items()}
+    zero, read = launch_counters()
 
     out = {}
     gb = lambda: torch.cuda.max_memory_allocated() / 1e9
@@ -2425,8 +2566,76 @@ def run_fingerprint(torch, hist):
             tuple(bits(l) for l in tree_leaves(hist.final_params)))
 
 
-def moe_serve(torch, dev, arch, layers, prompt_len, ops, zero, read, gb,
-              mark):
+def train_twice(torch, np, bundle, us_np, vs_np, tc, dev, tag, what,
+                zero, read, gb, kernels):
+    """A path of phases 17c and 18c: ``bundle`` trained 2 epochs on the
+    scan engine with resident rounds (one round) from weights drawn on
+    the card, twice with one seed; each run's time, rounds, captures,
+    losses, launches and peak memory printed; every epoch's losses, the
+    round and every final leaf's bits equal across the two runs; each
+    run launches ``kernels`` (the path's) and no other counted kernel ->
+    (the second run's final params, the first run's launches)."""
+    from repro_torch.core.pgm import ResidentSelector
+    from repro_torch.models.common import tree_leaves
+    from repro_torch.train.engine import EpochEngine
+    from repro_torch.train.loop import train_with_selection
+
+    cfg = bundle.cfg
+    runs = []
+    for rep in range(2):
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        zero()
+        ResidentSelector.captures = ResidentSelector.replays = 0
+        EpochEngine.captures = EpochEngine.replays = 0
+        torch.cuda.synchronize()
+        t0 = time.time()
+        h = train_with_selection(
+            bundle, us_np, tc, method="pgm", val_units=vs_np, device="cuda",
+            engine="scan", resident_selection=True,
+            params=card_init(torch, bundle, dev),
+            log_fn=lambda s: print(f"[{tag} {cfg.name} +"
+                                   f"{time.time() - t0:.1f}s] {s}",
+                                   flush=True))
+        torch.cuda.synchronize()
+        secs, peak = time.time() - t0, gb()
+        n_run = read()
+        n_par = sum(l.numel() for l in tree_leaves(h.final_params))
+        U, b, S = us_np["tokens"].shape
+        print(f"[{tag}] {cfg.name} at full width, {cfg.n_layers} layers "
+              f"({n_par:,} params), run {rep + 1}: {U} units of {b} x {S} "
+              f"tokens, 2 epochs, scan engine, resident rounds{what}: "
+              f"{secs:.1f} s ({h.wall_time:.1f} s after the init); rounds "
+              f"{[round(s['seconds'], 3) for s in h.selections]} s; "
+              f"stage-A captures {ResidentSelector.captures}, replays "
+              f"{ResidentSelector.replays}; step captures "
+              f"{EpochEngine.captures}; losses train "
+              f"{[round(x, 4) for x in h.train_loss]} val "
+              f"{[round(x, 4) for x in h.val_loss]}; launches {n_run}; "
+              f"peak device memory {peak:.2f} GB", flush=True)
+        require(len(h.selections) == 1 and len(h.train_loss) == 2
+                and all(np.isfinite(h.train_loss + h.val_loss)),
+                f"{tag} {cfg.name}: the run did not finish its round and "
+                f"epochs")
+        require(all(n_run[k] > 0 for k in kernels)
+                and all(v == 0 for k, v in n_run.items() if k not in kernels),
+                f"{tag} {cfg.name}: launches {n_run}, not {kernels} alone")
+        runs.append((run_fingerprint(torch, h), n_run))
+        params = h.final_params
+        del h
+        if rep == 0:
+            del params
+    same = runs[0][0] == runs[1][0]
+    print(f"[{tag}] {cfg.name}: two runs of seed {tc.seed}, every epoch's "
+          f"losses, the round's indices and weights and every final leaf's "
+          f"bits equal: {same}", flush=True)
+    require(same, f"{tag} {cfg.name}: two runs of one seed differ")
+    gc.collect()
+    return params, runs[0][1]
+
+
+def moe_serve(torch, dev, arch, layers, prompt_len, zero, read, gb, mark):
     """Phase 17a/b for one MoE arch at full width and ``layers`` layers,
     from bf16 weights drawn on the card: ``generate`` on 2 prompts of
     ``prompt_len``, ``SlotEngine`` on the launcher's 8 requests at
@@ -2542,29 +2751,12 @@ def moe_phase(torch, np, dev, mark):
     from repro_torch.configs.base import PGMConfig, TrainConfig
     from repro_torch.core.lastlayer import make_proj_for
     from repro_torch.core.pgm import ResidentSelector
-    from repro_torch.kernels.grad_sketch.ops import grad_sketch_units_op
-    from repro_torch.kernels.omp_gram.ops import omp_gram_batched_op
-    from repro_torch.kernels.rnnt_lattice.ops import rnnt_lattice_op
-    from repro_torch.kernels.rwkv6_scan.ops import rwkv6_wkv_op
-    from repro_torch.kernels.swa_attn.ops import swa_attn_op
     from repro_torch.launch.train import make_units_for
     from repro_torch.models.api import build_model
-    from repro_torch.models.common import tree_leaves
-    from repro_torch.train.engine import (EpochEngine, make_step_core,
-                                          to_device)
-    from repro_torch.train.loop import train_with_selection
+    from repro_torch.train.engine import make_step_core, to_device
     from repro_torch.train.optim import make_update_for
 
-    ops = {"rnnt_lattice": rnnt_lattice_op, "omp_gram": omp_gram_batched_op,
-           "grad_sketch": grad_sketch_units_op, "rwkv6_wkv": rwkv6_wkv_op,
-           "swa_attn": swa_attn_op}
-
-    def zero():
-        for op in ops.values():
-            op.launches = 0
-
-    def read():
-        return {n: op.launches for n, op in ops.items()}
+    zero, read = launch_counters()
 
     out = {}
     gb = lambda: torch.cuda.max_memory_allocated() / 1e9
@@ -2572,7 +2764,7 @@ def moe_phase(torch, np, dev, mark):
     # (a) olmoe-1b-7b at full width and depth, and its prefill profiled
     full = get_config("olmoe-1b-7b")
     n, bo, po = moe_serve(torch, dev, "olmoe-1b-7b", full.n_layers,
-                          MOE_SLOT_PROMPT, ops, zero, read, gb, mark)
+                          MOE_SLOT_PROMPT, zero, read, gb, mark)
     out["serve-olmoe-1b-7b"] = {"swa_attn": n}
     prompts = torch.randint(0, full.vocab_size, (2, MOE_SLOT_PROMPT),
                             dtype=torch.int32, device=dev,
@@ -2612,7 +2804,7 @@ def moe_phase(torch, np, dev, mark):
 
     # (b) mixtral-8x7b at full width, reduced depth
     n, bm, pm = moe_serve(torch, dev, "mixtral-8x7b", MIXTRAL_SERVE_LAYERS,
-                          SERVE_PROMPT, ops, zero, read, gb, mark)
+                          SERVE_PROMPT, zero, read, gb, mark)
     out["serve-mixtral-8x7b"] = {"swa_attn": n}
     del bm, pm
     gc.collect()
@@ -2627,58 +2819,10 @@ def moe_phase(torch, np, dev, mark):
         c = dataclasses.replace(get_config(arch), n_layers=layers)
         bd = build_model(c)
         us_np, vs_np = make_units_for(c, n=LM_N, seq=LM_SEQ, noise=0.0)
-        runs = []
-        for rep in range(2):
-            gc.collect()
-            torch.cuda.empty_cache()
-            torch.cuda.reset_peak_memory_stats()
-            zero()
-            ResidentSelector.captures = ResidentSelector.replays = 0
-            EpochEngine.captures = EpochEngine.replays = 0
-            torch.cuda.synchronize()
-            t0 = time.time()
-            h = train_with_selection(
-                bd, us_np, tc, method="pgm", val_units=vs_np, device="cuda",
-                engine="scan", resident_selection=True,
-                params=card_init(torch, bd, dev),
-                log_fn=lambda s: print(f"[17c {arch} +{time.time() - t0:.1f}"
-                                       f"s] {s}", flush=True))
-            torch.cuda.synchronize()
-            secs, peak = time.time() - t0, gb()
-            n_run = read()
-            n_par = sum(l.numel() for l in tree_leaves(h.final_params))
-            print(f"[17c] {arch} at full width, {layers} of "
-                  f"{get_config(arch).n_layers} layers ({n_par:,} params), "
-                  f"run {rep + 1}: {us_np['tokens'].shape[0]} units of "
-                  f"{UNIT_SIZE} x {LM_SEQ} tokens, 2 epochs, scan engine, "
-                  f"resident rounds with the router term: {secs:.1f} s "
-                  f"({h.wall_time:.1f} s after the init); rounds "
-                  f"{[round(s['seconds'], 3) for s in h.selections]} s; "
-                  f"stage-A captures {ResidentSelector.captures}, replays "
-                  f"{ResidentSelector.replays}; step captures "
-                  f"{EpochEngine.captures}; losses train "
-                  f"{[round(x, 4) for x in h.train_loss]} val "
-                  f"{[round(x, 4) for x in h.val_loss]}; launches {n_run}; "
-                  f"peak device memory {peak:.2f} GB", flush=True)
-            require(len(h.selections) == 1 and len(h.train_loss) == 2
-                    and all(np.isfinite(h.train_loss + h.val_loss)),
-                    f"17c {arch}: the run did not finish its round and "
-                    f"epochs")
-            require(n_run["grad_sketch"] > 0 and n_run["omp_gram"] > 0
-                    and n_run["swa_attn"] == 0,
-                    f"17c {arch}: a kernel of the path was not launched: "
-                    f"{n_run}")
-            runs.append((run_fingerprint(torch, h), n_run))
-            params = h.final_params
-            del h
-            if rep == 0:
-                del params
-        same = runs[0][0] == runs[1][0]
-        print(f"[17c] {arch}: two runs of seed {tc.seed}, every epoch's "
-              f"losses, the round's indices and weights and every final "
-              f"leaf's bits equal: {same}", flush=True)
-        require(same, f"17c {arch}: two runs of one seed differ")
-        gc.collect()
+        params, n_run = train_twice(
+            torch, np, bd, us_np, vs_np, tc, dev, "17c",
+            " with the router term", zero, read, gb,
+            ("grad_sketch", "omp_gram"))
         us, vs = to_device(us_np, dev), to_device(vs_np, dev)
         proj = make_proj_for(bd, torch.Generator().manual_seed(0),
                              pc.sketch_dim_h, pc.sketch_dim_v, dev)
@@ -2713,13 +2857,509 @@ def moe_phase(torch, np, dev, mark):
                     UNIT_SIZE * LM_SEQ, "17e",
                     f"{arch} ({layers} layers) one training step (B="
                     f"{UNIT_SIZE} x {LM_SEQ}), eager")
-        out[f"{arch}-resident"] = {"grad_sketch": runs[0][1]["grad_sketch"],
-                                   "omp_gram": runs[0][1]["omp_gram"]}
+        out[f"{arch}-resident"] = {"grad_sketch": n_run["grad_sketch"],
+                                   "omp_gram": n_run["omp_gram"]}
         del params, opt_state, batch, step, bd
         gc.collect()
         torch.cuda.empty_cache()
         mark(f"17c {arch} trained at full width, {layers} layers")
     return out
+
+
+def wkv_pad_row(torch, dev):
+    """The WKV forward at ``WKV_PAD``: rwkv6-3b's prefill with pad rows
+    (k 0 and a log-decay of 0 past the row's length, as the time mix
+    sets them).  Two launches bitwise equal; y at the live rows and the
+    final state against the plain chunk algebra on the same card tensors
+    (1e-4 of each one's largest entry); the padded row, whose length ends
+    inside a chunk, against the sequential scan of its live prefix alone
+    (no pad row; y and the final state, 1e-4 of the largest entry: the
+    chunk that holds live and pad rows, S10); its state bitwise the
+    kernel's on the prefix rounded up to a chunk (whole pad chunks carry
+    it unchanged); timed against the plain version -> (max abs err,
+    kernel ms, plain ms, library ms (None), bound ms, what bounds it)."""
+    from repro_torch.kernels.rwkv6_scan.ops import rwkv6_wkv_op, wkv_forward
+    from repro_torch.kernels.rwkv6_scan.ref import wkv_scan
+
+    B, S, H, N, C, lens = WKV_PAD
+    (r, k, v, lw, u), _ = wkv_inputs(torch, B, S, H, N, None, seed=11,
+                                     dev=dev)
+    n = torch.tensor(lens, device=dev)
+    live = (torch.arange(S, device=dev)[None, :] < n[:, None])[..., None,
+                                                               None]
+    k = torch.where(live, k, torch.zeros((), device=dev))
+    lw = torch.where(live, lw, torch.zeros((), device=dev))
+    with torch.no_grad():
+        y, st = rwkv6_wkv_op(r, k, v, lw, u, C)
+        y2, st2 = rwkv6_wkv_op(r, k, v, lw, u, C)
+        torch.cuda.synchronize()
+        require(bool(torch.equal(y, y2) and torch.equal(st, st2)),
+                f"rwkv6_wkv {WKV_PAD}: two launches differ")
+        yp, sp = wkv_plain(torch, r, k, v, lw, u, C)
+        L = lens[1]
+        cut = -(-L // C) * C
+        _, st_cut = rwkv6_wkv_op(*(x[1:, :cut].contiguous()
+                                   for x in (r, k, v, lw)), u, C)
+        y_seq, st_seq = wkv_scan(r[1:, :L], k[1:, :L], v[1:, :L],
+                                 torch.exp(lw[1:, :L]), u,
+                                 torch.zeros(1, H, N, N, device=dev))
+    keep = live.expand_as(y)
+    err_y = float((y - yp)[keep].abs().max())
+    err_s = float((st - sp).abs().max())
+    y_scale, s_scale = float(yp[keep].abs().max()), float(sp.abs().max())
+    require(err_y <= 1e-4 * y_scale and err_s <= 1e-4 * s_scale,
+            f"rwkv6_wkv {WKV_PAD}: y err {err_y} (scale {y_scale}), state "
+            f"err {err_s} (scale {s_scale})")
+    pre_y = float((y[1, :L] - y_seq[0]).abs().max())
+    pre_s = float((st[1] - st_seq[0]).abs().max())
+    pre_ys, pre_ss = float(y_seq.abs().max()), float(st_seq.abs().max())
+    require(pre_y <= 1e-4 * pre_ys and pre_s <= 1e-4 * pre_ss,
+            f"rwkv6_wkv {WKV_PAD}: the padded row against the sequential "
+            f"scan of its {L} live tokens: y err {pre_y} (scale {pre_ys}), "
+            f"state err {pre_s} (scale {pre_ss})")
+    same = bool(torch.equal(st[1], st_cut[0]))
+    require(same, f"rwkv6_wkv {WKV_PAD}: the pad chunks moved the state")
+    k_ms = cuda_ms(torch, lambda: wkv_forward(r, k, v, lw, u, C, False),
+                   reps=20)
+    with torch.no_grad():
+        p_ms = cuda_ms(torch, lambda: wkv_plain(torch, r, k, v, lw, u, C),
+                       reps=3)
+    # r, k, v, lw, u read once, y and the final state written once; 4 N^2
+    # FLOP a (token, head) over the whole padded prefill
+    bshn, bhnn = B * S * H * N, B * H * N * N
+    b_ms, b_by = bound(4 * (4 * bshn + H * N + bshn + bhnn),
+                       4 * N * N * B * S * H)
+    err = max(err_y, err_s)
+    print(f"[kernels] rwkv6_wkv with pad rows {WKV_PAD}: y err {err_y:.3e} "
+          f"({err_y / y_scale:.1e} of the largest entry), state err "
+          f"{err_s:.3e} ({err_s / s_scale:.1e}); two launches bitwise "
+          f"equal; the padded row ({L} live tokens, {L % C} of them in a "
+          f"chunk with pad rows) against the sequential scan of its live "
+          f"tokens alone: y err {pre_y:.3e} ({pre_y / pre_ys:.1e}), state "
+          f"err {pre_s:.3e} ({pre_s / pre_ss:.1e}); its state bitwise the "
+          f"kernel's on {cut} tokens (whole pad chunks): {same}; kernel_ms "
+          f"{k_ms:.4f} plain_ms "
+          f"{p_ms:.4f} library_ms none bound_ms {b_ms:.4f} ({b_by})",
+          flush=True)
+    del r, k, v, lw, u, y, y2, yp, st, st2, sp, st_cut, y_seq, st_seq
+    return err, k_ms, p_ms, None, b_ms, b_by
+
+
+def hybrid_kernel_rows(torch, dev):
+    """Phase 3 at the shapes phase 18 gives the kernels: the band at head
+    dim 256 (``SWA_RG_EDGES``, then ``SWA_RG`` in fp32 and in bf16, the
+    bf16 timed against SDPA), the WKV forward with pad rows
+    (``wkv_pad_row``), the grad sketch at recurrentgemma-9b's stage-A
+    unit (``SKETCH_RG``) and the Gram of its stage B (``GRAM_RG``) ->
+    {kernel: row}, a row {max_abs_err, ms, plain_ms, library_ms,
+    bound_ms, bound_by}."""
+    from repro_torch.kernels.grad_sketch.ops import grad_sketch_units_op
+    from repro_torch.kernels.grad_sketch.ref import grad_sketch_units_ref
+    from repro_torch.kernels.swa_attn.ops import swa_attn_op
+    from repro_torch.kernels.swa_attn.ref import swa_attn_ref
+
+    keys = ("max_abs_err", "ms", "plain_ms", "library_ms", "bound_ms",
+            "bound_by")
+    out = {}
+    for shape in SWA_RG_EDGES + (SWA_RG[:6] + ("float32", None), SWA_RG):
+        err, margin = swa_err(torch, swa_attn_op, swa_attn_ref, shape, dev)
+        print(f"[kernels] swa_attn {shape}: max abs err {err:.3e}, "
+              f"{margin:.3f} of the bar at most; two launches bitwise equal",
+              flush=True)
+    swa = swa_timed(torch, swa_attn_op, swa_attn_ref, SWA_RG, err, margin,
+                    dev)
+    out["swa_attn"] = dict(zip(keys, (err,) + swa))
+    torch.cuda.empty_cache()
+    out["rwkv6_wkv"] = dict(zip(keys, wkv_pad_row(torch, dev)))
+    torch.cuda.empty_cache()
+    e, k_ms, p_ms, b_ms, b_by = sketch_row(
+        torch, grad_sketch_units_op, grad_sketch_units_ref, SKETCH_RG, 30,
+        dev, "recurrentgemma-9b", on_card=True)
+    out["grad_sketch"] = dict(zip(keys, (e, k_ms, p_ms, None, b_ms, b_by)))
+    torch.cuda.empty_cache()
+    out["omp_gram"] = dict(zip(keys, gram_row(torch, GRAM_RG, dev)))
+    return out
+
+
+def rglru_profile(torch, fn, tag: str, what: str):
+    """``fn()`` once under the profiler after a warm-up call: host wall
+    time, device busy time, the RG-LRU scan's device time (the kernels
+    under the ``rglru.scan`` and ``rglru.scan_bwd`` ranges of
+    ``models/rglru.py``) and its share, and the kernels that take the
+    most -> (wall ms, busy ms, scan ms)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.time()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.time() - t0) * 1e3
+    kernels, scan_ms, ranges = [], 0.0, {}
+    for ev in prof.key_averages():
+        if ev.key.startswith("rglru."):
+            if ev.device_type != DeviceType.CUDA:
+                total = getattr(ev, "device_time_total", None)
+                if total is None:
+                    total = ev.cuda_time_total
+                scan_ms += total / 1e3
+                ranges[ev.key] = ev.count
+            continue                   # the ranges' own device-side rows
+        if ev.device_type != DeviceType.CUDA:
+            continue
+        dt = getattr(ev, "self_device_time_total", None)
+        if dt is None:
+            dt = ev.self_cuda_time_total
+        kernels.append((dt / 1e3, ev.count, ev.key))
+    busy = sum(k[0] for k in kernels)
+    require(scan_ms > 0, f"{tag}: no device time under the rglru ranges")
+    print(f"[profile {tag}] {what}: wall {wall_ms:.1f} ms, device busy "
+          f"{busy:.1f} ms ({100 * busy / wall_ms:.1f}%); the RG-LRU scan "
+          f"(ranges {ranges}) {scan_ms:.1f} ms, {100 * scan_ms / busy:.1f}% "
+          f"of the busy time", flush=True)
+    for ms, c, key in sorted(kernels, reverse=True)[:8]:
+        print(f"[profile {tag}]   {ms:8.3f} ms  x{c:<6d} {key[:80]}",
+              flush=True)
+    return wall_ms, busy, scan_ms
+
+
+def _padded_prefill(torch, b, params, toks, bucket, dev, lens=True):
+    """B = 1 prefill of ``toks`` right-padded to ``bucket`` as the slot
+    engine admits it (its length given), or, with ``lens`` False, as the
+    reference's padded prefill leaves a recurrent block (the pads run
+    through it, S10) -> (logits (1,V), cache)."""
+    L = toks.shape[0]
+    x = torch.zeros((1, bucket), dtype=torch.int32, device=dev)
+    x[0, :L] = torch.from_numpy(toks).to(dev)
+    n = torch.tensor([L], dtype=torch.int32, device=dev) if lens else None
+    return b.prefill(b.serving_params(params), {"tokens": x},
+                     cache_len=bucket, prompt_lens=n)
+
+
+def padded_greedy(torch, b, params, toks, bucket, new, dev):
+    """The slot engine's arithmetic for one request outside it: the
+    padded prefill, then ``new`` - 1 greedy decode steps -> tokens."""
+    sp = b.serving_params(params)
+    with torch.no_grad():
+        logits, cache = _padded_prefill(torch, b, params, toks, bucket, dev)
+        out = [torch.argmax(logits, dim=-1).to(torch.int32)]
+        for _ in range(new - 1):
+            logits, cache = b.decode(sp, cache, out[-1])
+            out.append(torch.argmax(logits, dim=-1).to(torch.int32))
+    return torch.cat(out).tolist()
+
+
+def padded_against_unpadded(torch, b, params, toks, bucket, dev, tag):
+    """One rwkv6-3b request's padded prefill (``_padded_prefill``)
+    against the unpadded prefill of its tokens: the last-token logits,
+    each recurrent cache leaf (S, x_tmix, x_cmix, all layers) and the
+    logits of one decode step on the same token, each within the bar of
+    the bundle's compute dtype (``RWKV_PAD_BARS``) of its largest entry
+    in the unpadded run; the reference's padded prefill (pads through the
+    recurrence) must miss that bar on S and on the step's logits (S10)."""
+    from repro_torch.models.common import tree_leaves
+
+    sp = b.serving_params(params)
+    L = toks.shape[0]
+    leaves, tok = {}, None
+    for name, lens in (("unpadded", None), ("padded", True),
+                       ("reference's padded", False)):
+        with torch.no_grad():
+            if lens is None:
+                logits, cache = b.prefill(
+                    sp, {"tokens": torch.from_numpy(toks).to(dev)[None]},
+                    cache_len=L)
+                tok = torch.argmax(logits, dim=-1).to(torch.int32)
+            else:
+                logits, cache = _padded_prefill(torch, b, params, toks,
+                                                bucket, dev, lens=lens)
+            by = {"logits": [logits.float()]}
+            for entry in list(cache["groups"]) + list(cache["tail"]):
+                for key in ("S", "x_tmix", "x_cmix"):
+                    by.setdefault(key, []).append(entry[key].float().clone())
+            by["step logits"] = [b.decode(sp, cache, tok)[0].float()]
+        leaves[name] = by
+        del cache
+
+    def rel(other, key):
+        want = leaves["unpadded"][key]
+        err = max(float((g - w).abs().max())
+                  for g, w in zip(leaves[other][key], want))
+        return err / max(float(w.abs().max()) for w in want)
+
+    dt = b.cfg.compute_dtype
+    bar = RWKV_PAD_BARS[dt]
+    keys = ("logits", "step logits", "S", "x_tmix", "x_cmix")
+    pad = {k: rel("padded", k) for k in keys}
+    ref = {k: rel("reference's padded", k) for k in keys[1:]}
+    mixed = (f"a chunk of {L % 64} live and {64 - L % 64} pad rows"
+             if L % 64 else "whole pad chunks")
+    print(f"[{tag}] {dt}: {L} tokens padded to {bucket} ({mixed}) against "
+          f"unpadded, of each one's largest entry: "
+          + ", ".join(f"{k} {v:.2e}" for k, v in pad.items())
+          + "; the reference's padded prefill: "
+          + ", ".join(f"{k} {v:.2e}" for k, v in ref.items())
+          + f" (bar {bar})", flush=True)
+    require(all(v <= bar for v in pad.values()),
+            f"{tag}: {dt}, {L} tokens, the padded prefill against the "
+            f"unpadded one {pad}, over {bar}")
+    require(ref["S"] > bar and ref["step logits"] > bar,
+            f"{tag}: {dt}, {L} tokens, the reference's padded prefill is "
+            f"within the bar {bar} ({ref}): the check cannot see S10")
+
+
+def hybrid_serve(torch, np, dev, arch, slot_lens, zero, read, gb, mark):
+    """Phase 18a/b for one arch at full width and depth, from bf16
+    weights drawn on the card: ``generate`` on 2 prompts of
+    ``SERVE_PROMPT`` (rwkv6-3b's prefill through the WKV kernel, once a
+    layer; recurrentgemma-9b's local layers through the band at head dim
+    256, once each), ``SlotEngine`` on requests of ``slot_lens`` tokens,
+    each completion token for token against ``generate`` on its prompt
+    alone (unpadded), the peak memory -> (the runs' launches, the bundle
+    and weights for the caller's profile)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.api import build_model
+    from repro_torch.models.attention import Q_BLOCK
+    from repro_torch.kernels.rwkv6_scan.ref import CHUNK
+    from repro_torch.models.common import tree_leaves
+    from repro_torch.serve.engine import Request, SlotEngine, generate
+
+    cfg = get_config(arch)
+    b = build_model(cfg)
+    tag = "18a" if arch == "recurrentgemma-9b" else "18b"
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.time()
+    params = b.init_params(torch.Generator(device=dev).manual_seed(0), dev,
+                           dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    init_s = time.time() - t0
+    n_par = sum(l.numel() for l in tree_leaves(params))
+    w_gb = sum(l.numel() * l.element_size()
+               for l in tree_leaves(params)) / 1e9
+    kinds = cfg.layer_kinds()
+    print(f"[{tag}] {arch} at full width and depth ({len(kinds)} layers: "
+          + ", ".join(f"{kinds.count(k)} {k}" for k in sorted(set(kinds)))
+          + f"; d_model {cfg.d_model}, vocab {cfg.vocab_size}): {n_par:,} "
+          f"params ({cfg.n_params():,} by the reference's formula), "
+          f"{w_gb:.2f} GB of bf16 serving weights drawn on the card in "
+          f"{init_s:.1f} s", flush=True)
+    prompts = torch.randint(0, cfg.vocab_size, (2, SERVE_PROMPT),
+                            dtype=torch.int32, device=dev,
+                            generator=torch.Generator(device=dev).manual_seed(1))
+    zero()
+    toks, st = generate(b, params, prompts, SERVE_NEW)
+    torch.cuda.synchronize()
+    n_gen = read()
+    per_step = st.decode_s * 1e3 / max(st.decode_steps, 1)
+    print(f"[{tag}] generate 2 x {SERVE_PROMPT} -> {tuple(toks.shape)}: "
+          f"prefill {st.prefill_s * 1e3:.1f} ms, decode "
+          f"{st.decode_s * 1e3:.1f} ms / {st.decode_steps} steps "
+          f"({per_step:.2f} ms a step, {st.tokens_per_s:.1f} live tok/s); "
+          f"launches {n_gen}", flush=True)
+    if arch == "recurrentgemma-9b":
+        kernel, want = "swa_attn", kinds.count("local")
+    else:
+        kernel, want = "rwkv6_wkv", len(kinds)
+    per_prefill = want
+    require(n_gen[kernel] == want and sum(n_gen.values()) == want,
+            f"{tag}: generate launched {n_gen}, not {kernel} {want} times "
+            f"(once a {'local' if kernel == 'swa_attn' else 'time-mix'} "
+            f"layer)")
+    require(toks.shape == (2, SERVE_NEW) and bool((toks >= 0).all())
+            and bool((toks < cfg.vocab_size).all()), f"{tag}: tokens")
+    rng = np.random.default_rng(3)
+    reqs = [Request(uid=i, inputs={"tokens": rng.integers(
+        0, cfg.vocab_size, (L,)).astype(np.int32)},
+        max_new_tokens=HYBRID_NEW) for i, L in enumerate(slot_lens)]
+    zero()
+    eng = SlotEngine(b, params, n_slots=HYBRID_SLOTS,
+                     max_new_tokens=HYBRID_NEW,
+                     max_prompt_len=max(slot_lens))
+    torch.cuda.synchronize()
+    t0 = time.time()
+    comps = eng.run(reqs)
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    n_slot = read()
+    got = {c.uid: list(c.tokens) for c in comps}
+    zero()
+    same, against = [], []
+    for r in reqs:
+        toks = r.inputs["tokens"]
+        L = toks.shape[0]
+        if eng.exact_lengths or L % CHUNK == 0:
+            p = torch.from_numpy(toks).to(dev)[None]
+            want_toks, _ = generate(b, params, p, HYBRID_NEW)
+            want_toks, how = want_toks[0].tolist(), "generate (unpadded)"
+        else:
+            want_toks = padded_greedy(torch, b, params, toks,
+                                      eng.bucket_for(r), HYBRID_NEW, dev)
+            how = "the padded prefill and greedy decode"
+        same.append(got[r.uid] == want_toks)
+        against.append(how)
+    if not eng.exact_lengths:
+        for r in reqs:
+            padded_against_unpadded(torch, b, params, r.inputs["tokens"],
+                                    eng.bucket_for(r), dev, tag)
+        # the same pad handling at fp32, where the two paths' roundings
+        # differ by summation order only
+        b32 = build_model(dataclasses.replace(cfg, compute_dtype="float32"))
+        p32 = b32.init_params(torch.Generator(device=dev).manual_seed(0),
+                              dev)
+        for r in reqs:
+            if r.inputs["tokens"].shape[0] % CHUNK:
+                padded_against_unpadded(torch, b32, p32, r.inputs["tokens"],
+                                        eng.bucket_for(r), dev, tag)
+        del b32, p32
+    torch.cuda.synchronize()
+    peak = gb()
+    buckets = sorted({eng.bucket_for(r) for r in reqs})
+    print(f"[{tag}] SlotEngine, {HYBRID_SLOTS} slots, {len(reqs)} requests "
+          f"of {list(slot_lens)} tokens ("
+          f"{'exact lengths' if eng.exact_lengths else f'buckets {buckets}'}"
+          f"), {HYBRID_NEW} new each: {wall:.2f} s, {len(comps) / wall:.2f} "
+          f"req/s, {eng.n_decode_dispatches} decode dispatches; launches "
+          f"{n_slot}; each completion token for token against "
+          f"{list(zip(against, same))}; peak device memory "
+          f"{peak:.2f} GB (torch.cuda.max_memory_allocated; weights "
+          f"{w_gb:.2f} GB)", flush=True)
+    require(len(comps) == len(reqs) and all(same),
+            f"{tag}: the slot engine's completions differ from "
+            f"{list(zip(against, same))}")
+    # a slot prefill takes the band past window + Q_BLOCK tokens; the
+    # time mix takes the WKV kernel in every bucket (S % 64 == 0, >= 128)
+    n_prefills = (sum(L > cfg.window + Q_BLOCK for L in slot_lens)
+                  if kernel == "swa_attn" else len(reqs))
+    want = n_prefills * per_prefill
+    require(n_slot[kernel] == want and sum(n_slot.values()) == want,
+            f"{tag}: the slot prefills launched {n_slot}, not {kernel} "
+            f"{want} times")
+    del eng, comps, toks, prompts
+    mark(f"{tag} {arch} served at full width and depth")
+    return n_gen[kernel] + n_slot[kernel], b, params
+
+
+def hybrid_phase(torch, np, dev, mark):
+    """Phase 18: recurrent-state serving and the hybrid family.  (a)
+    ``recurrentgemma-9b`` and (b) ``rwkv6-3b`` at full width and depth
+    served from bf16 weights drawn on the card (``hybrid_serve``), one
+    ``recurrentgemma-9b`` prefill profiled (e); (c) ``recurrentgemma-9b``
+    at full width and ``RG_TRAIN_LAYERS`` layers trained 2 epochs at S
+    ``RG_TRAIN_SEQ`` on the scan engine with resident rounds, twice with
+    one seed (bitwise equal), then resident stage A against the host's
+    (P7), one step profiled (e), and a step past the band's start
+    refused (its backward is item 7).  -> {path: {kernel: launches}}."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import PGMConfig, TrainConfig
+    from repro_torch.core.lastlayer import make_proj_for
+    from repro_torch.launch.train import make_units_for
+    from repro_torch.models.api import build_model
+    from repro_torch.models.common import tree_leaves
+    from repro_torch.train.engine import make_step_core, to_device
+    from repro_torch.train.optim import make_update_for
+
+    zero, read = launch_counters()
+
+    out = {}
+    gb = lambda: torch.cuda.max_memory_allocated() / 1e9
+
+    # (a) recurrentgemma-9b at full width and depth, its prefill profiled
+    n, b, params = hybrid_serve(torch, np, dev, "recurrentgemma-9b",
+                                RG_SLOT_LENS, zero, read, gb, mark)
+    out["serve-recurrentgemma-9b"] = {"swa_attn": n}
+    prompts = torch.randint(0, b.cfg.vocab_size, (2, SERVE_PROMPT),
+                            dtype=torch.int32, device=dev,
+                            generator=torch.Generator(device=dev).manual_seed(5))
+    with torch.no_grad():
+        rglru_profile(torch, lambda: b.prefill(params, {"tokens": prompts}),
+                      "18e", f"recurrentgemma-9b prefill of 2 x "
+                      f"{SERVE_PROMPT} tokens, bf16 serving weights, full "
+                      f"depth")
+    del b, params, prompts
+    gc.collect()
+    torch.cuda.empty_cache()
+    mark("18e recurrentgemma-9b prefill profiled")
+
+    # (b) rwkv6-3b at full width and depth
+    n, b, params = hybrid_serve(torch, np, dev, "rwkv6-3b", RWKV_SLOT_LENS,
+                                zero, read, gb, mark)
+    out["serve-rwkv6-3b"] = {"rwkv6_wkv": n}
+    del b, params
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (c) recurrentgemma-9b trained at full width, two groups of layers
+    arch = "recurrentgemma-9b"
+    c = dataclasses.replace(get_config(arch), n_layers=RG_TRAIN_LAYERS)
+    bd = build_model(c)
+    pc = PGMConfig(subset_fraction=0.5, n_partitions=4, select_every=1,
+                   warm_start_epochs=1, val_matching=True)
+    tc = TrainConfig(lr=0.05, optimizer="sgd", epochs=2, seed=0, pgm=pc)
+    us_np, vs_np = make_units_for(c, n=RG_TRAIN_N, seq=RG_TRAIN_SEQ,
+                                  noise=0.0, unit_size=RG_TRAIN_UNIT)
+    params, n_run = train_twice(torch, np, bd, us_np, vs_np, tc, dev, "18c",
+                                "", zero, read, gb,
+                                ("grad_sketch", "omp_gram"))
+    us, vs = to_device(us_np, dev), to_device(vs_np, dev)
+    proj = make_proj_for(bd, torch.Generator().manual_seed(0),
+                         pc.sketch_dim_h, pc.sketch_dim_v, dev)
+    sel, _, err, same, bitwise, counted = resident_against_host(
+        torch, bd, pc, params, us, vs, proj, read)
+    print(f"[18c] {arch}: resident stage A against host units_gradients on "
+          f"the trained params: max err {err:.2e} of the largest entry "
+          f"(1e-5); same subsets and weights (1e-4): {same}; two replays "
+          f"bitwise equal: {bitwise}; launches counted at the warm-ups and "
+          f"captures {counted}", flush=True)
+    require(err <= 1e-5 and same and bitwise,
+            "18c: resident stage A disagrees with the host's")
+    del sel, us, vs, proj
+    gc.collect()
+    torch.cuda.empty_cache()
+    # (e) one step profiled, the scan's share of its device time
+    step = make_step_core(bd, tc)
+    opt_state = make_update_for(tc)[0](params)
+    batch = to_device({k: v[0] for k, v in us_np.items()}, dev)
+    rglru_profile(torch, lambda: step(params, opt_state, batch, tc.lr),
+                  "18e", f"{arch} ({RG_TRAIN_LAYERS} layers) one training "
+                  f"step (B={RG_TRAIN_UNIT} x {RG_TRAIN_SEQ}), eager")
+    out[f"{arch}-resident"] = {"grad_sketch": n_run["grad_sketch"],
+                               "omp_gram": n_run["omp_gram"]}
+    del params, opt_state, batch, step
+    gc.collect()
+    torch.cuda.empty_cache()
+    # a step past the band's start needs the band's backward (item 7)
+    c3 = dataclasses.replace(c, n_layers=3)
+    b3 = build_model(c3)
+    p3 = card_init(torch, b3, dev)
+    for leaf in tree_leaves(p3):
+        leaf.requires_grad_(True)
+    toks = torch.randint(0, c3.vocab_size, (1, RG_BAND_SEQ), device=dev,
+                         dtype=torch.int32,
+                         generator=torch.Generator(device=dev).manual_seed(7))
+    loss, _ = b3.loss_fn(p3, {"tokens": toks})
+    try:
+        loss.backward()
+        refused = ""
+    except NotImplementedError as e:
+        refused = str(e)
+    print(f"[18c] {arch} at 3 layers, one step at S {RG_BAND_SEQ} (past the "
+          f"band's start, {c.window + 1024}): the backward raises "
+          f"{refused!r}", flush=True)
+    require("item 7" in refused, "18c: a step through the band did not "
+                                 "refuse its backward")
+    del b3, p3, toks, loss
+    gc.collect()
+    torch.cuda.empty_cache()
+    mark(f"18c {arch} trained at full width, {RG_TRAIN_LAYERS} layers")
+    return out
+
+
 
 
 def train_with_selection_logged(bundle, units, tc, val_units, logs, tag, t0,
@@ -2947,6 +3587,10 @@ def main() -> None:
     # the MoE archs' shapes (phase 17): the two untied heads' stage-A
     # units, the router-term Grams and mixtral-8x7b's prefill band
     moe_rows = moe_kernel_rows(torch, dev)
+    # the recurrent families' shapes (phase 18): the band at head dim 256,
+    # the WKV prefill with pad rows, recurrentgemma-9b's stage-A unit and
+    # stage-B Gram
+    hybrid_rows = hybrid_kernel_rows(torch, dev)
 
     mark("kernels")
 
@@ -3016,7 +3660,8 @@ def main() -> None:
     del full, live, total, ub
 
     lm_cfg = get_config("starcoder2-3b")
-    cfg2 = dataclasses.replace(lm_cfg, n_layers=2, compute_dtype="float32")
+    cfg2 = dataclasses.replace(lm_cfg, n_layers=AGREE_LAYERS,
+                               compute_dtype="float32")
     lm2 = build_model(cfg2)
     lm_units, lm_val = make_units_for(lm_cfg, n=LM_N, seq=LM_SEQ, noise=0.0)
     gen = torch.Generator().manual_seed(0)
@@ -3042,7 +3687,8 @@ def main() -> None:
                       / out["cpu"][0].abs()).max())
     unit_rel = float((out["cuda"][1] - out["cpu"][1]).abs().max()
                    / out["cpu"][1].abs().max())
-    print(f"[agree] starcoder2-3b unit at full width, 2 layers, fp32 "
+    print(f"[agree] starcoder2-3b unit at full width, {AGREE_LAYERS} "
+          f"layer(s), fp32 "
           f"(B={UNIT_SIZE}, S={LM_SEQ}, V={lm_cfg.vocab_size}): loss rel "
           f"err {loss_rel:.2e}, stage-A sketch err {unit_rel:.2e} of its "
           f"largest entry (card {out['cuda'][2]:.1f} s vs CPU "
@@ -3053,7 +3699,8 @@ def main() -> None:
     del p_cpu, lm2
 
     rw_cfg = get_config("rwkv6-3b")
-    cfg3 = dataclasses.replace(rw_cfg, n_layers=2, compute_dtype="float32")
+    cfg3 = dataclasses.replace(rw_cfg, n_layers=AGREE_LAYERS,
+                               compute_dtype="float32")
     rw2 = build_model(cfg3)
     rw_units, rw_val = make_units_for(rw_cfg, n=LM_N, seq=LM_SEQ, noise=0.0)
     gen = torch.Generator().manual_seed(0)
@@ -3102,7 +3749,8 @@ def main() -> None:
                          / out["cpu"][2][k].abs().max())
                 for k, g in out["cuda"][2].items()}
     worst = max(tmix_rel, key=tmix_rel.get)
-    print(f"[agree] rwkv6-3b unit at full width, 2 layers, fp32 "
+    print(f"[agree] rwkv6-3b unit at full width, {AGREE_LAYERS} layer(s), "
+          f"fp32 "
           f"(B={UNIT_SIZE}, S={LM_SEQ}, V={rw_cfg.vocab_size}): loss rel "
           f"err {loss_rel:.2e}, stage-A sketch err {unit_rel:.2e} of its "
           f"largest entry, layer-0 time-mix gradients' err at most "
@@ -3159,28 +3807,30 @@ def main() -> None:
     require(all(len(s["indices"]) == n_units // 2 for s in hist.selections),
             "selection budget")
 
-    # F3: the same main path again, same seed, its launches counted apart
-    # from the first run's: every epoch's losses and every round's subset
-    # and weights must come out the same
+    # F3: the same main path again, same seed, for REPEAT_EPOCHS epochs,
+    # its launches counted apart from the first run's: those epochs'
+    # losses and their round's subset and weights must come out the same
     first = rnnt_run_record(hist)
     rnnt_lattice_op.launches = 0
     omp_gram_batched_op.launches = 0
     torch.cuda.synchronize()
     t0 = time.time()
     hist2 = train_with_selection(
-        bundle, units, tc, method="pgm", val_units=val_units, device="cuda",
+        bundle, units, dataclasses.replace(tc, epochs=REPEAT_EPOCHS),
+        method="pgm", val_units=val_units, device="cuda",
         engine="host", log_fn=lambda s: print(f"[main again +{time.time() - t0:.1f}s] {s}",
                                flush=True))
     torch.cuda.synchronize()
     again_launches = {"rnnt_lattice": rnnt_lattice_op.launches,
                       "omp_gram": omp_gram_batched_op.launches}
-    same_run = rnnt_run_record(hist2) == first
+    same_run = rnnt_run_record(hist2) == run_prefix(first)
     print(f"[main again] the RNN-T main path a second time with seed "
-          f"{tc.seed}: {time.time() - t0:.1f} s; launches {again_launches}; "
-          f"every epoch's train and val loss and every round's indices and "
-          f"weights equal to the first run's: {same_run}", flush=True)
+          f"{tc.seed}, {REPEAT_EPOCHS} epochs: {time.time() - t0:.1f} s; "
+          f"launches {again_launches}; every epoch's train and val loss and "
+          f"the round's indices and weights equal to the first run's: "
+          f"{same_run}", flush=True)
     require(same_run, f"two RNN-T main paths of one seed differ: "
-                      f"{first} against {rnnt_run_record(hist2)}")
+                      f"{run_prefix(first)} against {rnnt_run_record(hist2)}")
     del hist2
 
     # two stage-A rounds on the trained params (outside the counted run)
@@ -3196,8 +3846,19 @@ def main() -> None:
         hist.final_params, dev, mark)
 
     # -- 7. where a training step's time goes (outside the counted run) --
-    eager_step = profile_step(torch, bundle, tc, units, dev,
-                              hist.final_params, "rnnt")
+    # the step and its warm-up call launch the lattice kernel through
+    # the counter; the traced step must hold as many (14a reads both)
+    n0 = rnnt_lattice_op.launches
+    eager_step = profile_step(
+        torch, bundle, tc, units, dev, hist.final_params, "rnnt",
+        count={"rnnt_lattice": KERNEL_MARKERS["rnnt_lattice"]})
+    eager_launches = {"rnnt_lattice": (rnnt_lattice_op.launches - n0) // 2}
+    print(f"[profile rnnt] the step's launches {eager_launches}, its traced "
+          f"kernels {eager_step[3]}", flush=True)
+    require(eager_launches == eager_step[3]
+            and eager_launches["rnnt_lattice"] > 0,
+            f"an eager RNN-T step's launches {eager_launches} against its "
+            f"traced kernels {eager_step[3]}")
 
     mark("profile, RNN-T")
 
@@ -3391,6 +4052,13 @@ def main() -> None:
     torch.cuda.empty_cache()
     moe = moe_phase(torch, np, dev, mark)
 
+    # -- 18. recurrent-state serving and the hybrid family: recurrentgemma-9b
+    # and rwkv6-3b served at full width and depth, recurrentgemma-9b
+    # trained at 6 layers, profiled ------------------------------------
+    gc.collect()
+    torch.cuda.empty_cache()
+    hybrid = hybrid_phase(torch, np, dev, mark)
+
     g_err, g_ms, g_plain, g_lib, g_bound, g_by = \
         gram_rows[(P_main, n_units // P_main, D_sk)]
     print(f"[launches] RNN-T path {launches}, its preempted and resumed "
@@ -3400,7 +4068,8 @@ def main() -> None:
           f"scan engine {scan_launches} (counted in its runs "
           f"{scan_counted}), resident selection (traced in a replayed "
           f"round, counted at the warm-ups and captures) {resident}, the "
-          f"dense archs (phase 16) {dense}, the MoE archs (phase 17) {moe}",
+          f"dense archs (phase 16) {dense}, the MoE archs (phase 17) {moe}, "
+          f"the recurrent families (phase 18) {hybrid}",
           flush=True)
     # one row per kernel and main path, "launches" from that path's run;
     # the Gram's stage-B shape (4, 4, 4096) is the same on both paths
@@ -3532,6 +4201,35 @@ def main() -> None:
             source="src/repro_torch/kernels/omp_gram/csrc/omp_gram.cu",
             replaces="src/repro/kernels/omp_gram/kernel.py:54",
             launches=got["omp_gram"]))
+    # phase 18: the band at recurrentgemma-9b's prefill and the WKV
+    # forward with pad rows, with their serving launches; the grad sketch
+    # at recurrentgemma-9b's stage-A unit and its stage-B Gram, with the
+    # first resident run's counts
+    kernels.append(dict(
+        hybrid_rows["swa_attn"], name="swa_attn",
+        path="serve-recurrentgemma-9b", route="cuda",
+        source="src/repro_torch/kernels/swa_attn/csrc/swa_attn.cu",
+        replaces="src/repro/kernels/swa_attn/kernel.py:79",
+        launches=hybrid["serve-recurrentgemma-9b"]["swa_attn"]))
+    kernels.append(dict(
+        hybrid_rows["rwkv6_wkv"], name="rwkv6_wkv", path="serve-rwkv6-3b",
+        route="cuda",
+        source="src/repro_torch/kernels/rwkv6_scan/csrc/rwkv6_wkv.cu",
+        replaces="src/repro/kernels/rwkv6_scan/kernel.py:88",
+        launches=hybrid["serve-rwkv6-3b"]["rwkv6_wkv"]))
+    got = hybrid["recurrentgemma-9b-resident"]
+    kernels.append(dict(
+        hybrid_rows["grad_sketch"], name="grad_sketch_units",
+        path="recurrentgemma-9b-resident", route="cuda",
+        source="src/repro_torch/kernels/grad_sketch/csrc/grad_sketch.cu",
+        replaces="src/repro/kernels/grad_sketch/kernel.py:128",
+        launches=got["grad_sketch"]))
+    kernels.append(dict(
+        hybrid_rows["omp_gram"], name="omp_gram_batched",
+        path="recurrentgemma-9b-resident", route="cuda",
+        source="src/repro_torch/kernels/omp_gram/csrc/omp_gram.cu",
+        replaces="src/repro/kernels/omp_gram/kernel.py:54",
+        launches=got["omp_gram"]))
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {
@@ -3539,5 +4237,83 @@ def main() -> None:
         "count": torch.cuda.device_count()}}))
 
 
+def phase_alone(phase: int) -> None:
+    """``--phase N``: phases 1 and 2, then phase N on its own."""
+    t00 = time.time()
+    require((SRC / "repro_torch" / "kernels" / "backend.py").is_file(),
+            f"the port's sources are not beside this script ({SRC})")
+    sys.path.insert(0, str(SRC))
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import backend
+
+    require(torch.cuda.is_available(), "torch.cuda.is_available() is False")
+    dev = backend.resolve_device("cuda")
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
+    print(f"[env] {card} | torch {torch.__version__} cuda "
+          f"{torch.version.cuda}", flush=True)
+    backend.fp32_numerics()
+    backend.build()
+
+    def mark(p: str) -> None:
+        print(f"[time] {p}: {time.time() - t00:.1f} s", flush=True)
+
+    if phase == 15:
+        from repro_torch.configs.base import PGMConfig, TrainConfig
+        from repro_torch.data.pipeline import asr_units
+        from repro_torch.data.synthetic import make_asr_corpus
+        from repro_torch.kernels.grad_sketch.ops import grad_sketch_units_op
+        from repro_torch.kernels.grad_sketch.ref import grad_sketch_units_ref
+        from repro_torch.launch.train import make_units_for
+        from repro_torch.models.api import build_model
+        from repro_torch.train.loop import train_with_selection
+
+        sketch_row(torch, grad_sketch_units_op, grad_sketch_units_ref,
+                   SKETCH_CHUNK, 2, dev, "lm chunk of 4 units")
+        bundle = build_model(get_config("rnnt-crdnn"))
+        units = asr_units(make_asr_corpus(0, **CORPUS), UNIT_SIZE)
+        val_units = asr_units(make_asr_corpus(7, N_VAL, **{
+            k: v for k, v in CORPUS.items()
+            if k not in ("n_examples", "noise_fraction", "snr_db")}),
+            UNIT_SIZE)
+        tc = TrainConfig(lr=0.5, optimizer="sgd", epochs=3, seed=0,
+                         pgm=PGMConfig(subset_fraction=0.5, n_partitions=4,
+                                       select_every=1, warm_start_epochs=1,
+                                       val_matching=True))
+        h = train_with_selection(bundle, units, tc, method="pgm",
+                                 val_units=val_units, device="cuda",
+                                 engine="scan")
+        torch.cuda.synchronize()
+        mark("14a the RNN-T path on the scan engine with host stage A")
+        rec = rnnt_run_record(h)
+        del h
+        models = {
+            key: (cfg,) + make_units_for(cfg, n=LM_N, seq=LM_SEQ, noise=0.0)
+            for key, cfg in (("lm", get_config("starcoder2-3b")),
+                             ("rwkv", get_config("rwkv6-3b")))}
+        out = resident_phase(torch, np, bundle, tc, units, val_units, rec,
+                             models, dev, mark)
+    else:
+        rows_of, phase_of = {16: (dense_kernel_rows, dense_phase),
+                             17: (moe_kernel_rows, moe_phase),
+                             18: (hybrid_kernel_rows, hybrid_phase)}[phase]
+        print(f"[kernels] {rows_of(torch, dev)}", flush=True)
+        out = phase_of(torch, np, dev, mark)
+    print(f"[launches] phase {phase} {out}", flush=True)
+    print(card)
+
+
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:2] == ["--phase"]:
+        require(len(sys.argv) == 3 and sys.argv[2] in ("15", "16", "17",
+                                                      "18"),
+                "usage: chip_smoke.py [--phase 15|16|17|18]")
+        phase_alone(int(sys.argv[2]))
+    else:
+        require(len(sys.argv) == 1, "usage: chip_smoke.py [--phase N]")
+        main()

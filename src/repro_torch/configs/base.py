@@ -1,12 +1,13 @@
 """Config dataclasses of the PyTorch port.
 
 A copy of the reference's ``repro/configs/base.py`` restricted to what
-the ported paths read (RNN-T, dense and MoE decoder-LM and RWKV6
-training + PGM selection): the field names, defaults and the smoke
-reduction are the reference's, so a config built here and one built
-there describe the same model and run.  Fields of later slices (RG-LRU,
-encdec and VLM extras, mesh, compression) are not carried: the
-families that need them are refused by ``models/api.py:build_model``.
+the ported paths read (RNN-T, dense and MoE decoder-LM, RWKV6 and the
+RG-LRU hybrid, training + PGM selection + serving): the field names,
+defaults and the smoke reduction are the reference's, so a config built
+here and one built there describe the same model and run.  Fields of
+later slices (encdec and VLM extras, mesh, compression) are not
+carried: the families that need them are refused by
+``models/api.py:build_model``.
 """
 from __future__ import annotations
 
@@ -19,8 +20,8 @@ from typing import Optional, Tuple
 BLOCK_ATTN = "attn"          # full causal attention
 BLOCK_LOCAL = "local"        # sliding-window attention
 BLOCK_GLOBAL = "global"      # full attention inside a hybrid stack
+BLOCK_REC = "rec"            # RG-LRU recurrent block (Griffin)
 BLOCK_RWKV = "rwkv"          # RWKV6 time-mix + channel-mix block
-# the reference's other kind, "rec" (RG-LRU), is not ported
 ATTN_KINDS = (BLOCK_ATTN, BLOCK_LOCAL, BLOCK_GLOBAL)
 
 
@@ -86,8 +87,8 @@ class ModelConfig:
 
     name: str
     family: str                      # dense | moe | ssm (rwkv stacks) |
-                                     # rnnt (hybrid | encdec | vlm are
-                                     # not ported)
+                                     # hybrid (rec + local) | rnnt
+                                     # (encdec | vlm are not ported)
     n_layers: int
     d_model: int
     n_heads: int
@@ -104,7 +105,9 @@ class ModelConfig:
     embed_scale: bool = False        # gemma-style sqrt(d_model) embedding scale
     norm_eps: float = 1e-6
     moe: Optional[MoEConfig] = None
-    # --- rwkv extras ---
+    # --- recurrent extras ---
+    lru_width: int = 0               # RG-LRU width (0 = d_model)
+    conv_width: int = 4              # RG-LRU temporal conv width
     rwkv_head_dim: int = 64
     rnnt: Optional[RNNTConfig] = None
     # numerics
@@ -126,19 +129,25 @@ class ModelConfig:
 
     def n_params(self) -> int:
         """Analytic parameter count (embedding + stack + head), the
-        reference's formula for RNN-T, dense and MoE attention stacks and
-        RWKV6 stacks.  Its RWKV term is the reference's as written: it
-        leaves out the channel-mix ``wr`` and most of the LoRA weights,
-        so it is below the count of the params tree's leaves.  Its MoE
+        reference's formula for RNN-T, dense and MoE attention stacks,
+        RWKV6 stacks and the RG-LRU hybrid.  Its RWKV term is the
+        reference's as written: it leaves out the channel-mix ``wr`` and
+        most of the LoRA weights, so it is below the count of the params
+        tree's leaves.  So is its ``rec`` term, which counts the in and
+        out projections, the conv taps and three width vectors but not
+        the GeLU branch's ``w_gate_branch`` nor the gates' ``wa`` and
+        ``wx`` (d w + 2 w^2 a layer), nor the norms: recurrentgemma-9b
+        has 9,396,408,320 leaves against its 8,087,363,584.  Its MoE
         term counts three expert matrices whatever the FFN type."""
         if self.rnnt is not None:
             return self.rnnt.n_params()
         kinds = self.layer_kinds()
-        if self.family not in ("dense", "moe", "ssm") \
-                or set(kinds) - set(ATTN_KINDS) - {BLOCK_RWKV}:
+        if self.family not in ("dense", "moe", "ssm", "hybrid") \
+                or set(kinds) - set(ATTN_KINDS) - {BLOCK_RWKV, BLOCK_REC}:
             raise NotImplementedError(
                 f"{self.name}: n_params is ported for dense and MoE "
-                f"attention stacks, RWKV6 stacks and RNN-T only")
+                f"attention stacks, RWKV6 stacks, the RG-LRU hybrid and "
+                f"RNN-T only")
         d, ff, V = self.d_model, self.d_ff, self.vocab_size
         n = V * d * (1 if self.tie_embeddings else 2)
         mult = 3 if self.ffn_type in ("swiglu", "geglu") else 2
@@ -146,9 +155,14 @@ class ModelConfig:
             if kind == BLOCK_RWKV:
                 # r,k,v,g,o projections + decay lora + token-shift mus
                 n += 5 * d * d + 2 * d * 96 + 6 * d
+            elif kind == BLOCK_REC:
+                w = self.lru_width or d
+                # rg-lru block: in/out proj + conv + gates
+                n += 2 * d * w + self.conv_width * w + 3 * w
             else:
                 n += d * self.q_dim + 2 * d * self.kv_dim + self.q_dim * d
-            if self.moe is not None:
+            # rec blocks in griffin also carry an MLP
+            if self.moe is not None and kind != BLOCK_REC:
                 e = self.moe
                 n += e.n_experts * 3 * d * e.d_ff_expert + d * e.n_experts
             else:
@@ -220,13 +234,14 @@ class TrainConfig:
 
 def reduce_for_smoke(cfg: ModelConfig) -> ModelConfig:
     """The reference's tiny same-family variant (CPU tests): few layers,
-    small widths and vocab, a window of at most 16, 4 experts of 32 (top
-    at most 2), fp32 compute."""
+    small widths and vocab, a window of at most 16, an RG-LRU width of
+    64, 4 experts of 32 (top at most 2), fp32 compute."""
     kw = dict(n_layers=min(cfg.n_layers, 2 * max(1, len(cfg.pattern))),
               d_model=64, n_heads=4,
               n_kv_heads=min(cfg.n_kv_heads, 4) if cfg.n_kv_heads > 1 else 1,
               head_dim=16, d_ff=128, vocab_size=277,
               window=min(cfg.window, 16) if cfg.window else 0,
+              lru_width=64 if cfg.lru_width else 0,
               compute_dtype="float32")
     if cfg.moe is not None:
         kw["moe"] = MoEConfig(n_experts=4, top_k=min(cfg.moe.top_k, 2),

@@ -61,6 +61,15 @@
 // (zeros). Shared memory at hd 128: 48 KB of q tile plus 4 x 32 KB of K/V
 // stages, 177 KB, one block an SM.
 //
+// Head dim 256 (recurrentgemma-9b's MQA, 16 query heads over one KV head)
+// takes smaller tiles (BandTile below): a q tile of 128 rows (two
+// consumer warpgroups) and a ring of 2 K/V stages, 64 KB of q and 128 KB
+// of K/V, 193 KB.  Three warpgroups would not fit their registers: a
+// thread's p . v accumulator alone is 128 fp32 registers at hd 256, and
+// 416 threads leave each at most 152; 288 threads leave 224.  Its p . v
+// runs as two m64n128k16 products a 16-key step, one per 128 output
+// columns, into the two halves of the accumulator.
+//
 // fp32 (the agreement phase and the tests): the first version's SIMT
 // body, one block of 256 threads per (q tile of 64 rows, head, batch),
 // fp32 FMAs, the q tile and each k / v tile staged in shared memory
@@ -242,11 +251,17 @@ swa_attn_kernel(const float* __restrict__ q, const float* __restrict__ k,
 
 // ---- bf16: wgmma, K/V by TMA from a producer warp ----------------------
 
-constexpr int NWG = 3;           // consumer warpgroups, 64 q rows each
-constexpr int BQ = 64 * NWG;     // q rows a block
 constexpr int BN = 64;           // keys a K/V tile
-constexpr int KV_STAGES = 4;     // K/V stages in the ring
-constexpr int TC_THREADS = 128 * NWG + 32;    // + 1 producer warp
+
+// the bf16 body's tiles at head dim HD: consumer warpgroups of 64 q rows
+// each, and K/V stages in the ring (smaller at hd 256, see above)
+template <int HD>
+struct BandTile {
+    static constexpr int NWG = HD > 128 ? 2 : 3;
+    static constexpr int BQ = 64 * NWG;             // q rows a block
+    static constexpr int STAGES = HD > 128 ? 2 : 4;
+    static constexpr int NTHREADS = 128 * NWG + 32; // + 1 producer warp
+};
 
 typedef __nv_bfloat16 bf16;
 
@@ -376,11 +391,14 @@ __device__ __forceinline__ void wgmma_rs_n64(float (&d)[32],
         : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
 }
 
-// d (m64 n128, fp32) += a . b, a (bf16) in registers, b in shared memory
-// (descriptor), MN-major
-__device__ __forceinline__ void wgmma_rs_n128(float (&d)[64],
+// d[OFF .. OFF + 63] (m64 n128, fp32) += a . b, a (bf16) in registers, b in
+// shared memory (descriptor), MN-major; OFF 64 is the second 128 columns of
+// an m64n256 accumulator (hd 256)
+template <int OFF, int N>
+__device__ __forceinline__ void wgmma_rs_n128(float (&d)[N],
                                            const uint32_t (&a)[4],
                                            uint64_t b) {
+    static_assert(OFF + 64 <= N, "accumulator too small");
     asm volatile(
         "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
         "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
@@ -394,22 +412,22 @@ __device__ __forceinline__ void wgmma_rs_n128(float (&d)[64],
         "%48, %49, %50, %51, %52, %53, %54, %55, "
         "%56, %57, %58, %59, %60, %61, %62, %63"
         "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-          "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-          "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-          "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
-          "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-          "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
-          "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-          "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
-          "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-          "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-          "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+        : "+f"(d[OFF + 0]), "+f"(d[OFF + 1]), "+f"(d[OFF + 2]), "+f"(d[OFF + 3]),
+          "+f"(d[OFF + 4]), "+f"(d[OFF + 5]), "+f"(d[OFF + 6]), "+f"(d[OFF + 7]),
+          "+f"(d[OFF + 8]), "+f"(d[OFF + 9]), "+f"(d[OFF + 10]), "+f"(d[OFF + 11]),
+          "+f"(d[OFF + 12]), "+f"(d[OFF + 13]), "+f"(d[OFF + 14]), "+f"(d[OFF + 15]),
+          "+f"(d[OFF + 16]), "+f"(d[OFF + 17]), "+f"(d[OFF + 18]), "+f"(d[OFF + 19]),
+          "+f"(d[OFF + 20]), "+f"(d[OFF + 21]), "+f"(d[OFF + 22]), "+f"(d[OFF + 23]),
+          "+f"(d[OFF + 24]), "+f"(d[OFF + 25]), "+f"(d[OFF + 26]), "+f"(d[OFF + 27]),
+          "+f"(d[OFF + 28]), "+f"(d[OFF + 29]), "+f"(d[OFF + 30]), "+f"(d[OFF + 31]),
+          "+f"(d[OFF + 32]), "+f"(d[OFF + 33]), "+f"(d[OFF + 34]), "+f"(d[OFF + 35]),
+          "+f"(d[OFF + 36]), "+f"(d[OFF + 37]), "+f"(d[OFF + 38]), "+f"(d[OFF + 39]),
+          "+f"(d[OFF + 40]), "+f"(d[OFF + 41]), "+f"(d[OFF + 42]), "+f"(d[OFF + 43]),
+          "+f"(d[OFF + 44]), "+f"(d[OFF + 45]), "+f"(d[OFF + 46]), "+f"(d[OFF + 47]),
+          "+f"(d[OFF + 48]), "+f"(d[OFF + 49]), "+f"(d[OFF + 50]), "+f"(d[OFF + 51]),
+          "+f"(d[OFF + 52]), "+f"(d[OFF + 53]), "+f"(d[OFF + 54]), "+f"(d[OFF + 55]),
+          "+f"(d[OFF + 56]), "+f"(d[OFF + 57]), "+f"(d[OFF + 58]), "+f"(d[OFF + 59]),
+          "+f"(d[OFF + 60]), "+f"(d[OFF + 61]), "+f"(d[OFF + 62]), "+f"(d[OFF + 63])
         : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
 }
 
@@ -453,12 +471,16 @@ __device__ __forceinline__ void tma_load_4d(uint32_t dst,
 }
 
 template <int HD>
-__global__ void __launch_bounds__(TC_THREADS, 1)
+__global__ void __launch_bounds__(BandTile<HD>::NTHREADS, 1)
 swa_attn_bf16_kernel(const __grid_constant__ CUtensorMap kmap,
                      const __grid_constant__ CUtensorMap vmap,
                      const bf16* __restrict__ q,
                      const int* __restrict__ lengths, bf16* __restrict__ o,
                      int S, int KV, int G, int window, float scale_log2) {
+    constexpr int NWG = BandTile<HD>::NWG;
+    constexpr int BQ = BandTile<HD>::BQ;
+    constexpr int KV_STAGES = BandTile<HD>::STAGES;
+    constexpr int TC_THREADS = BandTile<HD>::NTHREADS;
     constexpr int HDP = HD < 64 ? 64 : HD;  // columns in shared (padded)
     constexpr int NA = HDP / 64;            // 128-byte atoms a row
     constexpr int CH = HD / 8;              // 16-byte chunks a row
@@ -646,10 +668,18 @@ swa_attn_bf16_kernel(const __grid_constant__ CUtensorMap kmap,
             for (int kk = 0; kk < 4; ++kk) {
                 const uint64_t dv = smem_desc(vt + kk * 16 * 128,
                                               BN * 128, 1024);
-                if constexpr (HDP == 128)
-                    wgmma_rs_n128(acc, half ? pl[kk] : ph[kk], dv);
-                else
+                if constexpr (HDP == 256) {
+                    // columns 0-127, then 128-255 (two atoms on)
+                    wgmma_rs_n128<0>(acc, half ? pl[kk] : ph[kk], dv);
+                    wgmma_rs_n128<64>(acc, half ? pl[kk] : ph[kk],
+                                      smem_desc(vt + 2 * BN * 128
+                                                + kk * 16 * 128, BN * 128,
+                                                1024));
+                } else if constexpr (HDP == 128) {
+                    wgmma_rs_n128<0>(acc, half ? pl[kk] : ph[kk], dv);
+                } else {
                     wgmma_rs_n64(acc, half ? pl[kk] : ph[kk], dv);
+                }
             }
         wgmma_commit();
         wgmma_wait<0>();
@@ -722,6 +752,8 @@ int launch_bf16(const void* q, const void* k, const void* v,
                 const int* lengths, void* o, int B, int S, int KV, int G,
                 int window, float scale, cudaStream_t stream) {
     constexpr int HDP = HD < 64 ? 64 : HD;
+    constexpr int BQ = BandTile<HD>::BQ;
+    constexpr int KV_STAGES = BandTile<HD>::STAGES;
     const int smem = 1024 + (BQ + 2 * KV_STAGES * BN) * HDP * 2
                      + 16 * KV_STAGES;
     const int n_qt = (S + BQ - 1) / BQ;
@@ -735,7 +767,7 @@ int launch_bf16(const void* q, const void* k, const void* v,
         smem);
     if (err != cudaSuccess) return (int)err;
     const dim3 grid(KV * G, B, n_qt);
-    swa_attn_bf16_kernel<HD><<<grid, TC_THREADS, smem, stream>>>(
+    swa_attn_bf16_kernel<HD><<<grid, BandTile<HD>::NTHREADS, smem, stream>>>(
         kmap, vmap, (const bf16*)q, lengths, (bf16*)o, S, KV, G, window,
         scale * 1.4426950408889634f);
     return (int)cudaGetLastError();
@@ -772,6 +804,7 @@ int dispatch_hd(int hd, int dtype, const void* q, const void* k,
         SWA_CASE(32)
         SWA_CASE(64)
         SWA_CASE(128)
+        SWA_CASE(256)
         default: return (int)cudaErrorInvalidValue;
     }
 #undef SWA_CASE

@@ -12,13 +12,15 @@ bf16 inputs (the serving path) run on the tensor cores: one block per
 with fp32 accumulation over the 64-key tiles the window reaches, a
 producer warp loading K/V tiles by TMA into a ring of shared-memory
 stages, an fp32 online softmax, and p split into bf16 hi + lo for p . v
-so that p keeps fp32 accuracy.  fp32 inputs run an fp32 SIMT body (the
-note in the source has the details).
+so that p keeps fp32 accuracy; at head dim 256 (recurrentgemma-9b) a
+block takes 128 q rows in two warpgroups and a ring of 2 K/V stages, to
+fit its registers and shared memory.  fp32 inputs run an fp32 SIMT body
+(the note in the source has the details).
 
 It computes the forward only, as the TPU kernel does.  Its autograd
 function refuses a backward: training through the band on the card
-needs a backward kernel (ROADMAP.md queue 1, long-context training),
-and nothing falls back to the plain version.
+needs a backward kernel (ROADMAP.md queue 1, item 7: long-context
+training), and nothing falls back to the plain version.
 
 ``swa_attn_op.launches`` counts kernel launches (never plain-path
 calls).
@@ -33,7 +35,7 @@ from repro_torch.kernels import backend
 from repro_torch.kernels.swa_attn.ref import attn_scale, swa_attn_ref
 
 NAME = "swa_attn"
-HEAD_DIMS = (16, 32, 64, 128)
+HEAD_DIMS = (16, 32, 64, 128, 256)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -92,8 +94,8 @@ class _SWA(torch.autograd.Function):
     def backward(ctx, dout):
         raise NotImplementedError(
             f"{NAME}: the band attention has no backward kernel on the card "
-            f"yet (ROADMAP.md queue 1, long-context training through the "
-            f"band)")
+            f"yet (ROADMAP.md queue 1, item 7: long-context training "
+            f"through the band)")
 
 
 def swa_attn_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,

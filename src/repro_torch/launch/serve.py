@@ -5,6 +5,10 @@ One-shot static batching (LMs):
   PYTHONPATH=src python -m repro_torch.launch.serve --arch starcoder2-3b \
       --batch 2 --prompt-len 8192 --new 32 [--device cpu]
 
+The recurrent families serve the same way (``--arch recurrentgemma-9b``,
+``--arch rwkv6-3b``, and their ``-smoke`` variants), their decode cache
+the layers' recurrent state beside any local KV rings.
+
 Continuous batching (LMs and the paper's RNN-T CRDNN, which always
 routes here):
 

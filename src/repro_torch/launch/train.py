@@ -7,6 +7,9 @@ the reference's ``repro.launch.train``):
       --seq 512 --method pgm --epochs 3 [--device cpu]
   PYTHONPATH=src python -m repro_torch.launch.train --arch rwkv6-3b \
       --seq 512 --method pgm --epochs 3 --lr 0.05 [--device cpu]
+  PYTHONPATH=src python -m repro_torch.launch.train \
+      --arch recurrentgemma-9b-smoke --seq 24 --method pgm --epochs 3 \
+      [--device cpu]
   PYTHONPATH=src python -m repro_torch.launch.train --arch rnnt-crdnn \
       --optimizer adamw --lr 0.05 --ckpt DIR [--resume] \
       [--nonfinite-guard --max-skipped-steps 4] [--loss-impl dense] \
@@ -15,7 +18,8 @@ the reference's ``repro.launch.train``):
 
 Runs on the card unless ``--device cpu`` is given, and prints the same
 ``epoch N: train X val Y lr Z`` lines as the reference.  RNN-T archs
-train on the synthetic ASR corpus, LMs (dense and RWKV6) on the
+train on the synthetic ASR corpus, LMs (dense, MoE, RWKV6 and the
+RG-LRU hybrid) on the
 synthetic LM corpus of ``--seq`` tokens.  ``--noise`` corrupts that fraction of training
 examples (additive feature noise at ``--snr-db`` for ASR, corrupted
 labels for LM) and turns validation matching on.  ``--ckpt DIR`` writes

@@ -1,6 +1,7 @@
 """Model bundles of the port: the RNN-T family (the reference's
 ``models/api.py:_build_rnnt``) and text decoder LMs (``_build_lm`` for
-text-only models: dense and MoE attention stacks and RWKV6 stacks).
+text-only models: dense and MoE attention stacks, RWKV6 stacks and the
+RG-LRU hybrid).
 
 A bundle is the surface the trainer and the PGM core build on:
 ``init_params``, the per-example loss, the weighted training loss and the
@@ -10,7 +11,8 @@ stage A.  An MoE stack's load-balance aux joins the training loss
 reference's does; ``per_example_loss`` and ``final_hidden`` drop it.
 Both carry the serving hooks (``prefill``, ``decode``, ``init_cache``)
 the engines of ``serve/engine.py`` drive: for an LM, a
-prompt prefill into per-layer KV caches and one-token decode; for the
+prompt prefill into per-layer caches (KV caches, and the recurrent state
+of RG-LRU and RWKV6 layers) and one-token decode; for the
 RNN-T, streaming greedy transducer search (the encoder runs once at
 prefill, a decode is one joint step).  Batches are dicts of tensors on
 the params' device with the reference's keys (RNN-T: ``feats``,
@@ -24,7 +26,8 @@ from typing import Dict, Tuple
 
 import torch
 
-from repro_torch.configs.base import ATTN_KINDS, BLOCK_RWKV, ModelConfig
+from repro_torch.configs.base import (ATTN_KINDS, BLOCK_LOCAL, BLOCK_REC,
+                                      BLOCK_RWKV, ModelConfig)
 from repro_torch.core.rnnt_loss import (rnnt_loss_from_logits,
                                         rnnt_loss_fused)
 from repro_torch.models import rnnt as rnnt_mod
@@ -186,8 +189,8 @@ def softmax_xent(logits: torch.Tensor, targets: torch.Tensor,
 
 @dataclasses.dataclass(frozen=True)
 class LMBundle:
-    """Text decoder LM (dense or MoE attention stack, or RWKV6 stack):
-    position i predicts token i+1."""
+    """Text decoder LM (dense or MoE attention stack, RWKV6 stack or the
+    RG-LRU hybrid): position i predicts token i+1."""
 
     cfg: ModelConfig
 
@@ -196,7 +199,7 @@ class LMBundle:
         if why:
             raise NotImplementedError(
                 f"{self.cfg.name}: {why} is not ported yet (ROADMAP.md "
-                f"queue 1, other families)")
+                f"queue 1, item 9: the encdec and vlm families)")
 
     def init_params(self, gen: torch.Generator, device: torch.device,
                     dtype=None):
@@ -248,22 +251,14 @@ class LMBundle:
     def head_weight(self, params) -> torch.Tensor:
         return tfm.head_weight(params, self.cfg)
 
-    def _serving(self):
-        """Refuse the serving hooks for what this slice does not serve."""
-        if BLOCK_RWKV in self.cfg.layer_kinds():
-            raise NotImplementedError(
-                f"{self.cfg.name}: serving RWKV6 blocks (prefill state and "
-                f"decode) is not ported yet (ROADMAP.md queue 1, RWKV6 "
-                f"prefill/decode and the other families)")
-
     def prefill(self, params, batch: Batch, cache_len=None,
                 prompt_lens=None):
         """Prefill the decode cache from ``tokens`` (B,S) -> (last-token
         logits (B,V), cache).  With ``prompt_lens`` (B,) each row is a
         prompt right-padded to S: positions from the length on are -1,
-        invalid under every mask, and the logits are taken at each row's
-        last valid token."""
-        self._serving()
+        invalid under every mask, the logits are taken at each row's last
+        valid token, and the recurrent blocks' state at each row's length
+        (the cache of an unpadded prefill of the live prefix, S10)."""
         tokens = batch["tokens"]
         B, S = tokens.shape
         x = tfm.embed_tokens(params, self.cfg, tokens)
@@ -282,24 +277,25 @@ class LMBundle:
         """tokens (B,): each row's next input -> (logits (B,V), cache).
         The cache is written in place and returned; rows where ``live``
         (B,) is False keep theirs bit-exactly."""
-        self._serving()
         x_t = tfm.embed_tokens(params, self.cfg, tokens[:, None])
         h = tfm.decode_step(params, self.cfg, x_t, cache, live)
         return tfm.unembed(params, self.cfg, h)[:, 0], cache
 
     def init_cache(self, batch_size: int, cache_len: int, dtype=None,
                    device=torch.device("cpu")):
-        self._serving()
+        """Empty decode cache: KV caches in ``dtype`` (default the
+        compute dtype), recurrent state in fp32."""
         return tfm.init_cache(self.cfg, batch_size, cache_len, dtype, device)
 
 
 def _unported(cfg: ModelConfig) -> str:
     """What of ``cfg`` the LM slices do not carry ('' when nothing): the
-    ``dense`` and ``moe`` families with attention blocks and the ``ssm``
-    family with RWKV6 blocks are ported; any other family (hybrid,
-    encdec, vlm), or blocks of another kind in these, are not."""
+    ``dense`` and ``moe`` families with attention blocks, the ``ssm``
+    family with RWKV6 blocks and the ``hybrid`` family with RG-LRU and
+    local attention blocks are ported; any other family (encdec, vlm),
+    or blocks of another kind in these, are not."""
     allowed = {"dense": set(ATTN_KINDS), "moe": set(ATTN_KINDS),
-               "ssm": {BLOCK_RWKV}}
+               "ssm": {BLOCK_RWKV}, "hybrid": {BLOCK_REC, BLOCK_LOCAL}}
     if cfg.family not in allowed:
         return f"the {cfg.family!r} family"
     odd = sorted(set(cfg.layer_kinds()) - allowed[cfg.family])
@@ -307,8 +303,8 @@ def _unported(cfg: ModelConfig) -> str:
 
 
 def build_model(cfg: ModelConfig):
-    """The bundle of ``cfg.family``: ``rnnt``, ``dense``, ``moe`` or
-    ``ssm`` (RWKV6 stacks); any other family raises
+    """The bundle of ``cfg.family``: ``rnnt``, ``dense``, ``moe``, ``ssm``
+    (RWKV6 stacks) or ``hybrid`` (RG-LRU); any other family raises
     ``NotImplementedError``, and an ``moe`` config without ``moe``
     settings ``ValueError``."""
     if cfg.family == "rnnt":

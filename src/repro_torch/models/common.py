@@ -9,12 +9,13 @@ and no host work for a model of billions of parameters).
 Params are trees of tensors (dicts, and tuples for the LM stack) with the
 reference's key layout and (in, out) weight layout.
 
-``rms_norm``, ``rope_freqs``, ``apply_rope`` and ``ffn_act`` repeat the
-reference's numerics: the norm in fp32 with a ``(1 + gamma)`` scale, cast
+``rms_norm``, ``rope_freqs``, ``apply_rope``, ``ffn_act`` and
+``sigmoid`` repeat the reference's numerics: the norm in fp32 with a ``(1 + gamma)`` scale, cast
 back; half-split (not interleaved) RoPE with fp32 frequencies (exactly
 rounded, as the reference's jitted code folds them) and fp32 positions;
-and GELU in its tanh form, which is ``jax.nn.gelu``'s default (torch's
-default is the erf form), written op by op as JAX writes it.
+GELU in its tanh form, which is ``jax.nn.gelu``'s default (torch's
+default is the erf form), written op by op as JAX writes it; and the
+logistic as JAX evaluates it.
 """
 from __future__ import annotations
 
@@ -110,6 +111,28 @@ def _gelu_tanh(x: torch.Tensor) -> torch.Tensor:
 def ffn_act(ffn_type: str) -> Callable[[torch.Tensor], torch.Tensor]:
     return {"swiglu": F.silu, "geglu": _gelu_tanh, "gelu": _gelu_tanh,
             "sq_relu": lambda x: torch.square(F.relu(x))}[ffn_type]
+
+
+class _Sigmoid(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x):
+        s = 1 / (1 + torch.exp(-x))
+        ctx.save_for_backward(s)
+        return s
+
+    @staticmethod
+    def backward(ctx, g):
+        (s,) = ctx.saved_tensors
+        return g * (s * (1 - s))
+
+
+def sigmoid(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.sigmoid`` with its rounding in x's dtype: ``1 / (1 +
+    exp(-x))`` rounded after each op, with the gradient ``g * (s * (1 -
+    s))``.  In bf16, ``torch.sigmoid`` (one rounding) differs from it by
+    one ulp in about a third of the entries; in fp32 the two agree to
+    within an ulp."""
+    return _Sigmoid.apply(x)
 
 
 def compute_dtype(cfg) -> torch.dtype:

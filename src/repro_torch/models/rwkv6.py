@@ -1,7 +1,8 @@
 """RWKV6 "Finch" time-mix and channel-mix of the port [arXiv:2404.05892]
-(the reference's ``models/rwkv6.py``, training/prefill form: a zero
-initial state and no carried previous token; the decode arguments come
-with serving).
+(the reference's ``models/rwkv6.py``): the training and prefill forward,
+which returns the final WKV state and the last token-shift row for the
+decode cache, and the one-token decode update from a carried state and
+previous row.
 
 Time-mix: data-dependent token-shift (ddlerp via a small LoRA MLP),
 data-dependent per-channel decay w_t, bonus u, and the WKV linear
@@ -13,25 +14,29 @@ S >= 128 takes the chunk-parallel WKV, through ``rwkv6_wkv_op`` (the
 Hopper kernels on the card, the plain chunk algebra on the CPU); any
 other takes the sequential ``wkv_scan``, which the reference computes
 outside any Pallas kernel, so it stays plain PyTorch on the card too.
+A decode step (a carried state) is the reference's sequential one-token
+update (``chunked=False``).
 
-The gates use ``sigmoid``, the logistic as the reference's JAX
-evaluates it: ``1 / (1 + exp(-x))`` rounded after each op in the compute
-dtype, with the gradient ``g * (s * (1 - s))``.  In bf16,
-``torch.sigmoid`` (one rounding) differs from it by one ulp in about a
-third of the entries, and the bf16 gradients of an RWKV stack are
-sensitive enough to such ulps to move by several percent in norm.  In
-fp32 the two agree to within an ulp.
+With ``lengths`` (B,) (a right-padded prefill, pads at position -1) the
+pad steps take k = 0 and a log-decay of 0 (a decay of 1), so the WKV
+state carries through them unchanged, in the kernel's chunk algebra as
+in the scan, and the shift rows are taken at each row's length - 1: the
+cache of an unpadded prefill of the live prefix (the reference runs its
+pads through the recurrence, ROADMAP S10).
+
+The gates use ``sigmoid`` (``models/common.py``), the logistic as the
+reference's JAX evaluates it (R9).
 """
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Optional
 
 import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels.rwkv6_scan.ops import rwkv6_wkv_op
 from repro_torch.kernels.rwkv6_scan.ref import CHUNK, log_decay, wkv_scan
-from repro_torch.models.common import dense_init
+from repro_torch.models.common import dense_init, sigmoid
 
 TM_EXTRA = 32     # ddlerp lora dim
 TD_EXTRA = 64     # decay lora dim
@@ -75,37 +80,35 @@ def init_cmix_params(gen: torch.Generator, d: int, d_ff: int,
     }
 
 
-class _Sigmoid(torch.autograd.Function):
-    @staticmethod
-    def forward(ctx, x):
-        s = 1 / (1 + torch.exp(-x))
-        ctx.save_for_backward(s)
-        return s
-
-    @staticmethod
-    def backward(ctx, g):
-        (s,) = ctx.saved_tensors
-        return g * (s * (1 - s))
+def _token_shift(x: torch.Tensor,
+                 x_prev: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """x (B,S,d) -> the previous token's row: one zero row (or the
+    carried row ``x_prev`` (B,d), cast to x's dtype) in front and the
+    last row dropped (not a roll, R1)."""
+    if x_prev is None:
+        return F.pad(x, (0, 0, 1, 0))[:, :-1]
+    return torch.cat([x_prev.to(x.dtype)[:, None], x[:, :-1]], dim=1)
 
 
-def sigmoid(x: torch.Tensor) -> torch.Tensor:
-    """``jax.nn.sigmoid`` with its rounding in the compute dtype."""
-    return _Sigmoid.apply(x)
+def _last_row(x: torch.Tensor, lengths: Optional[torch.Tensor]):
+    """The row at each row's length - 1 (B,d), or the last one."""
+    if lengths is None:
+        return x[:, -1]
+    last = torch.clamp(lengths.long() - 1, min=0)
+    return x[torch.arange(x.shape[0], device=x.device), last]
 
 
-def _token_shift(x: torch.Tensor) -> torch.Tensor:
-    """x (B,S,d) -> the previous token's row: one zero row padded at the
-    front and the last row dropped (not a roll)."""
-    return F.pad(x, (0, 0, 1, 0))[:, :-1]
-
-
-def tmix_forward(p, cfg, x: torch.Tensor) -> torch.Tensor:
-    """x: (B,S,d) in the compute dtype -> (B,S,d)."""
+def tmix_forward(p, cfg, x: torch.Tensor, state0=None, x_prev=None,
+                 lengths=None):
+    """x (B,S,d) in the compute dtype; state0 (B,H,N,N) fp32 and x_prev
+    (B,d) carried from a previous segment (decode) or None; lengths (B,)
+    or None -> (y (B,S,d), (the final WKV state (B,H,N,N) fp32, the
+    shift row (B,d) in x's dtype))."""
     B, S, d = x.shape
     H, N = cfg.n_heads, cfg.rwkv_head_dim
     dt = x.dtype
     f32 = torch.float32
-    sx = _token_shift(x) - x
+    sx = _token_shift(x, x_prev) - x
     xxx = x + sx * p["mu_x"].to(dt)
     lora = torch.tanh(xxx @ p["ddlerp_w1"].to(dt))           # (B,S,5*E)
     lora = lora.reshape(B, S, 5, TM_EXTRA)
@@ -124,13 +127,27 @@ def tmix_forward(p, cfg, x: torch.Tensor) -> torch.Tensor:
     logit = p["decay_base"].reshape(-1).to(f32) + dd.to(f32)
     w = torch.exp(-torch.exp(logit)).reshape(B, S, H, N)      # (0,1)
     u = p["bonus"].to(f32)
+    r, k, v = r.to(f32), k.to(f32), v.to(f32)
+    valid = None
+    if lengths is not None:
+        valid = (torch.arange(S, device=x.device)[None, :]
+                 < lengths.to(x.device)[:, None])[:, :, None, None]
+        k = torch.where(valid, k, torch.zeros((), dtype=f32,
+                                              device=x.device))
 
-    if S % CHUNK == 0 and S >= 2 * CHUNK:
-        y, _ = rwkv6_wkv_op(r.to(f32), k.to(f32), v.to(f32), log_decay(w),
-                            u, CHUNK)
+    if state0 is None and S % CHUNK == 0 and S >= 2 * CHUNK:
+        lw = log_decay(w)
+        if valid is not None:
+            lw = torch.where(valid, lw, torch.zeros((), dtype=f32,
+                                                    device=x.device))
+        y, state = rwkv6_wkv_op(r, k, v, lw, u, CHUNK)
     else:
-        s0 = torch.zeros((B, H, N, N), dtype=f32, device=x.device)
-        y, _ = wkv_scan(r.to(f32), k.to(f32), v.to(f32), w, u, s0)
+        if valid is not None:
+            w = torch.where(valid, w, torch.ones((), dtype=f32,
+                                                 device=x.device))
+        s0 = (torch.zeros((B, H, N, N), dtype=f32, device=x.device)
+              if state0 is None else state0.to(f32))
+        y, state = wkv_scan(r, k, v, w, u, s0)
     # per-head group norm, fp32, population variance
     yh = y.reshape(B, S, H, N).to(f32)
     mu = yh.mean(-1, keepdim=True)
@@ -138,14 +155,15 @@ def tmix_forward(p, cfg, x: torch.Tensor) -> torch.Tensor:
     yh = (yh - mu) * torch.rsqrt(var + 64e-5)
     y = yh.reshape(B, S, H * N) * p["ln_g"] + p["ln_b"]       # -> fp32
     y = y.to(dt) * g
-    return y @ p["wo"].to(dt)
+    return y @ p["wo"].to(dt), (state, _last_row(x, lengths))
 
 
-def cmix_forward(p, x: torch.Tensor) -> torch.Tensor:
+def cmix_forward(p, x: torch.Tensor, x_prev=None, lengths=None):
+    """-> (out (B,S,d), the shift row (B,d) in x's dtype)."""
     dt = x.dtype
-    sx = _token_shift(x) - x
+    sx = _token_shift(x, x_prev) - x
     xk = x + sx * p["mu_k"].to(dt)
     xr = x + sx * p["mu_r"].to(dt)
     k = torch.square(F.relu(xk @ p["wk"].to(dt)))
     kv = k @ p["wv"].to(dt)
-    return sigmoid(xr @ p["wr"].to(dt)) * kv
+    return sigmoid(xr @ p["wr"].to(dt)) * kv, _last_row(x, lengths)

@@ -1,7 +1,7 @@
-"""Decoder stack of the port for dense and MoE attention LMs and RWKV6
-stacks (the reference's ``models/transformer.py``): the training/prefill
-forward with the stack's MoE load-balance aux, and for attention blocks
-the prefill cache and one-token decode.
+"""Decoder stack of the port for dense and MoE attention LMs, RWKV6
+stacks and the RG-LRU hybrid (the reference's ``models/transformer.py``):
+the training/prefill forward with the stack's MoE load-balance aux, the
+prefill cache and the one-token decode of every block kind.
 
 The params tree is the reference's: ``stack.groups`` is a tuple with one
 dict per position of the config's ``pattern``, each leaf stacked over a
@@ -18,17 +18,24 @@ dtype at every call, as the reference does; serving holds them once in
 the compute dtype (``init_params(dtype=...)``, ``serving_params``), on
 which the same casts are no-ops, so the logits are bitwise the same.
 
-The decode cache has the reference's tree (``groups``/``tail``, one KV
-cache per attention layer) with the batch first in every leaf: a group
-leaf is (B, n_groups, ...), where the reference stacks the layer axis
-first.  So a serving slot is index 0 of every leaf.
+The decode cache has the reference's tree (``groups``/``tail``, one
+entry per layer: a KV cache for an attention layer, the recurrent state
+``{"h", "conv"}`` for an RG-LRU layer, ``{"S", "x_tmix", "x_cmix"}`` for
+an RWKV6 layer) with the batch first in every leaf: a group leaf is (B,
+n_groups, ...), where the reference stacks the layer axis first.  So a
+serving slot is index 0 of every leaf.  A decode step writes every
+entry in place and leaves the rows that are not ``live`` bit-exactly as
+they were; a recurrent entry's update is cast to the entry's dtype (the
+slot pool's state is fp32, a prefill's shift rows come in the compute
+dtype, ROADMAP RG5).
 
 Attention blocks with a dense or MoE feed-forward (``models/moe.py``:
 a prefill or training forward routes at the training capacity, a decode
-step at the no-drop capacity, as the reference's), and RWKV6 blocks
-(time-mix and channel-mix, no attention and no MLP): the bundle
-(``models/api.py:LMBundle``) refuses configs with other block kinds,
-and RWKV6 blocks in a prefill or decode.
+step at the no-drop capacity, as the reference's), RG-LRU blocks
+(``models/rglru.py``) with the dense feed-forward, and RWKV6 blocks
+(time-mix and channel-mix, no attention and no MLP).  A prefill with
+padded rows (positions -1 from each row's length on) hands the
+recurrent blocks each row's length, so their state is taken at it.
 """
 from __future__ import annotations
 
@@ -36,10 +43,11 @@ from typing import Any, Dict, List, Optional
 
 import torch
 
-from repro_torch.configs.base import BLOCK_RWKV
+from repro_torch.configs.base import BLOCK_REC, BLOCK_RWKV
 from repro_torch.models import attention as attn
 from repro_torch.models import ffn as ffn_mod
 from repro_torch.models import moe as moe_mod
+from repro_torch.models import rglru as rglru_mod
 from repro_torch.models import rwkv6 as rwkv_mod
 from repro_torch.models.common import (compute_dtype, dense_init, embed_init,
                                        rms_norm, tree_leaves, tree_map)
@@ -56,14 +64,20 @@ def _init_block(gen: torch.Generator, cfg, kind: str, device: torch.device,
         p["tmix"] = rwkv_mod.init_tmix_params(
             gen, d, cfg.n_heads, cfg.rwkv_head_dim, device)
         p["cmix"] = rwkv_mod.init_cmix_params(gen, d, cfg.d_ff, device)
+        return p
+    if kind == BLOCK_REC:
+        p["rec"] = rglru_mod.init_rglru_params(
+            gen, d, cfg.lru_width or d, cfg.conv_width, device)
+        p["mlp"] = ffn_mod.init_ffn_params(gen, d, cfg.d_ff, cfg.ffn_type,
+                                           device)
+        return p
+    p["attn"] = attn.init_attn_params(gen, cfg, device)
+    if cfg.moe is not None:
+        p["moe"] = moe_mod.init_moe_params(gen, d, cfg.moe, cfg.ffn_type,
+                                           device, store)
     else:
-        p["attn"] = attn.init_attn_params(gen, cfg, device)
-        if cfg.moe is not None:
-            p["moe"] = moe_mod.init_moe_params(gen, d, cfg.moe,
-                                               cfg.ffn_type, device, store)
-        else:
-            p["mlp"] = ffn_mod.init_ffn_params(gen, d, cfg.d_ff,
-                                               cfg.ffn_type, device)
+        p["mlp"] = ffn_mod.init_ffn_params(gen, d, cfg.d_ff, cfg.ffn_type,
+                                           device)
     return p
 
 
@@ -145,27 +159,42 @@ def cast_block_params(bp, cfg):
 
 
 def block_forward(bp, cfg, kind: str, x: torch.Tensor, *,
-                  positions=None, collect_cache: bool = False,
+                  positions=None, lengths=None, collect_cache: bool = False,
                   cache_len: int = 0):
     """-> (x, the layer's MoE aux (None for a layer without experts), the
-    layer's prefill KV cache when ``collect_cache``, else None)."""
+    layer's prefill cache entry when ``collect_cache``, else None).
+    ``lengths`` (B,) (with ``positions``, -1 on pads) are the rows' live
+    lengths a recurrent block takes its state at; None: every row is
+    live."""
     bp = cast_block_params(bp, cfg)
     aux = None
+    entry = None
     h = rms_norm(x, bp["ln1"], cfg.norm_eps)
     if kind == BLOCK_RWKV:
-        x = x + rwkv_mod.tmix_forward(bp["tmix"], cfg, h)
+        y, (S_, x_tmix) = rwkv_mod.tmix_forward(bp["tmix"], cfg, h,
+                                                lengths=lengths)
+        x = x + y
         h2 = rms_norm(x, bp["ln2"], cfg.norm_eps)
-        return x + rwkv_mod.cmix_forward(bp["cmix"], h2), aux, None
-    y, kv = attn.attn_forward(bp["attn"], cfg, h, kind=kind,
-                              q_positions=positions, kv_positions=positions)
+        y2, x_cmix = rwkv_mod.cmix_forward(bp["cmix"], h2, lengths=lengths)
+        if collect_cache:
+            entry = {"S": S_, "x_tmix": x_tmix, "x_cmix": x_cmix}
+        return x + y2, aux, entry
+    if kind == BLOCK_REC:
+        y, state = rglru_mod.rglru_forward(bp["rec"], cfg, h,
+                                           lengths=lengths)
+        if collect_cache:
+            entry = state
+    else:
+        y, kv = attn.attn_forward(bp["attn"], cfg, h, kind=kind,
+                                  q_positions=positions,
+                                  kv_positions=positions)
+        if collect_cache:
+            # the forward's own k/v: the values the reference recomputes
+            cache = attn.init_kv_cache(cfg, x.shape[0], cache_len,
+                                       kind == "local", compute_dtype(cfg),
+                                       x.device)
+            entry = attn.cache_prefill(cache, *kv)
     x = x + y
-    entry = None
-    if collect_cache:
-        # the forward's own k/v: the values the reference recomputes
-        cache = attn.init_kv_cache(cfg, x.shape[0], cache_len,
-                                   kind == "local", compute_dtype(cfg),
-                                   x.device)
-        entry = attn.cache_prefill(cache, *kv)
     h2 = rms_norm(x, bp["ln2"], cfg.norm_eps)
     if "moe" in bp:
         y2, aux = moe_mod.moe_forward(bp["moe"], cfg, h2)
@@ -174,14 +203,40 @@ def block_forward(bp, cfg, kind: str, x: torch.Tensor, *,
     return x + y2, aux, entry
 
 
+def _write(entry: Dict[str, torch.Tensor], new: Dict[str, torch.Tensor],
+           live=None) -> None:
+    """Write a recurrent entry's update in place, cast to each leaf's
+    dtype; rows where ``live`` (B,) is False keep their bits."""
+    for name, val in new.items():
+        buf = entry[name]
+        val = val.to(buf.dtype)
+        if live is not None:
+            keep = live.reshape((-1,) + (1,) * (val.dim() - 1))
+            val = torch.where(keep, val, buf)
+        buf.copy_(val)
+
+
 def block_decode(bp, cfg, kind: str, x_t: torch.Tensor, entry, live=None):
-    """One token through an attention block -> x_t; the layer's cache
-    ``entry`` is written in place (rows where ``live`` is False are
-    not)."""
+    """One token through a block -> x_t; the layer's cache ``entry`` is
+    written in place (rows where ``live`` is False are not)."""
     bp = cast_block_params(bp, cfg)
     h = rms_norm(x_t, bp["ln1"], cfg.norm_eps)
-    x_t = x_t + attn.attn_decode(bp["attn"], cfg, h, entry, kind=kind,
-                                 live=live)
+    if kind == BLOCK_RWKV:
+        y, (S_, x_tmix) = rwkv_mod.tmix_forward(
+            bp["tmix"], cfg, h, state0=entry["S"], x_prev=entry["x_tmix"])
+        x_t = x_t + y
+        h2 = rms_norm(x_t, bp["ln2"], cfg.norm_eps)
+        y2, x_cmix = rwkv_mod.cmix_forward(bp["cmix"], h2,
+                                           x_prev=entry["x_cmix"])
+        _write(entry, {"S": S_, "x_tmix": x_tmix, "x_cmix": x_cmix}, live)
+        return x_t + y2
+    if kind == BLOCK_REC:
+        y, state = rglru_mod.rglru_forward(bp["rec"], cfg, h, state=entry)
+        _write(entry, state, live)
+    else:
+        y = attn.attn_decode(bp["attn"], cfg, h, entry, kind=kind,
+                             live=live)
+    x_t = x_t + y
     h2 = rms_norm(x_t, bp["ln2"], cfg.norm_eps)
     if "moe" in bp:
         # the no-drop capacity: a decode step drops no token (M4)
@@ -228,11 +283,13 @@ def forward_hidden(params, cfg, x: torch.Tensor, *, positions=None,
     hidden states (B,S,d), the MoE aux summed over the layers (an fp32
     scalar; zero without MoE layers), the decode cache when
     ``collect_cache``, else None).  ``positions`` (B,S) default to
-    ``arange(S)``."""
+    ``arange(S)``; given, each row's live length (its positions >= 0) is
+    where the recurrent blocks take their state."""
     pattern = cfg.pattern
     n_groups = cfg.n_layers // len(pattern)
-    kw = dict(positions=positions, collect_cache=collect_cache,
-              cache_len=cache_len)
+    lengths = None if positions is None else (positions >= 0).sum(dim=1)
+    kw = dict(positions=positions, lengths=lengths,
+              collect_cache=collect_cache, cache_len=cache_len)
     entries = [[] for _ in pattern]
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
     if n_groups:
@@ -267,13 +324,23 @@ def forward_hidden(params, cfg, x: torch.Tensor, *, positions=None,
 
 def init_cache(cfg, batch: int, cache_len: int, dtype=None,
                device=torch.device("cpu")):
-    """Empty decode cache of ``forward_hidden``'s structure."""
+    """Empty decode cache of ``forward_hidden``'s structure: KV caches in
+    ``dtype`` (default the compute dtype), recurrent state in fp32."""
     dtype = compute_dtype(cfg) if dtype is None else dtype
     pattern = cfg.pattern
     n_groups = cfg.n_layers // len(pattern)
     kinds = cfg.layer_kinds()
 
     def one(kind):
+        if kind == BLOCK_REC:
+            return rglru_mod.init_rglru_state(
+                batch, cfg.lru_width or cfg.d_model, cfg.conv_width, device)
+        if kind == BLOCK_RWKV:
+            f32 = dict(dtype=torch.float32, device=device)
+            H, N = cfg.n_heads, cfg.rwkv_head_dim
+            return {"S": torch.zeros((batch, H, N, N), **f32),
+                    "x_tmix": torch.zeros((batch, cfg.d_model), **f32),
+                    "x_cmix": torch.zeros((batch, cfg.d_model), **f32)}
         return attn.init_kv_cache(cfg, batch, cache_len, kind == "local",
                                   dtype, device)
 

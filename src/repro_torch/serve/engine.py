@@ -17,15 +17,21 @@ Two surfaces:
   others bit-exactly as they were.  Between scans the host reads
   the live flags and emission counts in one fetch, evicts finished or
   expired requests and admits queued ones into the freed slots (a B = 1
-  prefill written into the pool in place).  Windowed models prefill
+  prefill written into the pool in place: a slot's KV caches and its
+  recurrent state -- RG-LRU ``h``/``conv``, RWKV6 ``S`` and shift rows,
+  fp32 in the pool -- are overwritten whole).  Windowed models prefill
   exact-length prompts (bucket padding would push real keys out of a
-  full ring); others right-pad to power-of-two buckets with position -1.
+  full ring); others right-pad to power-of-two buckets with position -1,
+  and a recurrent layer takes its state at the prompt's length, so a
+  padded prompt's slot holds the state of the unpadded prompt (the
+  reference's carries its pads through the recurrence, ROADMAP S10).
   An MoE model routes a bucket's pad rows with its prompt (they take
   expert capacity after the prompt's first choices, as the reference's
   do), and a prompt must split into MoE groups of 2,048 tokens, as the
   reference asserts (ROADMAP hazards M4, M1).
 
-The slot engine serves decoder LMs (KV caches, eos termination) and the
+The slot engine serves decoder LMs (KV caches and recurrent state, eos
+termination) and the
 paper's RNN-T CRDNN (encoder buffer + prediction state; a micro-step is
 one joint step, blanks advance the frame cursor and are never emitted):
 streaming greedy transducer search, token for token the textbook loop of

@@ -20,13 +20,17 @@ within 1e-5 of the host stage A, on fresh params after they change; an
 injected kernel failure raises on the card; the grad-sketch kernel at
 U = 4 inside a graph equals its eager launch; the MoE router term's
 captured backward replays bitwise.  The MoE layer: two runs bitwise,
-the card within 1e-5 of the CPU.  TF32 is off throughout
-(``backend.fp32_numerics``).
+the card within 1e-5 of the CPU.  The band at head dim 256; the WKV
+forward with a padded prefill's pad rows; a slot decode of both
+recurrent families leaving a dead slot's state bit-exact.  TF32 is off
+throughout (``backend.fp32_numerics``).
 """
 import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+
+import torch_threads  # noqa: E402,F401  (one intra-op thread)
 
 from repro_torch.core.rnnt_loss import rnnt_loss_fused  # noqa: E402
 from repro_torch.kernels import backend  # noqa: E402
@@ -837,3 +841,85 @@ def test_host_sync_in_the_step_makes_capture_raise(card):
                       eng.full_plan(0))
     assert eng._graph is None
     torch.cuda.synchronize()
+
+
+# the band at head dim 256 (recurrentgemma-9b's MQA: 1 KV head, G 16):
+# its prefill shape in bf16 and fp32, then the smaller tiles' edges (S off
+# the 128-row q tile, windows off the 64-key tile, per-row lengths)
+SWA_HD256 = [
+    (2, 8192, 1, 16, 256, 2048, "bfloat16", None),
+    (2, 8192, 1, 16, 256, 2048, "float32", None),
+    (1, 129, 1, 2, 256, 63, "bfloat16", None),
+    (2, 1100, 1, 16, 256, 200, "bfloat16", (1100, 70)),
+    (1, 700, 2, 2, 256, 1, "bfloat16", None),
+    (2, 300, 1, 4, 256, 64, "float32", (300, 1)),
+]
+
+
+@pytest.mark.parametrize("B,S,KV,G,hd,W,dtype,lengths", SWA_HD256)
+def test_swa_kernel_head_dim_256_matches_plain(card, B, S, KV, G, hd, W,
+                                               dtype, lengths):
+    """The bars of ``test_swa_kernel_matches_plain`` at head dim 256."""
+    test_swa_kernel_matches_plain(card, B, S, KV, G, hd, W, dtype, lengths)
+
+
+def test_wkv_prefill_with_pad_rows_matches_plain(card):
+    """A padded prefill's time mix (k 0 and a log-decay of 0 from each
+    row's length on, S10): y at the live rows and the final state within
+    1e-4 of the plain chunk algebra's largest entry; the padded row's
+    state bitwise the kernel's state over its live prefix rounded up to a
+    chunk (the pad chunks carry it unchanged)."""
+    (r, k, v, lw, u), _ = _wkv_inputs(2, 256, 4, 64, seed=3, dev=card)
+    n = torch.tensor([256, 150], device=card)
+    live = (torch.arange(256, device=card)[None, :] < n[:, None])[..., None,
+                                                                  None]
+    k = torch.where(live, k, torch.zeros((), device=card))
+    lw = torch.where(live, lw, torch.zeros((), device=card))
+    with torch.no_grad():
+        y, s = rwkv6_wkv_op(r, k, v, lw, u, 64)
+        yp, sp = _wkv_plain(r, k, v, lw, u, 64)
+        _, s_cut = rwkv6_wkv_op(*(x[1:, :192].contiguous()
+                                  for x in (r, k, v, lw)), u, 64)
+    keep = live.expand_as(y)
+    torch.testing.assert_close(y[keep], yp[keep], rtol=0,
+                               atol=1e-4 * float(yp[keep].abs().max()))
+    torch.testing.assert_close(s, sp, rtol=0,
+                               atol=1e-4 * float(sp.abs().max()))
+    assert torch.equal(s[1], s_cut[0])
+
+
+@pytest.mark.parametrize("arch", ["recurrentgemma-9b-smoke",
+                                  "rwkv6-3b-smoke"])
+def test_slot_decode_keeps_dead_rows_bitwise(card, arch):
+    """A decode over a pool of two slots with one not live: every leaf
+    of the dead slot bitwise as it was, the live slot's recurrent state
+    moved, in place on the card."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.api import build_model
+    from repro_torch.models.common import tree_leaves, tree_map
+
+    bundle = build_model(get_config(arch))
+    params = bundle.init_params(torch.Generator().manual_seed(0), card)
+    pool = bundle.init_cache(2, 24, device=card)
+    prompt = torch.randint(0, 277, (1, 12), dtype=torch.int32,
+                           generator=torch.Generator().manual_seed(1)).to(card)
+    with torch.no_grad():
+        logits, one = bundle.prefill(params, {"tokens": prompt},
+                                     cache_len=24)
+        tree_map(lambda p, l: p.__setitem__(1, l[0]), pool, one)
+        # the dead slot holds some other state (a fill, not a draw from
+        # the card's default generator, which a capture test before may
+        # have left in its capture state)
+        for e in pool["groups"] + pool["tail"]:
+            for k in set(e) & {"h", "conv", "S", "x_tmix", "x_cmix"}:
+                e[k][0].fill_(0.25)
+        before = tree_map(lambda l: l.clone(), pool)
+        tok = torch.argmax(logits, -1).to(torch.int32).repeat(2)
+        bundle.decode(params, pool, tok,
+                      live=torch.tensor([False, True], device=card))
+    torch.cuda.synchronize()
+    moved = False
+    for a, b in zip(tree_leaves(before), tree_leaves(pool)):
+        assert b.device.type == "cuda" and torch.equal(a[0], b[0])
+        moved |= not torch.equal(a[1], b[1])
+    assert moved

@@ -47,6 +47,8 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+import torch_threads  # noqa: E402,F401  (one intra-op thread)
+
 import jax.numpy as jnp  # noqa: E402
 
 from repro.kernels.grad_sketch.ref import grad_sketch_ref as jax_sketch  # noqa: E402

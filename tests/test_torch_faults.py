@@ -23,6 +23,8 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+import torch_threads  # noqa: E402,F401  (one intra-op thread)
+
 import jax  # noqa: E402
 
 from repro.configs import get_config as jax_get_config  # noqa: E402

@@ -18,6 +18,8 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+import torch_threads  # noqa: E402,F401  (one intra-op thread)
+
 from repro_torch.kernels.omp_gram.ops import BK, gram_plan, gram_tile  # noqa: E402
 from repro_torch.kernels.omp_gram.ref import omp_gram_batched_ref  # noqa: E402
 

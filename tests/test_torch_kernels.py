@@ -13,6 +13,8 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+import torch_threads  # noqa: E402,F401  (one intra-op thread)
+
 import jax.numpy as jnp  # noqa: E402
 
 from repro.kernels.omp_gram.kernel import omp_gram_batched  # noqa: E402

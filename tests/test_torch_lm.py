@@ -25,6 +25,8 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+import torch_threads  # noqa: E402,F401  (one intra-op thread)
+
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
@@ -162,18 +164,27 @@ def test_model_loss_and_grads_match_reference(setup, dtype):
 
 def test_attention_refuses_what_the_slice_does_not_port(setup):
     cfg = get_config(ARCH)
+    # the hybrid family is ported with rec and local blocks (the smoke's
+    # local layers alone build), not with full-attention ones
     for bad in (dict(family="vlm"),
                 dict(family="encdec"), dict(family="ssm"),
-                dict(family="hybrid"), dict(pattern=("rec", "rec", "local"))):
+                dict(family="hybrid", pattern=("rec", "attn")),
+                dict(pattern=("rec", "rec", "local"))):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             build_model(dataclasses.replace(cfg, **bad))
     # the MoE family is ported; without its experts' settings it is a
     # misconfiguration
     with pytest.raises(ValueError, match="cfg.moe"):
         build_model(dataclasses.replace(cfg, family="moe", moe=None))
+    # RWKV6 stacks are served: a prefill fills each layer's recurrent
+    # state (tests/test_torch_recurrent_serve.py holds its values)
     rwkv = build_model(get_config("rwkv6-3b-smoke"))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        rwkv.prefill({}, {"tokens": torch.zeros((1, 4), dtype=torch.int32)})
+    params = rwkv.init_params(torch.Generator().manual_seed(0),
+                              torch.device("cpu"))
+    with torch.no_grad():
+        _, cache = rwkv.prefill(params, {"tokens": torch.zeros(
+            (1, 4), dtype=torch.int32)})
+    assert set(cache["groups"][0]) == {"S", "x_tmix", "x_cmix"}
 
 
 @pytest.mark.parametrize("arch", ["starcoder2-3b", ARCH, "rnnt-crdnn-smoke",

@@ -14,6 +14,8 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+import torch_threads  # noqa: E402,F401  (one intra-op thread)
+
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.configs.base import PGMConfig, TrainConfig  # noqa: E402
 from repro_torch.data.pipeline import lm_units  # noqa: E402

@@ -29,6 +29,8 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+import torch_threads  # noqa: E402,F401  (one intra-op thread)
+
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
@@ -195,11 +197,11 @@ def test_time_mix_and_channel_mix_match_reference(setup, seq):
     np.testing.assert_array_equal(rwkv6._token_shift(tx).numpy(),
                                   np.asarray(jax_rwkv._token_shift(x)))
     y_j, _ = jax_rwkv.tmix_forward(bp["tmix"], cfg_j, x)
-    y_t = rwkv6.tmix_forward(from_numpy(bp["tmix"]), cfg_t, tx)
+    y_t, _ = rwkv6.tmix_forward(from_numpy(bp["tmix"]), cfg_t, tx)
     np.testing.assert_allclose(y_t.numpy(), np.asarray(y_j), rtol=1e-5,
                                atol=1e-5)
     c_j, _ = jax_rwkv.cmix_forward(bp["cmix"], x)
-    c_t = rwkv6.cmix_forward(from_numpy(bp["cmix"]), tx)
+    c_t, _ = rwkv6.cmix_forward(from_numpy(bp["cmix"]), tx)
     np.testing.assert_allclose(c_t.numpy(), np.asarray(c_j), rtol=1e-5,
                                atol=1e-5)
 
@@ -299,9 +301,9 @@ def test_bf16_blocks_match_reference_with_one_cotangent(setup):
     x = rng.normal(size=(4, 128, 64)).astype(np.float32)
     cot = (rng.normal(size=(4, 128, 64)) * 0.01).astype(np.float32)
     fns = {"tmix": (lambda p, x: jax_rwkv.tmix_forward(p, cj, x)[0],
-                    lambda p, x: rwkv6.tmix_forward(p, ct, x)),
+                    lambda p, x: rwkv6.tmix_forward(p, ct, x)[0]),
            "cmix": (lambda p, x: jax_rwkv.cmix_forward(p, x)[0],
-                    rwkv6.cmix_forward)}
+                    lambda p, x: rwkv6.cmix_forward(p, x)[0])}
     for name, (fj, ft) in fns.items():
         _, vjp = jax.vjp(lambda p: fj(jax_cast(p, cj),
                                       jnp.asarray(x, jnp.bfloat16)),
