@@ -4,7 +4,7 @@
     python3 chip_smoke.py
 
 run from the root of a checkout, on a machine with one NVIDIA H100.
-``python3 chip_smoke.py --phase N`` (N in 15, 16, 17, 18) runs phases 1
+``python3 chip_smoke.py --phase N`` (N in 15 to 19) runs phases 1
 and 2, then phase N's kernel rows and phase N alone (phase 15 after the
 RNN-T run on the scan engine it is held against), and prints the card's
 name and power limit and the phase's launch counts; it is for trying a
@@ -122,10 +122,11 @@ failure exits non-zero, and no phase catches an error and carries on:
    without the graph (bitwise), two padding rows through the graph
    (state bitwise held), and ``TRACE_ROWS`` (3) rows of an epoch
    replayed under the profiler (a whole epoch's trace took ~85 s of host
-   time beside an H100 80GB HBM3 at 700 W): its lattice
-   kernels traced per-step launches x rows times, the counters unchanged
-   (a replay makes no host call), its wall and busy time a step beside
-   phase 7's eager step;
+   time beside an H100 80GB HBM3 at 700 W): the step graph's lattice
+   kernel nodes (read through the driver, ``graph_kernels``) x rows equal
+   to per-step launches x rows, the trace holding the kernel, the
+   counters unchanged (a replay makes no host call), its wall and busy
+   time a step beside phase 7's eager step;
    (b) the same loop with ``epoch_chunk=2`` against (a); (c)
    ``starcoder2-3b`` and ``rwkv6-3b`` at full width with 2 layers, 2
    epochs, host engine against scan engine (same subsets, losses within
@@ -145,13 +146,15 @@ failure exits non-zero, and no phase catches an error and carries on:
    selection), two replays bitwise, stage A and a round timed, the
    replayed stage A of the validation corpus under the profiler (a whole
    round's trace took ~55 s of host time beside an H100 80GB HBM3 at 700
-   W): its lattice kernels 2 a unit, the counters
-   unchanged; (c) ``starcoder2-3b`` at full width and depth on
+   W): the graph's lattice kernel nodes x replays 2 a unit, the trace
+   holding the kernel, the counters unchanged; (c) ``starcoder2-3b`` at
+   full width and 6 of its 30 layers (``LM_RESIDENT_LAYERS``) on
    the scan engine with resident selection, 2 epochs, its peak device
    memory, then (b)'s checks, and ``chunk_units=4`` against 1 (1e-5 of
    each unit vector's largest entry; the kernel counted once a chunk);
-   (d) ``rwkv6-3b`` at full width with 2 layers, (b)'s checks, the WKV
-   forward traced a unit x layer; (e) an injected failure of the
+   (d) ``rwkv6-3b`` at full width with 2 layers, (b)'s checks on a
+   replayed round, its graphs' WKV forward nodes x replays a unit x
+   layer; (e) an injected failure of the
    ``"cuda"`` route raises out of the round, no round degraded;
 16. the reference's other dense archs and examples: (a) ``gemma3-27b`` at
    full width and depth (62 layers, 27.0B params) served from bf16
@@ -181,7 +184,7 @@ failure exits non-zero, and no phase catches an error and carries on:
    at full width and 21 of its 32 layers (the peak held to 72 GB):
    ``generate`` on 2 x 8,192 (the band kernel once a local layer) and
    ``SlotEngine`` at ``--prompt-len 2048`` (exact lengths); (c)
-   ``olmoe-1b-7b`` at 6 layers and ``mixtral-8x7b`` at 2, full width,
+   ``olmoe-1b-7b`` and ``mixtral-8x7b`` at 2 layers, full width,
    trained 2 epochs on the scan engine with resident rounds and
    ``moe_router_term``, twice with one seed (losses, the round and
    every final leaf's bits equal), then resident stage A against host
@@ -191,7 +194,7 @@ failure exits non-zero, and no phase catches an error and carries on:
    device time split into the dispatch/combine einsums, the expert
    GEMMs, attention and the rest.  Phase 3 holds (d), the kernels at
    phase 17's shapes: the grad sketch at both archs' stage-A units, the
-   Gram at their router-term D (28,672 and 5,120, M6) and the band at
+   Gram at their router-term D (12,288 and 5,120, M6) and the band at
    ``mixtral-8x7b``'s prefill (2, 8192, 8, 4, 128, 4096) against SDPA;
 18. recurrent-state serving and the hybrid family (ROADMAP S10, RG1-RG5):
    (a) ``recurrentgemma-9b`` (26 RG-LRU and 12 local layers, 9.40B
@@ -203,7 +206,8 @@ failure exits non-zero, and no phase catches an error and carries on:
    ``rwkv6-3b`` in power-of-two buckets, its pads through the WKV
    kernel), each completion token for token against ``generate`` on its
    prompt alone, unpadded; the peak memory; (c) ``recurrentgemma-9b`` at
-   full width and 6 layers trained 2 epochs at S 2,048 (units of 2) on
+   full width and 3 layers (one group) trained 2 epochs at S 2,048
+   (units of 2) on
    the scan engine with resident rounds, twice with one seed (losses,
    the round and every final leaf's bits equal), resident stage A
    against host (P7), and a step at S 4,096 whose backward through the
@@ -214,7 +218,28 @@ failure exits non-zero, and no phase catches an error and carries on:
    2048) in fp32 and bf16, the bf16 timed against SDPA), the WKV forward
    at ``rwkv6-3b``'s prefill with pad rows (the padded row's state
    bitwise its live prefix's), the grad sketch at ``recurrentgemma-9b``'s
-   stage-A unit (V 256,000) and its stage-B Gram.
+   stage-A unit (V 256,000) and its stage-B Gram;
+19. the encoder-decoder and VLM families (ROADMAP ED1-ED4, V1-V2, S11):
+   (a) ``seamless-m4t-medium`` (12 encoder + 12 decoder layers, 615M
+   params) and (b) ``paligemma-3b`` (18 layers behind 256 patches, 2.51B
+   params) at full width and depth trained 2 epochs under PGM on the
+   scan engine with resident rounds, on 16 units of 4 stacked from the
+   bundle's ``make_batch`` (seamless at S 1,024: 512 frames and 512
+   tokens; paligemma at S 768: 256 patches and 512 tokens; n = 2,044 a
+   stage-A unit), seamless twice with one seed (losses, the round and
+   every final leaf's bits equal), each run's peak memory, then resident
+   stage A against host (P7); (c) each trained model served through
+   ``generate`` from its serving weights (bf16, greedy, 32 new tokens):
+   4 requests of 1,024 frames and 16 prompt tokens, 4 of 256 patches and
+   512 tokens; (d) S11 at full width and depth in fp32: a paligemma-3b
+   decode step after a prefill, its cache sized ``n_prefix + Sp + new``,
+   within 1e-3 of a full forward's largest entry, and sized ``Sp + new``
+   (the reference's) not; (e) each at full width with one layer (one
+   encoder and one decoder layer) in fp32 on one example of 256 frames
+   or patches and 256 tokens, card against CPU: per-example loss, the
+   stage-A sketch, the prefill and 8 teacher-forced decode steps, at
+   phase 4's bars.  Phase 3 holds the grad sketch at both archs'
+   stage-A units (V 256,206 and 257,216, off the 128-wide vocab tile).
 
 Phases 9, 12 and 15c draw their 3B models' initial weights with a
 generator on the card (the host generator took ~20 s a model).
@@ -226,15 +251,15 @@ row per kernel and main path: the Gram, which all three training paths
 run, has three and a fourth for phase 6's exact stage B, and the grad
 sketch, which both LM paths run, two; then one row per kernel and scan
 path of phase 14, ``rnnt-scan``, ``lm-scan`` and ``rwkv-scan``: a kernel
-of the captured step with the launches of ``TRACE_ROWS`` traced replayed
-rows and,
+of the captured step with the launches of ``TRACE_ROWS`` replayed rows
+(its graph's kernel nodes x the replays) and,
 as ``counted``, its scan run's count (the warm-up steps and the
 capture), a kernel outside the step with its scan run's count; then
 one row per kernel and resident path of phase 15, ``rnnt-resident``,
 ``lm-resident``, ``rwkv-resident`` and ``lm-resident-chunk4``: a kernel
-inside the stage-A graphs with the instances traced in one replayed
-round (for ``rnnt-resident``, one replayed stage A of the validation
-corpus) and, as ``counted``, the selector's warm-up and capture launches,
+inside the stage-A graphs with the instances one replayed round ran
+(for ``rnnt-resident``, one replayed stage A of the validation corpus;
+the graphs' kernel nodes x their replays) and, as ``counted``, the selector's warm-up and capture launches,
 stage B's Gram with its count; then phase 16's rows: the band kernel at
 gemma3-27b's prefill with its serving launches, and for each dense arch's
 resident run the grad sketch at its stage-A unit and the Gram, with the
@@ -243,7 +268,9 @@ for each MoE arch's resident run the grad sketch at its unit and the
 Gram at its router-term D; then phase 18's: the band at
 recurrentgemma-9b's prefill and the WKV forward with pad rows, each
 with its serving launches, and the grad sketch and the Gram of
-recurrentgemma-9b's resident run), the card's name and power limit
+recurrentgemma-9b's resident run; then phase 19's: the grad sketch and
+the Gram of the ``encdec-resident`` and ``vlm-resident`` runs), the
+card's name and power limit
 as ``nvidia-smi`` prints them, and the line ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
@@ -336,6 +363,10 @@ SWA_EDGES = ((1, 1100, 2, 12, 128, 256, "bfloat16", None),
              (1, 1100, 1, 3, 64, 200, "bfloat16", None),
              (2, 700, 2, 2, 128, 300, "bfloat16", (1, 700)),
              (2, 700, 1, 3, 64, 63, "bfloat16", (699, 70)))
+# phase 15c: starcoder2-3b at full width and these layers on the scan
+# engine with resident rounds (its 30 took 37.4 s of the script's time;
+# phase 19 trains two archs at full depth through the same route)
+LM_RESIDENT_LAYERS = 6
 # phase 4's full-width LM and RWKV units (and the LM's serve agreement),
 # card against CPU: one layer, whose CPU side is the phase's cost
 AGREE_LAYERS = 1
@@ -368,15 +399,16 @@ MOE_PEAK_GB = 72.0
 MOE_AGREE_STEPS = 16
 # phase 17c: trained at full width, at these depths (olmoe-1b-7b at 8
 # layers ran out of an H100 80GB's memory in its first resident round,
-# its step and stage-A graphs' pools holding 53.4 GB)
-MOE_TRAIN = (("olmoe-1b-7b", 6), ("mixtral-8x7b", 2))
+# its step and stage-A graphs' pools holding 53.4 GB; at 6 its two runs
+# took 42.6 s of the script's time, cut to 2 to pay for phase 19)
+MOE_TRAIN = (("olmoe-1b-7b", 2), ("mixtral-8x7b", 2))
 # their stage-A units (untied heads: the selector's (V, d) buffer) and
 # stage-B Grams with the router term (M6: D = 64 x 64 + layers x 64 x E)
 SKETCH_MOE = {"olmoe-1b-7b": (1, UNIT_SIZE * (LM_SEQ - 1), 2048, 50304, 64,
                               64),
               "mixtral-8x7b": (1, UNIT_SIZE * (LM_SEQ - 1), 4096, 32000, 64,
                                64)}
-GRAM_MOE = {"olmoe-1b-7b": (4, 4, 64 * 64 + 6 * 64 * 64),
+GRAM_MOE = {"olmoe-1b-7b": (4, 4, 64 * 64 + 2 * 64 * 64),
             "mixtral-8x7b": (4, 4, 64 * 64 + 2 * 64 * 8)}
 # mixtral-8x7b's 2 x 8,192 prefill takes the band in every local layer
 SWA_MIXTRAL = (2, SERVE_PROMPT, 8, 4, 128, 4096, "bfloat16", None)
@@ -417,21 +449,43 @@ RWKV_SLOT_LENS = (1088, 1559, 2496, 3008)
 RWKV_PAD_BARS = {"bfloat16": 0.25, "float32": 1e-3}
 HYBRID_SLOTS = 2
 HYBRID_NEW = 8
-# phase 18c: recurrentgemma-9b trained at full width and two groups of its
-# layers (its fp32 masters at full depth, 37.6 GB, would not fit with
-# their gradients and activations), at S 2,048, below the band's start
+# phase 18c: recurrentgemma-9b trained at full width and one group of its
+# layers (rec, rec, local; its fp32 masters at full depth, 37.6 GB, would
+# not fit with their gradients and activations; two groups took 58.5 s
+# of the script's time, cut to one to pay for phase 19), at S 2,048, below the band's start
 # (training past it needs the band's backward, ROADMAP item 7), on 32
 # examples in units of 2 (units of 4 ran out of memory in the step's
 # capture on an H100 80GB HBM3 at 700 W, at 65.4 GB allocated); its
 # stage-A unit (tied head,
 # V 256,000) and stage-B Gram
-RG_TRAIN_LAYERS = 6
+RG_TRAIN_LAYERS = 3
 RG_TRAIN_SEQ = 2048
 RG_TRAIN_N = 32
 RG_TRAIN_UNIT = 2
 RG_BAND_SEQ = 4096
 SKETCH_RG = (1, RG_TRAIN_UNIT * (RG_TRAIN_SEQ - 1), 4096, 256000, 64, 64)
 GRAM_RG = (4, 4, 64 * 64)
+# phase 19, the encoder-decoder and VLM families at full width and depth,
+# each (arch, make_batch's S, runs): seamless-m4t-medium at S 1,024 (512
+# frames and 512 tokens), paligemma-3b at S 768 (256 patches and 512
+# tokens), so a stage-A unit of 4 examples has n = 4 x 511 = 2,044; 16
+# training and 4 validation units; seamless twice with one seed
+FAMILY_TRAIN = (("seamless-m4t-medium", 1024, 2), ("paligemma-3b", 768, 1))
+FAMILY_N_UNITS = 16
+FAMILY_N_VAL = 4
+SKETCH_FAMILY = {"seamless-m4t-medium": (1, UNIT_SIZE * 511, 1024, 256206,
+                                         64, 64),
+                 "paligemma-3b": (1, UNIT_SIZE * 511, 2048, 257216, 64,
+                                  64)}
+# serving (19c): frames or patches, and prompt tokens, a request; S11
+# (19d): one prompt of this many tokens behind paligemma-3b's 256 patches;
+# card against CPU (19e): make_batch's S (256 frames or patches and 256
+# tokens), and the teacher-forced decode steps
+FAMILY_SERVE = {"encdec": (1024, 16), "vlm": (256, 512)}
+FAMILY_NEW = 32
+S11_PROMPT = 512
+FAMILY_AGREE_S = 512
+FAMILY_AGREE_STEPS = 8
 
 
 def fail(msg: str) -> None:
@@ -1503,6 +1557,93 @@ KERNEL_MARKERS = {"rnnt_lattice": "rnnt_lattice_kernel",
                   "grad_sketch": "gs_partial"}
 
 
+class kept_graphs:
+    """Within the block every ``torch.cuda.CUDAGraph()`` is made with
+    ``keep_graph=True``: its ``cudaGraph_t`` outlives the capture (it is
+    instantiated at its first replay), so ``graph_kernels`` can read its
+    kernel nodes."""
+
+    def __init__(self, torch):
+        self.torch = torch
+
+    def __enter__(self):
+        import functools
+        self.orig = self.torch.cuda.CUDAGraph
+        self.torch.cuda.CUDAGraph = functools.partial(self.orig,
+                                                      keep_graph=True)
+
+    def __exit__(self, *exc):
+        self.torch.cuda.CUDAGraph = self.orig
+
+
+def graph_kernels(graph, markers):
+    """{name: kernel nodes of a captured graph (kept, ``kept_graphs``)
+    whose function's name holds ``markers[name]``}, read through the
+    driver (``cuGraphGetNodes``, ``cuGraphKernelNodeGetParams``, then
+    ``cuFuncGetName`` or ``cuKernelGetName``; child graphs walked).  A
+    replay runs every node once, so nodes x replays is exactly what the
+    replays launched; the profiler's trace is the measurement beside it,
+    and can drop a record (PERF.md section 7, 15d)."""
+    import ctypes
+
+    cu = ctypes.CDLL("libcuda.so.1")
+    vp, pp = ctypes.c_void_p, ctypes.POINTER(ctypes.c_void_p)
+    for fn, args in (
+            ("cuGraphGetNodes", (vp, vp, ctypes.POINTER(ctypes.c_size_t))),
+            ("cuGraphNodeGetType", (vp, ctypes.POINTER(ctypes.c_int))),
+            ("cuGraphChildGraphNodeGetGraph", (vp, pp)),
+            ("cuGraphKernelNodeGetParams_v2", (vp, vp)),
+            ("cuFuncGetName", (ctypes.POINTER(ctypes.c_char_p), vp)),
+            ("cuKernelGetName", (ctypes.POINTER(ctypes.c_char_p), vp))):
+        getattr(cu, fn).argtypes = args
+        getattr(cu, fn).restype = ctypes.c_int          # CUresult
+
+    def ok(status, what):
+        require(status == 0, f"graph_kernels: {what} returned {status}")
+
+    def nodes_of(g):
+        n = ctypes.c_size_t(0)
+        ok(cu.cuGraphGetNodes(g, None, ctypes.byref(n)), "cuGraphGetNodes")
+        arr = (ctypes.c_void_p * n.value)()
+        ok(cu.cuGraphGetNodes(g, arr, ctypes.byref(n)), "cuGraphGetNodes")
+        return list(arr)
+
+    def names(g):
+        out = []
+        for node in nodes_of(g):
+            kind = ctypes.c_int(-1)
+            ok(cu.cuGraphNodeGetType(ctypes.c_void_p(node),
+                                     ctypes.byref(kind)), "cuGraphNodeGetType")
+            if kind.value == 6:             # CU_GRAPH_NODE_TYPE_GRAPH
+                child = ctypes.c_void_p()
+                ok(cu.cuGraphChildGraphNodeGetGraph(
+                    ctypes.c_void_p(node), ctypes.byref(child)),
+                    "cuGraphChildGraphNodeGetGraph")
+                out += names(child)
+                continue
+            if kind.value != 0:             # CU_GRAPH_NODE_TYPE_KERNEL
+                continue
+            # CUDA_KERNEL_NODE_PARAMS_v2: func at 0, kern at 56 (72 bytes)
+            buf = (ctypes.c_char * 128)()
+            ok(cu.cuGraphKernelNodeGetParams_v2(ctypes.c_void_p(node), buf),
+               "cuGraphKernelNodeGetParams_v2")
+            func = ctypes.c_void_p.from_buffer(buf, 0).value
+            kern = ctypes.c_void_p.from_buffer(buf, 56).value
+            name = ctypes.c_char_p()
+            if func:
+                ok(cu.cuFuncGetName(ctypes.byref(name),
+                                    ctypes.c_void_p(func)), "cuFuncGetName")
+            else:
+                ok(cu.cuKernelGetName(ctypes.byref(name),
+                                      ctypes.c_void_p(kern)),
+                   "cuKernelGetName")
+            out.append(name.value.decode())
+        return out
+
+    found = names(ctypes.c_void_p(graph.raw_cuda_graph()))
+    return {n: sum(m in f for f in found) for n, m in markers.items()}
+
+
 def replay_check(torch, np, bundle, tc, units, dev, params, ops, tag,
                  eager=None):
     """The scan engine on the card, on a fresh ``EpochEngine`` over
@@ -1567,7 +1708,8 @@ def replay_check(torch, np, bundle, tc, units, dev, params, ops, tag,
     n0 = read()
     torch.cuda.synchronize()
     t0 = time.time()
-    eng.run_epoch(params, opt_init(params), tc.lr, plan)
+    with kept_graphs(torch):            # the capture keeps its graph
+        eng.run_epoch(params, opt_init(params), tc.lr, plan)
     torch.cuda.synchronize()
     first_s = time.time() - t0
     got = {n: c - n0[n] for n, c in read().items()}
@@ -1627,16 +1769,21 @@ def replay_check(torch, np, bundle, tc, units, dev, params, ops, tag,
         per=TRACE_ROWS, count=markers)
     counted = {n: c - n0[n] for n, c in read().items()}
     want = {n: d * TRACE_ROWS for n, d in per_step.items()}
+    nodes = graph_kernels(eng._graph, markers)
+    ran = {n: v * TRACE_ROWS for n, v in nodes.items()}
     print(f"[{tag}] {TRACE_ROWS} replayed rows under the profiler "
           f"({time.time() - t0:.1f} s with their warm-up and the trace): "
-          f"traced kernels {traced} = per step x {TRACE_ROWS} rows {want}; "
-          f"launches counted over both passes {counted} (replays make no "
+          f"the step graph's kernel nodes {nodes} x {TRACE_ROWS} replays "
+          f"{ran} = per step x {TRACE_ROWS} rows {want}; traced kernels "
+          f"{traced}{'' if traced == want else ' (the trace dropped records)'}"
+          f"; launches counted over both passes {counted} (replays make no "
           f"host call); captures {EpochEngine.captures}", flush=True)
-    require(traced == want and all(v == 0 for v in counted.values())
+    require(ran == want and all(traced[n] > 0 for n in want)
+            and all(v == 0 for v in counted.values())
             and EpochEngine.captures == 1,
-            f"{tag}: {TRACE_ROWS} replayed rows ran {traced} kernels, not "
-            f"{want}, or counted {counted} launches")
-    return per_step, prof, step_ms, traced
+            f"{tag}: {TRACE_ROWS} replayed rows ran {ran} kernels (traced "
+            f"{traced}), not {want}, or counted {counted} launches")
+    return per_step, prof, step_ms, ran
 
 
 def scan_engine_phase(torch, np, bundle, tc, units, val_units, first,
@@ -1843,15 +1990,17 @@ def resident_phase(torch, np, bundle, tc, units, val_units, rec_14a, models,
     one captured CUDA graph a unit corpus, of one chunk at a cursor over
     the units, replayed a chunk at a time every round).  (a)
     phase 5's RNN-T path on the scan engine with ``resident_selection``,
-    twice with one seed; (b) on its trained params, resident against host
-    stage A, two replays bitwise, a replayed round traced; (c)
-    ``starcoder2-3b`` at full width and depth, 2 epochs, its peak memory,
+    the second run its first ``REPEAT_EPOCHS`` epochs; (b) on its trained
+    params, resident against host stage A, two replays bitwise, a
+    replayed stage A traced; (c) ``starcoder2-3b`` at full width and
+    ``LM_RESIDENT_LAYERS`` layers, 2 epochs, its peak memory,
     resident against host stage A, ``chunk_units`` 4 against 1; (d)
     ``rwkv6-3b`` at full width with 2 layers, resident against host
     stage A, a replayed round traced; (e) an injected failure of the
     kernel route raises.  ``models``: {"lm"|"rwkv": (config, units, val
     units)}.  -> {path: {kernel: (launches, counted)}}: a kernel inside
-    the graphs has the instances traced in one replayed round and, as
+    the graphs has the instances one replayed round ran (the graphs'
+    kernel nodes x their replays; the trace must hold it) and, as
     counted, the launches of the selector's warm-ups and captures; stage
     B's Gram (eager) has its count in both."""
     import repro_torch.train.loop as loop_mod
@@ -1944,8 +2093,9 @@ def resident_phase(torch, np, bundle, tc, units, val_units, rec_14a, models,
         corpus: an RNN-T round is ~432,700 kernels, whose trace took ~55 s
         of host time beside an H100 80GB HBM3 at 700 W) -> (train vectors,
         {kernel: (traced, counted)})."""
-        sel, g1, err, same, bitwise, counted = resident_against_host(
-            torch, b, pgm_cfg, params, us, vs, proj, read)
+        with kept_graphs(torch):        # the captures keep their graphs
+            sel, g1, err, same, bitwise, counted = resident_against_host(
+                torch, b, pgm_cfg, params, us, vs, proj, read)
         t0 = time.time()
         sel.stage_a(params, us)
         sel.stage_a(params, vs)
@@ -1964,41 +2114,53 @@ def resident_phase(torch, np, bundle, tc, units, val_units, rec_14a, models,
             fn, what = (lambda: sel.stage_a(params, vs),
                         f"a replayed stage A of the validation corpus "
                         f"({vs['tokens'].shape[0]} units)")
-        *_, traced = profile_call(
-            torch, fn, tag, what,
-            count={k: KERNEL_MARKERS[k] for k in markers})
+        mk = {k: KERNEL_MARKERS[k] for k in markers}
+        *_, traced = profile_call(torch, fn, tag, what, count=mk)
+        # what the replays ran: each replayed graph's kernel nodes x its
+        # replays (a chunk each)
+        ran = dict.fromkeys(markers, 0)
+        for c in sel._captured:
+            if trace_round or c.units is vs:
+                for k, v in graph_kernels(c.graph, mk).items():
+                    ran[k] += v * c.n_chunks
         moved = {k: v for k, v in delta(n1).items() if k in markers}
         print(f"[{tag}] resident stage A against host units_gradients: max "
               f"err {err:.2e} of the largest entry (1e-5); same subsets and "
               f"weights (1e-4): {same}; two replays bitwise equal: "
               f"{bitwise}; a replayed stage A (train + val) {t_a:.3f} s, a "
               f"replayed round {t_round:.3f} s (host clock); launches "
-              f"counted at the warm-ups and captures {counted}; traced in a "
+              f"counted at the warm-ups and captures {counted}; in a "
               f"replayed {'round' if trace_round else 'validation stage A'} "
-              f"{traced}; counted during the traced replays {moved}",
-              flush=True)
-        require(err <= 1e-5 and same and bitwise and not moved,
+              f"the graphs' kernel nodes x replays {ran}, traced {traced}"
+              f"{'' if traced == ran else ' (the trace dropped records)'}; "
+              f"counted during the traced replays {moved}", flush=True)
+        require(err <= 1e-5 and same and bitwise and not moved
+                and all(traced[k] > 0 for k in markers),
                 f"{tag}: resident stage A disagrees with the host's, two "
-                f"replays differ, or a replay moved a counter")
-        return g1, {k: (traced[k], counted.get(k, 0)) for k in markers}
+                f"replays differ, a replay moved a counter or the trace "
+                f"holds none of a kernel")
+        return g1, {k: (ran[k], counted.get(k, 0)) for k in markers}
 
     # (a) the RNN-T main path, resident, twice with one seed
     runs = []
-    for tag in ("15a", "15a again"):
-        h, launches, _ = resident_run(bundle, units, val_units, tc, tag)
+    for tag, tc_ in (("15a", tc), ("15a again", dataclasses.replace(
+            tc, epochs=REPEAT_EPOCHS))):
+        h, launches, _ = resident_run(bundle, units, val_units, tc_, tag)
         runs.append((rnnt_run_record(h), launches, h.final_params))
         del h
+    again = runs[1][0] == run_prefix(runs[0][0])
     (tl, vl, sels), (tl0, vl0, sels0) = runs[0][0], rec_14a
     same = [(e, i) for e, i, _ in sels] == [(e, i) for e, i, _ in sels0]
     w_ok = all(np.allclose(w, w0, rtol=0, atol=1e-4)
                for (_, _, w), (_, _, w0) in zip(sels, sels0))
     loss_rel = max(abs(a - b) / abs(b) for a, b in zip(tl + vl, tl0 + vl0))
-    print(f"[15a] two resident runs of seed {tc.seed} bitwise equal: "
-          f"{runs[0][0] == runs[1][0]}; against 14a (host stage A, scan "
+    print(f"[15a] two resident runs of seed {tc.seed} bitwise equal over "
+          f"the second's {REPEAT_EPOCHS} epochs: {again}; against 14a "
+          f"(host stage A, scan "
           f"engine): same subsets {same}, weights within 1e-4 {w_ok}, losses "
           f"at most {loss_rel:.2e} apart (rtol 1e-3), bitwise equal: "
           f"{runs[0][0] == rec_14a}", flush=True)
-    require(runs[0][0] == runs[1][0], "15a: two resident runs differ")
+    require(again, "15a: two resident runs differ")
     require(same and w_ok and loss_rel < 1e-3 and len(tl) == len(tl0),
             f"15a: {runs[0][0]} against 14a {rec_14a}")
     omp_a = runs[0][1]["omp_gram"]
@@ -2012,7 +2174,7 @@ def resident_phase(torch, np, bundle, tc, units, val_units, rec_14a, models,
                           ["rnnt_lattice"], trace_round=False)
     n_units = vs["tokens"].shape[0]
     require(rows["rnnt_lattice"][0] == 2 * n_units,
-            f"15b: {rows['rnnt_lattice'][0]} lattice kernels traced in a "
+            f"15b: {rows['rnnt_lattice'][0]} lattice kernels ran in a "
             f"replayed validation stage A, not 2 a unit x {n_units}")
     out["rnnt-resident"] = dict(rows, omp_gram=(omp_a, omp_a))
     del runs, us, vs
@@ -2022,7 +2184,8 @@ def resident_phase(torch, np, bundle, tc, units, val_units, rec_14a, models,
 
     # (c) starcoder2-3b at full width and depth on the scan engine
     lm_cfg, lm_us, lm_vs = models["lm"]
-    lm = build_model(lm_cfg)
+    lm = build_model(dataclasses.replace(lm_cfg,
+                                         n_layers=LM_RESIDENT_LAYERS))
     pc_lm = PGMConfig(subset_fraction=0.5, n_partitions=tc.pgm.n_partitions,
                       select_every=1, warm_start_epochs=1, val_matching=True)
     tc_lm = TrainConfig(lr=0.05, optimizer="sgd", epochs=2, seed=0,
@@ -2042,29 +2205,34 @@ def resident_phase(torch, np, bundle, tc, units, val_units, rec_14a, models,
     gc.collect()
     n0 = read()
     sel4 = ResidentSelector(lm, pc_lm, proj, chunk_units=4)
-    g4 = sel4.stage_a(params, us)
+    with kept_graphs(torch):
+        g4 = sel4.stage_a(params, us)
     counted = delta(n0).get("grad_sketch", 0)
     *_, traced = profile_call(torch, lambda: sel4.stage_a(params, us), "15c",
                               "a replayed stage A at chunk_units 4",
                               count={"grad_sketch": "gs_partial"})
+    (c4,) = sel4._captured
+    ran = graph_kernels(c4.graph, {"grad_sketch": "gs_partial"})[
+        "grad_sketch"] * c4.n_chunks
     per_unit = float(((g4 - g1).abs().amax(dim=1)
                       / g1.abs().amax(dim=1)).max())
     n_u = us["tokens"].shape[0]
     print(f"[15c] chunk_units 4 against 1: per unit vector at most "
           f"{per_unit:.2e} of its largest entry apart (1e-5); grad-sketch "
           f"launches counted {counted} (the warm-up's chunk and the "
-          f"captured chunk, U = 4 each), traced in a replayed stage A of "
-          f"{n_u} units {traced['grad_sketch']}", flush=True)
-    require(per_unit <= 1e-5 and counted == 2
-            and traced["grad_sketch"] == n_u // 4,
+          f"captured chunk, U = 4 each); in a replayed stage A of {n_u} "
+          f"units the graph's kernel nodes x replays {ran}, traced "
+          f"{traced['grad_sketch']}", flush=True)
+    require(per_unit <= 1e-5 and counted == 2 and ran == n_u // 4
+            and traced["grad_sketch"] > 0,
             "15c: chunk_units 4 disagrees with 1 or launches the kernel "
             "another number of times than once a chunk")
-    out["lm-resident-chunk4"] = {"grad_sketch": (traced["grad_sketch"],
-                                                 counted)}
+    out["lm-resident-chunk4"] = {"grad_sketch": (ran, counted)}
     del sel4, g4, g1, params, lm, us, vs
     gc.collect()
     torch.cuda.empty_cache()
-    mark("15c resident selection, starcoder2-3b full depth")
+    mark(f"15c resident selection, starcoder2-3b {LM_RESIDENT_LAYERS} "
+         f"layers")
 
     # (d) rwkv6-3b at full width with 2 layers, init params
     rw_cfg, rw_us, rw_vs = models["rwkv"]
@@ -2078,7 +2246,7 @@ def resident_phase(torch, np, bundle, tc, units, val_units, rec_14a, models,
                           ["rwkv6_wkv", "grad_sketch"])
     n_units = us["tokens"].shape[0] + vs["tokens"].shape[0]
     require(rows["rwkv6_wkv"][0] == 2 * n_units,
-            f"15d: {rows['rwkv6_wkv'][0]} WKV forwards traced in a replayed "
+            f"15d: {rows['rwkv6_wkv'][0]} WKV forwards ran in a replayed "
             f"round, not a unit x 2 layers x {n_units}")
     omp_d = read()["omp_gram"] - n0["omp_gram"]
     out["rwkv-resident"] = dict(rows, omp_gram=(omp_d, omp_d))
@@ -2567,22 +2735,23 @@ def run_fingerprint(torch, hist):
 
 
 def train_twice(torch, np, bundle, us_np, vs_np, tc, dev, tag, what,
-                zero, read, gb, kernels):
-    """A path of phases 17c and 18c: ``bundle`` trained 2 epochs on the
-    scan engine with resident rounds (one round) from weights drawn on
-    the card, twice with one seed; each run's time, rounds, captures,
-    losses, launches and peak memory printed; every epoch's losses, the
-    round and every final leaf's bits equal across the two runs; each
-    run launches ``kernels`` (the path's) and no other counted kernel ->
-    (the second run's final params, the first run's launches)."""
+                zero, read, gb, kernels, runs: int = 2):
+    """A path of phases 17c, 18c and 19a-b: ``bundle`` trained 2 epochs on
+    the scan engine with resident rounds (one round) from weights drawn
+    on the card, ``runs`` times (2 or 1) with one seed; each run's time,
+    rounds, captures, losses, launches and peak memory printed; with two
+    runs every epoch's losses, the round and every final leaf's bits
+    equal across them; each run launches ``kernels`` (the path's) and no
+    other counted kernel -> (the last run's final params, the first
+    run's launches)."""
     from repro_torch.core.pgm import ResidentSelector
     from repro_torch.models.common import tree_leaves
     from repro_torch.train.engine import EpochEngine
     from repro_torch.train.loop import train_with_selection
 
     cfg = bundle.cfg
-    runs = []
-    for rep in range(2):
+    n_runs, runs = runs, []
+    for rep in range(n_runs):
         gc.collect()
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
@@ -2603,7 +2772,9 @@ def train_twice(torch, np, bundle, us_np, vs_np, tc, dev, tag, what,
         n_run = read()
         n_par = sum(l.numel() for l in tree_leaves(h.final_params))
         U, b, S = us_np["tokens"].shape
-        print(f"[{tag}] {cfg.name} at full width, {cfg.n_layers} layers "
+        depth = (f"{cfg.n_enc_layers} encoder + {cfg.n_layers} decoder"
+                 if cfg.family == "encdec" else str(cfg.n_layers))
+        print(f"[{tag}] {cfg.name} at full width, {depth} layers "
               f"({n_par:,} params), run {rep + 1}: {U} units of {b} x {S} "
               f"tokens, 2 epochs, scan engine, resident rounds{what}: "
               f"{secs:.1f} s ({h.wall_time:.1f} s after the init); rounds "
@@ -2624,8 +2795,10 @@ def train_twice(torch, np, bundle, us_np, vs_np, tc, dev, tag, what,
         runs.append((run_fingerprint(torch, h), n_run))
         params = h.final_params
         del h
-        if rep == 0:
+        if rep < n_runs - 1:
             del params
+    if n_runs == 1:
+        return params, runs[0][1]
     same = runs[0][0] == runs[1][0]
     print(f"[{tag}] {cfg.name}: two runs of seed {tc.seed}, every epoch's "
           f"losses, the round's indices and weights and every final leaf's "
@@ -3294,7 +3467,7 @@ def hybrid_phase(torch, np, dev, mark):
     gc.collect()
     torch.cuda.empty_cache()
 
-    # (c) recurrentgemma-9b trained at full width, two groups of layers
+    # (c) recurrentgemma-9b trained at full width, one group of layers
     arch = "recurrentgemma-9b"
     c = dataclasses.replace(get_config(arch), n_layers=RG_TRAIN_LAYERS)
     bd = build_model(c)
@@ -3360,6 +3533,291 @@ def hybrid_phase(torch, np, dev, mark):
     return out
 
 
+
+
+def stack_units(bundle, gen, n_units: int, S: int):
+    """``n_units`` of the bundle's ``make_batch`` draws of ``UNIT_SIZE``
+    examples at ``S`` (from the host generator ``gen``), stacked into
+    units as numpy arrays (the leaves' leading axis)."""
+    import numpy as np
+
+    draws = [bundle.make_batch(gen, UNIT_SIZE, S) for _ in range(n_units)]
+    return {k: np.stack([d[k].numpy() for d in draws]) for k in draws[0]}
+
+
+def family_kernel_rows(torch, dev):
+    """Phase 3 at the shapes phase 19 gives the kernels: the grad sketch
+    at the stage-A units of seamless-m4t-medium and paligemma-3b (tied
+    heads, V 256,206 and 257,216: vocab tails of 78 and 64 columns past
+    the 128-wide tile), twice bitwise and timed in turns with its plain
+    version -> {arch: row}, a row {max_abs_err, ms, plain_ms, library_ms,
+    bound_ms, bound_by}."""
+    from repro_torch.kernels.grad_sketch.ops import grad_sketch_units_op
+    from repro_torch.kernels.grad_sketch.ref import grad_sketch_units_ref
+
+    keys = ("max_abs_err", "ms", "plain_ms", "library_ms", "bound_ms",
+            "bound_by")
+    out = {}
+    for i, (arch, shape) in enumerate(SKETCH_FAMILY.items()):
+        e, k_ms, p_ms, b_ms, b_by = sketch_row(
+            torch, grad_sketch_units_op, grad_sketch_units_ref, shape,
+            40 + i, dev, arch, on_card=True)
+        out[arch] = dict(zip(keys, (e, k_ms, p_ms, None, b_ms, b_by)))
+        torch.cuda.empty_cache()
+    return out
+
+
+def family_serve(torch, bd, params, dev, zero, read, gb):
+    """Phase 19c: the trained model served from its ``serving_params``
+    (bf16, greedy): ``generate`` on ``UNIT_SIZE`` requests of
+    ``FAMILY_SERVE[family]`` (frames and prompt tokens, or patches and
+    prompt tokens), ``FAMILY_NEW`` new tokens; no counted kernel (no
+    band layer), the tokens in the vocab, the peak memory."""
+    from repro_torch.serve.engine import generate
+
+    cfg = bd.cfg
+    n_src, n_prompt = FAMILY_SERVE[cfg.family]
+    g = torch.Generator(device=dev).manual_seed(5)
+    key = "frames" if cfg.family == "encdec" else "patches"
+    extra = {key: torch.randn((UNIT_SIZE, n_src, cfg.d_model), generator=g,
+                              device=dev)}
+    prompts = torch.randint(0, cfg.vocab_size, (UNIT_SIZE, n_prompt),
+                            dtype=torch.int32, device=dev, generator=g)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    zero()
+    torch.cuda.synchronize()
+    toks, st = generate(bd, params, prompts, FAMILY_NEW, extra_inputs=extra)
+    torch.cuda.synchronize()
+    n = read()
+    per_step = st.decode_s * 1e3 / max(st.decode_steps, 1)
+    print(f"[19c] {cfg.name} served from its serving_params (bf16, "
+          f"greedy): {UNIT_SIZE} requests of {n_src} {key} + {n_prompt} "
+          f"prompt tokens -> {tuple(toks.shape)}: prefill "
+          f"{st.prefill_s * 1e3:.1f} ms, decode {st.decode_s * 1e3:.1f} ms "
+          f"/ {st.decode_steps} steps ({per_step:.2f} ms a step, "
+          f"{st.tokens_per_s:.1f} live tok/s); launches {n}; peak device "
+          f"memory {gb():.2f} GB", flush=True)
+    require(toks.shape == (UNIT_SIZE, FAMILY_NEW)
+            and st.decode_steps == FAMILY_NEW - 1
+            and bool((toks >= 0).all())
+            and bool((toks < cfg.vocab_size).all()),
+            f"19c: {cfg.name} generated {tuple(toks.shape)} tokens")
+    require(not any(n.values()), f"19c: serving launched {n}")
+
+
+def s11_check(torch, cfg, params, dev):
+    """Phase 19d, ROADMAP S11 at full width and depth in fp32 (TF32 off):
+    one paligemma-3b decode step after a prefill of ``n_prefix`` patches
+    and ``S11_PROMPT`` tokens, its cache sized ``n_prefix + Sp + new``
+    (the port's ``generate``) and ``Sp + new`` (the reference's), each
+    against the last logits of a full forward over the same tokens: the
+    first within 1e-3 of its largest entry, the second (a ring that has
+    dropped the first patches) not.  The step reads ``params`` with the
+    tied embedding scaled by 1/sqrt(d), so that a scaled text embedding
+    has unit entries like the patches and the attention's outputs: at
+    the reference's init (entries of sqrt(d) N(0, 1)) a token's own
+    embedding is ~45x an attention output in the residual stream and its
+    self logit leads every step, and dropping 224 patches moved the step
+    by 3.2e-4-7.0e-4 of the largest entry (on an H100 80GB HBM3 at 700
+    W), under the bar."""
+    from repro_torch.models.api import build_model
+
+    b32 = build_model(dataclasses.replace(cfg, compute_dtype="float32"))
+    params = dict(params, embed={"w": params["embed"]["w"]
+                                 / math.sqrt(cfg.d_model)})
+    g = torch.Generator(device=dev).manual_seed(6)
+    P, Sp = cfg.n_prefix, S11_PROMPT
+    batch = {"patches": torch.randn((1, P, cfg.d_model), generator=g,
+                                    device=dev),
+             "tokens": torch.randint(0, cfg.vocab_size, (1, Sp),
+                                     dtype=torch.int32, device=dev,
+                                     generator=g)}
+    steps, tok = {}, None
+    t0 = time.time()
+    with torch.no_grad():
+        for name, L in (("held", P + Sp + FAMILY_NEW),
+                        ("reference", Sp + FAMILY_NEW)):
+            logits, cache = b32.prefill(params, batch, cache_len=L)
+            if tok is None:
+                tok = torch.argmax(logits, dim=-1).to(torch.int32)
+            steps[name] = b32.decode(params, cache, tok)[0].float()
+            del cache
+        full, _ = b32.prefill(params, dict(
+            batch, tokens=torch.cat([batch["tokens"], tok[:, None]], 1)))
+    torch.cuda.synchronize()
+    scale = float(full.abs().max())
+    err = {k: float((v - full).abs().max()) / scale
+           for k, v in steps.items()}
+    print(f"[19d] S11: paligemma-3b at full width and depth, fp32 (TF32 "
+          f"off), {P} patches + {Sp} tokens, one decode step against a full "
+          f"forward over the same {P + Sp + 1} positions (the tied "
+          f"embedding scaled by 1/sqrt(d)): cache of "
+          f"{P + Sp + FAMILY_NEW} (prefix held) {err['held']:.2e} of the "
+          f"largest entry ({scale:.1f}), cache of {Sp + FAMILY_NEW} (the "
+          f"reference's sizing, {P - FAMILY_NEW} of {P} patches dropped) "
+          f"{err['reference']:.2e}; bar 1e-3 ({time.time() - t0:.1f} s)",
+          flush=True)
+    require(err["held"] <= 1e-3, "19d: the decode step with the prefix "
+                                 "held misses the full forward")
+    require(err["reference"] > 1e-3, "19d: the reference's cache sizing "
+                                     "met the bar (S11 not shown)")
+
+
+def family_agreement(torch, arch, dev):
+    """Phase 19e: ``arch`` at full width with one layer (for the
+    encoder-decoder one encoder and one decoder layer) in fp32, one
+    example of ``FAMILY_AGREE_S`` from ``make_batch`` (256 frames or 256
+    patches and 256 tokens), card kernels against the CPU's plain
+    versions: per-example loss (1e-4), the stage-A sketch (1e-3 of its
+    largest entry), then the prefill and ``FAMILY_AGREE_STEPS``
+    teacher-forced decode steps (logits within 1e-4 of their largest
+    entry, argmaxes equal where the CPU's top-2 margin exceeds 10x that
+    bar): phase 4's bars."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.lastlayer import units_gradients
+    from repro_torch.core.sketch import make_projections
+    from repro_torch.models.api import build_model
+    from repro_torch.models.common import tree_map
+
+    base = get_config(arch)
+    cfg = dataclasses.replace(
+        base, n_layers=1, n_enc_layers=1 if base.n_enc_layers else 0,
+        compute_dtype="float32")
+    bd = build_model(cfg)
+    p_dev = bd.init_params(torch.Generator(device=dev).manual_seed(0), dev)
+    p_cpu = tree_map(lambda x: x.cpu(), p_dev)
+    batch = bd.make_batch(torch.Generator().manual_seed(1), 1,
+                          FAMILY_AGREE_S)
+    proj = make_projections(torch.Generator().manual_seed(2), cfg.d_model,
+                            cfg.vocab_size)
+    P = cfg.n_prefix if cfg.family == "vlm" else 0
+    S = batch["tokens"].shape[1]
+    runs, fed = {}, []
+    for where, p in (("cpu", p_cpu), ("cuda", p_dev)):
+        on = torch.device(where) if where == "cpu" else dev
+        u = {k: v.to(on) for k, v in batch.items()}
+        pr = type(proj)(*(x.to(on) for x in proj))
+        t0 = time.time()
+        with torch.no_grad():
+            loss = bd.per_example_loss(p, u)
+        sk = units_gradients(bd, p, {k: v[None] for k, v in u.items()}, pr)
+        serve = {k: v for k, v in u.items() if k != "loss_mask"
+                 and k != "weights"}
+        with torch.no_grad():
+            logits, cache = bd.prefill(
+                p, serve, cache_len=P + S + FAMILY_AGREE_STEPS)
+            steps = [logits.float().cpu()[0]]
+            for i in range(FAMILY_AGREE_STEPS):
+                if where == "cpu":
+                    fed.append(int(torch.argmax(steps[-1])))
+                tok = torch.tensor([fed[i]], dtype=torch.int32, device=on)
+                logits, cache = bd.decode(p, cache, tok)
+                steps.append(logits.float().cpu()[0])
+        if where == "cuda":
+            torch.cuda.synchronize()
+        runs[where] = (loss.cpu(), sk.cpu(), steps, time.time() - t0)
+        del cache
+    (l_c, s_c, st_c, t_c), (l_g, s_g, st_g, t_g) = runs["cpu"], runs["cuda"]
+    require(bool(torch.isfinite(l_g).all()) and bool(torch.isfinite(s_g)
+                                                     .all()),
+            f"19e {arch}: non-finite loss or sketch on the card")
+    loss_rel = float(((l_g - l_c).abs() / l_c.abs()).max())
+    sk_rel = float((s_g - s_c).abs().max() / s_c.abs().max())
+    worst, held = 0.0, 0
+    for i, (a, b) in enumerate(zip(st_g, st_c)):
+        bar = 1e-4 * float(b.abs().max())
+        e = float((a - b).abs().max())
+        worst = max(worst, e / float(b.abs().max()))
+        require(bool(torch.isfinite(a).all()) and e <= bar,
+                f"19e {arch}: step {i} logits err {e} > {bar}")
+        top2 = torch.topk(b, 2).values
+        if float(top2[0] - top2[1]) > 10 * bar:
+            require(int(torch.argmax(a)) == int(torch.argmax(b)),
+                    f"19e {arch}: step {i} argmax differs")
+            held += 1
+    what = ("1 encoder + 1 decoder layer, 256 frames"
+            if cfg.family == "encdec" else f"1 layer, {P} patches")
+    print(f"[19e] {arch} at full width, {what} + {S} tokens, fp32: loss "
+          f"rel err {loss_rel:.2e}, stage-A sketch err {sk_rel:.2e} of its "
+          f"largest entry, prefill + {FAMILY_AGREE_STEPS} teacher-forced "
+          f"decode steps' logits at most {worst:.2e} of their largest "
+          f"entry, {held} of {FAMILY_AGREE_STEPS + 1} argmaxes held (the "
+          f"rest within 10x the bar of a tie) (card {t_g:.1f} s vs CPU "
+          f"{t_c:.1f} s)", flush=True)
+    require(loss_rel < 1e-4 and sk_rel < 1e-3,
+            f"19e {arch}: card and CPU disagree")
+
+
+def family_phase(torch, np, dev, mark):
+    """Phase 19: the encoder-decoder and VLM families at full width and
+    depth.  (a) ``seamless-m4t-medium`` and (b) ``paligemma-3b`` trained 2
+    epochs under PGM on the scan engine with resident rounds, on units of
+    ``UNIT_SIZE`` stacked from ``make_batch`` (``frames`` / ``patches``
+    resident beside the tokens), seamless twice with one seed (bitwise),
+    then resident stage A against the host's on the trained params (P7);
+    (c) each trained model served through ``generate``; (d) S11 on
+    paligemma-3b; (e) card against CPU at one layer.  -> {path: {kernel:
+    launches}}."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import PGMConfig, TrainConfig
+    from repro_torch.core.lastlayer import make_proj_for
+    from repro_torch.models.api import build_model
+    from repro_torch.train.engine import to_device
+
+    zero, read = launch_counters()
+    gb = lambda: torch.cuda.max_memory_allocated() / 1e9
+    out = {}
+    for arch, S, runs in FAMILY_TRAIN:
+        cfg = get_config(arch)
+        bd = build_model(cfg)
+        tag = "19a" if cfg.family == "encdec" else "19b"
+        gen = torch.Generator().manual_seed(0)
+        us_np = stack_units(bd, gen, FAMILY_N_UNITS, S)
+        vs_np = stack_units(bd, gen, FAMILY_N_VAL, S)
+        pc = PGMConfig(subset_fraction=0.5, n_partitions=4, select_every=1,
+                       warm_start_epochs=1, val_matching=True)
+        tc = TrainConfig(lr=0.05, optimizer="sgd", epochs=2, seed=0, pgm=pc)
+        extra = ", ".join(f"{k} {v.shape[2:]}" for k, v in us_np.items()
+                          if k in ("frames", "patches"))
+        params, n_run = train_twice(
+            torch, np, bd, us_np, vs_np, tc, dev, tag, f" ({extra} a "
+            f"example)", zero, read, gb, ("grad_sketch", "omp_gram"),
+            runs=runs)
+        us, vs = to_device(us_np, dev), to_device(vs_np, dev)
+        proj = make_proj_for(bd, torch.Generator().manual_seed(0),
+                             pc.sketch_dim_h, pc.sketch_dim_v, dev)
+        sel, _, err, same, bitwise, counted = resident_against_host(
+            torch, bd, pc, params, us, vs, proj, read)
+        print(f"[{tag}] {arch}: resident stage A against host "
+              f"units_gradients on the trained params: max err {err:.2e} "
+              f"of the largest entry (1e-5); same subsets and weights "
+              f"(1e-4): {same}; two replays bitwise equal: {bitwise}; "
+              f"launches counted at the warm-ups and captures {counted}",
+              flush=True)
+        require(err <= 1e-5 and same and bitwise,
+                f"{tag}: resident stage A disagrees with the host's")
+        family = "encdec" if cfg.family == "encdec" else "vlm"
+        out[f"{family}-resident"] = {"grad_sketch": n_run["grad_sketch"],
+                                     "omp_gram": n_run["omp_gram"]}
+        del sel, us, vs, proj, us_np, vs_np
+        gc.collect()
+        torch.cuda.empty_cache()
+        mark(f"{tag} {arch} trained at full width and depth")
+        family_serve(torch, bd, params, dev, zero, read, gb)
+        if cfg.family == "vlm":
+            s11_check(torch, cfg, params, dev)
+        del params
+        gc.collect()
+        torch.cuda.empty_cache()
+        mark(f"19c-d {arch} served")
+    for arch, _, _ in FAMILY_TRAIN:
+        family_agreement(torch, arch, dev)
+        gc.collect()
+        torch.cuda.empty_cache()
+    mark("19e card against CPU at one layer")
+    return out
 
 
 def train_with_selection_logged(bundle, units, tc, val_units, logs, tag, t0,
@@ -3492,15 +3950,16 @@ def main() -> None:
     print(f"[kernels] grad_sketch edge shapes (U, n, d, V, k1, k2) in "
           f"{SKETCH_EDGES}: ok, two launches bitwise equal", flush=True)
     # the LM path's stage-A unit (tied head), then the RWKV path's (untied)
+    # (drawn on the card: the host's draws of ~500M entries took seconds)
     sk_err, sk_ms, sk_plain, sk_bound, sk_by = sketch_row(
         torch, grad_sketch_units_op, grad_sketch_units_ref, SKETCH_MAIN, 0,
-        dev, "lm")
+        dev, "lm", on_card=True)
     skr_err, skr_ms, skr_plain, skr_bound, skr_by = sketch_row(
         torch, grad_sketch_units_op, grad_sketch_units_ref, SKETCH_RWKV, 1,
-        dev, "rwkv")
+        dev, "rwkv", on_card=True)
     sk4_err, sk4_ms, sk4_plain, sk4_bound, sk4_by = sketch_row(
         torch, grad_sketch_units_op, grad_sketch_units_ref, SKETCH_CHUNK, 2,
-        dev, "lm chunk of 4 units")
+        dev, "lm chunk of 4 units", on_card=True)
 
     for shape in WKV_EDGES:
         wkv_err(torch, rwkv6_wkv_op, shape, dev)
@@ -3591,6 +4050,9 @@ def main() -> None:
     # the WKV prefill with pad rows, recurrentgemma-9b's stage-A unit and
     # stage-B Gram
     hybrid_rows = hybrid_kernel_rows(torch, dev)
+    # the encoder-decoder and VLM families' shapes (phase 19): the grad
+    # sketch at both archs' stage-A units (V off the 128-wide tile)
+    family_rows = family_kernel_rows(torch, dev)
 
     mark("kernels")
 
@@ -4054,10 +4516,17 @@ def main() -> None:
 
     # -- 18. recurrent-state serving and the hybrid family: recurrentgemma-9b
     # and rwkv6-3b served at full width and depth, recurrentgemma-9b
-    # trained at 6 layers, profiled ------------------------------------
+    # trained at 3 layers, profiled ------------------------------------
     gc.collect()
     torch.cuda.empty_cache()
     hybrid = hybrid_phase(torch, np, dev, mark)
+
+    # -- 19. the encoder-decoder and VLM families: seamless-m4t-medium and
+    # paligemma-3b trained under PGM at full width and depth and served,
+    # S11, card against CPU ---------------------------------------------
+    gc.collect()
+    torch.cuda.empty_cache()
+    family = family_phase(torch, np, dev, mark)
 
     g_err, g_ms, g_plain, g_lib, g_bound, g_by = \
         gram_rows[(P_main, n_units // P_main, D_sk)]
@@ -4069,7 +4538,8 @@ def main() -> None:
           f"{scan_counted}), resident selection (traced in a replayed "
           f"round, counted at the warm-ups and captures) {resident}, the "
           f"dense archs (phase 16) {dense}, the MoE archs (phase 17) {moe}, "
-          f"the recurrent families (phase 18) {hybrid}",
+          f"the recurrent families (phase 18) {hybrid}, the encoder-decoder "
+          f"and VLM families (phase 19) {family}",
           flush=True)
     # one row per kernel and main path, "launches" from that path's run;
     # the Gram's stage-B shape (4, 4, 4096) is the same on both paths
@@ -4123,7 +4593,8 @@ def main() -> None:
     # the scan engine's runs (phase 14) launch the same kernels at the
     # same shapes (the 2-layer models have the full width): one row per
     # kernel and scan path.  A kernel of the captured step has the
-    # launches of a traced replayed epoch ("launches", from the trace) and
+    # launches of the replayed rows ("launches", its graph's nodes x the
+    # replays) and
     # the warm-up steps' and the capture's ("counted", its scan run's
     # counter); a kernel outside the step has its scan run's count in both
     for row in list(kernels):
@@ -4136,7 +4607,7 @@ def main() -> None:
                                 launches=scan_launches[src][key],
                                 counted=scan_counted[src][key]))
     # phase 15's resident rounds: a kernel inside the stage-A graphs has
-    # the instances traced in one replayed round ("launches") and the
+    # the instances one replayed round ran ("launches") and the
     # selector's warm-up and capture launches ("counted"); stage B's Gram
     # its count in both.  The kernels run at the same shapes as on the
     # host paths, but for the LM's chunk of 4 units (phase 3's U = 4 row)
@@ -4230,6 +4701,19 @@ def main() -> None:
         source="src/repro_torch/kernels/omp_gram/csrc/omp_gram.cu",
         replaces="src/repro/kernels/omp_gram/kernel.py:54",
         launches=got["omp_gram"]))
+    # phase 19: the grad sketch at each family's stage-A unit and the Gram
+    # of its stage B, with the first resident run's counts
+    for arch, _, _ in FAMILY_TRAIN:
+        path = ("encdec-resident" if arch.startswith("seamless")
+                else "vlm-resident")
+        got = family[path]
+        kernels.append(dict(
+            family_rows[arch], name="grad_sketch_units", path=path,
+            route="cuda",
+            source="src/repro_torch/kernels/grad_sketch/csrc/grad_sketch.cu",
+            replaces="src/repro/kernels/grad_sketch/kernel.py:128",
+            launches=got["grad_sketch"]))
+        kernels.append(dict(gram, path=path, launches=got["omp_gram"]))
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {
@@ -4301,7 +4785,8 @@ def phase_alone(phase: int) -> None:
     else:
         rows_of, phase_of = {16: (dense_kernel_rows, dense_phase),
                              17: (moe_kernel_rows, moe_phase),
-                             18: (hybrid_kernel_rows, hybrid_phase)}[phase]
+                             18: (hybrid_kernel_rows, hybrid_phase),
+                             19: (family_kernel_rows, family_phase)}[phase]
         print(f"[kernels] {rows_of(torch, dev)}", flush=True)
         out = phase_of(torch, np, dev, mark)
     print(f"[launches] phase {phase} {out}", flush=True)
@@ -4311,8 +4796,8 @@ def phase_alone(phase: int) -> None:
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--phase"]:
         require(len(sys.argv) == 3 and sys.argv[2] in ("15", "16", "17",
-                                                      "18"),
-                "usage: chip_smoke.py [--phase 15|16|17|18]")
+                                                      "18", "19"),
+                "usage: chip_smoke.py [--phase 15|16|17|18|19]")
         phase_alone(int(sys.argv[2]))
     else:
         require(len(sys.argv) == 1, "usage: chip_smoke.py [--phase N]")

@@ -1,13 +1,12 @@
 """Config dataclasses of the PyTorch port.
 
 A copy of the reference's ``repro/configs/base.py`` restricted to what
-the ported paths read (RNN-T, dense and MoE decoder-LM, RWKV6 and the
-RG-LRU hybrid, training + PGM selection + serving): the field names,
-defaults and the smoke reduction are the reference's, so a config built
-here and one built there describe the same model and run.  Fields of
-later slices (encdec and VLM extras, mesh, compression) are not
-carried: the families that need them are refused by
-``models/api.py:build_model``.
+the ported paths read (RNN-T, dense and MoE decoder-LM, RWKV6, the
+RG-LRU hybrid, the encoder-decoder and the VLM prefix, training + PGM
+selection + serving): the field names, defaults and the smoke reduction
+are the reference's, so a config built here and one built there
+describe the same model and run.  Fields of later slices (mesh,
+compression) are not carried.
 """
 from __future__ import annotations
 
@@ -87,8 +86,8 @@ class ModelConfig:
 
     name: str
     family: str                      # dense | moe | ssm (rwkv stacks) |
-                                     # hybrid (rec + local) | rnnt
-                                     # (encdec | vlm are not ported)
+                                     # hybrid (rec + local) | encdec |
+                                     # vlm | rnnt
     n_layers: int
     d_model: int
     n_heads: int
@@ -109,6 +108,11 @@ class ModelConfig:
     lru_width: int = 0               # RG-LRU width (0 = d_model)
     conv_width: int = 4              # RG-LRU temporal conv width
     rwkv_head_dim: int = 64
+    # --- encoder-decoder extras ---
+    n_enc_layers: int = 0
+    # --- modality frontend stubs (audio / vlm) ---
+    frontend: str = "none"           # none | audio_frames | image_patches
+    n_prefix: int = 0                # frontend positions (e.g. patches)
     rnnt: Optional[RNNTConfig] = None
     # numerics
     param_dtype: str = "float32"
@@ -138,16 +142,22 @@ class ModelConfig:
         the GeLU branch's ``w_gate_branch`` nor the gates' ``wa`` and
         ``wx`` (d w + 2 w^2 a layer), nor the norms: recurrentgemma-9b
         has 9,396,408,320 leaves against its 8,087,363,584.  Its MoE
-        term counts three expert matrices whatever the FFN type."""
+        term counts three expert matrices whatever the FFN type.  Its
+        encoder term (``n_enc_layers``) counts each encoder layer's
+        attention and FFN and one more attention for the decoder's
+        cross-attention, but no norm: seamless-m4t-medium has
+        614,739,968 leaves against its 614,676,480, paligemma-3b (a
+        decoder stack) 2,508,662,784 against 2,508,587,008."""
         if self.rnnt is not None:
             return self.rnnt.n_params()
         kinds = self.layer_kinds()
-        if self.family not in ("dense", "moe", "ssm", "hybrid") \
+        if self.family not in ("dense", "moe", "ssm", "hybrid", "encdec",
+                               "vlm") \
                 or set(kinds) - set(ATTN_KINDS) - {BLOCK_RWKV, BLOCK_REC}:
             raise NotImplementedError(
-                f"{self.name}: n_params is ported for dense and MoE "
-                f"attention stacks, RWKV6 stacks, the RG-LRU hybrid and "
-                f"RNN-T only")
+                f"{self.name}: n_params is ported for attention stacks "
+                f"(dense, MoE, encdec, vlm), RWKV6 stacks, the RG-LRU "
+                f"hybrid and RNN-T only")
         d, ff, V = self.d_model, self.d_ff, self.vocab_size
         n = V * d * (1 if self.tie_embeddings else 2)
         mult = 3 if self.ffn_type in ("swiglu", "geglu") else 2
@@ -167,6 +177,10 @@ class ModelConfig:
                 n += e.n_experts * 3 * d * e.d_ff_expert + d * e.n_experts
             else:
                 n += mult * d * ff
+        for _ in range(self.n_enc_layers):
+            attn = d * self.q_dim + 2 * d * self.kv_dim + self.q_dim * d
+            # the decoder's cross attention, counted with the encoder
+            n += attn + mult * d * ff + attn
         return n
 
     def n_active_params(self) -> int:
@@ -235,13 +249,16 @@ class TrainConfig:
 def reduce_for_smoke(cfg: ModelConfig) -> ModelConfig:
     """The reference's tiny same-family variant (CPU tests): few layers,
     small widths and vocab, a window of at most 16, an RG-LRU width of
-    64, 4 experts of 32 (top at most 2), fp32 compute."""
+    64, 2 encoder layers, a prefix of 8, 4 experts of 32 (top at most
+    2), fp32 compute."""
     kw = dict(n_layers=min(cfg.n_layers, 2 * max(1, len(cfg.pattern))),
               d_model=64, n_heads=4,
               n_kv_heads=min(cfg.n_kv_heads, 4) if cfg.n_kv_heads > 1 else 1,
               head_dim=16, d_ff=128, vocab_size=277,
               window=min(cfg.window, 16) if cfg.window else 0,
               lru_width=64 if cfg.lru_width else 0,
+              n_enc_layers=2 if cfg.n_enc_layers else 0,
+              n_prefix=8 if cfg.n_prefix else 0,
               compute_dtype="float32")
     if cfg.moe is not None:
         kw["moe"] = MoEConfig(n_experts=4, top_k=min(cfg.moe.top_k, 2),

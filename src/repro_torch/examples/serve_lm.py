@@ -14,8 +14,9 @@ and prompts come from ``torch.Generator``s seeded 0 and 1 (the
 reference draws from ``jax.random``), so the tokens differ from the
 reference example's unless its draws are handed in (``serve(params=...,
 prompts=...)``); the slot engine's requests are drawn with numpy as the
-reference draws them.  The ``vlm`` family is not ported (ROADMAP.md
-queue 1, item 9).
+reference draws them.  A VLM (``--arch paligemma-3b-smoke``) is served
+with patch embeddings drawn beside the prompts (a generator seeded 2),
+and, as in the reference example, not through the slot engine.
 """
 from __future__ import annotations
 
@@ -41,13 +42,9 @@ def serve(*, arch: str = "gemma3-27b-smoke", batch: int = 4,
     optional weights (any float dtype; served in the compute dtype) and
     (batch, prompt_len) prompts (a parity test hands in the
     reference's).  -> (generate's tokens, its stats, the slot engine's
-    completions)."""
+    completions, None for a VLM)."""
     dev = resolve_device(device)
     cfg = get_config(arch)
-    if cfg.family == "vlm":
-        raise NotImplementedError(
-            f"{cfg.name}: the vlm family is not ported yet (ROADMAP.md "
-            f"queue 1, item 9)")
     bundle = build_model(cfg)
     if params is None:
         params = bundle.init_params(
@@ -61,9 +58,15 @@ def serve(*, arch: str = "gemma3-27b-smoke", batch: int = 4,
     if not isinstance(prompts, torch.Tensor):
         prompts = torch.tensor(np.asarray(prompts))
     prompts = prompts.to(dev)
+    extra = {}
+    if cfg.family == "vlm":
+        extra["patches"] = torch.randn(
+            (batch, cfg.n_prefix, cfg.d_model), device=dev,
+            generator=torch.Generator(device=dev).manual_seed(2))
     toks, stats = generate(
         bundle, params, prompts, new, temperature=temperature,
-        generator=torch.Generator(device=dev).manual_seed(0))
+        generator=torch.Generator(device=dev).manual_seed(0),
+        extra_inputs=extra)
     log_fn(f"arch={cfg.name}: generated {tuple(toks.shape)} tokens")
     log_fn(f"prefill {stats.prefill_s*1e3:.1f} ms "
            f"({stats.prompt_tokens}+{stats.prefill_tokens} tok), decode "
@@ -71,6 +74,8 @@ def serve(*, arch: str = "gemma3-27b-smoke", batch: int = 4,
            f"{stats.decode_tokens} live tokens, {stats.tokens_per_s:.1f} "
            f"tok/s (on {dev.type})")
     log_fn(f"sample: {toks[0][:12].tolist()}")
+    if cfg.family == "vlm":
+        return toks, stats, None    # the slot engine serves text LMs
 
     rng = np.random.default_rng(0)
     reqs = [Request(uid=i,

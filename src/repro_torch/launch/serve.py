@@ -1,9 +1,17 @@
 """Serving launcher of the port (the reference's ``repro.launch.serve``).
 
-One-shot static batching (LMs):
+One-shot static batching (LMs, and the VLM with patch embeddings drawn
+beside the prompts):
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch starcoder2-3b \
       --batch 2 --prompt-len 8192 --new 32 [--device cpu]
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch paligemma-3b \
+      --batch 4 --prompt-len 512 --new 32 [--device cpu]
+
+The encoder-decoder is refused with a ``ValueError`` (ROADMAP S12: the
+reference's one-shot path draws no ``frames`` and dies with a
+``KeyError``); serve it through ``generate(..., extra_inputs={"frames":
+...})``.  The slot engine refuses both families, as the reference's does.
 
 The recurrent families serve the same way (``--arch recurrentgemma-9b``,
 ``--arch rwkv6-3b``, and their ``-smoke`` variants), their decode cache
@@ -61,13 +69,24 @@ def make_requests(cfg, n: int, prompt_len: int, max_new: int,
 
 
 def _oneshot(args, cfg, bundle, params, dev):
+    if cfg.family == "encdec":
+        raise ValueError(
+            f"{cfg.name}: the one-shot launcher draws no frames for the "
+            f"'encdec' family (ROADMAP S12: the reference's dies with a "
+            f"KeyError); call generate(..., extra_inputs={{'frames': ...}})")
     gen = torch.Generator().manual_seed(args.seed + 1)
     prompts = torch.randint(0, cfg.vocab_size, (args.batch, args.prompt_len),
                             generator=gen, dtype=torch.int32).to(dev)
+    extra = {}
+    if cfg.family == "vlm":
+        extra["patches"] = torch.randn(
+            (args.batch, cfg.n_prefix, cfg.d_model),
+            generator=torch.Generator().manual_seed(args.seed + 2)).to(dev)
     toks, stats = generate(
         bundle, params, prompts, args.new, temperature=args.temperature,
         eos_id=args.eos_id,
-        generator=torch.Generator(device=dev).manual_seed(args.seed))
+        generator=torch.Generator(device=dev).manual_seed(args.seed),
+        extra_inputs=extra)
     print(f"{cfg.name}: {tuple(toks.shape)} tokens — prefill "
           f"{stats.prefill_s*1e3:.1f} ms "
           f"({stats.prompt_tokens}+{stats.prefill_tokens} tok), decode "

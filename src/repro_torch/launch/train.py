@@ -20,7 +20,8 @@ Runs on the card unless ``--device cpu`` is given, and prints the same
 ``epoch N: train X val Y lr Z`` lines as the reference.  RNN-T archs
 train on the synthetic ASR corpus, LMs (dense, MoE, RWKV6 and the
 RG-LRU hybrid) on the
-synthetic LM corpus of ``--seq`` tokens.  ``--noise`` corrupts that fraction of training
+synthetic LM corpus of ``--seq`` tokens; the encoder-decoder and VLM
+families are refused (ROADMAP S12).  ``--noise`` corrupts that fraction of training
 examples (additive feature noise at ``--snr-db`` for ASR, corrupted
 labels for LM) and turns validation matching on.  ``--ckpt DIR`` writes
 a checkpoint after every epoch in the reference's format, ``--resume``
@@ -56,7 +57,19 @@ def make_units_for(cfg, *, n: int, noise: float, seq: int = 24,
                    seed: int = 0, unit_size: int = 4, snr_db: float = 10.0):
     """(train units, val units) for the arch family, as the reference
     builds them: RNN-T gets the ASR corpus, an LM the LM corpus of
-    ``seq`` tokens; validation (seed + 7) stays clean."""
+    ``seq`` tokens; validation (seed + 7) stays clean.  The reference
+    gives the encoder-decoder and VLM families LM units too, which carry
+    no ``frames`` and no ``patches``, so its training run dies on them
+    (ROADMAP S12); the port refuses them here.  Train those through
+    ``train_with_selection`` on units stacked from the bundle's
+    ``make_batch``."""
+    if cfg.family in ("encdec", "vlm"):
+        raise ValueError(
+            f"{cfg.name}: the launcher's corpora carry no "
+            f"{'frames' if cfg.family == 'encdec' else 'patches'} for the "
+            f"{cfg.family!r} family (ROADMAP S12: the reference's launcher "
+            f"feeds it LM units); stack units from the bundle's make_batch "
+            f"and call train_with_selection")
     if cfg.family == "rnnt":
         r = cfg.rnnt
         corpus = make_asr_corpus(seed, n, n_feats=r.n_feats,

@@ -1,7 +1,9 @@
 """Attention of the port (the reference's ``models/attention.py``):
-GQA/MQA/MHA with full-causal or sliding-window masks, for training and
-prefill forwards and for one-token decode against full or ring KV
-caches.
+GQA/MQA/MHA with full-causal, sliding-window, prefix-LM (a VLM's patch
+prefix) or bidirectional masks, self- or cross-attention (an encoder's
+``bidir`` layers, a decoder's ``cross`` layers over the encoder output),
+for training and prefill forwards and for one-token decode against full
+or ring KV caches.
 
 Numerics are the reference's: q/k/v projections in the compute dtype,
 scores accumulated in fp32 and scaled by an fp32 ``1/sqrt(hd)``, masked
@@ -57,6 +59,20 @@ def window_mask(window: int) -> MaskFn:
     return fn
 
 
+def prefix_lm_mask(n_prefix: int) -> MaskFn:
+    """Bidirectional within the first ``n_prefix`` positions, causal
+    after (V2)."""
+    def fn(q_pos, kv_pos):
+        causal = q_pos[..., :, None] >= kv_pos[..., None, :]
+        return causal | (kv_pos[..., None, :] < n_prefix)
+    return fn
+
+
+def bidir_mask(q_pos, kv_pos):
+    return torch.ones(q_pos.shape + kv_pos.shape[-1:], dtype=torch.bool,
+                      device=q_pos.device)
+
+
 def _valid(kv_pos):
     return kv_pos >= 0
 
@@ -79,19 +95,25 @@ def init_attn_params(gen: torch.Generator, cfg, device: torch.device) -> Dict:
     return p
 
 
-def _project_qkv(params, cfg, x, q_pos, kv_pos):
-    """-> q (B,Sq,KV,G,hd), k, v (B,S,KV,hd)."""
+def _project_qkv(params, cfg, x, q_pos, kv_pos, kv_x=None,
+                 rope: bool = True):
+    """-> q (B,Sq,KV,G,hd), k, v (B,Sk,KV,hd); k and v from ``kv_x``
+    (B,Sk,d) (default ``x``), RoPE on q and k unless ``rope`` is False
+    (cross-attention, ED2)."""
     B, S, _ = x.shape
+    kv_x = x if kv_x is None else kv_x
+    Sk = kv_x.shape[1]
     H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     dt = x.dtype
     q = (x @ params["wq"].to(dt)).reshape(B, S, H, hd)
-    k = (x @ params["wk"].to(dt)).reshape(B, S, KV, hd)
-    v = (x @ params["wv"].to(dt)).reshape(B, S, KV, hd)
+    k = (kv_x @ params["wk"].to(dt)).reshape(B, Sk, KV, hd)
+    v = (kv_x @ params["wv"].to(dt)).reshape(B, Sk, KV, hd)
     if cfg.qk_norm:
         q = rms_norm(q, params["q_norm"], cfg.norm_eps)
         k = rms_norm(k, params["k_norm"], cfg.norm_eps)
-    q = apply_rope(q, q_pos, cfg.rope_theta)
-    k = apply_rope(k, kv_pos, cfg.rope_theta)
+    if rope:
+        q = apply_rope(q, q_pos, cfg.rope_theta)
+        k = apply_rope(k, kv_pos, cfg.rope_theta)
     return q.reshape(B, S, KV, H // KV, hd), k, v
 
 
@@ -165,25 +187,39 @@ def _mha_band(q, k, v, positions: Optional[torch.Tensor], window: int):
                        window=window, lengths=lengths)
 
 
+# each kind's mask (a local layer's is its window's when it has one)
+_KIND_MASKS = {"attn": causal_mask, "global": causal_mask,
+               "local": causal_mask, "cross": bidir_mask,
+               "bidir": bidir_mask}
+
+
 def attn_forward(params, cfg, x: torch.Tensor, *, kind: str = "attn",
+                 mask_fn: Optional[MaskFn] = None,
+                 kv_x: Optional[torch.Tensor] = None,
                  q_positions: Optional[torch.Tensor] = None,
                  kv_positions: Optional[torch.Tensor] = None):
-    """Self-attention of a training or prefill forward: x (B,S,d) ->
-    (out (B,S,d), (k, v, kv positions)), the last what a prefill writes
-    into the layer's cache; ``kind`` is ``attn``, ``local`` or
-    ``global``; positions (B,S) default to ``arange(S)`` (-1 marks an
-    invalid token)."""
+    """Attention of a training or prefill forward: x (B,S,d) -> (out
+    (B,S,d), (k, v, kv positions)), the last what a prefill writes into
+    the layer's cache; ``kind`` is ``attn``, ``local``, ``global``,
+    ``bidir`` (an encoder layer) or ``cross`` (k and v from ``kv_x``
+    (B,Sk,d), no RoPE); ``mask_fn`` overrides the kind's mask (the VLM's
+    prefix-LM mask) outside the band.  Positions default to ``arange``
+    of each side's length (-1 marks an invalid token)."""
     B, S, _ = x.shape
-    ar = torch.arange(S, device=x.device).expand(B, S)
-    q_pos = ar if q_positions is None else q_positions
-    kv_pos = ar if kv_positions is None else kv_positions
-    q, k, v = _project_qkv(params, cfg, x, q_pos, kv_pos)
+    Sk = S if kv_x is None else kv_x.shape[1]
+    q_pos = (torch.arange(S, device=x.device).expand(B, S)
+             if q_positions is None else q_positions)
+    kv_pos = (torch.arange(Sk, device=x.device).expand(B, Sk)
+              if kv_positions is None else kv_positions)
+    q, k, v = _project_qkv(params, cfg, x, q_pos, kv_pos, kv_x,
+                           rope=kind != "cross")
     scale = _scale(cfg.head_dim)
     local = kind == "local" and cfg.window
-    mask_fn = window_mask(cfg.window) if local else causal_mask
-    if local and S > cfg.window + Q_BLOCK:
+    if mask_fn is None:
+        mask_fn = window_mask(cfg.window) if local else _KIND_MASKS[kind]
+    if local and S == Sk and S > cfg.window + Q_BLOCK:
         out = _mha_band(q, k, v, q_positions, cfg.window)
-    elif S * S > FLASH_THRESHOLD ** 2:
+    elif S * Sk > FLASH_THRESHOLD ** 2:
         out = _mha_flash(q, k, v, q_pos, kv_pos, mask_fn, scale)
     else:
         mask = mask_fn(q_pos, kv_pos) & _valid(kv_pos)[..., None, :]
@@ -254,17 +290,20 @@ def cache_prefill(cache, k_all, v_all, pos_all):
 
 
 def attn_decode(params, cfg, x_t: torch.Tensor, cache, *,
-                kind: str = "attn", live=None) -> torch.Tensor:
+                kind: str = "attn", mask_fn: Optional[MaskFn] = None,
+                live=None) -> torch.Tensor:
     """One decode step.  x_t: (B,1,d), each row at its own position
     ``cache['t']``; the cache is updated in place (rows where ``live`` is
-    False are not written).  Returns out (B,1,d)."""
+    False are not written); ``mask_fn`` overrides the kind's mask.
+    Returns out (B,1,d)."""
     B = x_t.shape[0]
     q_pos = cache["t"][:, None].clone()         # the write advances t
     q, k_new, v_new = _project_qkv(params, cfg, x_t, q_pos, q_pos)
     cache_write(cache, k_new, v_new, q_pos, live)
     kv_pos = cache["pos"]
-    mask_fn = (window_mask(cfg.window) if (kind == "local" and cfg.window)
-               else causal_mask)
+    if mask_fn is None:
+        mask_fn = (window_mask(cfg.window)
+                   if (kind == "local" and cfg.window) else causal_mask)
     mask = mask_fn(q_pos, kv_pos) & _valid(kv_pos)[..., None, :]
     out = _mha_full(q, cache["k"].to(q.dtype), cache["v"].to(q.dtype), mask,
                     _scale(cfg.head_dim))

@@ -1,5 +1,6 @@
-"""Decoder stack of the port for dense and MoE attention LMs, RWKV6
-stacks and the RG-LRU hybrid (the reference's ``models/transformer.py``):
+"""Decoder stack of the port for dense and MoE attention LMs (and the
+VLM's text backbone, under its prefix-LM mask), RWKV6 stacks and the
+RG-LRU hybrid (the reference's ``models/transformer.py``):
 the training/prefill forward with the stack's MoE load-balance aux, the
 prefill cache and the one-token decode of every block kind.
 
@@ -159,13 +160,14 @@ def cast_block_params(bp, cfg):
 
 
 def block_forward(bp, cfg, kind: str, x: torch.Tensor, *,
-                  positions=None, lengths=None, collect_cache: bool = False,
-                  cache_len: int = 0):
+                  positions=None, lengths=None, mask_fn=None,
+                  collect_cache: bool = False, cache_len: int = 0):
     """-> (x, the layer's MoE aux (None for a layer without experts), the
     layer's prefill cache entry when ``collect_cache``, else None).
     ``lengths`` (B,) (with ``positions``, -1 on pads) are the rows' live
     lengths a recurrent block takes its state at; None: every row is
-    live."""
+    live.  ``mask_fn`` overrides an attention layer's mask (the VLM's
+    prefix-LM mask)."""
     bp = cast_block_params(bp, cfg)
     aux = None
     entry = None
@@ -186,7 +188,7 @@ def block_forward(bp, cfg, kind: str, x: torch.Tensor, *,
             entry = state
     else:
         y, kv = attn.attn_forward(bp["attn"], cfg, h, kind=kind,
-                                  q_positions=positions,
+                                  mask_fn=mask_fn, q_positions=positions,
                                   kv_positions=positions)
         if collect_cache:
             # the forward's own k/v: the values the reference recomputes
@@ -216,9 +218,11 @@ def _write(entry: Dict[str, torch.Tensor], new: Dict[str, torch.Tensor],
         buf.copy_(val)
 
 
-def block_decode(bp, cfg, kind: str, x_t: torch.Tensor, entry, live=None):
+def block_decode(bp, cfg, kind: str, x_t: torch.Tensor, entry, live=None,
+                 mask_fn=None):
     """One token through a block -> x_t; the layer's cache ``entry`` is
-    written in place (rows where ``live`` is False are not)."""
+    written in place (rows where ``live`` is False are not); ``mask_fn``
+    overrides an attention layer's mask."""
     bp = cast_block_params(bp, cfg)
     h = rms_norm(x_t, bp["ln1"], cfg.norm_eps)
     if kind == BLOCK_RWKV:
@@ -235,7 +239,7 @@ def block_decode(bp, cfg, kind: str, x_t: torch.Tensor, entry, live=None):
         _write(entry, state, live)
     else:
         y = attn.attn_decode(bp["attn"], cfg, h, entry, kind=kind,
-                             live=live)
+                             mask_fn=mask_fn, live=live)
     x_t = x_t + y
     h2 = rms_norm(x_t, bp["ln2"], cfg.norm_eps)
     if "moe" in bp:
@@ -278,17 +282,19 @@ def _stack(entries: List[Any]) -> Any:
 
 
 def forward_hidden(params, cfg, x: torch.Tensor, *, positions=None,
-                   collect_cache: bool = False, cache_len: int = 0):
+                   mask_fn=None, collect_cache: bool = False,
+                   cache_len: int = 0):
     """Runs the stack on embedded input ``x`` (B,S,d) -> (the final-normed
     hidden states (B,S,d), the MoE aux summed over the layers (an fp32
     scalar; zero without MoE layers), the decode cache when
     ``collect_cache``, else None).  ``positions`` (B,S) default to
     ``arange(S)``; given, each row's live length (its positions >= 0) is
-    where the recurrent blocks take their state."""
+    where the recurrent blocks take their state.  ``mask_fn`` overrides
+    the attention layers' masks (the VLM's prefix-LM mask)."""
     pattern = cfg.pattern
     n_groups = cfg.n_layers // len(pattern)
     lengths = None if positions is None else (positions >= 0).sum(dim=1)
-    kw = dict(positions=positions, lengths=lengths,
+    kw = dict(positions=positions, lengths=lengths, mask_fn=mask_fn,
               collect_cache=collect_cache, cache_len=cache_len)
     entries = [[] for _ in pattern]
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
@@ -351,11 +357,13 @@ def init_cache(cfg, batch: int, cache_len: int, dtype=None,
     return {"groups": groups, "tail": tail}
 
 
-def decode_step(params, cfg, x_t: torch.Tensor, cache, live=None):
+def decode_step(params, cfg, x_t: torch.Tensor, cache, live=None,
+                mask_fn=None):
     """x_t: (B,1,d) embedded tokens, row b at position ``t[b]`` -> the
     final-normed hidden (B,1,d).  Every layer's cache is written in place
     (a group leaf through its per-layer views); rows where ``live`` (B,)
-    is False keep their cache bit-exactly."""
+    is False keep their cache bit-exactly; ``mask_fn`` overrides the
+    attention layers' masks."""
     pattern = cfg.pattern
     n_groups = cfg.n_layers // len(pattern)
     kinds = cfg.layer_kinds()
@@ -365,8 +373,9 @@ def decode_step(params, cfg, x_t: torch.Tensor, cache, live=None):
         for g in range(n_groups):
             for pos, kind in enumerate(pattern):
                 x_t = block_decode(layers[pos][g], cfg, kind, x_t,
-                                   caches[pos][g], live)
+                                   caches[pos][g], live, mask_fn)
     for i, bp in enumerate(params["stack"]["tail"]):
         kind = kinds[n_groups * len(pattern) + i]
-        x_t = block_decode(bp, cfg, kind, x_t, cache["tail"][i], live)
+        x_t = block_decode(bp, cfg, kind, x_t, cache["tail"][i], live,
+                           mask_fn)
     return rms_norm(x_t, params["final_norm"], cfg.norm_eps)

@@ -2,8 +2,13 @@
 
 Two surfaces:
 
-* :func:`generate` -- one-shot batched prefill + decode for LM bundles,
-  the static-batching baseline and the slot engine's parity oracle.
+* :func:`generate` -- one-shot batched prefill + decode for LM, VLM and
+  encoder-decoder bundles (``extra_inputs``: a VLM's ``patches``, an
+  encoder-decoder's ``frames``), the static-batching baseline and the
+  slot engine's parity oracle.  A VLM's cache holds its patch prefix
+  too: it is sized ``n_prefix + Sp + new``, where the reference's
+  ``Sp + new`` keeps the last positions as a ring and drops the first
+  patches (ROADMAP S11).
   ``ServeStats`` counts *live* (pre-eos) decode tokens, with the token
   sampled from the prefill logits attributed to prefill; ``done`` is
   seeded from that first token; the host checks termination every
@@ -31,7 +36,8 @@ Two surfaces:
   reference asserts (ROADMAP hazards M4, M1).
 
 The slot engine serves decoder LMs (KV caches and recurrent state, eos
-termination) and the
+termination; not the VLM and encoder-decoder families, which it refuses
+as the reference's does) and the
 paper's RNN-T CRDNN (encoder buffer + prediction state; a micro-step is
 one joint step, blanks advance the frame cursor and are never emitted):
 streaming greedy transducer search, token for token the textbook loop of
@@ -116,9 +122,12 @@ def sample_token(logits: torch.Tensor, generator=None,
 def generate(bundle, params, prompts: torch.Tensor, max_new_tokens: int, *,
              temperature: float = 0.0, eos_id: Optional[int] = None,
              generator: Optional[torch.Generator] = None,
+             extra_inputs: Optional[Dict[str, torch.Tensor]] = None,
              sync_every: int = 8):
     """Greedy or temperature batched generation: prompts (B, Sp) on the
-    params' device -> (tokens (B, T_new) int32, stats).  Up to
+    params' device, with ``extra_inputs`` beside them in the prefill's
+    batch (``patches`` (B, P, d) of a VLM, ``frames`` (B, T, d) of an
+    encoder-decoder) -> (tokens (B, T_new) int32, stats).  Up to
     ``sync_every - 1`` trailing all-eos columns may follow the point
     where every row finished."""
     if bundle.cfg.family == "rnnt":
@@ -129,10 +138,13 @@ def generate(bundle, params, prompts: torch.Tensor, max_new_tokens: int, *,
     dev = prompts.device
     B, Sp = prompts.shape
     params = bundle.serving_params(params)
+    # a VLM's cache holds the patch prefix before the prompt (S11)
+    prefix = bundle.cfg.n_prefix if bundle.cfg.family == "vlm" else 0
     _sync(dev)
     t0 = time.perf_counter()
-    logits, cache = bundle.prefill(params, {"tokens": prompts},
-                                   cache_len=Sp + max_new_tokens)
+    logits, cache = bundle.prefill(params,
+                                   dict(extra_inputs or {}, tokens=prompts),
+                                   cache_len=prefix + Sp + max_new_tokens)
     _sync(dev)
     t_prefill = time.perf_counter() - t0
 
@@ -226,6 +238,9 @@ class SlotEngine:
                  bucket_min: int = 8, seed: int = 0,
                  max_queue: Optional[int] = None, clock=time.time):
         cfg = bundle.cfg
+        if cfg.family in ("vlm", "encdec"):
+            raise ValueError(f"SlotEngine serves LM and RNN-T families, "
+                             f"not {cfg.family!r}")
         self.bundle = bundle
         # the weights in the compute dtype, cast once here (a no-op for
         # weights built in it) instead of once a block call
