@@ -15,8 +15,8 @@ failure exits non-zero, and no phase catches an error and carries on:
 1. environment: the card's name and power limit; TF32 off everywhere
    (``cudnn.allow_tf32`` defaults to True, which would put the CRDNN
    convolutions in TF32) and cuDNN on its deterministic algorithms;
-2. build: the five CUDA kernels from the checkout's sources, one
-   ``nvcc`` per source, all started together;
+2. build: the six CUDA sources of the checkout (the band's backward
+   its own), one ``nvcc`` per source, all started together;
 3. kernels: each kernel against its plain PyTorch version on the same
    card tensors, at the main paths' shapes and at ragged edge shapes,
    with times (CUDA events), the plain version's time, a PyTorch library
@@ -42,7 +42,12 @@ failure exits non-zero, and no phase catches an error and carries on:
    of both bodies, twice bitwise, timed in turns with
    ``scaled_dot_product_attention`` under the band mask as its library
    time, its rate printed against both the function's FLOPs and the
-   tensor cores' (p . v runs twice, p split into bf16 hi + lo); then the
+   tensor cores' (p . v runs twice, p split into bf16 hi + lo); the
+   band's backward kernel (phase 20) at the same edge shapes and at the
+   training shapes of phase 20, 18c and gemma3-27b, the forward that
+   writes lse bitwise the serving forward, two backward launches bitwise
+   equal, against the plain backward and autograd of the plain forward,
+   timed in turns with SDPA's backward under the band mask; then the
    shapes phase 16 gives them: the band at gemma3-27b's prefill (B 2 x S
    8,192 x 16 KV heads x G 2, window 1024) and the grad sketch at the
    stage-A units of gemma-7b, minitron-8b and gemma3-27b (V 256,000 and
@@ -61,11 +66,11 @@ failure exits non-zero, and no phase catches an error and carries on:
 5. main path, RNN-T: ``train_with_selection(method="pgm")`` at the full
    width of ``rnnt-crdnn`` on a synthetic corpus -- warm start, then a PGM
    round (stage A + stage B) before each subset epoch, each round's time
-   printed; its first two epochs again with the same seed, launches
-   counted apart, which must print the same losses and pick the same
-   subset and weights as the first run's first two; then two stage-A rounds on the trained params, timed, with
-   whether their unit vectors agree bit for bit and whether they pick
-   the same subsets (so also after the LM and RWKV profiles);
+   printed (no same-seed repeat here: those of 15a, 18c, 19a and 20b
+   and phase 4's two gradients hold F3); then a stage-A round on the
+   trained params, timed (after the LM and RWKV profiles two rounds,
+   with whether their unit vectors agree bit for bit and whether they
+   pick the same subsets);
 6. the reference's own loop (``examples/train_asr_pgm.py`` and the
    reference's host engine), beside phase 5's first run: (a) the same
    config with a checkpoint directory, preempted after epoch 1 (a
@@ -83,9 +88,9 @@ failure exits non-zero, and no phase catches an error and carries on:
    turns with ``torch.bmm``; (e) ``greedy_decode`` and
    ``token_error_rate`` on the 16 validation utterances, card against
    CPU (the trained params, then phase 8's random weights, which emit),
-   with the smallest top-2 margin; (f) ``python -m
-   repro_torch.examples.train_asr_pgm`` at its reference settings, its
-   TER line printed;
+   with the smallest top-2 margin (the twin ``python -m
+   repro_torch.examples.train_asr_pgm`` runs in 14d, on the scan
+   engine);
 7. profile, RNN-T: one training step under ``torch.profiler`` (host wall
    time, device busy time, the kernels that take the most of it), its
    counted lattice launches equal to its traced lattice kernels;
@@ -111,8 +116,8 @@ failure exits non-zero, and no phase catches an error and carries on:
 13. profile, RWKV: one training step of that model, as in 7;
 14. the scanned epoch engine (``engine="scan"``: one captured CUDA graph
    of the training step, replayed once a plan row; phases 5, 6, 9 and 12
-   run ``engine="host"``): (a) phase 5's RNN-T main path through it, then
-   its first two epochs again with one seed, bitwise equal, with phase
+   run ``engine="host"``): (a) phase 5's RNN-T main path through it
+   (15a repeats it with one seed), with phase
    5's subsets and weights and
    losses within rtol 1e-3 (whether bitwise equal printed), one capture
    a run; then on a fresh engine (phase 7's eager step under the profiler
@@ -134,7 +139,7 @@ failure exits non-zero, and no phase catches an error and carries on:
    of its own traced (the WKV forward and backward kernels traced per
    step x rows); (d) ``python -m
    repro_torch.examples.train_asr_pgm --engine scan --epoch-chunk 2``,
-   its selection and TER lines beside 6f's;
+   its selection and TER lines;
 15. resident selection (``resident_selection=True``: stage A of a round
    one captured CUDA graph a unit corpus, of one chunk at a cursor over
    the resident units, replayed a chunk at a time every round): (a)
@@ -157,15 +162,16 @@ failure exits non-zero, and no phase catches an error and carries on:
    layer; (e) an injected failure of the
    ``"cuda"`` route raises out of the round, no round degraded;
 16. the reference's other dense archs and examples: (a) ``gemma3-27b`` at
-   full width and depth (62 layers, 27.0B params) served from bf16
-   weights drawn on the card layer by layer (no fp32 masters, which
-   would not fit): ``generate`` on 2 x 8,192 prompts and ``SlotEngine``
+   full width and 31 of its 62 layers (``GEMMA3_SERVE_LAYERS``; 14.2B
+   of its 27.0B params) served from bf16 weights drawn on
+   the card layer by layer (no fp32 masters, which would not fit at full
+   depth): ``generate`` on 2 x 8,192 prompts and ``SlotEngine``
    (4 slots) on the launcher's 8 requests, 32 new tokens each, the band
    kernel once a local layer a prefill, the peak device memory; (b) at
    full width with 6 layers, the bundle's prefill of 3,072 tokens and 16
    greedy decode steps from fp32 masters and from their
    ``serving_params``, every logit bitwise equal; (c) ``gemma3-27b``,
-   ``gemma-7b`` and ``minitron-8b`` at full width and 6, 2 and 2 layers
+   ``gemma-7b`` and ``minitron-8b`` at full width and 2 layers each
    (their fp32 masters at full depth would not fit one card for
    training) trained 2 epochs on the scan engine with resident
    selection, each run's peak memory, then resident against host stage
@@ -186,8 +192,7 @@ failure exits non-zero, and no phase catches an error and carries on:
    ``SlotEngine`` at ``--prompt-len 2048`` (exact lengths); (c)
    ``olmoe-1b-7b`` and ``mixtral-8x7b`` at 2 layers, full width,
    trained 2 epochs on the scan engine with resident rounds and
-   ``moe_router_term``, twice with one seed (losses, the round and
-   every final leaf's bits equal), then resident stage A against host
+   ``moe_router_term``, then resident stage A against host
    (P7) and at ``chunk_units`` 1 each unit's head block bitwise the
    head-only vector, each run's round time and peak; (e) one ``olmoe``
    prefill and one eager step of each arch under the profiler, the
@@ -206,12 +211,12 @@ failure exits non-zero, and no phase catches an error and carries on:
    ``rwkv6-3b`` in power-of-two buckets, its pads through the WKV
    kernel), each completion token for token against ``generate`` on its
    prompt alone, unpadded; the peak memory; (c) ``recurrentgemma-9b`` at
-   full width and 3 layers (one group) trained 2 epochs at S 2,048
-   (units of 2) on
+   full width and 3 layers (one group) trained 2 epochs at S 4,096, the
+   reference's training length, past the band's start at 3,072 (the
+   band's backward at head dim 256, group remat; units of 1) on
    the scan engine with resident rounds, twice with one seed (losses,
    the round and every final leaf's bits equal), resident stage A
-   against host (P7), and a step at S 4,096 whose backward through the
-   band refuses (ROADMAP item 7); (e) one ``recurrentgemma-9b`` prefill
+   against host (P7); (e) one ``recurrentgemma-9b`` prefill
    and one eager step under the profiler, the RG-LRU scan's device share
    from its ``rglru.scan`` / ``rglru.scan_bwd`` ranges.  Phase 3 holds
    (d): the band at head dim 256 (edge shapes, then (2, 8192, 1, 16, 256,
@@ -239,7 +244,23 @@ failure exits non-zero, and no phase catches an error and carries on:
    or patches and 256 tokens, card against CPU: per-example loss, the
    stage-A sketch, the prefill and 8 teacher-forced decode steps, at
    phase 4's bars.  Phase 3 holds the grad sketch at both archs'
-   stage-A units (V 256,206 and 257,216, off the 128-wide vocab tile).
+   stage-A units (V 256,206 and 257,216, off the 128-wide vocab tile);
+20. long-context training through the band (ROADMAP item 7, hazards
+   B1-B5): (a) ``starcoder2-3b`` at full width and depth (30 layers,
+   3.03B params) trained under PGM at S 8,192, past the band's start at
+   5,120, with group remat, on the scan engine with resident rounds: 8
+   units and 2 validation units of 2 x 8,192 tokens, the warm start and
+   one round, subset 0.5; its peak memory, the step graph's band
+   forward and backward nodes (two forwards a local layer, the
+   recompute, and one backward) x its replays, exact, and one replayed
+   step under the profiler (wall time, busy share); (b) the same at 2
+   layers (``LONG_REPEAT_LAYERS``) twice with one seed, bitwise, and
+   resident stage A against host (P7); (c) one step at 6 layers with
+   remat on and off: loss and every gradient leaf bitwise equal, the
+   remat peak lower; (d) one layer at fp32 (TF32 off) on one example of
+   6,144 tokens, card against CPU, per-example loss and every gradient
+   leaf at phase 4's bars.  Phase 3 holds the band's backward and the
+   grad sketch at phase 20's stage-A unit (n = 2 x 8,191).
 
 Phases 9, 12 and 15c draw their 3B models' initial weights with a
 generator on the card (the host generator took ~20 s a model).
@@ -269,8 +290,13 @@ Gram at its router-term D; then phase 18's: the band at
 recurrentgemma-9b's prefill and the WKV forward with pad rows, each
 with its serving launches, and the grad sketch and the Gram of
 recurrentgemma-9b's resident run; then phase 19's: the grad sketch and
-the Gram of the ``encdec-resident`` and ``vlm-resident`` runs), the
-card's name and power limit
+the Gram of the ``encdec-resident`` and ``vlm-resident`` runs; then
+the band's backward ``swa_attn_bwd`` and its forward that writes lse on
+the training paths through the band, ``recurrentgemma-9b-resident``
+(18c), ``starcoder2-3b-long`` (20a: a step-graph kernel's launches
+counted at the warm-ups and the capture plus its graph's nodes x
+replays) and ``starcoder2-3b-long-2`` (20b), with the grad sketch and
+the Gram of 20a), the card's name and power limit
 as ``nvidia-smi`` prints them, and the line ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
@@ -377,16 +403,20 @@ SERVE_PROMPT = 8192
 SERVE_NEW = 32
 SERVE_SLOTS = 4
 SERVE_REQUESTS = 8
-# gemma3-27b served at full width and depth (phase 16a): generate's 2 x
-# 8,192 prefill takes the band in its 52 local layers, at this shape
+# gemma3-27b served at full width (phase 16a): generate's 2 x 8,192
+# prefill takes the band in each local layer, at this shape
 SWA_GEMMA3 = (2, SERVE_PROMPT, 16, 2, 128, 1024, "bfloat16", None)
+# phase 16a: gemma3-27b served at full width and this many of its 62
+# layers (28.42 GB of bf16; its full depth, 54.02 GB, took ~20 s more of
+# the script's time budget)
+GEMMA3_SERVE_LAYERS = 31
 # phase 16b: gemma3-27b at full width with one group of layers (5 local, 1
 # global), fp32 masters against serving weights on a prompt past the band
 GEMMA3_AGREE_LAYERS = 6
 GEMMA3_AGREE_S = 3072
 GEMMA3_AGREE_STEPS = 16
 # phase 16c: the dense archs trained at full width, at these depths
-DENSE_TRAIN = (("gemma3-27b", 6), ("gemma-7b", 2), ("minitron-8b", 2))
+DENSE_TRAIN = (("gemma3-27b", 2), ("gemma-7b", 2), ("minitron-8b", 2))
 # phase 17, the MoE archs: slot prompts of at most 2,048 tokens, one MoE
 # group (ROADMAP M1: the reference asserts that the tokens split into
 # groups of 2,048); mixtral-8x7b served at this depth of its 32 layers
@@ -401,7 +431,7 @@ MOE_AGREE_STEPS = 16
 # layers ran out of an H100 80GB's memory in its first resident round,
 # its step and stage-A graphs' pools holding 53.4 GB; at 6 its two runs
 # took 42.6 s of the script's time, cut to 2 to pay for phase 19)
-MOE_TRAIN = (("olmoe-1b-7b", 2), ("mixtral-8x7b", 2))
+MOE_TRAIN = (("olmoe-1b-7b", 2, 1), ("mixtral-8x7b", 2, 1))
 # their stage-A units (untied heads: the selector's (V, d) buffer) and
 # stage-B Grams with the router term (M6: D = 64 x 64 + layers x 64 x E)
 SKETCH_MOE = {"olmoe-1b-7b": (1, UNIT_SIZE * (LM_SEQ - 1), 2048, 50304, 64,
@@ -452,17 +482,19 @@ HYBRID_NEW = 8
 # phase 18c: recurrentgemma-9b trained at full width and one group of its
 # layers (rec, rec, local; its fp32 masters at full depth, 37.6 GB, would
 # not fit with their gradients and activations; two groups took 58.5 s
-# of the script's time, cut to one to pay for phase 19), at S 2,048, below the band's start
-# (training past it needs the band's backward, ROADMAP item 7), on 32
-# examples in units of 2 (units of 4 ran out of memory in the step's
-# capture on an H100 80GB HBM3 at 700 W, at 65.4 GB allocated); its
-# stage-A unit (tied head,
-# V 256,000) and stage-B Gram
+# of the script's time, cut to one to pay for phase 19), at S 4,096, the
+# reference's TRAIN_4K, past the band's start at 3,072 (the band's
+# backward at head dim 256, one remat group), on 8 examples in units of 1
+# and 4 validation units (units of 2 ran out of memory at S 4,096 in the
+# first run's validation, 68.2 GB allocated, 47.8 GB of it graph pools,
+# on an H100 80GB HBM3 at 700 W; S 2,048 and 32 examples in units of 2
+# before the band's backward); its stage-A unit (tied head, V 256,000,
+# n = 4,095) and stage-B Gram
 RG_TRAIN_LAYERS = 3
-RG_TRAIN_SEQ = 2048
-RG_TRAIN_N = 32
-RG_TRAIN_UNIT = 2
-RG_BAND_SEQ = 4096
+RG_TRAIN_SEQ = 4096
+RG_TRAIN_N = 8
+RG_TRAIN_UNIT = 1
+RG_VAL_UNITS = 4
 SKETCH_RG = (1, RG_TRAIN_UNIT * (RG_TRAIN_SEQ - 1), 4096, 256000, 64, 64)
 GRAM_RG = (4, 4, 64 * 64)
 # phase 19, the encoder-decoder and VLM families at full width and depth,
@@ -486,6 +518,33 @@ FAMILY_NEW = 32
 S11_PROMPT = 512
 FAMILY_AGREE_S = 512
 FAMILY_AGREE_STEPS = 8
+# phase 20, long-context training through the band.  The band's backward
+# kernel at the edge shapes of both forward bodies and at the training
+# shapes that take the band: starcoder2-3b at 2 x 8,192 (window 4,096),
+# recurrentgemma-9b at 2 x 4,096 (head dim 256, window 2,048; 18c) and
+# gemma3-27b at 1 x 4,096 (window 1,024; a kernel row only, its training
+# past the band needs sharding for depth)
+SWA_BWD_TRAIN = (("starcoder2-3b", (2, 8192, 2, 12, 128, 4096, "bfloat16",
+                                    None)),
+                 ("recurrentgemma-9b", (2, 4096, 1, 16, 256, 2048,
+                                        "bfloat16", None)),
+                 ("gemma3-27b", (1, 4096, 16, 2, 128, 1024, "bfloat16",
+                                 None)))
+# (a) starcoder2-3b at full width and depth trained at S 8,192 (past the
+# band's start at 5,120) with group remat, on LONG_TRAIN_UNITS units and
+# LONG_VAL_UNITS validation units of LONG_UNIT x 8,192 tokens, 2 epochs
+# (the warm start and one round), subset 0.5; its stage-A unit has n = 2 x
+# 8,191 tokens; (b) the same at LM_RESIDENT_LAYERS layers twice; (c) one
+# step at that depth with remat on and off; (d) one layer at fp32 on one
+# example of LONG_AGREE_S tokens, card against CPU
+LONG_SEQ = 8192
+LONG_UNIT = 2
+LONG_TRAIN_UNITS = 8
+LONG_VAL_UNITS = 2
+LONG_AGREE_S = 6144
+# (b)'s depth ((c) runs at LM_RESIDENT_LAYERS)
+LONG_REPEAT_LAYERS = 2
+SKETCH_LONG = (1, LONG_UNIT * (LONG_SEQ - 1), 3072, 49152, 64, 64)
 
 
 def fail(msg: str) -> None:
@@ -753,13 +812,13 @@ def kernel_times(torch, fn, reps: int):
 
 
 def stage_a_rounds(torch, bundle, params, units, val_units, pgm_cfg, dev,
-                   tag):
-    """Two selection rounds on the same params and projections: stage A
-    (a unit vector for every training and validation unit), timed on the
-    host clock after a synchronize, then stage B.  Prints each round's
-    stage-A time, whether the two rounds' unit vectors agree bit for bit
-    and whether they pick the same subsets -> (bitwise equal, same
-    subsets)."""
+                   tag, rounds: int = 2):
+    """``rounds`` (2 or 1) selection rounds on the same params and
+    projections: stage A (a unit vector for every training and
+    validation unit), timed on the host clock after a synchronize, then
+    stage B.  Prints each round's stage-A time and, with two, whether
+    their unit vectors agree bit for bit and whether they pick the same
+    subsets -> (bitwise equal, same subsets), (None, None) with one."""
     from repro_torch.core.lastlayer import make_proj_for, units_gradients
     from repro_torch.core.pgm import _stage_b, _val_target
     from repro_torch.train.engine import to_device
@@ -767,8 +826,8 @@ def stage_a_rounds(torch, bundle, params, units, val_units, pgm_cfg, dev,
     us, vs = to_device(units, dev), to_device(val_units, dev)
     proj = make_proj_for(bundle, torch.Generator().manual_seed(0),
                          pgm_cfg.sketch_dim_h, pgm_cfg.sketch_dim_v, dev)
-    rounds = []
-    for _ in range(2):
+    n_rounds, rounds = rounds, []
+    for _ in range(n_rounds):
         torch.cuda.synchronize()
         t0 = time.time()
         g = units_gradients(bundle, params, us, proj)
@@ -779,8 +838,14 @@ def stage_a_rounds(torch, bundle, params, units, val_units, pgm_cfg, dev,
                        if pgm_cfg.val_matching else None)
         rounds.append((g, gv, sel.indices.cpu().tolist(),
                        sel.weights.cpu().tolist(), secs))
-    (g1, gv1, i1, w1, s1), (g2, gv2, i2, w2, s2) = rounds
+    g1, gv1, i1, w1, s1 = rounds[0]
     require(bool(torch.isfinite(g1).all()), f"stage A {tag}: non-finite")
+    if n_rounds == 1:
+        print(f"[stage A {tag}] {g1.shape[0]} training + {gv1.shape[0]} "
+              f"validation units a round: {s1:.3f} s (host clock)",
+              flush=True)
+        return None, None
+    g2, gv2, i2, w2, s2 = rounds[1]
     bitwise = bool(torch.equal(g1, g2) and torch.equal(gv1, gv2))
     diff = float((g1 - g2).abs().max() / g1.abs().max())
     same = i1 == i2 and w1 == w2
@@ -1523,26 +1588,7 @@ def reference_loop(torch, np, bundle, tc, units, val_units, val_corpus,
               flush=True)
         require(same, f"6e: card and CPU hypotheses differ ({tag})")
     mark("6e greedy decode")
-
-    # (f) the twin at its reference settings on the host engine, in a
-    # process of its own
-    t0 = time.time()
-    run = subprocess.run(
-        [sys.executable, "-m", "repro_torch.examples.train_asr_pgm",
-         "--engine", "host"],
-        cwd=str(ROOT), env=dict(os.environ, PYTHONPATH=str(SRC)),
-        capture_output=True, text=True, timeout=600)
-    out = run.stdout.strip().splitlines()
-    require(run.returncode == 0 and out and "token error rate" in out[-1],
-            f"6f: the twin failed (rc {run.returncode}): "
-            f"{run.stderr[-2000:]}")
-    for line in filter(None, out):
-        print(f"[6f] {line}", flush=True)
-    print(f"[6f] python -m repro_torch.examples.train_asr_pgm --engine host "
-          f"on the card: {time.time() - t0:.1f} s (process start and kernel "
-          f"load included)", flush=True)
-    mark("6f twin")
-    return launches, gram_row, out
+    return launches, gram_row
 
 
 #: rows of an epoch that ``replay_check`` replays under the profiler (an
@@ -1787,7 +1833,7 @@ def replay_check(torch, np, bundle, tc, units, dev, params, ops, tag,
 
 
 def scan_engine_phase(torch, np, bundle, tc, units, val_units, first,
-                      eager_step, twin_host, models, dev, mark):
+                      eager_step, models, dev, mark):
     """Phase 14: the scanned epoch engine (``engine="scan"``, one captured
     CUDA graph of the step replayed over each plan).  (a) phase 5's RNN-T
     main path through it, twice with one seed (bitwise equal), against
@@ -1854,20 +1900,12 @@ def scan_engine_phase(torch, np, bundle, tc, units, val_units, first,
         require(subsets and weights and len(tl) == len(tl0)
                 and loss_rel < 1e-3, f"{tag}: {rec} against {ref_tag} {ref}")
 
-    # (a) the RNN-T main path through the scan engine, then its first
-    # REPEAT_EPOCHS epochs again
-    runs = []
-    for tag, tc_ in (("14a", tc), ("14a again", dataclasses.replace(
-            tc, epochs=REPEAT_EPOCHS))):
-        h, launches, secs = scan_run(bundle, units, val_units, tc_,
-                                     rnnt_ops, tag, engine="scan")
-        runs.append((rnnt_run_record(h), launches, secs, h.final_params))
-        del h
-    same = runs[1][0] == run_prefix(runs[0][0])
-    print(f"[14a] two scan runs of seed {tc.seed}: every loss, index and "
-          f"weight of the second's {REPEAT_EPOCHS} epochs equal to the "
-          f"first's: {same}", flush=True)
-    require(same, "14a: two scan runs of one seed differ")
+    # (a) the RNN-T main path through the scan engine (15a repeats the
+    # path resident with one seed)
+    h, launches, secs = scan_run(bundle, units, val_units, tc, rnnt_ops,
+                                 "14a", engine="scan")
+    runs = [(rnnt_run_record(h), launches, secs, h.final_params)]
+    del h
     agree(runs[0][0], first, "14a", "phase 5's host run")
     # the eager step was traced and counted in phase 7
     per_step, replayed, step_ms, traced = replay_check(
@@ -1926,7 +1964,7 @@ def scan_engine_phase(torch, np, bundle, tc, units, val_units, first,
         torch.cuda.empty_cache()
     mark("14c scan engine, LM and RWKV (2 layers)")
 
-    # (d) the twin on the scan engine in chunks of two, beside 6f
+    # (d) the twin on the scan engine in chunks of two
     t0 = time.time()
     run = subprocess.run(
         [sys.executable, "-m", "repro_torch.examples.train_asr_pgm",
@@ -1943,8 +1981,7 @@ def scan_engine_phase(torch, np, bundle, tc, units, val_units, first,
                             or "token error rate" in l]
     print(f"[14d] python -m repro_torch.examples.train_asr_pgm --engine scan "
           f"--epoch-chunk 2 on the card: {time.time() - t0:.1f} s; its "
-          f"selection and TER lines {picked(out)}; 6f's (--engine host) "
-          f"{picked(twin_host)}", flush=True)
+          f"selection and TER lines {picked(out)}", flush=True)
     mark("14d twin, scan engine")
     return launches, host_launches, rec_a
 
@@ -2305,22 +2342,26 @@ def launch_counters():
     from repro_torch.kernels.rwkv6_scan.ops import rwkv6_wkv_op
     from repro_torch.kernels.swa_attn.ops import swa_attn_op
 
-    ops = {"rnnt_lattice": rnnt_lattice_op, "omp_gram": omp_gram_batched_op,
-           "grad_sketch": grad_sketch_units_op, "rwkv6_wkv": rwkv6_wkv_op,
-           "swa_attn": swa_attn_op}
+    ops = {"rnnt_lattice": (rnnt_lattice_op, "launches"),
+           "omp_gram": (omp_gram_batched_op, "launches"),
+           "grad_sketch": (grad_sketch_units_op, "launches"),
+           "rwkv6_wkv": (rwkv6_wkv_op, "launches"),
+           "swa_attn": (swa_attn_op, "launches"),
+           "swa_attn_bwd": (swa_attn_op, "bwd_launches")}
 
     def zero():
-        for op in ops.values():
-            op.launches = 0
+        for op, attr in ops.values():
+            setattr(op, attr, 0)
 
     def read():
-        return {n: op.launches for n, op in ops.items()}
+        return {n: getattr(op, attr) for n, (op, attr) in ops.items()}
     return zero, read
 
 
 def dense_phase(torch, np, dev, mark):
     """Phase 16: the reference's other dense archs and examples.  (a)
-    ``gemma3-27b`` at full width and depth served from bf16 weights drawn
+    ``gemma3-27b`` at full width and ``GEMMA3_SERVE_LAYERS`` layers
+    served from bf16 weights drawn
     on the card (no fp32 masters): ``generate`` on 2 x 8,192 prompts, then
     ``SlotEngine`` on the launcher's 8 requests; (b) at full width and
     one group of 6 layers, fp32 masters against their ``serving_params``:
@@ -2348,8 +2389,9 @@ def dense_phase(torch, np, dev, mark):
     out = {}
     gb = lambda: torch.cuda.max_memory_allocated() / 1e9
 
-    # (a) gemma3-27b at full width and depth, bf16 weights only
-    cfg = get_config("gemma3-27b")
+    # (a) gemma3-27b at full width, bf16 weights only
+    cfg = dataclasses.replace(get_config("gemma3-27b"),
+                              n_layers=GEMMA3_SERVE_LAYERS)
     b27 = build_model(cfg)
     gc.collect()
     torch.cuda.empty_cache()
@@ -2363,7 +2405,7 @@ def dense_phase(torch, np, dev, mark):
     n_par = sum(l.numel() for l in tree_leaves(params))
     w_gb = sum(l.numel() * l.element_size()
                for l in tree_leaves(params)) / 1e9
-    print(f"[16a] gemma3-27b at full width and depth ({cfg.n_layers} "
+    print(f"[16a] gemma3-27b at full width ({cfg.n_layers} of 62 "
           f"layers: {cfg.layer_kinds().count('local')} local (window "
           f"{cfg.window}), {cfg.layer_kinds().count('global')} global; "
           f"d_model {cfg.d_model}, {cfg.n_heads} heads over "
@@ -2428,7 +2470,7 @@ def dense_phase(torch, np, dev, mark):
     del params, eng, comps, toks, prompts
     gc.collect()
     torch.cuda.empty_cache()
-    mark("16a gemma3-27b served at full width and depth")
+    mark(f"16a gemma3-27b served at full width, {GEMMA3_SERVE_LAYERS} layers")
 
     # (b) one group at full width: fp32 masters against serving weights
     b6 = build_model(dataclasses.replace(cfg, n_layers=GEMMA3_AGREE_LAYERS))
@@ -2988,14 +3030,14 @@ def moe_phase(torch, np, dev, mark):
                    warm_start_epochs=1, val_matching=True,
                    moe_router_term=True)
     tc = TrainConfig(lr=0.05, optimizer="sgd", epochs=2, seed=0, pgm=pc)
-    for arch, layers in MOE_TRAIN:
+    for arch, layers, runs in MOE_TRAIN:
         c = dataclasses.replace(get_config(arch), n_layers=layers)
         bd = build_model(c)
         us_np, vs_np = make_units_for(c, n=LM_N, seq=LM_SEQ, noise=0.0)
         params, n_run = train_twice(
             torch, np, bd, us_np, vs_np, tc, dev, "17c",
             " with the router term", zero, read, gb,
-            ("grad_sketch", "omp_gram"))
+            ("grad_sketch", "omp_gram"), runs=runs)
         us, vs = to_device(us_np, dev), to_device(vs_np, dev)
         proj = make_proj_for(bd, torch.Generator().manual_seed(0),
                              pc.sketch_dim_h, pc.sketch_dim_v, dev)
@@ -3424,16 +3466,15 @@ def hybrid_phase(torch, np, dev, mark):
     served from bf16 weights drawn on the card (``hybrid_serve``), one
     ``recurrentgemma-9b`` prefill profiled (e); (c) ``recurrentgemma-9b``
     at full width and ``RG_TRAIN_LAYERS`` layers trained 2 epochs at S
-    ``RG_TRAIN_SEQ`` on the scan engine with resident rounds, twice with
-    one seed (bitwise equal), then resident stage A against the host's
-    (P7), one step profiled (e), and a step past the band's start
-    refused (its backward is item 7).  -> {path: {kernel: launches}}."""
+    ``RG_TRAIN_SEQ``, past the band's start (its backward at head dim
+    256, group remat), on the scan engine with resident rounds, twice
+    with one seed (bitwise equal), then resident stage A against the
+    host's (P7), one step profiled (e).  -> {path: {kernel: launches}}."""
     from repro_torch.configs import get_config
     from repro_torch.configs.base import PGMConfig, TrainConfig
     from repro_torch.core.lastlayer import make_proj_for
     from repro_torch.launch.train import make_units_for
     from repro_torch.models.api import build_model
-    from repro_torch.models.common import tree_leaves
     from repro_torch.train.engine import make_step_core, to_device
     from repro_torch.train.optim import make_update_for
 
@@ -3476,9 +3517,13 @@ def hybrid_phase(torch, np, dev, mark):
     tc = TrainConfig(lr=0.05, optimizer="sgd", epochs=2, seed=0, pgm=pc)
     us_np, vs_np = make_units_for(c, n=RG_TRAIN_N, seq=RG_TRAIN_SEQ,
                                   noise=0.0, unit_size=RG_TRAIN_UNIT)
+    vs_np = {k: v[:RG_VAL_UNITS] for k, v in vs_np.items()}
+    require(RG_TRAIN_SEQ > c.window + 1024, "18c: S does not reach the band")
     params, n_run = train_twice(torch, np, bd, us_np, vs_np, tc, dev, "18c",
-                                "", zero, read, gb,
-                                ("grad_sketch", "omp_gram"))
+                                f", S {RG_TRAIN_SEQ} through the band, remat",
+                                zero, read, gb,
+                                ("grad_sketch", "omp_gram", "swa_attn",
+                                 "swa_attn_bwd"))
     us, vs = to_device(us_np, dev), to_device(vs_np, dev)
     proj = make_proj_for(bd, torch.Generator().manual_seed(0),
                          pc.sketch_dim_h, pc.sketch_dim_v, dev)
@@ -3501,32 +3546,9 @@ def hybrid_phase(torch, np, dev, mark):
     rglru_profile(torch, lambda: step(params, opt_state, batch, tc.lr),
                   "18e", f"{arch} ({RG_TRAIN_LAYERS} layers) one training "
                   f"step (B={RG_TRAIN_UNIT} x {RG_TRAIN_SEQ}), eager")
-    out[f"{arch}-resident"] = {"grad_sketch": n_run["grad_sketch"],
-                               "omp_gram": n_run["omp_gram"]}
+    out[f"{arch}-resident"] = {k: n_run[k] for k in (
+        "grad_sketch", "omp_gram", "swa_attn", "swa_attn_bwd")}
     del params, opt_state, batch, step
-    gc.collect()
-    torch.cuda.empty_cache()
-    # a step past the band's start needs the band's backward (item 7)
-    c3 = dataclasses.replace(c, n_layers=3)
-    b3 = build_model(c3)
-    p3 = card_init(torch, b3, dev)
-    for leaf in tree_leaves(p3):
-        leaf.requires_grad_(True)
-    toks = torch.randint(0, c3.vocab_size, (1, RG_BAND_SEQ), device=dev,
-                         dtype=torch.int32,
-                         generator=torch.Generator(device=dev).manual_seed(7))
-    loss, _ = b3.loss_fn(p3, {"tokens": toks})
-    try:
-        loss.backward()
-        refused = ""
-    except NotImplementedError as e:
-        refused = str(e)
-    print(f"[18c] {arch} at 3 layers, one step at S {RG_BAND_SEQ} (past the "
-          f"band's start, {c.window + 1024}): the backward raises "
-          f"{refused!r}", flush=True)
-    require("item 7" in refused, "18c: a step through the band did not "
-                                 "refuse its backward")
-    del b3, p3, toks, loss
     gc.collect()
     torch.cuda.empty_cache()
     mark(f"18c {arch} trained at full width, {RG_TRAIN_LAYERS} layers")
@@ -3543,6 +3565,346 @@ def stack_units(bundle, gen, n_units: int, S: int):
 
     draws = [bundle.make_batch(gen, UNIT_SIZE, S) for _ in range(n_units)]
     return {k: np.stack([d[k].numpy() for d in draws]) for k in draws[0]}
+
+
+class cpu_side:
+    """``fn(*args)``, a function of this module, run on the CPU in a
+    spawned process from the moment this is made, while the card works
+    through other phases; ``result()`` waits for its value and ends the
+    process.  The CPU sides of the card-against-CPU checks take tens of
+    seconds and the card's phases leave the host's cores idle."""
+
+    def __init__(self, fn, *args):
+        import concurrent.futures
+        import multiprocessing
+        self.pool = concurrent.futures.ProcessPoolExecutor(
+            1, mp_context=multiprocessing.get_context("spawn"))
+        self.future = self.pool.submit(fn, *args)
+
+    def result(self):
+        try:
+            return self.future.result()
+        finally:
+            self.pool.shutdown(wait=True)
+
+
+def cpu_torch():
+    """torch in a ``cpu_side`` process: the port's sources on the path,
+    all but two of the host's cores for intra-op threads."""
+    if str(SRC) not in sys.path:
+        sys.path.insert(0, str(SRC))
+    import torch
+
+    torch.set_num_threads(max(1, (os.cpu_count() or 2) - 2))
+    return torch
+
+
+def rwkv_agree_setup(torch):
+    """Phase 4's rwkv6-3b unit: the 1-layer fp32 bundle, its params and
+    projections drawn on the CPU from one seed, and one unit."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.sketch import make_projections
+    from repro_torch.launch.train import make_units_for
+    from repro_torch.models.api import build_model
+
+    rw_cfg = get_config("rwkv6-3b")
+    rw2 = build_model(dataclasses.replace(rw_cfg, n_layers=AGREE_LAYERS,
+                                          compute_dtype="float32"))
+    rw_units, _ = make_units_for(rw_cfg, n=LM_N, seq=LM_SEQ, noise=0.0)
+    gen = torch.Generator().manual_seed(0)
+    p_cpu = rw2.init_params(gen, torch.device("cpu"))
+    proj_cpu = make_projections(gen, rw_cfg.d_model, rw_cfg.vocab_size)
+    unit = {k: torch.as_tensor(v[:1]) for k, v in rw_units.items()}
+    return rw2, p_cpu, proj_cpu, unit
+
+
+def rwkv_agree_side(torch, rw2, p_cpu, proj_cpu, unit, on, check=None):
+    """One side of phase 4's RWKV unit on device ``on``: the per-example
+    loss and its mean's gradient in one pass, the layer-0 time-mix
+    gradients, the stage-A sketch -> (loss, sketch, {leaf: grad},
+    seconds), all on the CPU; ``check(held)`` is called around stage A
+    on the card."""
+    from repro_torch.core.lastlayer import units_gradients
+    from repro_torch.models.common import tree_map
+
+    p = tree_map(lambda x: x.detach().to(on).requires_grad_(True), p_cpu)
+    pr = type(proj_cpu)(*(x.to(on) for x in proj_cpu))
+    u = {k: v.to(on) for k, v in unit.items()}
+    t_a = time.time()
+    # the weighted loss with unit weights
+    loss = rw2.per_example_loss(p, {k: v[0] for k, v in u.items()})
+    loss.mean().backward()
+    tm = p["stack"]["groups"][0]["tmix"]
+    grads = {k: v.grad[0].cpu() for k, v in tm.items()}
+    held = check() if check else None
+    sk = units_gradients(rw2, p, u, pr)
+    if check:
+        check(held)
+    return loss.detach().cpu(), sk.cpu(), grads, time.time() - t_a
+
+
+def rwkv_agree_cpu():
+    """Phase 4's RWKV unit through the plain versions (a ``cpu_side``)."""
+    torch = cpu_torch()
+    rw2, p_cpu, proj_cpu, unit = rwkv_agree_setup(torch)
+    return rwkv_agree_side(torch, rw2, p_cpu, proj_cpu, unit,
+                           torch.device("cpu"))
+
+
+def long_agree_setup(torch):
+    """20d: starcoder2-3b at full width with one layer in fp32, its params
+    drawn on the CPU from one seed, and one example of ``LONG_AGREE_S``
+    tokens with weight 1 (so the weighted loss is its per-example
+    loss)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.api import build_model
+
+    cfg = get_config("starcoder2-3b")
+    b1 = build_model(dataclasses.replace(cfg, n_layers=1,
+                                         compute_dtype="float32"))
+    p_cpu = b1.init_params(torch.Generator().manual_seed(0),
+                           torch.device("cpu"))
+    toks = torch.randint(0, cfg.vocab_size, (1, LONG_AGREE_S),
+                         dtype=torch.int32,
+                         generator=torch.Generator().manual_seed(4))
+    return b1, p_cpu, {"tokens": toks, "weights": torch.ones((1,))}
+
+
+def long_agree_side(torch, b1, p_cpu, batch, on):
+    """One side of 20d on device ``on`` -> (per-example loss, every
+    gradient leaf, seconds), on the CPU."""
+    from repro_torch.models.common import tree_leaves, tree_map
+
+    t_a = time.time()
+    live = tree_map(lambda x: x.detach().to(on).requires_grad_(True), p_cpu)
+    total, metrics = b1.loss_fn(live, {k: v.to(on) for k, v in batch.items()})
+    grads = torch.autograd.grad(total, tree_leaves(live))
+    return (metrics["loss"].detach().reshape(1).cpu(),
+            [g.cpu() for g in grads], time.time() - t_a)
+
+
+def long_agree_cpu(path: str) -> str:
+    """20d's CPU side (a ``cpu_side``), saved to ``path``."""
+    torch = cpu_torch()
+    b1, p_cpu, batch = long_agree_setup(torch)
+    torch.save(long_agree_side(torch, b1, p_cpu, batch, torch.device("cpu")),
+               path)
+    return path
+
+
+def swa_bwd_inputs(torch, shape, dev):
+    """The band's inputs at ``shape`` and a cotangent of its output, on
+    the card -> (q, k, v, dout, lengths)."""
+    B, S, KV, G, hd, W, dtype, lengths = shape
+    (q, k, v), lens = swa_inputs(torch, B, S, KV, G, hd, dtype, lengths,
+                                 seed=S + hd + 1, dev=dev)
+    g = torch.Generator(device=dev).manual_seed(S + W)
+    dout = torch.randn(q.shape, generator=g, device=dev).to(q.dtype)
+    return q, k, v, dout, lens
+
+
+def swa_bwd_err(torch, shape, dev):
+    """The band's backward kernel at one shape, on the same card tensors:
+    the forward that writes lse bitwise the serving forward's output, two
+    backward launches bitwise equal, and the kernel against the plain
+    backward (``swa_attn_bwd_ref``, from the kernel's out and lse) and
+    against autograd of the plain forward.  Both the kernel and the plain
+    backward sum in fp32 and differ in the order of their sums, whose
+    rounding scales with the terms summed: at fp32 each gradient is held
+    to 1e-5 of the largest entry of the three, at bf16 (both round their
+    fp32 sums to bf16) each element to one bf16 ulp of its own value plus
+    1e-5 of that entry (at window 1, dq is zero but for that rounding).
+    Against autograd, which reads D through the softmax's fp32 output
+    where the kernel reads the forward's rounded output, the LM tests'
+    bars: fp32 1e-5 of the largest entry of the three, bf16 2e-2
+    relative in norm (a norm floored at 1e-3 of the largest of the
+    three) -> (max abs err against the
+    plain backward, the largest share of its bar an element takes, the
+    largest error against autograd on its bar's scale)."""
+    from repro_torch.kernels.swa_attn.ops import (_launch, swa_attn_bwd,
+                                                  swa_attn_op)
+    from repro_torch.kernels.swa_attn.ref import (swa_attn_bwd_ref,
+                                                  swa_attn_ref)
+
+    B, S, KV, G, hd, W, dtype, lengths = shape
+    q, k, v, dout, lens = swa_bwd_inputs(torch, shape, dev)
+    with torch.no_grad():
+        serve = swa_attn_op(q, k, v, window=W, lengths=lens)
+    out, lse = _launch(q, k, v, lens, W, with_lse=True)
+    require(bool(torch.equal(out, serve)),
+            f"swa_attn {shape}: the forward with lse differs from the "
+            f"serving forward")
+    require(bool(torch.isfinite(lse).all()),
+            f"swa_attn {shape}: non-finite lse")
+    got = swa_attn_bwd(q, k, v, out, lse, dout, W, lens)
+    again = swa_attn_bwd(q, k, v, out, lse, dout, W, lens)
+    torch.cuda.synchronize()
+    require(all(bool(torch.equal(a, b)) for a, b in zip(got, again)),
+            f"swa_attn_bwd {shape}: two launches on the same inputs differ")
+    del again
+    want = swa_attn_bwd_ref(q, k, v, out, lse, dout, window=W, lengths=lens)
+    # the sums' rounding noise scales with the terms they add, which the
+    # largest entry of the three gradients measures (at window 1 dq is
+    # zero but for that noise)
+    top = max(float(b.abs().max()) for b in want)
+    err = margin = 0.0
+    for name, a, b in zip(("dq", "dk", "dv"), got, want):
+        a, b = a.float(), b.float()
+        diff = (a - b).abs()
+        bar = (1e-5 * top if dtype == "float32"
+               else 2.0 ** -7 * b.abs() + 1e-5 * top)
+        m = float((diff / bar).max())
+        require(bool(torch.isfinite(a).all()) and m <= 1.0,
+                f"swa_attn_bwd {shape}: {name} element at {m:.2f} x its bar "
+                f"from the plain backward")
+        err, margin = max(err, float(diff.max())), max(margin, m)
+    del want
+    xs = [x.detach().clone().requires_grad_(True) for x in (q, k, v)]
+    with torch.enable_grad():
+        auto = torch.autograd.grad(swa_attn_ref(*xs, window=W, lengths=lens),
+                                   xs, dout)
+    auto_err = 0.0
+    tops = [float(b.float().abs().max()) for b in auto]
+    norms = [float(b.float().norm()) for b in auto]
+    for name, a, b, top, nb in zip(("dq", "dk", "dv"), got, auto, tops,
+                                   norms):
+        a, b = a.float(), b.float()
+        if dtype == "float32":
+            e = float((a - b).abs().max()) / max(tops)
+            ok = e <= 1e-5
+        else:
+            e = float((a - b).norm()) / max(nb, 1e-3 * max(norms))
+            ok = e < 2e-2
+        require(ok, f"swa_attn_bwd {shape}: {name} {e:.2e} from autograd of "
+                    f"the plain forward")
+        auto_err = max(auto_err, e)
+    return err, margin, auto_err
+
+
+def swa_bwd_timed(torch, shape, dev):
+    """The backward kernel at one training shape timed (CUDA events) in
+    turns with PyTorch's SDPA backward under the band mask (the library
+    yardstick: k and v repeated over the group, a boolean band mask), the
+    plain backward once, the forward with and without lse, and its bound
+    (10 hd FLOP a (query, key) pair and query head at the inputs' peak;
+    q, k, v, out, dout and lse read once, dq, dk, dv written once); and
+    the forward that writes lse at the same shape: held to the plain
+    forward (``swa_err``), timed with its plain version and SDPA's
+    forward, its bound (4 hd FLOP a pair and head; q, k, v read, out and
+    lse written) -> {ms, plain_ms, library_ms, bound_ms, bound_by, fwd_ms,
+    fwd_lse_ms, fwd_max_abs_err, fwd_plain_ms, fwd_library_ms,
+    fwd_bound_ms, fwd_bound_by}."""
+    from repro_torch.kernels.swa_attn.ops import (_launch, swa_attn_bwd,
+                                                  swa_attn_op)
+    from repro_torch.kernels.swa_attn.ref import (swa_attn_bwd_ref,
+                                                  swa_attn_fwd_ref,
+                                                  swa_attn_ref)
+
+    B, S, KV, G, hd, W, dtype, _ = shape
+    q, k, v, dout, _ = swa_bwd_inputs(torch, shape, dev)
+    out, lse = _launch(q, k, v, None, W, with_lse=True)
+    fwd = cuda_ms(torch, lambda: _launch(q, k, v, None, W), reps=5)
+    fwd_lse = cuda_ms(torch, lambda: _launch(q, k, v, None, W,
+                                             with_lse=True), reps=5)
+    H = KV * G
+    qh = q.reshape(B, S, H, hd).transpose(1, 2).contiguous() \
+        .requires_grad_(True)
+    kh, vh = (x.transpose(1, 2).repeat_interleave(G, dim=1).contiguous()
+              .requires_grad_(True) for x in (k, v))
+    doh = dout.reshape(B, S, H, hd).transpose(1, 2).contiguous()
+    pos = torch.arange(S, device=dev)
+    band = ((pos[:, None] - pos[None, :]) >= 0) \
+        & ((pos[:, None] - pos[None, :]) < W)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    with torch.no_grad():
+        fwd_lib = cuda_ms(torch, lambda: sdpa(qh, kh, vh, attn_mask=band),
+                          reps=3, warmup=1)
+        fwd_plain = cuda_ms(torch, lambda: swa_attn_fwd_ref(q, k, v,
+                                                            window=W),
+                            reps=1, warmup=1)
+    with torch.enable_grad():
+        lib_out = sdpa(qh, kh, vh, attn_mask=band)
+    runs, lib_runs = [], []
+    for _ in range(2):
+        runs.append(cuda_ms(torch, lambda: swa_attn_bwd(
+            q, k, v, out, lse, dout, W), reps=3, warmup=1))
+        lib_runs.append(cuda_ms(torch, lambda: torch.autograd.grad(
+            lib_out, (qh, kh, vh), doh, retain_graph=True), reps=3,
+            warmup=1))
+    plain = cuda_ms(torch, lambda: swa_attn_bwd_ref(
+        q, k, v, out, lse, dout, window=W), reps=1, warmup=1)
+    del lib_out, qh, kh, vh, doh, band
+    ms, lib = sum(runs) / 2, sum(lib_runs) / 2
+    esz = q.element_size()
+    n_ops = 10 * hd * band_pairs(S, W) * H * B
+    peak = FP32_FLOP_PER_S if dtype == "float32" else BF16_FLOP_PER_S
+    b_ms, b_by = bound(esz * (4 * q.numel() + 2 * k.numel() + 2 * v.numel())
+                       + 4 * lse.numel(), n_ops, peak)
+    f_ms, f_by = bound(esz * (2 * q.numel() + k.numel() + v.numel())
+                       + 4 * lse.numel(), 4 * hd * band_pairs(S, W) * H * B,
+                       peak)
+    del q, k, v, dout, out, lse
+    f_err, f_margin = swa_err(torch, swa_attn_op, swa_attn_ref, shape, dev)
+    print(f"[kernels] swa_attn (the forward with lse) {shape[:6]} {dtype}: "
+          f"max_abs_err {f_err:.3e} ({f_margin:.3f} of the one-ulp bar) "
+          f"kernel_ms {fwd_lse:.4f} (without lse {fwd:.4f}) plain_ms "
+          f"{fwd_plain:.4f} library_ms (scaled_dot_product_attention, band "
+          f"mask) {fwd_lib:.4f} bound_ms {f_ms:.4f} ({f_by})", flush=True)
+    print(f"[kernels] swa_attn_bwd {shape[:6]} {dtype}: kernel_ms {ms:.4f} "
+          f"({runs[0]:.4f}, {runs[1]:.4f}) plain_ms {plain:.4f} library_ms "
+          f"(scaled_dot_product_attention backward, band mask) {lib:.4f} "
+          f"({lib_runs[0]:.4f}, {lib_runs[1]:.4f}); kernel / library "
+          f"{ms / lib:.3f}; bound_ms {b_ms:.4f} ({b_by}, {n_ops / 1e9:.1f} "
+          f"GFLOP at the {dtype} peak; {n_ops / FP32_FLOP_PER_S * 1e3:.3f} "
+          f"ms at the fp32 peak) achieved {n_ops / ms / 1e9:.2f} TFLOP/s; "
+          f"the forward {fwd:.4f} ms, with lse {fwd_lse:.4f} ms",
+          flush=True)
+    torch.cuda.empty_cache()
+    return dict(ms=ms, plain_ms=plain, library_ms=lib, bound_ms=b_ms,
+                bound_by=b_by, fwd_ms=fwd, fwd_lse_ms=fwd_lse,
+                fwd_max_abs_err=f_err, fwd_plain_ms=fwd_plain,
+                fwd_library_ms=fwd_lib, fwd_bound_ms=f_ms, fwd_bound_by=f_by)
+
+
+def long_kernel_rows(torch, dev):
+    """Phase 3 for the band's backward (phase 20, 18c): the edge shapes of
+    both forward bodies (``SWA_EDGES``, ``SWA_RG_EDGES``), then the
+    training shapes (``SWA_BWD_TRAIN``), each held by ``swa_bwd_err``;
+    the training shapes timed (``swa_bwd_timed``); the grad sketch at
+    phase 20's stage-A unit (``SKETCH_LONG``) -> {"swa_attn_bwd": {arch:
+    row}, "grad_sketch": row}, a row {max_abs_err, ms, plain_ms,
+    library_ms, bound_ms, bound_by}."""
+    from repro_torch.kernels.grad_sketch.ops import grad_sketch_units_op
+    from repro_torch.kernels.grad_sketch.ref import grad_sketch_units_ref
+
+    worst = [0.0, 0.0, 0.0]
+    for shape in SWA_EDGES + SWA_RG_EDGES:
+        got = swa_bwd_err(torch, shape, dev)
+        worst = [max(a, b) for a, b in zip(worst, got)]
+    print(f"[kernels] swa_attn_bwd at the {len(SWA_EDGES + SWA_RG_EDGES)} "
+          f"edge shapes of SWA_EDGES and SWA_RG_EDGES: max abs err "
+          f"{worst[0]:.3e}, {worst[1]:.3f} of the bar at most, "
+          f"{worst[2]:.2e} from autograd of the plain forward at most; the "
+          f"forward with lse bitwise the serving forward, two backward "
+          f"launches bitwise equal", flush=True)
+    out = {"swa_attn_bwd": {}}
+    for arch, shape in SWA_BWD_TRAIN:
+        err, margin, auto = swa_bwd_err(torch, shape, dev)
+        print(f"[kernels] swa_attn_bwd {shape} ({arch}): max abs err "
+              f"{err:.3e}, {margin:.3f} of the bar at most, {auto:.2e} "
+              f"from autograd of the plain forward; forward with lse "
+              f"bitwise the serving forward, two launches bitwise equal",
+              flush=True)
+        torch.cuda.empty_cache()
+        out["swa_attn_bwd"][arch] = dict(max_abs_err=err,
+                                         **swa_bwd_timed(torch, shape, dev))
+    e, k_ms, p_ms, b_ms, b_by = sketch_row(
+        torch, grad_sketch_units_op, grad_sketch_units_ref, SKETCH_LONG, 40,
+        dev, "starcoder2-3b at S 8,192", on_card=True)
+    out["grad_sketch"] = dict(max_abs_err=e, ms=k_ms, plain_ms=p_ms,
+                              library_ms=None, bound_ms=b_ms, bound_by=b_by)
+    torch.cuda.empty_cache()
+    return out
 
 
 def family_kernel_rows(torch, dev):
@@ -3820,6 +4182,240 @@ def family_phase(torch, np, dev, mark):
     return out
 
 
+class engine_spy:
+    """Within the block every ``EpochEngine`` that captures its step graph
+    is kept in ``self.engines`` (with ``kept_graphs``, its graph's kernel
+    nodes stay readable by ``graph_kernels``)."""
+
+    def __init__(self, engine_cls):
+        self.cls, self.engines = engine_cls, []
+
+    def __enter__(self):
+        orig, engines = self.cls._ensure_graph, self.engines
+        self.orig = orig
+
+        def ensure(eng):
+            orig(eng)
+            if eng._graph is not None and eng not in engines:
+                engines.append(eng)
+        self.cls._ensure_graph = ensure
+        return self
+
+    def __exit__(self, *exc):
+        self.cls._ensure_graph = self.orig
+
+
+#: the band's forward (bf16 wgmma body) and backward (one dk / dv kernel a
+#: call) in a captured graph
+BAND_MARKERS = {"swa_attn": "swa_attn_bf16_kernel",
+                "swa_attn_bwd": "swa_bwd_dkdv"}
+
+
+def long_phase(torch, np, dev, mark):
+    """Phase 20: long-context training through the band.  (a)
+    ``starcoder2-3b`` at full width and depth trained at S ``LONG_SEQ``
+    under PGM with group remat on the scan engine with resident rounds
+    (the warm start and one round): its peak memory, the band's forward
+    and backward launches in the step graph's nodes x its replays (two
+    forwards a local layer, the recompute, and one backward), one replayed
+    step under the profiler; (b) the same at ``LONG_REPEAT_LAYERS``
+    layers twice with one seed, bitwise, and resident stage A against
+    the host's (P7); (c) one step at ``LM_RESIDENT_LAYERS`` layers with
+    remat on and off:
+    loss and every gradient leaf bitwise equal, the remat peak lower;
+    (d) one layer at fp32 on one example of ``LONG_AGREE_S`` tokens
+    (past the band's start), card against CPU, per-example loss and
+    every gradient leaf at phase 4's bars.  -> {path: {kernel:
+    launches}}, a kernel of the step graph as (counted at the warm-ups
+    and the capture, nodes x replays)."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import PGMConfig, TrainConfig
+    from repro_torch.core.lastlayer import make_proj_for
+    from repro_torch.core.pgm import ResidentSelector
+    from repro_torch.launch.train import make_units_for
+    from repro_torch.models.api import build_model
+    from repro_torch.models.common import tree_leaves, tree_map
+    from repro_torch.train.engine import EpochEngine, to_device
+    from repro_torch.train.loop import train_with_selection
+
+    zero, read = launch_counters()
+    gb = lambda: torch.cuda.max_memory_allocated() / 1e9
+    out = {}
+    # (d)'s CPU side runs on the host while the card trains (a)-(c)
+    scratch = ROOT / "build" / "chip_smoke"
+    scratch.mkdir(parents=True, exist_ok=True)
+    long_cpu = cpu_side(long_agree_cpu, str(scratch / "20d_cpu.pt"))
+    arch = "starcoder2-3b"
+    cfg = get_config(arch)
+    require(LONG_SEQ > cfg.window + 1024 and LONG_AGREE_S > cfg.window + 1024,
+            "phase 20: its sequences do not reach the band")
+    pc = PGMConfig(subset_fraction=0.5, n_partitions=4, select_every=1,
+                   warm_start_epochs=1, val_matching=True)
+    tc = TrainConfig(lr=0.05, optimizer="sgd", epochs=2, seed=0, pgm=pc)
+    us_np, vs_np = make_units_for(cfg, n=LONG_UNIT * LONG_TRAIN_UNITS,
+                                  seq=LONG_SEQ, noise=0.0,
+                                  unit_size=LONG_UNIT)
+    vs_np = {k: v[:LONG_VAL_UNITS] for k, v in vs_np.items()}
+
+    # (a) full width and depth
+    bd = build_model(cfg)
+    L = cfg.layer_kinds().count("local")
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    zero()
+    ResidentSelector.captures = ResidentSelector.replays = 0
+    EpochEngine.captures = EpochEngine.replays = 0
+    torch.cuda.synchronize()
+    t0 = time.time()
+    with kept_graphs(torch), engine_spy(EpochEngine) as spy:
+        h = train_with_selection(
+            bd, us_np, tc, method="pgm", val_units=vs_np, device="cuda",
+            engine="scan", resident_selection=True,
+            params=card_init(torch, bd, dev),
+            log_fn=lambda m: print(f"[20a {arch} +{time.time() - t0:.1f}s] "
+                                   f"{m}", flush=True))
+    torch.cuda.synchronize()
+    secs, peak = time.time() - t0, gb()
+    counted = read()
+    replays = EpochEngine.replays
+    require(len(spy.engines) == 1, f"20a: {len(spy.engines)} step graphs")
+    eng = spy.engines[0]
+    nodes = graph_kernels(eng._graph, BAND_MARKERS)
+    want = {"swa_attn": 2 * L, "swa_attn_bwd": L}
+    ran = {n: v * replays for n, v in nodes.items()}
+    steps = EpochEngine.WARMUP_STEPS + 1
+    n_par = sum(x.numel() for x in tree_leaves(h.final_params))
+    print(f"[20a] {arch} at full width and depth ({cfg.n_layers} layers, "
+          f"{n_par:,} params), group remat, S {LONG_SEQ}: "
+          f"{LONG_TRAIN_UNITS} units of {LONG_UNIT} x {LONG_SEQ} tokens, "
+          f"{LONG_VAL_UNITS} validation units, 2 epochs, scan engine, "
+          f"resident rounds: {secs:.1f} s ({h.wall_time:.1f} s after the "
+          f"init); rounds {[round(x['seconds'], 3) for x in h.selections]} "
+          f"s; stage-A captures {ResidentSelector.captures}; step captures "
+          f"{EpochEngine.captures}, replays {replays}; losses train "
+          f"{[round(x, 4) for x in h.train_loss]} val "
+          f"{[round(x, 4) for x in h.val_loss]}; peak device memory "
+          f"{peak:.2f} GB; the step graph's band nodes {nodes} (want "
+          f"{want}: a forward, its recompute and a backward a local layer) "
+          f"x {replays} replays = {ran}; launches counted (warm-ups, "
+          f"captures, validation and stage-A forwards) {counted}",
+          flush=True)
+    require(nodes == want, f"20a: the step graph holds {nodes} band "
+                           f"kernels, not {want}")
+    require(len(h.selections) == 1 and len(h.train_loss) == 2
+            and all(np.isfinite(h.train_loss + h.val_loss)),
+            "20a: the run did not finish its round and epochs")
+    require(counted["swa_attn_bwd"] == L * steps
+            and counted["grad_sketch"] > 0 and counted["omp_gram"] > 0
+            and counted["swa_attn"] > 0,
+            f"20a: launches counted {counted}, not {L} x {steps} band "
+            f"backwards in the warm-up steps and the capture, and the "
+            f"selection kernels")
+    out[f"{arch}-long"] = {
+        "swa_attn": (counted["swa_attn"], ran["swa_attn"]),
+        "swa_attn_bwd": (counted["swa_attn_bwd"], ran["swa_attn_bwd"]),
+        "grad_sketch": counted["grad_sketch"],
+        "omp_gram": counted["omp_gram"]}
+    # one replayed step (one plan row) under the profiler
+    idx, w = eng.full_plan(5)
+    row = (idx[:1].copy(), w[:1].copy())
+    profile_call(torch, lambda: eng.run_epoch(eng.params, eng.opt_state,
+                                              tc.lr, row),
+                 "20a", f"{arch} one replayed step (B {LONG_UNIT} x "
+                        f"{LONG_SEQ}, full depth, remat)")
+    del h, eng, spy, nodes
+    gc.collect()
+    torch.cuda.empty_cache()
+    mark(f"20a {arch} trained at full width and depth, S {LONG_SEQ}")
+
+    # (b) at LONG_REPEAT_LAYERS twice, P7
+    b2 = build_model(dataclasses.replace(cfg, n_layers=LONG_REPEAT_LAYERS))
+    params, n_run = train_twice(
+        torch, np, b2, us_np, vs_np, tc, dev, "20b", f", S {LONG_SEQ}, "
+        f"remat", zero, read, gb,
+        ("grad_sketch", "omp_gram", "swa_attn", "swa_attn_bwd"))
+    out[f"{arch}-long-{LONG_REPEAT_LAYERS}"] = {
+        k: n_run[k] for k in ("swa_attn", "swa_attn_bwd", "grad_sketch",
+                              "omp_gram")}
+    us, vs = to_device(us_np, dev), to_device(vs_np, dev)
+    proj = make_proj_for(b2, torch.Generator().manual_seed(0),
+                         pc.sketch_dim_h, pc.sketch_dim_v, dev)
+    sel, _, err, same, bitwise, cnt = resident_against_host(
+        torch, b2, pc, params, us, vs, proj, read)
+    print(f"[20b] {arch} ({LONG_REPEAT_LAYERS} layers): resident stage A "
+          f"against host units_gradients on the trained params: max err "
+          f"{err:.2e} of the largest entry (1e-5); same subsets and weights "
+          f"(1e-4): {same}; two replays bitwise equal: {bitwise}; launches "
+          f"counted at the warm-ups and captures {cnt}", flush=True)
+    require(err <= 1e-5 and same and bitwise,
+            "20b: resident stage A disagrees with the host's")
+    del sel, proj, params, b2
+    gc.collect()
+    torch.cuda.empty_cache()
+    mark(f"20b {arch} at {LONG_REPEAT_LAYERS} layers twice, P7")
+
+    # (c) remat on against off, one step
+    b6 = build_model(dataclasses.replace(cfg, n_layers=LM_RESIDENT_LAYERS))
+    p6 = card_init(torch, b6, dev)
+    batch = {k: v[0] for k, v in us.items()}
+    runs = {}
+    for remat in (True, False):
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        live = tree_map(lambda x: x.detach().requires_grad_(True), p6)
+        total, _ = b6.loss_fn(live, batch, remat=remat)
+        grads = torch.autograd.grad(total, tree_leaves(live))
+        torch.cuda.synchronize()
+        runs[remat] = (total.detach(), grads,
+                       (torch.cuda.max_memory_allocated() - base) / 1e9)
+        del live, total, grads
+    same = (bool(torch.equal(runs[True][0], runs[False][0]))
+            and all(bool(torch.equal(a, b))
+                    for a, b in zip(runs[True][1], runs[False][1])))
+    print(f"[20c] {arch} ({LM_RESIDENT_LAYERS} layers), one step on {LONG_UNIT} "
+          f"x {LONG_SEQ} tokens: loss and all {len(runs[True][1])} gradient "
+          f"leaves bitwise equal with remat on and off: {same}; peak above "
+          f"the params {runs[True][2]:.2f} GB with remat, "
+          f"{runs[False][2]:.2f} GB without", flush=True)
+    require(same and runs[True][2] < runs[False][2],
+            "20c: remat changed the step's bits or did not lower its peak")
+    del runs, p6, batch, us, vs, b6
+    gc.collect()
+    torch.cuda.empty_cache()
+    mark("20c remat on against off")
+
+    # (d) one layer at fp32, one example past the band's start, card
+    # against CPU (its CPU side started with the phase)
+    b1, p_cpu, batch = long_agree_setup(torch)
+    res = {"cuda": long_agree_side(torch, b1, p_cpu, batch, dev)}
+    path = long_cpu.result()
+    res["cpu"] = torch.load(path)
+    os.remove(path)
+    loss_rel = float(((res["cuda"][0] - res["cpu"][0]).abs()
+                      / res["cpu"][0].abs()).max())
+    grad_rel = max(float((a - b).abs().max() / b.abs().max())
+                   for a, b in zip(res["cuda"][1], res["cpu"][1]))
+    print(f"[20d] {arch} at full width, 1 layer, fp32, one example of "
+          f"{LONG_AGREE_S} tokens (the band from {cfg.window + 1025}): loss "
+          f"rel err {loss_rel:.2e}, every one of {len(res['cpu'][1])} "
+          f"gradient leaves within {grad_rel:.2e} of its largest entry "
+          f"(card {res['cuda'][2]:.1f} s vs CPU {res['cpu'][2]:.1f} s)",
+          flush=True)
+    require(all(bool(torch.isfinite(g).all()) for g in res["cuda"][1])
+            and loss_rel < 1e-4 and grad_rel < 1e-3,
+            "20d: card and CPU disagree on the training step through the "
+            "band")
+    del res, p_cpu, b1
+    gc.collect()
+    torch.cuda.empty_cache()
+    mark("20d card against CPU at one layer")
+    return out
+
+
 def train_with_selection_logged(bundle, units, tc, val_units, logs, tag, t0,
                                 **kw):
     """Phase 5's run (the host engine) with options, its log lines
@@ -3902,6 +4498,8 @@ def main() -> None:
     mark("build")
 
     # -- 3. kernels against their plain versions ------------------------
+    # (phase 4's RWKV unit runs its CPU side meanwhile, on the host)
+    rwkv_cpu = cpu_side(rwkv_agree_cpu)
     cfg = get_config("rnnt-crdnn")
     r = cfg.rnnt
     T_main = CORPUS["max_tokens"] * CORPUS["frames_per_token"] // 4
@@ -4053,8 +4651,12 @@ def main() -> None:
     # the encoder-decoder and VLM families' shapes (phase 19): the grad
     # sketch at both archs' stage-A units (V off the 128-wide tile)
     family_rows = family_kernel_rows(torch, dev)
-
+    # long-context training (phase 20, 18c): the band's backward at the
+    # edge and training shapes, the grad sketch at phase 20's unit
     mark("kernels")
+    long_rows = long_kernel_rows(torch, dev)
+
+    mark("kernels, the band's backward")
 
     # -- 4. agreement: one full-width unit, card kernels vs CPU plain ----
     bundle = build_model(cfg)
@@ -4161,43 +4763,21 @@ def main() -> None:
     del p_cpu, lm2
 
     rw_cfg = get_config("rwkv6-3b")
-    cfg3 = dataclasses.replace(rw_cfg, n_layers=AGREE_LAYERS,
-                               compute_dtype="float32")
-    rw2 = build_model(cfg3)
+    rw2, p_cpu, proj_cpu, unit = rwkv_agree_setup(torch)
     rw_units, rw_val = make_units_for(rw_cfg, n=LM_N, seq=LM_SEQ, noise=0.0)
-    gen = torch.Generator().manual_seed(0)
-    p_cpu = rw2.init_params(gen, torch.device("cpu"))
-    proj_cpu = make_projections(gen, rw_cfg.d_model, rw_cfg.vocab_size)
-    unit = {k: torch.as_tensor(v[:1]) for k, v in rw_units.items()}
-    out = {}
-    for where in ("cpu", "cuda"):
-        on = torch.device("cpu") if where == "cpu" else dev
-        p = tree_map(lambda x: x.detach().to(on).requires_grad_(True),
-                     p_cpu)
-        pr = type(proj_cpu)(*(x.to(on) for x in proj_cpu))
-        u = {k: v.to(on) for k, v in unit.items()}
-        t_a = time.time()
-        # per-example loss and its mean's gradient in one pass (the
-        # weighted loss with unit weights)
-        loss = rw2.per_example_loss(p, {k: v[0] for k, v in u.items()})
-        loss.mean().backward()
-        tm = p["stack"]["groups"][0]["tmix"]
-        grads = {k: v.grad[0].cpu() for k, v in tm.items()}
-        if where == "cuda":
-            torch.cuda.synchronize()
-            held = torch.cuda.memory_allocated()
-        sk = units_gradients(rw2, p, u, pr)
-        if where == "cuda":
-            # stage A copies the untied (d, V) head to (V, d) rows once a
-            # unit (671 MB at full width); the copy must not outlive it
-            torch.cuda.synchronize()
-            kept = torch.cuda.memory_allocated() - held
-            require(kept < 1e6, f"stage A kept {kept} bytes on the card "
-                                f"after the unit")
-        out[where] = (loss.detach().cpu(), sk.cpu(), grads,
-                      time.time() - t_a)
-        # the loss's graph holds the leaves (and their grads) alive
-        del p, tm, loss, sk, pr, u
+
+    def stage_a_keeps(held=None):
+        # stage A copies the untied (d, V) head to (V, d) rows once a
+        # unit (671 MB at full width); the copy must not outlive it
+        torch.cuda.synchronize()
+        if held is None:
+            return torch.cuda.memory_allocated()
+        kept = torch.cuda.memory_allocated() - held
+        require(kept < 1e6, f"stage A kept {kept} bytes on the card after "
+                            f"the unit")
+    out = {"cuda": rwkv_agree_side(torch, rw2, p_cpu, proj_cpu, unit, dev,
+                                   stage_a_keeps),
+           "cpu": rwkv_cpu.result()}
     require(bool(torch.isfinite(out["cuda"][0]).all())
             and bool(torch.isfinite(out["cuda"][1]).all())
             and all(bool(torch.isfinite(g).all())
@@ -4269,41 +4849,21 @@ def main() -> None:
     require(all(len(s["indices"]) == n_units // 2 for s in hist.selections),
             "selection budget")
 
-    # F3: the same main path again, same seed, for REPEAT_EPOCHS epochs,
-    # its launches counted apart from the first run's: those epochs'
-    # losses and their round's subset and weights must come out the same
+    # F3 is held by phase 4's two training gradients and by the same-seed
+    # repeats of 14a, 15a, 18c, 19a and 20b (phase 5's host-engine repeat
+    # of its first two epochs, 30.6 s, went to pay for phase 20)
     first = rnnt_run_record(hist)
-    rnnt_lattice_op.launches = 0
-    omp_gram_batched_op.launches = 0
-    torch.cuda.synchronize()
-    t0 = time.time()
-    hist2 = train_with_selection(
-        bundle, units, dataclasses.replace(tc, epochs=REPEAT_EPOCHS),
-        method="pgm", val_units=val_units, device="cuda",
-        engine="host", log_fn=lambda s: print(f"[main again +{time.time() - t0:.1f}s] {s}",
-                               flush=True))
-    torch.cuda.synchronize()
-    again_launches = {"rnnt_lattice": rnnt_lattice_op.launches,
-                      "omp_gram": omp_gram_batched_op.launches}
-    same_run = rnnt_run_record(hist2) == run_prefix(first)
-    print(f"[main again] the RNN-T main path a second time with seed "
-          f"{tc.seed}, {REPEAT_EPOCHS} epochs: {time.time() - t0:.1f} s; "
-          f"launches {again_launches}; every epoch's train and val loss and "
-          f"the round's indices and weights equal to the first run's: "
-          f"{same_run}", flush=True)
-    require(same_run, f"two RNN-T main paths of one seed differ: "
-                      f"{run_prefix(first)} against {rnnt_run_record(hist2)}")
-    del hist2
 
-    # two stage-A rounds on the trained params (outside the counted run)
+    # a stage-A round on the trained params (outside the counted run; 15b
+    # replays resident stage A twice, bitwise)
     stage_a_rounds(torch, bundle, hist.final_params, units, val_units, tc.pgm,
-                   dev, "rnnt")
+                   dev, "rnnt", rounds=1)
 
     mark("main path, RNN-T")
 
     # -- 6. the reference's own loop: preemption and resume, the guard,
     # the dense loss, exact stage B, greedy decode and TER, the twin ----
-    loop_launches, exact_gram, twin_host = reference_loop(
+    loop_launches, exact_gram = reference_loop(
         torch, np, bundle, tc, units, val_units, val_corpus, first,
         hist.final_params, dev, mark)
 
@@ -4486,7 +5046,7 @@ def main() -> None:
                    "omp_gram": (omp_gram_batched_op, "launches")}
     scan_launches, scan_counted, rec_14a = scan_engine_phase(
         torch, np, bundle, tc, units, val_units, first, eager_step,
-        twin_host, {"lm": (lm_cfg, lm_units, lm_val, sketch_gram),
+        {"lm": (lm_cfg, lm_units, lm_val, sketch_gram),
                     "rwkv": (rw_cfg, rw_units, rw_val, dict(
                         sketch_gram,
                         rwkv6_wkv=(rwkv6_wkv_op, "launches"),
@@ -4528,6 +5088,13 @@ def main() -> None:
     torch.cuda.empty_cache()
     family = family_phase(torch, np, dev, mark)
 
+    # -- 20. long-context training through the band: starcoder2-3b at
+    # full width and depth at S 8,192 with group remat, repeated at 6
+    # layers, remat on against off, one layer card against CPU ---------
+    gc.collect()
+    torch.cuda.empty_cache()
+    long = long_phase(torch, np, dev, mark)
+
     g_err, g_ms, g_plain, g_lib, g_bound, g_by = \
         gram_rows[(P_main, n_units // P_main, D_sk)]
     print(f"[launches] RNN-T path {launches}, its preempted and resumed "
@@ -4539,8 +5106,9 @@ def main() -> None:
           f"round, counted at the warm-ups and captures) {resident}, the "
           f"dense archs (phase 16) {dense}, the MoE archs (phase 17) {moe}, "
           f"the recurrent families (phase 18) {hybrid}, the encoder-decoder "
-          f"and VLM families (phase 19) {family}",
-          flush=True)
+          f"and VLM families (phase 19) {family}, long-context training "
+          f"(phase 20; a step-graph kernel as (counted, nodes x replays)) "
+          f"{long}", flush=True)
     # one row per kernel and main path, "launches" from that path's run;
     # the Gram's stage-B shape (4, 4, 4096) is the same on both paths
     gram = {"name": "omp_gram_batched", "route": "cuda",
@@ -4658,7 +5226,7 @@ def main() -> None:
         source="src/repro_torch/kernels/swa_attn/csrc/swa_attn.cu",
         replaces="src/repro/kernels/swa_attn/kernel.py:79",
         launches=moe["serve-mixtral-8x7b"]["swa_attn"]))
-    for arch, _ in MOE_TRAIN:
+    for arch, _, _ in MOE_TRAIN:
         got = moe[f"{arch}-resident"]
         kernels.append(dict(
             moe_rows["grad_sketch"][arch], name="grad_sketch_units",
@@ -4714,6 +5282,48 @@ def main() -> None:
             replaces="src/repro/kernels/grad_sketch/kernel.py:128",
             launches=got["grad_sketch"]))
         kernels.append(dict(gram, path=path, launches=got["omp_gram"]))
+    # the band's backward (no pallas_call: it replaces jax.grad of the
+    # reference's band gather) and the forward that writes lse, on the
+    # training paths through the band: 18c (recurrentgemma-9b, the first
+    # resident run's counts) and phase 20's full-depth run (a kernel of
+    # the step graph with the warm-ups' and capture's launches plus its
+    # graph's nodes x replays, "counted" the first) and its 6-layer runs
+    swa_src = "src/repro_torch/kernels/swa_attn/csrc/swa_attn.cu"
+    for path, arch, got in (
+            ("recurrentgemma-9b-resident", "recurrentgemma-9b",
+             hybrid["recurrentgemma-9b-resident"]),
+            ("starcoder2-3b-long", "starcoder2-3b",
+             long["starcoder2-3b-long"]),
+            (f"starcoder2-3b-long-{LONG_REPEAT_LAYERS}", "starcoder2-3b",
+             long[f"starcoder2-3b-long-{LONG_REPEAT_LAYERS}"])):
+        r = long_rows["swa_attn_bwd"][arch]
+        for name, launched in (("swa_attn_bwd", got["swa_attn_bwd"]),
+                               ("swa_attn", got["swa_attn"])):
+            counted, graph = (launched if isinstance(launched, tuple)
+                              else (launched, 0))
+            fwd = name == "swa_attn"
+            kernels.append({
+                "name": name, "path": path, "route": "cuda",
+                "source": swa_src,
+                "replaces": ("src/repro/kernels/swa_attn/kernel.py:79" if fwd
+                             else "jax.grad of src/repro/models/"
+                                  "attention.py:_mha_band"),
+                "launches": counted + graph, "counted": counted,
+                "max_abs_err": r["fwd_max_abs_err" if fwd else "max_abs_err"],
+                "ms": r["fwd_lse_ms" if fwd else "ms"],
+                "plain_ms": r["fwd_plain_ms" if fwd else "plain_ms"],
+                "bound_ms": r["fwd_bound_ms" if fwd else "bound_ms"],
+                "bound_by": r["fwd_bound_by" if fwd else "bound_by"],
+                "library_ms": r["fwd_library_ms" if fwd else "library_ms"]})
+    got = long["starcoder2-3b-long"]
+    kernels.append(dict(
+        long_rows["grad_sketch"], name="grad_sketch_units",
+        path="starcoder2-3b-long", route="cuda",
+        source="src/repro_torch/kernels/grad_sketch/csrc/grad_sketch.cu",
+        replaces="src/repro/kernels/grad_sketch/kernel.py:128",
+        launches=got["grad_sketch"]))
+    kernels.append(dict(gram, path="starcoder2-3b-long",
+                        launches=got["omp_gram"]))
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {
@@ -4786,7 +5396,8 @@ def phase_alone(phase: int) -> None:
         rows_of, phase_of = {16: (dense_kernel_rows, dense_phase),
                              17: (moe_kernel_rows, moe_phase),
                              18: (hybrid_kernel_rows, hybrid_phase),
-                             19: (family_kernel_rows, family_phase)}[phase]
+                             19: (family_kernel_rows, family_phase),
+                             20: (long_kernel_rows, long_phase)}[phase]
         print(f"[kernels] {rows_of(torch, dev)}", flush=True)
         out = phase_of(torch, np, dev, mark)
     print(f"[launches] phase {phase} {out}", flush=True)
@@ -4796,8 +5407,8 @@ def phase_alone(phase: int) -> None:
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--phase"]:
         require(len(sys.argv) == 3 and sys.argv[2] in ("15", "16", "17",
-                                                      "18", "19"),
-                "usage: chip_smoke.py [--phase 15|16|17|18|19]")
+                                                      "18", "19", "20"),
+                "usage: chip_smoke.py [--phase 15|16|17|18|19|20]")
         phase_alone(int(sys.argv[2]))
     else:
         require(len(sys.argv) == 1, "usage: chip_smoke.py [--phase N]")

@@ -59,7 +59,7 @@ from repro_torch.models.common import tree_map
 def lm_unit_factors(bundle, params, batch):
     """-> (h (N,d) fp32, targets (N,), scale (N,) fp32), N = B*(S-1)."""
     with torch.no_grad():
-        h, targets, mask = bundle.final_hidden(params, batch)
+        h, targets, mask = bundle.final_hidden(params, batch, remat=False)
     B = h.shape[0]
     denom = torch.clamp(mask.sum(dim=-1, keepdim=True), min=1.0)
     scale = (mask / (denom * B)).to(torch.float32)
@@ -406,7 +406,8 @@ def units_gradients_batched(bundle, params, units,
     out = []
     for chunk in _chunks(units, cu):
         with torch.no_grad():
-            h, targets, mask = bundle.final_hidden(params, _flat(chunk))
+            h, targets, mask = bundle.final_hidden(params, _flat(chunk),
+                                                   remat=False)
         n, d = b * h.shape[1], h.shape[-1]
         denom = torch.clamp(mask.sum(dim=-1, keepdim=True), min=1.0)
         scale = (mask / (denom * b)).to(torch.float32)

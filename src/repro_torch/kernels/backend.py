@@ -39,6 +39,7 @@ SOURCES = {
     "grad_sketch": _KERNELS_DIR / "grad_sketch" / "csrc" / "grad_sketch.cu",
     "rwkv6_wkv": _KERNELS_DIR / "rwkv6_scan" / "csrc" / "rwkv6_wkv.cu",
     "swa_attn": _KERNELS_DIR / "swa_attn" / "csrc" / "swa_attn.cu",
+    "swa_attn_bwd": _KERNELS_DIR / "swa_attn" / "csrc" / "swa_attn_bwd.cu",
 }
 
 _LIBS: Dict[str, ctypes.CDLL] = {}

@@ -10,7 +10,10 @@
 //
 // with an online softmax (m, l, acc) over the key tiles, p kept in fp32
 // for p . v (as swa_attn_ref and the TPU kernel), and the output written
-// as acc / max(l, 1e-30) in q's dtype.
+// as acc / max(l, 1e-30) in q's dtype.  Given an lse buffer (B, S, KV, G)
+// fp32, both bodies also write each row's m + log l (natural units; NEG,
+// -1e30, for a row with no valid key), which the backward in
+// swa_attn_bwd.cu reads; the output's bits do not depend on it.
 //
 // Layout: the port's, read in place.  q and o are (B, S, KV, G, hd), k
 // and v (B, S, KV, hd); head h = kv * G + g reads its KV group's k and v
@@ -97,8 +100,8 @@ template <int HD>
 __global__ void __launch_bounds__(THREADS)
 swa_attn_kernel(const float* __restrict__ q, const float* __restrict__ k,
                 const float* __restrict__ v, const int* __restrict__ lengths,
-                float* __restrict__ o, int S, int KV, int G, int window,
-                float scale) {
+                float* __restrict__ o, float* __restrict__ lse, int S, int KV,
+                int G, int window, float scale) {
     constexpr int DPT = HD / 16;            // p . v output columns a thread
     extern __shared__ __align__(16) float smem[];
     float* Qt = smem;                       // [HD][LDT]   q tile, transposed
@@ -242,6 +245,9 @@ swa_attn_kernel(const float* __restrict__ q, const float* __restrict__ k,
             li += __shfl_xor_sync(0xffffffffu, li, off);
         const int s = q0 + ty * 4 + i;
         if (s >= S) continue;
+        if (lse != nullptr && tx == 0)      // a row with no valid key: NEG
+            lse[((size_t)b * S + s) * H + head] =
+                li > 0.0f ? m[i] + logf(li) : NEG;
         const float inv = 1.0f / fmaxf(li, 1e-30f);
 #pragma unroll
         for (int c = 0; c < DPT; ++c)
@@ -476,7 +482,8 @@ swa_attn_bf16_kernel(const __grid_constant__ CUtensorMap kmap,
                      const __grid_constant__ CUtensorMap vmap,
                      const bf16* __restrict__ q,
                      const int* __restrict__ lengths, bf16* __restrict__ o,
-                     int S, int KV, int G, int window, float scale_log2) {
+                     float* __restrict__ lse, int S, int KV, int G,
+                     int window, float scale_log2) {
     constexpr int NWG = BandTile<HD>::NWG;
     constexpr int BQ = BandTile<HD>::BQ;
     constexpr int KV_STAGES = BandTile<HD>::STAGES;
@@ -518,6 +525,9 @@ swa_attn_bf16_kernel(const __grid_constant__ CUtensorMap kmap,
                 *reinterpret_cast<uint4*>(ob + (size_t)s * q_row
                                           + (e % CH) * 8) = zero;
         }
+        if (lse != nullptr)
+            for (int r = tid; r < BQ; r += TC_THREADS)
+                if (q0 + r < S) lse[((size_t)b * S + q0 + r) * H + head] = NEG;
         return;
     }
     const int q_last = min(q0 + BQ, n) - 1;
@@ -697,6 +707,10 @@ swa_attn_bf16_kernel(const __grid_constant__ CUtensorMap kmap,
         const float den = fmaxf(lr, 1e-30f);
         const int s = rows[r];
         if (s >= S) continue;
+        // m is in log2 units: lse = (m + log2 l) ln 2
+        if (lse != nullptr && tq == 0)
+            lse[((size_t)b * S + s) * H + head] =
+                lr > 0.0f ? (m[r] + log2f(lr)) * 0.6931471805599453f : NEG;
         bf16* orow = ob + (size_t)s * q_row + 2 * tq;
 #pragma unroll
         for (int d = 0; d < HD / 8; ++d)
@@ -749,8 +763,8 @@ bool kv_map(CUtensorMap* map, const void* ptr, int B, int S, int KV, int hd) {
 
 template <int HD>
 int launch_bf16(const void* q, const void* k, const void* v,
-                const int* lengths, void* o, int B, int S, int KV, int G,
-                int window, float scale, cudaStream_t stream) {
+                const int* lengths, void* o, float* lse, int B, int S, int KV,
+                int G, int window, float scale, cudaStream_t stream) {
     constexpr int HDP = HD < 64 ? 64 : HD;
     constexpr int BQ = BandTile<HD>::BQ;
     constexpr int KV_STAGES = BandTile<HD>::STAGES;
@@ -768,15 +782,15 @@ int launch_bf16(const void* q, const void* k, const void* v,
     if (err != cudaSuccess) return (int)err;
     const dim3 grid(KV * G, B, n_qt);
     swa_attn_bf16_kernel<HD><<<grid, BandTile<HD>::NTHREADS, smem, stream>>>(
-        kmap, vmap, (const bf16*)q, lengths, (bf16*)o, S, KV, G, window,
+        kmap, vmap, (const bf16*)q, lengths, (bf16*)o, lse, S, KV, G, window,
         scale * 1.4426950408889634f);
     return (int)cudaGetLastError();
 }
 
 template <int HD>
 int launch_fp32(const void* q, const void* k, const void* v,
-                const int* lengths, void* o, int B, int S, int KV, int G,
-                int window, float scale, cudaStream_t stream) {
+                const int* lengths, void* o, float* lse, int B, int S, int KV,
+                int G, int window, float scale, cudaStream_t stream) {
     const int smem = (2 * HD * LDT + TK * LDT) * (int)sizeof(float);
     cudaError_t err = cudaFuncSetAttribute(
         swa_attn_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -785,20 +799,21 @@ int launch_fp32(const void* q, const void* k, const void* v,
     const dim3 grid((S + TQ - 1) / TQ, KV * G, B);
     swa_attn_kernel<HD><<<grid, THREADS, smem, stream>>>(
         (const float*)q, (const float*)k, (const float*)v, lengths, (float*)o,
-        S, KV, G, window, scale);
+        lse, S, KV, G, window, scale);
     return (int)cudaGetLastError();
 }
 
 int dispatch_hd(int hd, int dtype, const void* q, const void* k,
-                const void* v, const int* lengths, void* o, int B, int S,
-                int KV, int G, int window, float scale, cudaStream_t stream) {
+                const void* v, const int* lengths, void* o, float* lse, int B,
+                int S, int KV, int G, int window, float scale,
+                cudaStream_t stream) {
 #define SWA_CASE(HD)                                                        \
     case HD:                                                                \
         return dtype == 0                                                   \
-            ? launch_fp32<HD>(q, k, v, lengths, o, B, S, KV, G, window,     \
-                               scale, stream)                               \
-            : launch_bf16<HD>(q, k, v, lengths, o, B, S, KV, G, window,     \
-                              scale, stream);
+            ? launch_fp32<HD>(q, k, v, lengths, o, lse, B, S, KV, G,        \
+                               window, scale, stream)                       \
+            : launch_bf16<HD>(q, k, v, lengths, o, lse, B, S, KV, G,        \
+                              window, scale, stream);
     switch (hd) {
         SWA_CASE(16)
         SWA_CASE(32)
@@ -812,14 +827,15 @@ int dispatch_hd(int hd, int dtype, const void* q, const void* k,
 
 }  // namespace
 
-// dtype 0: fp32, 1: bf16.  lengths may be null (every row holds S).
+// dtype 0: fp32, 1: bf16.  lengths may be null (every row holds S); lse
+// (B, S, KV, G) fp32 may be null (not written).
 extern "C" int swa_attn_launch(const void* q, const void* k, const void* v,
-                               const int* lengths, void* o, int B, int S,
-                               int KV, int G, int hd, int window, float scale,
-                               int dtype, void* stream) {
+                               const int* lengths, void* o, float* lse, int B,
+                               int S, int KV, int G, int hd, int window,
+                               float scale, int dtype, void* stream) {
     if (B <= 0 || S <= 0 || KV <= 0 || G <= 0 || window <= 0)
         return (int)cudaErrorInvalidValue;
     if (dtype != 0 && dtype != 1) return (int)cudaErrorInvalidValue;
-    return dispatch_hd(hd, dtype, q, k, v, lengths, o, B, S, KV, G, window,
-                       scale, (cudaStream_t)stream);
+    return dispatch_hd(hd, dtype, q, k, v, lengths, o, lse, B, S, KV, G,
+                       window, scale, (cudaStream_t)stream);
 }

@@ -1,10 +1,11 @@
-"""Wrapper of the sliding-window attention kernel: CUDA tensors launch
-the Hopper kernel (``csrc/swa_attn.cu``), CPU tensors take the plain band
-gather (``ref.py:swa_attn_ref``).  Consumed by
-``models/attention.py:_mha_band``, the branch every local layer of a
-prefill (or forward) with ``S > window + 1024`` takes.
+"""Wrapper of the sliding-window attention kernels: CUDA tensors launch
+the Hopper kernels (``csrc/swa_attn.cu``, the backward in
+``csrc/swa_attn_bwd.cu``), CPU tensors take the plain
+band gather (``ref.py``).  Consumed by ``models/attention.py:_mha_band``,
+the branch every local layer of a training or prefill forward with ``S >
+window + 1024`` takes.
 
-The kernel replaces the Pallas TPU kernel
+The forward kernel replaces the Pallas TPU kernel
 ``src/repro/kernels/swa_attn/kernel.py:swa_attn``.  It is bound by
 operations on the card (4 hd FLOP per (query, key) pair of the band).
 bf16 inputs (the serving path) run on the tensor cores: one block per
@@ -15,15 +16,28 @@ stages, an fp32 online softmax, and p split into bf16 hi + lo for p . v
 so that p keeps fp32 accuracy; at head dim 256 (recurrentgemma-9b) a
 block takes 128 q rows in two warpgroups and a ring of 2 K/V stages, to
 fit its registers and shared memory.  fp32 inputs run an fp32 SIMT body
-(the note in the source has the details).
+(the note in the source has the details).  When autograd needs it, the
+forward also writes each row's fp32 logsumexp; the output is the same
+bits either way.
 
-It computes the forward only, as the TPU kernel does.  Its autograd
-function refuses a backward: training through the band on the card
-needs a backward kernel (ROADMAP.md queue 1, item 7: long-context
-training), and nothing falls back to the plain version.
+The backward kernel has no TPU counterpart: the reference differentiates
+its XLA band gather with ``jax.grad``.  It computes the gradient of the
+port's forward (p fp32 for p . v) in three launches: D = rowsum(dout *
+out), dq over each q tile's band, and dk / dv over each key tile's
+queries with the G heads of a KV head summed in the block, so nothing is
+summed by atomics and two launches agree bit for bit.  bf16 inputs at
+head dims up to 128 run the products on the tensor cores (``mma.sync``,
+p and ds split into bf16 hi + lo), fp32 inputs and head dim 256 an fp32
+SIMT body.  10 hd FLOP a (query, key) pair and query head.
 
-``swa_attn_op.launches`` counts kernel launches (never plain-path
-calls).
+``_SWA`` is the one autograd function on both devices: its forward is
+the kernel or ``swa_attn_fwd_ref``, its backward the kernel or
+``swa_attn_bwd_ref``.  A card tensor always launches a kernel; a failed
+build or launch raises, and nothing falls back to the plain version.
+
+``swa_attn_op.launches`` counts forward launches and
+``swa_attn_op.bwd_launches`` backward calls (three kernels each), never
+plain-path calls.
 """
 from __future__ import annotations
 
@@ -32,7 +46,8 @@ import ctypes
 import torch
 
 from repro_torch.kernels import backend
-from repro_torch.kernels.swa_attn.ref import attn_scale, swa_attn_ref
+from repro_torch.kernels.swa_attn.ref import (attn_scale, swa_attn_bwd_ref,
+                                              swa_attn_fwd_ref)
 
 NAME = "swa_attn"
 HEAD_DIMS = (16, 32, 64, 128, 256)
@@ -41,14 +56,23 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 def _launcher():
     fn = backend.library(NAME).swa_attn_launch
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 \
+    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 \
         + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
 
-def _launch(q, k, v, lengths, window: int) -> torch.Tensor:
-    """One launch on card tensors, after checking what the kernel takes."""
+def _bwd_launcher():
+    fn = backend.library("swa_attn_bwd").swa_attn_bwd_launch
+    fn.argtypes = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 6 \
+        + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def _check(q, k, v, lengths, window: int) -> None:
+    """What the kernels take: q, k, v of one dtype, the port's layout,
+    a head dim they are built for, contiguous, per-row int32 lengths."""
     if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError(f"{NAME}: takes q, k, v all float32 or all "
                         f"bfloat16; got {q.dtype}, {k.dtype}, {v.dtype}")
@@ -72,40 +96,102 @@ def _launch(q, k, v, lengths, window: int) -> torch.Tensor:
             raise ValueError(f"{NAME}: lengths must be a contiguous (B,) "
                              f"int32 tensor")
         backend.on_card(q, lengths)
+
+
+def _ptr(t):
+    return None if t is None else t.data_ptr()
+
+
+def _launch(q, k, v, lengths, window: int, with_lse: bool = False):
+    """One forward launch on card tensors -> (out, lse (B,S,KV,G) fp32
+    when ``with_lse``, else None)."""
+    _check(q, k, v, lengths, window)
+    B, S, KV, G, hd = q.shape
     out = torch.empty_like(q)
+    lse = (torch.empty((B, S, KV, G), dtype=torch.float32, device=q.device)
+           if with_lse else None)
     if out.numel() == 0:
-        return out
+        return out, lse
     status = _launcher()(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(),
-        None if lengths is None else lengths.data_ptr(), out.data_ptr(),
-        B, S, KV, G, hd, int(window), float(attn_scale(hd)),
-        _DTYPES[q.dtype], backend.stream_handle(q.device))
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(lengths),
+        out.data_ptr(), _ptr(lse), B, S, KV, G, hd, int(window),
+        float(attn_scale(hd)), _DTYPES[q.dtype],
+        backend.stream_handle(q.device))
     backend.check(NAME, status)
     swa_attn_op.launches += 1
-    return out
+    return out, lse
+
+
+def swa_attn_bwd(q, k, v, out, lse, dout, window: int, lengths=None):
+    """One backward on card tensors (its three kernel launches): the
+    forward's inputs, its output and lse, and out's cotangent -> (dq, dk,
+    dv) in the inputs' dtype."""
+    _check(q, k, v, lengths, window)
+    B, S, KV, G, hd = q.shape
+    for name, t in (("out", out), ("dout", dout)):
+        if t.dtype != q.dtype or t.shape != q.shape or not t.is_contiguous():
+            raise ValueError(f"{NAME}: {name} must be a contiguous tensor "
+                             f"of q's shape and dtype")
+    if lse.dtype != torch.float32 or tuple(lse.shape) != (B, S, KV, G) \
+            or not lse.is_contiguous():
+        raise ValueError(f"{NAME}: lse must be a contiguous (B,S,KV,G) "
+                         f"float32 tensor")
+    backend.on_card(q, out, lse, dout)
+    dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
+    if q.numel() == 0:
+        return dq, dk, dv
+    delta = torch.empty_like(lse)
+    status = _bwd_launcher()(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        lse.data_ptr(), dout.data_ptr(), _ptr(lengths), dq.data_ptr(),
+        dk.data_ptr(), dv.data_ptr(), delta.data_ptr(), B, S, KV, G, hd,
+        int(window), float(attn_scale(hd)), _DTYPES[q.dtype],
+        backend.stream_handle(q.device))
+    backend.check(NAME, status)
+    swa_attn_op.bwd_launches += 1
+    return dq, dk, dv
 
 
 class _SWA(torch.autograd.Function):
+    """The band on both devices: the kernels on card tensors, the plain
+    forward and backward on CPU ones.  The forward keeps lse only when a
+    gradient is wanted."""
+
     @staticmethod
     def forward(ctx, q, k, v, lengths, window):
-        return _launch(q, k, v, lengths, window)
+        train = any(ctx.needs_input_grad[:3])
+        if q.is_cuda:
+            out, lse = _launch(q, k, v, lengths, window, with_lse=train)
+        else:
+            out, lse = swa_attn_fwd_ref(q, k, v, window=window,
+                                        lengths=lengths)
+        if train:
+            ctx.save_for_backward(q, k, v, out, lse, lengths)
+            ctx.window = window
+        return out
 
     @staticmethod
     def backward(ctx, dout):
-        raise NotImplementedError(
-            f"{NAME}: the band attention has no backward kernel on the card "
-            f"yet (ROADMAP.md queue 1, item 7: long-context training "
-            f"through the band)")
+        q, k, v, out, lse, lengths = ctx.saved_tensors
+        dout = dout.contiguous()
+        if q.is_cuda:
+            grads = swa_attn_bwd(q, k, v, out, lse, dout, ctx.window,
+                                 lengths)
+        else:
+            grads = swa_attn_bwd_ref(q, k, v, out, lse, dout,
+                                     window=ctx.window, lengths=lengths)
+        return (*grads, None, None)
 
 
 def swa_attn_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                 window: int, lengths: torch.Tensor = None) -> torch.Tensor:
     """q (B,S,KV,G,hd), k/v (B,S,KV,hd), optional per-row valid lengths
     (B,) -> (B,S,KV,G,hd) in q's dtype: query s attends to the valid
-    keys in (s - window, s]; rows at or past their length are zeros."""
-    if not backend.on_card(q, k, v):
-        return swa_attn_ref(q, k, v, window=window, lengths=lengths)
+    keys in (s - window, s]; rows at or past their length are zeros.
+    Differentiable in q, k and v on both devices."""
+    backend.on_card(q, k, v)
     return _SWA.apply(q, k, v, lengths, window)
 
 
 swa_attn_op.launches = 0
+swa_attn_op.bwd_launches = 0

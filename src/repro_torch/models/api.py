@@ -278,29 +278,32 @@ class LMBundle:
                 else mask[:, 1:].to(torch.float32))
         return x, targets, mask
 
-    def _hidden(self, params, batch: Batch):
+    def _hidden(self, params, batch: Batch, remat: bool = True):
         """-> (hidden states aligned with the next-token targets, targets,
-        mask, the stack's MoE aux)."""
+        mask, the stack's MoE aux); ``remat`` as ``forward_hidden``'s."""
         x, targets, mask = self.assemble(params, batch)
         h, aux, _ = tfm.forward_hidden(params, self.cfg, x,
-                                       mask_fn=self.mask_fn)
+                                       mask_fn=self.mask_fn, remat=remat)
         P, S = self.n_prefix, batch["tokens"].shape[1]
         return h[:, P:P + S - 1], targets, mask, aux
 
-    def final_hidden(self, params, batch: Batch):
+    def final_hidden(self, params, batch: Batch, remat: bool = True):
         """-> (hidden states aligned with the next-token targets
         (B,S-1,d) in the compute dtype, targets, mask); the MoE aux is
         dropped."""
-        return self._hidden(params, batch)[:3]
+        return self._hidden(params, batch, remat)[:3]
 
-    def per_example_loss(self, params, batch: Batch) -> torch.Tensor:
-        h, targets, mask = self.final_hidden(params, batch)
+    def per_example_loss(self, params, batch: Batch,
+                         remat: bool = True) -> torch.Tensor:
+        h, targets, mask = self.final_hidden(params, batch, remat)
         return softmax_xent(tfm.unembed(params, self.cfg, h), targets, mask)
 
-    def loss_fn(self, params, batch: Batch) -> Tuple[torch.Tensor, Dict]:
+    def loss_fn(self, params, batch: Batch,
+                remat: bool = True) -> Tuple[torch.Tensor, Dict]:
         """(weighted task loss + the stack's MoE aux, metrics ``loss``,
-        ``aux_loss``, ``total_loss``)."""
-        h, targets, mask, aux = self._hidden(params, batch)
+        ``aux_loss``, ``total_loss``); ``remat`` (the reference's
+        default) checkpoints each layer group when autograd records."""
+        h, targets, mask, aux = self._hidden(params, batch, remat)
         per_ex = softmax_xent(tfm.unembed(params, self.cfg, h), targets, mask)
         return _weighted(per_ex, batch, aux)
 
@@ -390,10 +393,13 @@ class EncDecBundle:
         them."""
         return encdec_mod.serving_params(params, self.cfg)
 
-    def final_hidden(self, params, batch: Batch):
+    def final_hidden(self, params, batch: Batch, remat: bool = True):
         """-> (decoder hidden states (B,U-1,d) in the compute dtype,
-        targets (B,U-1), mask (B,U-1))."""
-        enc = encdec_mod.encode(params, self.cfg, batch["frames"])
+        targets (B,U-1), mask (B,U-1)); ``remat`` checkpoints each encoder
+        and decoder layer when autograd records (the reference's
+        default)."""
+        enc = encdec_mod.encode(params, self.cfg, batch["frames"],
+                                remat=remat)
         tokens = batch["tokens"]
         targets = tokens[:, 1:]
         mask = batch.get("loss_mask")
@@ -401,17 +407,19 @@ class EncDecBundle:
                            device=tokens.device) if mask is None
                 else mask[:, 1:].to(torch.float32))
         h, _ = encdec_mod.decode_train(params, self.cfg, tokens[:, :-1],
-                                       enc)
+                                       enc, remat=remat)
         return h, targets, mask
 
-    def per_example_loss(self, params, batch: Batch) -> torch.Tensor:
-        h, targets, mask = self.final_hidden(params, batch)
+    def per_example_loss(self, params, batch: Batch,
+                         remat: bool = True) -> torch.Tensor:
+        h, targets, mask = self.final_hidden(params, batch, remat)
         return softmax_xent(tfm.unembed(params, self.cfg, h), targets, mask)
 
-    def loss_fn(self, params, batch: Batch) -> Tuple[torch.Tensor, Dict]:
+    def loss_fn(self, params, batch: Batch,
+                remat: bool = True) -> Tuple[torch.Tensor, Dict]:
         """(weighted loss, metrics ``loss``, ``aux_loss`` (0),
         ``total_loss``)."""
-        return _weighted(self.per_example_loss(params, batch), batch)
+        return _weighted(self.per_example_loss(params, batch, remat), batch)
 
     def head_weight(self, params) -> torch.Tensor:
         return tfm.head_weight(params, self.cfg)
@@ -420,10 +428,11 @@ class EncDecBundle:
         """Encode ``frames`` and run the decoder over ``tokens`` (B,U) ->
         (last-token logits (B,V), cache: self K/V in a cache of
         ``cache_len`` (default U), ``ck``/``cv`` of the T_src frames)."""
-        enc = encdec_mod.encode(params, self.cfg, batch["frames"])
+        enc = encdec_mod.encode(params, self.cfg, batch["frames"],
+                                remat=False)
         tokens = batch["tokens"]
         h, cache = encdec_mod.decode_train(
-            params, self.cfg, tokens, enc, collect_cache=True,
+            params, self.cfg, tokens, enc, remat=False, collect_cache=True,
             cache_len=cache_len or tokens.shape[1])
         return tfm.unembed(params, self.cfg, h[:, -1:])[:, 0], cache
 

@@ -13,11 +13,14 @@ output cast to the compute dtype before ``p @ v``.
 A forward dispatches as the reference does (``attn_forward``):
 
 - band: a local layer with ``S > window + Q_BLOCK`` goes through the
-  sliding-window kernel (``kernels/swa_attn``), O(S (W + C)) memory, any
-  S (the reference's band gather raises unless S % 1024 == 0).  The
-  kernel keeps p in fp32 for ``p @ v`` where the reference's band
-  gather casts it to the compute dtype first: the same function at fp32
-  compute, within bf16 rounding at bf16;
+  sliding-window kernels (``kernels/swa_attn``), O(S (W + C)) memory,
+  any S (the reference's band gather raises unless S % 1024 == 0), in
+  training as in a prefill: the forward saves each row's logsumexp and
+  the backward kernel (the plain backward on the CPU) gives dq, dk and
+  dv.  The kernels keep p in fp32 for ``p @ v`` where the reference's
+  band gather casts it to the compute dtype first: the same function,
+  and so the same gradient, at fp32 compute, within bf16 rounding at
+  bf16 (ROADMAP B1);
 - flash: otherwise, where ``S * S > FLASH_THRESHOLD**2``, an online
   softmax over kv blocks of ``KV_BLOCK`` in plain PyTorch
   (``_mha_flash``);

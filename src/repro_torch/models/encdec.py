@@ -8,7 +8,9 @@ Decoder: causal self-attention, cross-attention over the encoder output
 ``encoder`` and ``decoder`` dicts of leaves stacked on a leading layer
 axis, ``enc_norm``, ``final_norm`` and ``embed.w`` (and ``lm_head.w``
 for an untied head).  The reference scans each stack; the port walks the
-layer axis with a Python loop (``transformer._unstack``).
+layer axis with a Python loop (``transformer._unstack``).  Both remat
+each layer in training (``remat=True``, the default of ``encode`` and
+``decode_train``), the port with ``torch.utils.checkpoint``.
 
 Numerics follow the reference as written, including where its paths
 differ (ROADMAP ED1-ED4):
@@ -33,6 +35,7 @@ from __future__ import annotations
 from typing import Dict, Optional
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models import attention as attn
 from repro_torch.models import ffn as ffn_mod
@@ -133,31 +136,53 @@ def serving_params(params, cfg) -> Dict:
     return out
 
 
-def encode(params, cfg, frames: torch.Tensor) -> torch.Tensor:
+def _maybe_remat(fn, remat: bool):
+    """``fn`` (a layer: x, its params -> x) checkpointed when ``remat``
+    and autograd records (the reference's ``jax.checkpoint`` of each
+    layer body): the layer's forward runs again in the backward,
+    bitwise; no generator state is stashed (no layer draws random
+    numbers)."""
+    if not (remat and torch.is_grad_enabled()):
+        return fn
+    return lambda *args: checkpoint(fn, *args, use_reentrant=False,
+                                    preserve_rng_state=False)
+
+
+def encode(params, cfg, frames: torch.Tensor,
+           remat: bool = True) -> torch.Tensor:
     """frames (B,T,d), the stub frontend's embeddings -> the encoder
-    output (B,T,d) in the compute dtype (ED3)."""
+    output (B,T,d) in the compute dtype (ED3); ``remat`` checkpoints each
+    layer in training."""
     x = frames.to(compute_dtype(cfg))
-    for lp in _unstack(params["encoder"], cfg.n_enc_layers):
+
+    def layer(x, lp):
         lp = cast_block_params(lp, cfg)
         h = rms_norm(x, lp["ln1"], cfg.norm_eps)
         x = x + attn.attn_forward(lp["attn"], cfg, h, kind="bidir")[0]
         h2 = rms_norm(x, lp["ln2"], cfg.norm_eps)
-        x = x + ffn_mod.ffn_forward(lp["mlp"], h2, cfg.ffn_type)
+        return x + ffn_mod.ffn_forward(lp["mlp"], h2, cfg.ffn_type)
+
+    run = _maybe_remat(layer, remat)
+    for lp in _unstack(params["encoder"], cfg.n_enc_layers):
+        x = run(x, lp)
     return rms_norm(x, params["enc_norm"], cfg.norm_eps)
 
 
 def decode_train(params, cfg, tokens: torch.Tensor, enc_out: torch.Tensor,
-                 *, collect_cache: bool = False, cache_len: int = 0):
+                 *, remat: bool = True, collect_cache: bool = False,
+                 cache_len: int = 0):
     """Teacher-forced decoder pass: tokens (B,U) -> (the final-normed
     hidden (B,U,d), the decode cache when ``collect_cache``, else None):
     each layer's self K/V in a cache of ``cache_len`` and its cross
     ``ck``/``cv`` projected from the encoder output without RoPE (ED4),
-    the forward's own values."""
+    the forward's own values.  ``remat`` checkpoints each layer in
+    training (never with ``collect_cache``)."""
     x = embed_tokens(params, cfg, tokens)
     B, U, _ = x.shape
     pos = torch.arange(U, device=x.device).expand(B, U)
     entries = []
-    for lp in _unstack(params["decoder"], cfg.n_layers):
+
+    def layer(x, lp):
         lp = cast_block_params(lp, cfg)
         h = rms_norm(x, lp["ln1"], cfg.norm_eps)
         y, kv = attn.attn_forward(lp["self"], cfg, h, kind="attn",
@@ -174,6 +199,11 @@ def decode_train(params, cfg, tokens: torch.Tensor, enc_out: torch.Tensor,
                                        compute_dtype(cfg), x.device)
             entries.append({"self": attn.cache_prefill(cache, *kv),
                             "ck": ck, "cv": cv})
+        return x
+
+    run = _maybe_remat(layer, remat and not collect_cache)
+    for lp in _unstack(params["decoder"], cfg.n_layers):
+        x = run(x, lp)
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
     return x, (_stack(entries) if collect_cache else None)
 

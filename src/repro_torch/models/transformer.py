@@ -8,8 +8,10 @@ The params tree is the reference's: ``stack.groups`` is a tuple with one
 dict per position of the config's ``pattern``, each leaf stacked over a
 leading ``n_layers // len(pattern)`` axis, and ``stack.tail`` a tuple of
 per-layer dicts for the remainder layers.  The reference scans the groups
-with ``lax.scan`` (and remat); the port walks the layer axis with a
-Python loop, which computes the same numbers.  The stacked leaves are
+with ``lax.scan``; the port walks the layer axis with a Python loop,
+which computes the same numbers.  Both remat each group in training
+(``forward_hidden(remat=True)``, the default): the port with
+``torch.utils.checkpoint``.  The stacked leaves are
 unbound once per forward (``torch.unbind``), so their backward stacks
 the per-layer gradients in one copy instead of scattering each layer's
 into a zero tensor of the whole stack.
@@ -43,6 +45,7 @@ from __future__ import annotations
 from typing import Any, Dict, List, Optional
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import BLOCK_REC, BLOCK_RWKV
 from repro_torch.models import attention as attn
@@ -282,35 +285,62 @@ def _stack(entries: List[Any]) -> Any:
 
 
 def forward_hidden(params, cfg, x: torch.Tensor, *, positions=None,
-                   mask_fn=None, collect_cache: bool = False,
-                   cache_len: int = 0):
+                   mask_fn=None, remat: bool = True,
+                   collect_cache: bool = False, cache_len: int = 0):
     """Runs the stack on embedded input ``x`` (B,S,d) -> (the final-normed
     hidden states (B,S,d), the MoE aux summed over the layers (an fp32
     scalar; zero without MoE layers), the decode cache when
     ``collect_cache``, else None).  ``positions`` (B,S) default to
     ``arange(S)``; given, each row's live length (its positions >= 0) is
     where the recurrent blocks take their state.  ``mask_fn`` overrides
-    the attention layers' masks (the VLM's prefix-LM mask)."""
+    the attention layers' masks (the VLM's prefix-LM mask).
+
+    ``remat`` (the reference's default) checkpoints each group of
+    ``pattern`` layers when autograd records the forward: only the
+    group's input is kept, and the backward runs the group's forward
+    again (``torch.utils.checkpoint``, non-reentrant) before its
+    backward.  No block draws random numbers, so no generator state is
+    stashed (a stash would read it inside a CUDA-graph capture), and the
+    recompute is bitwise the first forward: loss and gradients are
+    bitwise those without remat.  The tail layers are not checkpointed,
+    as in the reference; a prefill (``collect_cache``) or a forward
+    without grad runs plain."""
     pattern = cfg.pattern
     n_groups = cfg.n_layers // len(pattern)
     lengths = None if positions is None else (positions >= 0).sum(dim=1)
     kw = dict(positions=positions, lengths=lengths, mask_fn=mask_fn,
               collect_cache=collect_cache, cache_len=cache_len)
+    remat = remat and not collect_cache and torch.is_grad_enabled()
     entries = [[] for _ in pattern]
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
+
+    def run_group(x, group):
+        """One group's layers -> (x, the group's aux sum or None, each
+        layer's cache entry)."""
+        auxes, ces = [], []
+        for bp, kind in zip(group, pattern):
+            x, aux, ce = block_forward(bp, cfg, kind, x, **kw)
+            auxes.append(aux)
+            ces.append(ce)
+        aux_g = torch.stack(auxes).sum() if cfg.moe is not None else None
+        return x, aux_g, ces
+
     if n_groups:
         layers = [_unstack(gp, n_groups) for gp in params["stack"]["groups"]]
         # the reference sums each group's auxes, then the groups' sums
         group_aux = []
         for g in range(n_groups):
-            auxes = []
-            for pos, kind in enumerate(pattern):
-                x, aux, ce = block_forward(layers[pos][g], cfg, kind, x,
-                                           **kw)
-                auxes.append(aux)
-                entries[pos].append(ce)
-            if cfg.moe is not None:
-                group_aux.append(torch.stack(auxes).sum())
+            group = [layers[pos][g] for pos in range(len(pattern))]
+            if remat:
+                x, aux_g = checkpoint(
+                    lambda xx, gr=group: run_group(xx, gr)[:2], x,
+                    use_reentrant=False, preserve_rng_state=False)
+            else:
+                x, aux_g, ces = run_group(x, group)
+                for pos, ce in enumerate(ces):
+                    entries[pos].append(ce)
+            if aux_g is not None:
+                group_aux.append(aux_g)
         if group_aux:
             aux_total = aux_total + torch.stack(group_aux).sum()
     kinds = cfg.layer_kinds()

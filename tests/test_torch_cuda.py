@@ -7,8 +7,11 @@ a machine that has only PyTorch:
 Each Hopper kernel is held against its plain PyTorch version on the same
 card tensors (which the CPU tests hold against the JAX reference), at
 ragged edge shapes; the WKV backward kernel against autograd of the
-plain chunk algebra; the sliding-window attention kernel against its
-plain band gather (and its refused backward); the fused loss against the
+plain chunk algebra; the sliding-window attention kernels against their
+plain versions (the forward against the band gather, the forward with
+lse bitwise the serving forward, the backward against the plain
+backward, bitwise twice), group remat bitwise on the card; the fused
+loss against the
 same loss on the CPU.  The scanned epoch engine: a replayed epoch equals
 the same epoch run on the card without the graph bit for bit, padding
 rows are bitwise no-ops through the graph, a traced replayed epoch
@@ -46,8 +49,11 @@ from repro_torch.kernels.rnnt_lattice.ref import (  # noqa: E402
 from repro_torch.kernels.rwkv6_scan.ops import rwkv6_wkv_op  # noqa: E402
 from repro_torch.kernels.rwkv6_scan.ref import (  # noqa: E402
     log_decay, wkv_chunked_lw)
-from repro_torch.kernels.swa_attn.ops import swa_attn_op  # noqa: E402
-from repro_torch.kernels.swa_attn.ref import swa_attn_ref  # noqa: E402
+from repro_torch.kernels.swa_attn.ops import _launch as swa_fwd_with_lse  # noqa: E402
+from repro_torch.kernels.swa_attn.ops import (swa_attn_bwd,  # noqa: E402
+                                              swa_attn_op)
+from repro_torch.kernels.swa_attn.ref import (swa_attn_bwd_ref,  # noqa: E402
+                                              swa_attn_ref)
 from repro_torch.train.engine import EpochEngine  # noqa: E402
 
 pytestmark = pytest.mark.cuda
@@ -482,11 +488,27 @@ def test_swa_kernel_matches_plain(card, B, S, KV, G, hd, W, dtype, lengths):
 
 
 def test_swa_backward_raises_and_wrapper_refuses(card):
+    """The band's backward on the card (it raised before the backward
+    kernel): autograd through ``swa_attn_op`` launches the backward
+    kernel, which equals the plain backward bit for bit twice over and
+    stays within 1e-5 of its largest entry; the wrapper still refuses
+    what the kernels do not take (fp16, head dim 48, a non-contiguous k,
+    lengths not int32, a misaligned bf16 q)."""
     q, k, v = _swa_inputs(1, 128, 1, 2, 32, "float32", seed=0, dev=card)
-    q.requires_grad_(True)
-    out = swa_attn_op(q, k, v, window=64)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        out.sum().backward()
+    dout = torch.randn(q.shape, device=card)
+    grads = []
+    for _ in range(2):
+        xs = [x.detach().clone().requires_grad_(True) for x in (q, k, v)]
+        n0 = swa_attn_op.bwd_launches
+        out = swa_attn_op(*xs, window=64)
+        grads.append(torch.autograd.grad(out, xs, dout))
+        assert swa_attn_op.bwd_launches == n0 + 1
+    assert all(torch.equal(a, b) for a, b in zip(*grads))
+    out, lse = swa_fwd_with_lse(q, k, v, None, 64, with_lse=True)
+    want = swa_attn_bwd_ref(q, k, v, out, lse, dout, window=64)
+    for a, b in zip(grads[0], want):
+        torch.testing.assert_close(a, b, rtol=0,
+                                   atol=1e-5 * float(b.abs().max()))
     with pytest.raises(TypeError):                   # fp16
         swa_attn_op(q.detach().half(), k.half(), v.half(), window=64)
     with pytest.raises(ValueError):                  # head dim 48
@@ -504,6 +526,75 @@ def test_swa_backward_raises_and_wrapper_refuses(card):
                      dtype=torch.bfloat16)[1:].view(1, 128, 1, 2, 32)
     with pytest.raises(RuntimeError):
         swa_attn_op(qm, k.bfloat16(), v.bfloat16(), window=64)
+
+
+@pytest.mark.parametrize("B,S,KV,G,hd,W,dtype,lengths",
+                         SWA_EDGES + [(1, 129, 1, 2, 256, 63, "bfloat16",
+                                       None),
+                                      (2, 1100, 1, 16, 256, 200,
+                                       "bfloat16", (1100, 70)),
+                                      (2, 300, 1, 4, 256, 64, "float32",
+                                       (300, 1))])
+def test_swa_backward_kernel_matches_plain(card, B, S, KV, G, hd, W, dtype,
+                                           lengths):
+    """The forward that writes lse is bitwise the serving forward; two
+    backward launches bitwise equal; the kernel against the plain backward
+    on the same tensors (from the kernel's out and lse): at fp32 within
+    1e-5 of the largest entry of the three gradients, at bf16 each element
+    within one bf16 ulp of its own value plus 1e-5 of that entry (both sum
+    in fp32, in different orders, then round)."""
+    q, k, v = _swa_inputs(B, S, KV, G, hd, dtype, seed=S + hd, dev=card)
+    dout = torch.randn(q.shape, device=card).to(q.dtype)
+    lens = (None if lengths is None
+            else torch.tensor(lengths, dtype=torch.int32, device=card))
+    with torch.no_grad():
+        serve = swa_attn_op(q, k, v, window=W, lengths=lens)
+    out, lse = swa_fwd_with_lse(q, k, v, lens, W, with_lse=True)
+    assert torch.equal(out, serve)
+    assert bool(torch.isfinite(lse).all())
+    got = swa_attn_bwd(q, k, v, out, lse, dout, W, lens)
+    again = swa_attn_bwd(q, k, v, out, lse, dout, W, lens)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    want = swa_attn_bwd_ref(q, k, v, out, lse, dout, window=W, lengths=lens)
+    # the sums' rounding scales with the terms summed: the largest entry
+    # of the three gradients (at window 1 dq is zero but for it)
+    top = max(float(b.float().abs().max()) for b in want)
+    for a, b in zip(got, want):
+        assert a.dtype == q.dtype
+        a, b = a.float(), b.float()
+        rtol = 0.0 if dtype == "float32" else 2.0 ** -7
+        torch.testing.assert_close(a, b, rtol=rtol, atol=1e-5 * top)
+
+
+@pytest.mark.parametrize("arch", ["starcoder2-3b-smoke",
+                                  "recurrentgemma-9b-smoke"])
+def test_remat_is_bitwise_on_card(card, arch):
+    """Group remat on the card past the band's start (window 16, S 2,048):
+    the loss and every gradient leaf bitwise those without remat, the
+    band's forward launched twice a local layer with remat (the recompute)
+    and once without, its backward once either way."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.api import build_model
+    from repro_torch.models.common import tree_leaves, tree_map
+
+    b = build_model(get_config(arch))
+    params = b.init_params(torch.Generator(device=card).manual_seed(0), card)
+    toks = torch.randint(0, b.cfg.vocab_size, (2, 2048), dtype=torch.int32,
+                         device=card,
+                         generator=torch.Generator(device=card).manual_seed(1))
+    n_local = b.cfg.layer_kinds().count("local")
+    runs = []
+    for remat in (True, False):
+        live = tree_map(lambda x: x.detach().requires_grad_(True), params)
+        f0, b0 = swa_attn_op.launches, swa_attn_op.bwd_launches
+        total, _ = b.loss_fn(live, {"tokens": toks}, remat=remat)
+        grads = torch.autograd.grad(total, tree_leaves(live))
+        runs.append((total.detach(), grads, swa_attn_op.launches - f0,
+                     swa_attn_op.bwd_launches - b0))
+    assert torch.equal(runs[0][0], runs[1][0])
+    assert all(torch.equal(x, y) for x, y in zip(runs[0][1], runs[1][1]))
+    assert runs[0][2:] == (2 * n_local, n_local)
+    assert runs[1][2:] == (n_local, n_local)
 
 
 class _EagerOnCard(EpochEngine):

@@ -301,6 +301,7 @@ def test_loss_and_grads_match_reference(ref_params, monkeypatch, variant,
     pt = from_numpy(params)
     live = tree_map(lambda x: x.clone().requires_grad_(True), pt)
     total, m_t = mt.loss_fn(live, _to_torch(batch))
+    n_forward = len(kept)
     total.backward()
     assert float(m_t["aux_loss"]) > 0
     assert float(total) == pytest.approx(float(m_t["loss"])
@@ -323,8 +324,12 @@ def test_loss_and_grads_match_reference(ref_params, monkeypatch, variant,
                                                     _rel(got.numpy(), want))
         n_leaves += 1
     assert n_leaves == len(tree_leaves(live))
-    # a routing a layer; the variant's experts drop tokens (M2)
-    assert len(kept) == ct.n_layers
+    # a routing a layer in the forward; the backward routes each group
+    # (one layer here) again, last group first, the same way (remat's
+    # recompute, B4); the variant's experts drop tokens (M2)
+    assert n_forward == ct.n_layers
+    assert len(kept) == 2 * ct.n_layers
+    assert kept[n_forward:][::-1] == kept[:n_forward]
     if variant == "olmoe-e16-top8-drops":
         assert all(k < n for k, n in kept), kept
 
