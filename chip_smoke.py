@@ -5288,7 +5288,9 @@ def main() -> None:
     # resident run's counts) and phase 20's full-depth run (a kernel of
     # the step graph with the warm-ups' and capture's launches plus its
     # graph's nodes x replays, "counted" the first) and its 6-layer runs
-    swa_src = "src/repro_torch/kernels/swa_attn/csrc/swa_attn.cu"
+    swa_src = {"swa_attn": "src/repro_torch/kernels/swa_attn/csrc/swa_attn.cu",
+               "swa_attn_bwd": "src/repro_torch/kernels/swa_attn/csrc/"
+                               "swa_attn_bwd.cu"}
     for path, arch, got in (
             ("recurrentgemma-9b-resident", "recurrentgemma-9b",
              hybrid["recurrentgemma-9b-resident"]),
@@ -5304,7 +5306,7 @@ def main() -> None:
             fwd = name == "swa_attn"
             kernels.append({
                 "name": name, "path": path, "route": "cuda",
-                "source": swa_src,
+                "source": swa_src[name],
                 "replaces": ("src/repro/kernels/swa_attn/kernel.py:79" if fwd
                              else "jax.grad of src/repro/models/"
                                   "attention.py:_mha_band"),
@@ -5331,8 +5333,10 @@ def main() -> None:
         "count": torch.cuda.device_count()}}))
 
 
-def phase_alone(phase: int) -> None:
-    """``--phase N``: phases 1 and 2, then phase N on its own."""
+def phase_alone(phase: int, rows_only: bool = False) -> None:
+    """``--phase N``: phases 1 and 2, then phase N on its own; with
+    ``--rows`` (phases 16-20) only the phase's kernel rows, phase 3's
+    checks and times of the kernels that phase runs."""
     t00 = time.time()
     require((SRC / "repro_torch" / "kernels" / "backend.py").is_file(),
             f"the port's sources are not beside this script ({SRC})")
@@ -5399,6 +5403,10 @@ def phase_alone(phase: int) -> None:
                              19: (family_kernel_rows, family_phase),
                              20: (long_kernel_rows, long_phase)}[phase]
         print(f"[kernels] {rows_of(torch, dev)}", flush=True)
+        mark(f"phase {phase}'s kernel rows")
+        if rows_only:
+            print(card)
+            return
         out = phase_of(torch, np, dev, mark)
     print(f"[launches] phase {phase} {out}", flush=True)
     print(card)
@@ -5406,10 +5414,13 @@ def phase_alone(phase: int) -> None:
 
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--phase"]:
-        require(len(sys.argv) == 3 and sys.argv[2] in ("15", "16", "17",
-                                                      "18", "19", "20"),
-                "usage: chip_smoke.py [--phase 15|16|17|18|19|20]")
-        phase_alone(int(sys.argv[2]))
+        rows = sys.argv[3:] == ["--rows"]
+        require((len(sys.argv) == 3 or rows)
+                and sys.argv[2] in ("15", "16", "17", "18", "19", "20")
+                and not (rows and sys.argv[2] == "15"),
+                "usage: chip_smoke.py [--phase 15|16|17|18|19|20 "
+                "[--rows (not 15)]]")
+        phase_alone(int(sys.argv[2]), rows)
     else:
         require(len(sys.argv) == 1, "usage: chip_smoke.py [--phase N]")
         main()

@@ -117,7 +117,13 @@ def _nvcc() -> str:
 
 
 def _lib_path(name: str) -> Path:
-    digest = hashlib.sha256(SOURCES[name].read_bytes()
+    """The library's path, named by a digest of its source, the headers
+    beside it (``csrc/*.cuh``, which a source may include) and the nvcc
+    flags, so that an edit to any of them builds anew."""
+    src = SOURCES[name]
+    parts = [src.read_bytes()]
+    parts += [h.read_bytes() for h in sorted(src.parent.glob("*.cuh"))]
+    digest = hashlib.sha256(b"".join(parts)
                             + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     return BUILD_DIR / f"lib{name}-{digest}.so"
 

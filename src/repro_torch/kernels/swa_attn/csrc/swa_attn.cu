@@ -80,10 +80,8 @@
 // owns rows 4 ty .. 4 ty + 3 and, for the scores, key columns 4 tx ..
 // 4 tx + 3, for p . v the hd / 16 output columns tx + 16 c.
 #include <cmath>
-#include <cstdint>
-#include <cuda.h>
-#include <cuda_runtime.h>
-#include <cuda_bf16.h>
+
+#include "hopper.cuh"
 
 #define TQ 64
 #define TK 64
@@ -257,8 +255,6 @@ swa_attn_kernel(const float* __restrict__ q, const float* __restrict__ k,
 
 // ---- bf16: wgmma, K/V by TMA from a producer warp ----------------------
 
-constexpr int BN = 64;           // keys a K/V tile
-
 // the bf16 body's tiles at head dim HD: consumer warpgroups of 64 q rows
 // each, and K/V stages in the ring (smaller at hd 256, see above)
 template <int HD>
@@ -268,12 +264,6 @@ struct BandTile {
     static constexpr int STAGES = HD > 128 ? 2 : 4;
     static constexpr int NTHREADS = 128 * NWG + 32; // + 1 producer warp
 };
-
-typedef __nv_bfloat16 bf16;
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-    return (uint32_t)__cvta_generic_to_shared(p);
-}
 
 // 16 bytes global -> shared, zero-filled when !valid (src must still be
 // a valid address; nothing is read from it then)
@@ -292,188 +282,12 @@ __device__ __forceinline__ void cp_async_wait() {
     asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
 }
 
-__device__ __forceinline__ uint32_t bf16x2_bits(__nv_bfloat162 x) {
-    return *reinterpret_cast<uint32_t*>(&x);
-}
-
-// (x, y) fp32 -> hi = bf16(x, y) and lo = bf16(x - hi, y - hi), x in the
-// low half (the smaller key index of an mma fragment pair)
-__device__ __forceinline__ void split_p(float x, float y, uint32_t& hi,
-                                       uint32_t& lo) {
-    const __nv_bfloat162 h = __floats2bfloat162_rn(x, y);
-    const float2 hf = __bfloat1622float2(h);
-    hi = bf16x2_bits(h);
-    lo = bf16x2_bits(__floats2bfloat162_rn(x - hf.x, y - hf.y));
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-    asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-    asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void wgmma_wait() {
-    asm volatile("wgmma.wait_group.sync.aligned %0;\n" :: "n"(N) : "memory");
-}
-// keep the compiler from moving register reads or writes across an
-// asynchronous wgmma that owns them
-template <int N>
-__device__ __forceinline__ void fence_regs(float (&d)[N]) {
-#pragma unroll
-    for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i]) :: "memory");
-}
-template <int N>
-__device__ __forceinline__ void fence_regs(uint32_t (&a)[N][4]) {
-#pragma unroll
-    for (int i = 0; i < N; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j)
-            asm volatile("" : "+r"(a[i][j]) :: "memory");
-}
-
-// shared-memory matrix descriptor, 128-byte swizzle; offsets in bytes
-__device__ __forceinline__ uint64_t smem_desc(uint32_t addr, uint32_t lbo,
-                                              uint32_t sbo) {
-    return (uint64_t)((addr & 0x3FFFF) >> 4)
-           | ((uint64_t)((lbo >> 4) & 0x3FFF) << 16)
-           | ((uint64_t)((sbo >> 4) & 0x3FFF) << 32) | (1ull << 62);
-}
-
 // byte offset of 16-byte chunk c of row r in a tile of `rows` rows laid
 // out as 128-byte-swizzle atoms: 64 columns (128 bytes) a row, the atoms
 // of a row's next 64 columns after all rows of the first
 __device__ __forceinline__ uint32_t swz(int r, int c, int rows) {
     return (uint32_t)((c >> 3) * rows * 128 + r * 128
                       + (((c & 7) ^ (r & 7)) << 4));
-}
-
-// d (m64 n64, fp32) (+)= a . b, a and b in shared memory (descriptors),
-// both K-major; d is zeroed first when !acc
-__device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t a,
-                                           uint64_t b, int acc) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-        "{"
-        "%0, %1, %2, %3, %4, %5, %6, %7, "
-        "%8, %9, %10, %11, %12, %13, %14, %15, "
-        "%16, %17, %18, %19, %20, %21, %22, %23, "
-        "%24, %25, %26, %27, %28, %29, %30, %31"
-        "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-          "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-          "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-        : "l"(a), "l"(b), "r"(acc));
-}
-
-// d (m64 n64, fp32) += a . b, a (bf16) in registers, b in shared memory
-// (descriptor), MN-major
-__device__ __forceinline__ void wgmma_rs_n64(float (&d)[32],
-                                           const uint32_t (&a)[4],
-                                           uint64_t b) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-        "{"
-        "%0, %1, %2, %3, %4, %5, %6, %7, "
-        "%8, %9, %10, %11, %12, %13, %14, %15, "
-        "%16, %17, %18, %19, %20, %21, %22, %23, "
-        "%24, %25, %26, %27, %28, %29, %30, %31"
-        "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-          "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-          "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
-}
-
-// d[OFF .. OFF + 63] (m64 n128, fp32) += a . b, a (bf16) in registers, b in
-// shared memory (descriptor), MN-major; OFF 64 is the second 128 columns of
-// an m64n256 accumulator (hd 256)
-template <int OFF, int N>
-__device__ __forceinline__ void wgmma_rs_n128(float (&d)[N],
-                                           const uint32_t (&a)[4],
-                                           uint64_t b) {
-    static_assert(OFF + 64 <= N, "accumulator too small");
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
-        "{"
-        "%0, %1, %2, %3, %4, %5, %6, %7, "
-        "%8, %9, %10, %11, %12, %13, %14, %15, "
-        "%16, %17, %18, %19, %20, %21, %22, %23, "
-        "%24, %25, %26, %27, %28, %29, %30, %31, "
-        "%32, %33, %34, %35, %36, %37, %38, %39, "
-        "%40, %41, %42, %43, %44, %45, %46, %47, "
-        "%48, %49, %50, %51, %52, %53, %54, %55, "
-        "%56, %57, %58, %59, %60, %61, %62, %63"
-        "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
-        : "+f"(d[OFF + 0]), "+f"(d[OFF + 1]), "+f"(d[OFF + 2]), "+f"(d[OFF + 3]),
-          "+f"(d[OFF + 4]), "+f"(d[OFF + 5]), "+f"(d[OFF + 6]), "+f"(d[OFF + 7]),
-          "+f"(d[OFF + 8]), "+f"(d[OFF + 9]), "+f"(d[OFF + 10]), "+f"(d[OFF + 11]),
-          "+f"(d[OFF + 12]), "+f"(d[OFF + 13]), "+f"(d[OFF + 14]), "+f"(d[OFF + 15]),
-          "+f"(d[OFF + 16]), "+f"(d[OFF + 17]), "+f"(d[OFF + 18]), "+f"(d[OFF + 19]),
-          "+f"(d[OFF + 20]), "+f"(d[OFF + 21]), "+f"(d[OFF + 22]), "+f"(d[OFF + 23]),
-          "+f"(d[OFF + 24]), "+f"(d[OFF + 25]), "+f"(d[OFF + 26]), "+f"(d[OFF + 27]),
-          "+f"(d[OFF + 28]), "+f"(d[OFF + 29]), "+f"(d[OFF + 30]), "+f"(d[OFF + 31]),
-          "+f"(d[OFF + 32]), "+f"(d[OFF + 33]), "+f"(d[OFF + 34]), "+f"(d[OFF + 35]),
-          "+f"(d[OFF + 36]), "+f"(d[OFF + 37]), "+f"(d[OFF + 38]), "+f"(d[OFF + 39]),
-          "+f"(d[OFF + 40]), "+f"(d[OFF + 41]), "+f"(d[OFF + 42]), "+f"(d[OFF + 43]),
-          "+f"(d[OFF + 44]), "+f"(d[OFF + 45]), "+f"(d[OFF + 46]), "+f"(d[OFF + 47]),
-          "+f"(d[OFF + 48]), "+f"(d[OFF + 49]), "+f"(d[OFF + 50]), "+f"(d[OFF + 51]),
-          "+f"(d[OFF + 52]), "+f"(d[OFF + 53]), "+f"(d[OFF + 54]), "+f"(d[OFF + 55]),
-          "+f"(d[OFF + 56]), "+f"(d[OFF + 57]), "+f"(d[OFF + 58]), "+f"(d[OFF + 59]),
-          "+f"(d[OFF + 60]), "+f"(d[OFF + 61]), "+f"(d[OFF + 62]), "+f"(d[OFF + 63])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
-}
-
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
-    asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n"
-                 :: "r"(bar), "r"(count) : "memory");
-}
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-    asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n"
-                 :: "r"(bar) : "memory");
-}
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-    asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
-                 :: "r"(bar), "r"(bytes) : "memory");
-}
-// wait until the phase of this parity has completed; a wait of ~10 s
-// (a lost arrival) traps instead of hanging the card
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-    const long long t0 = clock64();
-    while (true) {
-        uint32_t done;
-        asm volatile("{\n.reg .pred p;\n"
-                     "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-                     "selp.u32 %0, 1, 0, p;\n}\n"
-                     : "=r"(done) : "r"(bar), "r"(parity) : "memory");
-        if (done) return;
-        if (clock64() - t0 > 20000000000ll) __trap();
-    }
-}
-// one box of a 4-d tensor map into shared memory, completing on `bar`
-__device__ __forceinline__ void tma_load_4d(uint32_t dst,
-                                            const CUtensorMap* map,
-                                            uint32_t bar, int c0, int c1,
-                                            int c2, int c3) {
-    asm volatile("cp.async.bulk.tensor.4d.shared::cluster.global."
-                 "mbarrier::complete_tx::bytes [%0], [%1, {%3, %4, %5, %6}], "
-                 "[%2];\n"
-                 :: "r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(bar),
-                    "r"(c0), "r"(c1), "r"(c2), "r"(c3) : "memory");
 }
 
 template <int HD>
@@ -720,47 +534,6 @@ swa_attn_bf16_kernel(const __grid_constant__ CUtensorMap kmap,
     }
 }
 
-// cuTensorMapEncodeTiled, looked up through the runtime (no -lcuda)
-typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType,
-                                  cuuint32_t, void*, const cuuint64_t*,
-                                  const cuuint64_t*, const cuuint32_t*,
-                                  const cuuint32_t*, CUtensorMapInterleave,
-                                  CUtensorMapSwizzle, CUtensorMapL2promotion,
-                                  CUtensorMapFloatOOBfill);
-
-EncodeTiledFn encode_tiled() {
-    static EncodeTiledFn fn = nullptr;
-    if (fn == nullptr) {
-        void* p = nullptr;
-        cudaDriverEntryPointQueryResult found;
-        if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
-                                    cudaEnableDefault, &found) == cudaSuccess
-            && found == cudaDriverEntryPointSuccess)
-            fn = reinterpret_cast<EncodeTiledFn>(p);
-    }
-    return fn;
-}
-
-// k or v (B, S, KV, hd) as a 4-d map (hd, KV, S, B) in boxes of 64 columns
-// x BN keys, 128-byte swizzle; columns past hd read as zeros
-bool kv_map(CUtensorMap* map, const void* ptr, int B, int S, int KV, int hd) {
-    const EncodeTiledFn encode = encode_tiled();
-    if (encode == nullptr || reinterpret_cast<uintptr_t>(ptr) % 16 != 0)
-        return false;
-    const cuuint64_t dims[4] = {(cuuint64_t)hd, (cuuint64_t)KV,
-                                (cuuint64_t)S, (cuuint64_t)B};
-    const cuuint64_t strides[3] = {(cuuint64_t)hd * 2,
-                                   (cuuint64_t)KV * hd * 2,
-                                   (cuuint64_t)S * KV * hd * 2};
-    const cuuint32_t box[4] = {64, 1, BN, 1};
-    const cuuint32_t unit[4] = {1, 1, 1, 1};
-    return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
-                  const_cast<void*>(ptr), dims, strides, box, unit,
-                  CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-                  CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                  CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
-}
-
 template <int HD>
 int launch_bf16(const void* q, const void* k, const void* v,
                 const int* lengths, void* o, float* lse, int B, int S, int KV,
@@ -774,7 +547,7 @@ int launch_bf16(const void* q, const void* k, const void* v,
     if (B > 65535 || n_qt > 65535) return (int)cudaErrorInvalidValue;
     CUtensorMap kmap, vmap;
     if (reinterpret_cast<uintptr_t>(q) % 16 != 0    // q rows by cp.async
-        || !kv_map(&kmap, k, B, S, KV, HD) || !kv_map(&vmap, v, B, S, KV, HD))
+        || !bshd_map(&kmap, k, B, S, KV, HD) || !bshd_map(&vmap, v, B, S, KV, HD))
         return (int)cudaErrorInvalidValue;
     cudaError_t err = cudaFuncSetAttribute(
         swa_attn_bf16_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,

@@ -22,13 +22,21 @@ bits either way.
 
 The backward kernel has no TPU counterpart: the reference differentiates
 its XLA band gather with ``jax.grad``.  It computes the gradient of the
-port's forward (p fp32 for p . v) in three launches: D = rowsum(dout *
-out), dq over each q tile's band, and dk / dv over each key tile's
-queries with the G heads of a KV head summed in the block, so nothing is
-summed by atomics and two launches agree bit for bit.  bf16 inputs at
-head dims up to 128 run the products on the tensor cores (``mma.sync``,
-p and ds split into bf16 hi + lo), fp32 inputs and head dim 256 an fp32
-SIMT body.  10 hd FLOP a (query, key) pair and query head.
+port's forward (p fp32 for p . v) and is bound by operations on the
+card: 10 hd FLOP a (query, key) pair and query head at the bf16 peak.
+bf16 inputs run four launches: each row's D = rowsum(dout * out) and lse
+in log2 units; dq over each q tile's band; dk / dv over each key tile's
+queries, one query head a block; and the in-order sum of the heads'
+partial dk / dv from fp32 scratch, so nothing is summed by atomics and
+two launches agree bit for bit.  The products run on ``wgmma`` with
+their operands loaded by TMA from a producer warpgroup into a ring of
+shared-memory stages (dq streams K and V under a resident q and dout
+tile, dk / dv stream q, dout, lse and D under resident K and V); p and
+ds are split into bf16 hi + lo, and where a block's two warpgroups split
+the head dim of the outputs (dk / dv from head dim 128, dq at 256) each
+computes the whole s and dp, so the tensor cores run 20-28 hd FLOP a
+pair and head against the bound's 10.  fp32 inputs run an fp32 SIMT
+body in three launches.
 
 ``_SWA`` is the one autograd function on both devices: its forward is
 the kernel or ``swa_attn_fwd_ref``, its backward the kernel or
@@ -36,8 +44,8 @@ the kernel or ``swa_attn_fwd_ref``, its backward the kernel or
 build or launch raises, and nothing falls back to the plain version.
 
 ``swa_attn_op.launches`` counts forward launches and
-``swa_attn_op.bwd_launches`` backward calls (three kernels each), never
-plain-path calls.
+``swa_attn_op.bwd_launches`` backward calls (four kernels each at bf16),
+never plain-path calls.
 """
 from __future__ import annotations
 
@@ -68,6 +76,14 @@ def _bwd_launcher():
         + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
+
+
+def _bwd_scratch(B: int, S: int, KV: int, G: int, hd: int, dtype) -> int:
+    """fp32 floats of scratch the backward kernel takes at this shape."""
+    fn = backend.library("swa_attn_bwd").swa_attn_bwd_scratch
+    fn.argtypes = [ctypes.c_int] * 6
+    fn.restype = ctypes.c_longlong
+    return fn(B, S, KV, G, hd, _DTYPES[dtype])
 
 
 def _check(q, k, v, lengths, window: int) -> None:
@@ -123,9 +139,9 @@ def _launch(q, k, v, lengths, window: int, with_lse: bool = False):
 
 
 def swa_attn_bwd(q, k, v, out, lse, dout, window: int, lengths=None):
-    """One backward on card tensors (its three kernel launches): the
-    forward's inputs, its output and lse, and out's cotangent -> (dq, dk,
-    dv) in the inputs' dtype."""
+    """One backward on card tensors (its four kernel launches at bf16,
+    three at fp32): the forward's inputs, its output and lse, and out's
+    cotangent -> (dq, dk, dv) in the inputs' dtype."""
     _check(q, k, v, lengths, window)
     B, S, KV, G, hd = q.shape
     for name, t in (("out", out), ("dout", dout)):
@@ -140,11 +156,12 @@ def swa_attn_bwd(q, k, v, out, lse, dout, window: int, lengths=None):
     dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
     if q.numel() == 0:
         return dq, dk, dv
-    delta = torch.empty_like(lse)
+    scratch = torch.empty(_bwd_scratch(B, S, KV, G, hd, q.dtype),
+                          dtype=torch.float32, device=q.device)
     status = _bwd_launcher()(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
         lse.data_ptr(), dout.data_ptr(), _ptr(lengths), dq.data_ptr(),
-        dk.data_ptr(), dv.data_ptr(), delta.data_ptr(), B, S, KV, G, hd,
+        dk.data_ptr(), dv.data_ptr(), scratch.data_ptr(), B, S, KV, G, hd,
         int(window), float(attn_scale(hd)), _DTYPES[q.dtype],
         backend.stream_handle(q.device))
     backend.check(NAME, status)

@@ -160,7 +160,9 @@ def encode(params, cfg, feats):
 def predict(params, cfg, tokens):
     """tokens: (B,U) -> (B, U+1, pred_hidden): position u conditions on
     tokens[<u]; position 0 is the blank-start state."""
-    emb = params["pred_embed"]["w"][tokens.long()]
+    # F.embedding, not indexing: its backward is bitwise repeatable on the
+    # CPU with several intra-op threads (F5)
+    emb = F.embedding(tokens.long(), params["pred_embed"]["w"])
     emb = F.pad(emb, (0, 0, 1, 0))                        # start token = 0
     return gru_scan(params["pred_gru"], emb)
 
@@ -198,7 +200,8 @@ def pred_step(params, cfg, tokens, h):
     state, a zero embedding, as ``predict`` feeds at position 0); h (B,
     pred_hidden) -> (g, h_new).  Stepping a label sequence through it
     reproduces ``predict``'s rows."""
-    emb = params["pred_embed"]["w"][torch.clamp(tokens.long(), min=0)]
+    emb = F.embedding(torch.clamp(tokens.long(), min=0),
+                      params["pred_embed"]["w"])
     emb = torch.where((tokens >= 0)[:, None], emb, torch.zeros_like(emb))
     return gru_step(params["pred_gru"], emb, h)
 

@@ -45,6 +45,7 @@ from __future__ import annotations
 from typing import Any, Dict, List, Optional
 
 import torch
+import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import BLOCK_REC, BLOCK_RWKV
@@ -252,7 +253,12 @@ def block_decode(bp, cfg, kind: str, x_t: torch.Tensor, entry, live=None,
 
 
 def embed_tokens(params, cfg, tokens: torch.Tensor) -> torch.Tensor:
-    x = params["embed"]["w"][tokens.long()].to(compute_dtype(cfg))
+    """The token rows of ``embed.w``, gathered by ``F.embedding``: its
+    backward sums a token's rows in a fixed order on the CPU whatever the
+    intra-op threads, where indexing's backward (``index_put_``) does not
+    (F5)."""
+    x = F.embedding(tokens.long(), params["embed"]["w"]).to(
+        compute_dtype(cfg))
     if cfg.embed_scale:
         x = x * torch.sqrt(torch.tensor(float(cfg.d_model))).to(x.dtype)
     return x

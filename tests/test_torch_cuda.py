@@ -487,13 +487,12 @@ def test_swa_kernel_matches_plain(card, B, S, KV, G, hd, W, dtype, lengths):
                                    atol=1e-5)
 
 
-def test_swa_backward_raises_and_wrapper_refuses(card):
-    """The band's backward on the card (it raised before the backward
-    kernel): autograd through ``swa_attn_op`` launches the backward
-    kernel, which equals the plain backward bit for bit twice over and
-    stays within 1e-5 of its largest entry; the wrapper still refuses
-    what the kernels do not take (fp16, head dim 48, a non-contiguous k,
-    lengths not int32, a misaligned bf16 q)."""
+def test_swa_autograd_runs_backward_kernel_and_wrapper_refuses(card):
+    """Autograd through ``swa_attn_op`` on the card launches the backward
+    kernel once a backward, whose gradients agree bit for bit over two
+    runs and stay within 1e-5 of the plain backward's largest entry; the
+    wrapper refuses what the kernels do not take (fp16, head dim 48, a
+    non-contiguous k, lengths not int32, a misaligned bf16 q)."""
     q, k, v = _swa_inputs(1, 128, 1, 2, 32, "float32", seed=0, dev=card)
     dout = torch.randn(q.shape, device=card)
     grads = []
@@ -528,13 +527,24 @@ def test_swa_backward_raises_and_wrapper_refuses(card):
         swa_attn_op(qm, k.bfloat16(), v.bfloat16(), window=64)
 
 
+# the backward's own edges besides the forward's: at head dim 128 (dk / dv
+# split the head dim over blocks of 64 keys, dq takes blocks of 128 rows)
+# G 1, one plane for the in-order head sum, S one row past a tile and a
+# window past S; at 64 and below (two warpgroups of 64 rows, 128-row
+# blocks) S off the block with a length one past it and an odd G; at 256
+# (both split) a length inside a tile and a window off the tile; at 32
+# (padded to 64 columns) a length of one tile
+SWA_BWD_EDGES = [(1, 129, 1, 2, 256, 63, "bfloat16", None),
+                 (2, 1100, 1, 16, 256, 200, "bfloat16", (1100, 70)),
+                 (2, 300, 1, 4, 256, 64, "float32", (300, 1)),
+                 (1, 65, 1, 1, 128, 4096, "bfloat16", None),
+                 (2, 200, 3, 5, 64, 130, "bfloat16", (200, 129)),
+                 (1, 333, 2, 3, 256, 97, "bfloat16", (257,)),
+                 (2, 130, 1, 6, 32, 129, "bfloat16", (64, 130))]
+
+
 @pytest.mark.parametrize("B,S,KV,G,hd,W,dtype,lengths",
-                         SWA_EDGES + [(1, 129, 1, 2, 256, 63, "bfloat16",
-                                       None),
-                                      (2, 1100, 1, 16, 256, 200,
-                                       "bfloat16", (1100, 70)),
-                                      (2, 300, 1, 4, 256, 64, "float32",
-                                       (300, 1))])
+                         SWA_EDGES + SWA_BWD_EDGES)
 def test_swa_backward_kernel_matches_plain(card, B, S, KV, G, hd, W, dtype,
                                            lengths):
     """The forward that writes lse is bitwise the serving forward; two
@@ -566,18 +576,28 @@ def test_swa_backward_kernel_matches_plain(card, B, S, KV, G, hd, W, dtype,
         torch.testing.assert_close(a, b, rtol=rtol, atol=1e-5 * top)
 
 
-@pytest.mark.parametrize("arch", ["starcoder2-3b-smoke",
-                                  "recurrentgemma-9b-smoke"])
-def test_remat_is_bitwise_on_card(card, arch):
+@pytest.mark.parametrize("arch,dtype,hd", [
+    ("starcoder2-3b-smoke", None, None),
+    ("recurrentgemma-9b-smoke", None, None),
+    ("starcoder2-3b-smoke", "bfloat16", 128),
+    ("recurrentgemma-9b-smoke", "bfloat16", 256)])
+def test_remat_is_bitwise_on_card(card, arch, dtype, hd):
     """Group remat on the card past the band's start (window 16, S 2,048):
     the loss and every gradient leaf bitwise those without remat, the
     band's forward launched twice a local layer with remat (the recompute)
-    and once without, its backward once either way."""
+    and once without, its backward once either way.  The smokes compute
+    in fp32 (the SIMT backward); in bf16 at head dims 128 and 256 they
+    take the tensor-core backward, its split bodies."""
+    import dataclasses
+
     from repro_torch.configs import get_config
     from repro_torch.models.api import build_model
     from repro_torch.models.common import tree_leaves, tree_map
 
-    b = build_model(get_config(arch))
+    cfg = get_config(arch)
+    if dtype is not None:
+        cfg = dataclasses.replace(cfg, compute_dtype=dtype, head_dim=hd)
+    b = build_model(cfg)
     params = b.init_params(torch.Generator(device=card).manual_seed(0), card)
     toks = torch.randint(0, b.cfg.vocab_size, (2, 2048), dtype=torch.int32,
                          device=card,
