@@ -4,10 +4,11 @@
     python3 chip_smoke.py
 
 run from the root of a checkout, on a machine with one NVIDIA H100.
-``python3 chip_smoke.py --phase N`` (N in 15 to 19) runs phases 1
+``python3 chip_smoke.py --phase N`` (N in 15 to 21) runs phases 1
 and 2, then phase N's kernel rows and phase N alone (phase 15 after the
-RNN-T run on the scan engine it is held against), and prints the card's
-name and power limit and the phase's launch counts; it is for trying a
+RNN-T run on the scan engine it is held against, phase 21 after the
+resident RNN-T run without a group that 21a is held to), and prints the
+card's name and power limit and the phase's launch counts; it is for trying a
 phase, and the contract below holds for the whole run only.  It
 imports no JAX and nothing of the JAX package, and runs in phases; any
 failure exits non-zero, and no phase catches an error and carries on:
@@ -73,12 +74,12 @@ failure exits non-zero, and no phase catches an error and carries on:
    pick the same subsets);
 6. the reference's own loop (``examples/train_asr_pgm.py`` and the
    reference's host engine), beside phase 5's first run: (a) the same
-   config with a checkpoint directory, preempted after epoch 1 (a
-   manifest with ``extra.preempted``), then resumed: the remaining
-   epochs' losses and rounds' subsets and weights bitwise those of
-   phase 5's first run, its launches counted; then the newest
-   checkpoint corrupted, and ``restore_latest_intact`` falls back to the
-   one before; (b) a guarded AdamW epoch with a NaN weight at step 5:
+   config at ``REPEAT_EPOCHS`` epochs with a checkpoint directory,
+   preempted after epoch 0 (a manifest with ``extra.preempted``), then
+   resumed: the remaining epoch's losses and round's subsets and weights
+   bitwise those of phase 5's first run, its launches counted; then the
+   newest checkpoint corrupted, and ``restore_latest_intact`` falls back
+   to the one before; (b) a guarded AdamW epoch with a NaN weight at step 5:
    one step skipped, params and optimizer state bitwise unchanged across
    it; (c) the dense loss (``loss_impl="dense"``, no kernel) against the
    fused one on one full-width unit, per-example loss within 1e-4 and
@@ -132,7 +133,8 @@ failure exits non-zero, and no phase catches an error and carries on:
    to per-step launches x rows, the trace holding the kernel, the
    counters unchanged (a replay makes no host call), its wall and busy
    time a step beside phase 7's eager step;
-   (b) the same loop with ``epoch_chunk=2`` against (a); (c)
+   (b) the same loop's first ``REPEAT_EPOCHS`` epochs with
+   ``epoch_chunk=2`` against (a)'s; (c)
    ``starcoder2-3b`` and ``rwkv6-3b`` at full width with 2 layers, 2
    epochs, host engine against scan engine (same subsets, losses within
    1e-3), then the checks of (a) on a fresh engine with an eager step
@@ -260,7 +262,25 @@ failure exits non-zero, and no phase catches an error and carries on:
    remat peak lower; (d) one layer at fp32 (TF32 off) on one example of
    6,144 tokens, card against CPU, per-example loss and every gradient
    leaf at phase 4's bars.  Phase 3 holds the band's backward and the
-   grad sketch at phase 20's stage-A unit (n = 2 x 8,191).
+   grad sketch at phase 20's stage-A unit (n = 2 x 8,191);
+21. distribution on ``torch.distributed`` (ROADMAP hazards D1-D8) at
+   world size 1, the card's one rank in an NCCL group on a (1, 1) ``data
+   x pod`` mesh: (a) phase 15a's RNN-T path (scan engine, resident
+   rounds, stage B sharded over ``data``) twice at ``REPEAT_EPOCHS``
+   epochs, bitwise each other and 15a's run without a group over those
+   epochs, the collectives issued inside the step's
+   capture counted (NCCL enqueues no kernel in a group of one), its
+   captures and replays counted; (b) ``starcoder2-3b`` at full width
+   and 2 layers, S 512, through the pod step in ``none``, ``bf16`` and
+   ``topk`` beside the plain step, each replayed step timed, its peak
+   (top-k's fp32 residuals), one top-k step traced for the collectives'
+   share; on the full-width leaves (the 49,152 x 3,072 embedding
+   included) top-k sends exactly the k largest of a real gradient plus
+   the run's residuals, ``sent + new_err == g + err`` bitwise; a
+   resident round on the mesh (grad sketch, Gram); (c) two ranks sharing
+   the card over gloo (spawned at the phase's start, waiting), the host
+   engine, eager: a resident round on the seed's params and the first 2
+   steps from them against one device's.
 
 Phases 9, 12 and 15c draw their 3B models' initial weights with a
 generator on the card (the host generator took ~20 s a model).
@@ -296,7 +316,11 @@ the training paths through the band, ``recurrentgemma-9b-resident``
 (18c), ``starcoder2-3b-long`` (20a: a step-graph kernel's launches
 counted at the warm-ups and the capture plus its graph's nodes x
 replays) and ``starcoder2-3b-long-2`` (20b), with the grad sketch and
-the Gram of 20a), the card's name and power limit
+the Gram of 20a; then phase 21's: the lattice and the Gram of
+``rnnt-mesh`` (21a; the lattice of the step graph as counted plus its
+nodes x replays), the grad sketch and the Gram of ``lm-mesh`` (21b's
+round) and the lattice and the Gram of ``rnnt-mesh-gloo`` (21c, both
+ranks' launches), the card's name and power limit
 as ``nvidia-smi`` prints them, and the line ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
@@ -1393,24 +1417,26 @@ def reference_loop(torch, np, bundle, tc, units, val_units, val_corpus,
     from repro_torch.train.faults import FaultPlan, corrupt_checkpoint
     from repro_torch.train.optim import make_update_for
 
-    # (a) preemption after epoch 1, then resume: the remaining epochs and
-    # rounds bitwise phase 5's first run's; then the newest checkpoint
-    # corrupted, and the restore falls back to the one before
+    # (a) the path's first REPEAT_EPOCHS epochs preempted after epoch 0,
+    # then resumed: the remaining epoch and its round bitwise phase 5's
+    # first run's; then the newest checkpoint corrupted, and the restore
+    # falls back to the one before
     rnnt_lattice_op.launches = 0
     omp_gram_batched_op.launches = 0
+    tc_a = dataclasses.replace(tc, epochs=REPEAT_EPOCHS)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_ckpt_") as ck:
         t0 = time.time()
         logs = []
         cut = train_with_selection_logged(
-            bundle, units, tc, val_units, logs, "[6a cut", t0, ckpt_dir=ck,
-            fault_plan=FaultPlan(preempt_after_epoch=1))
+            bundle, units, tc_a, val_units, logs, "[6a cut", t0,
+            ckpt_dir=ck, fault_plan=FaultPlan(preempt_after_epoch=0))
         manifest = ckpt.read_manifest(ck)
-        require(cut.preempted and len(cut.train_loss) == 2
+        require(cut.preempted and len(cut.train_loss) == 1
                 and manifest["extra"].get("preempted") is True,
                 f"6a: the preempted run did not stop resumably: "
                 f"{manifest['extra']}")
         res = train_with_selection_logged(
-            bundle, units, tc, val_units, logs, "[6a resume", t0,
+            bundle, units, tc_a, val_units, logs, "[6a resume", t0,
             ckpt_dir=ck, resume=True)
         torch.cuda.synchronize()
         launches = {"rnnt_lattice": rnnt_lattice_op.launches,
@@ -1419,12 +1445,13 @@ def reference_loop(torch, np, bundle, tc, units, val_units, val_corpus,
                   + res.val_loss,
                   [(s["epoch"], list(s["indices"]), list(s["weights"]))
                    for s in cut.selections + res.selections])
-        same = joined == first
-        print(f"[6a] preempted after epoch 1 (manifest step "
+        same = joined == run_prefix(first)
+        print(f"[6a] preempted after epoch 0 (manifest step "
               f"{manifest['step']}, extra.preempted true), resumed at epoch "
-              f"2: {time.time() - t0:.1f} s for both; launches {launches}; "
+              f"1: {time.time() - t0:.1f} s for both; launches {launches}; "
               f"every loss and every round's indices and weights bitwise "
-              f"equal to phase 5's first run: {same}", flush=True)
+              f"equal to phase 5's first run's first {REPEAT_EPOCHS} epochs: "
+              f"{same}", flush=True)
         require(same, f"6a: preempted + resumed run differs from the "
                       f"uninterrupted one: {joined} against {first}")
         require(all(n > 0 for n in launches.values()),
@@ -1929,10 +1956,12 @@ def scan_engine_phase(torch, np, bundle, tc, units, val_units, first,
     gc.collect()
     mark("14a scan engine, RNN-T")
 
-    # (b) the same loop in chunks of two epochs
-    h, _, _ = scan_run(bundle, units, val_units, tc, rnnt_ops, "14b",
-                       engine="scan", epoch_chunk=2)
-    agree(rnnt_run_record(h), rec_a, "14b", "14a (chunks of 1)")
+    # (b) the same loop in chunks of two epochs, its first REPEAT_EPOCHS
+    h, _, _ = scan_run(bundle, units, val_units,
+                       dataclasses.replace(tc, epochs=REPEAT_EPOCHS),
+                       rnnt_ops, "14b", engine="scan", epoch_chunk=2)
+    agree(rnnt_run_record(h), run_prefix(rec_a), "14b",
+          "14a (chunks of 1)")
     del h
     gc.collect()
     mark("14b epoch chunks")
@@ -2022,7 +2051,7 @@ def resident_against_host(torch, b, pgm_cfg, params, us, vs, proj, read):
 
 
 def resident_phase(torch, np, bundle, tc, units, val_units, rec_14a, models,
-                   dev, mark):
+                   dev, mark, keep=None):
     """Phase 15: resident selection rounds (``ResidentSelector``: stage A
     one captured CUDA graph a unit corpus, of one chunk at a cursor over
     the units, replayed a chunk at a time every round).  (a)
@@ -2200,6 +2229,8 @@ def resident_phase(torch, np, bundle, tc, units, val_units, rec_14a, models,
     require(again, "15a: two resident runs differ")
     require(same and w_ok and loss_rel < 1e-3 and len(tl) == len(tl0),
             f"15a: {runs[0][0]} against 14a {rec_14a}")
+    if keep is not None:                # phase 21a holds its run to this
+        keep["15a"] = runs[0][0]
     omp_a = runs[0][1]["omp_gram"]
     mark("15a resident selection, RNN-T")
 
@@ -4416,6 +4447,596 @@ def long_phase(torch, np, dev, mark):
     return out
 
 
+# phase 21: distribution on torch.distributed at world size 1 on the card
+# (ROADMAP hazards D1-D8).  (b) starcoder2-3b at full width and these
+# layers, S 512, DIST_STEPS replayed rows a compress mode (k_frac the
+# launcher's default); (c) two ranks of rnnt-crdnn on the one card over
+# gloo, eager
+DIST_LM_LAYERS = 2
+DIST_STEPS = 4
+DIST_K_FRAC = 0.05
+# 21c's agreement, two ranks against one: a resident round on the seed's
+# params picks the same subset, weights within 1e-4; from the seed's
+# params this many steps of epoch 0 (every unit weight 1), and again this
+# many steps of the round's subset epoch at two units a row (each rank
+# one unit, so the ranks' weight sums differ and the D1 scale is not 1),
+# each step's loss within DIST_GLOO_LOSS_BAR and every params leaf's norm
+# after them within DIST_GLOO_NORM_BAR (relative; on an H100 80GB HBM3 at
+# 700 W epoch 0's losses were 6e-8 and 2e-7 apart and the norms at most
+# 4.7e-5, a leaf of norm 0.02).  Whole epochs are not held to a bar: at
+# lr 0.5 this training amplifies the reassociation of the batch's split
+# (step losses 8e-6 and 5e-5 apart at steps 3 and 4, up to 0.12 by step
+# 8, on that card; a 2-epoch run's losses 0.46 apart).  The witness: the
+# first DIST_GLOO_TRACK steps' losses of the two ranks, of one device,
+# and of one device summing each row's gradient in two halves as the two
+# ranks do (``halves_steps``), printed side by side
+DIST_GLOO_STEPS = 2
+DIST_GLOO_TRACK = 8
+DIST_GLOO_LOSS_BAR = 1e-5
+DIST_GLOO_NORM_BAR = 1e-4
+NCCL_MARKER = "nccl"
+
+
+class collective_spy:
+    """Within the block every ``torch.distributed`` collective the port
+    calls is counted, and so are those issued while the current stream
+    captures a CUDA graph (``captured``): what a captured step holds.  In
+    a group of one NCCL moves nothing and enqueues no kernel, so the
+    step graph's nodes cannot show its collectives; the count of those
+    issued inside the capture shows only that their calls did not break
+    it.  That real NCCL work captures and replays (D6) is not shown
+    until a run on more than one card."""
+
+    NAMES = ("all_reduce", "all_gather_into_tensor", "all_gather_single")
+
+    def __init__(self, torch):
+        self.torch, self.calls, self.captured = torch, 0, 0
+
+    def __enter__(self):
+        import torch.distributed as dist
+        self.orig = {n: getattr(dist, n) for n in self.NAMES
+                     if hasattr(dist, n)}
+
+        def wrap(fn):
+            def counted(*a, **kw):
+                self.calls += 1
+                if self.torch.cuda.is_current_stream_capturing():
+                    self.captured += 1
+                return fn(*a, **kw)
+            return counted
+
+        for n, fn in self.orig.items():
+            setattr(dist, n, wrap(fn))
+        return self
+
+    def __exit__(self, *exc):
+        import torch.distributed as dist
+        for n, fn in self.orig.items():
+            setattr(dist, n, fn)
+
+
+def nccl_share(torch, fn, tag: str, what: str):
+    """``fn()`` under ``torch.profiler`` after a warm-up call -> (wall
+    ms, device busy ms, the collectives' device ms: kernels whose name
+    holds ``nccl``).  In a group of one NCCL enqueues no kernel, so the
+    collectives' share reads 0 by construction: it measures nothing
+    until a run on more than one card."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.time()
+        fn()
+        torch.cuda.synchronize()
+        wall = (time.time() - t0) * 1e3
+    busy = comm = 0.0
+    for ev in prof.key_averages():
+        if ev.device_type != DeviceType.CUDA:
+            continue
+        dt = getattr(ev, "self_device_time_total", None)
+        dt = (ev.self_cuda_time_total if dt is None else dt) / 1e3
+        busy += dt
+        if NCCL_MARKER in ev.key.lower():
+            comm += dt
+    print(f"[profile {tag}] {what}: wall {wall:.1f} ms, device busy "
+          f"{busy:.1f} ms, collectives (nccl kernels) {comm:.3f} ms "
+          f"({100 * comm / max(busy, 1e-9):.2f}% of busy; not a measure "
+          f"in a group of one)", flush=True)
+    return wall, busy, comm
+
+
+def rnnt_setup(epochs: int):
+    """Phase 5's RNN-T corpus, validation units and config, with
+    ``epochs`` epochs."""
+    from repro_torch.configs.base import PGMConfig, TrainConfig
+    from repro_torch.data.pipeline import asr_units
+    from repro_torch.data.synthetic import make_asr_corpus
+
+    units = asr_units(make_asr_corpus(0, **CORPUS), UNIT_SIZE)
+    val_units = asr_units(make_asr_corpus(7, N_VAL, **{
+        k: v for k, v in CORPUS.items()
+        if k not in ("n_examples", "noise_fraction", "snr_db")}), UNIT_SIZE)
+    tc = TrainConfig(lr=0.5, optimizer="sgd", epochs=epochs, seed=0,
+                     pgm=PGMConfig(subset_fraction=0.5, n_partitions=4,
+                                   select_every=1, warm_start_epochs=1,
+                                   val_matching=True))
+    return units, val_units, tc
+
+
+def first_steps(torch, bundle, tc, units, val_units, dev, mesh):
+    """On ``mesh`` (or one device without), from the seed's params: a
+    resident PGM round; ``DIST_GLOO_TRACK`` rows of epoch 0's plan on the
+    host engine, every whole params leaf's L2 norm taken after the first
+    ``DIST_GLOO_STEPS``; and ``DIST_GLOO_STEPS`` rows of the round's
+    subset epoch on a host engine of two units a row -> {losses, norms,
+    indices, weights, subset rows' unit weights, subset losses, subset
+    norms}."""
+    from repro_torch.core.lastlayer import make_proj_for
+    from repro_torch.core.pgm import ResidentSelector
+    from repro_torch.models.common import tree_leaves
+    from repro_torch.train.engine import HostEngine
+    from repro_torch.train.optim import make_update_for
+
+    S, T = DIST_GLOO_STEPS, DIST_GLOO_TRACK
+    norms = lambda p: [float(torch.linalg.vector_norm(x.double()))
+                       for x in tree_leaves(p)]
+    init = make_update_for(tc)[0]
+    eng = HostEngine(bundle, tc, units, val_units=val_units, device=dev,
+                     mesh=mesh)
+    gen = torch.Generator().manual_seed(tc.seed)
+    p0 = bundle.init_params(gen, dev)
+    proj = make_proj_for(bundle, gen, tc.pgm.sketch_dim_h,
+                         tc.pgm.sketch_dim_v, dev)
+    sel = ResidentSelector(bundle, tc.pgm, proj, mesh=mesh,
+                           on_failure="raise")(p0, eng.units,
+                                               val_units=eng.val_units)
+    idx, w = eng.full_plan(0)
+    p, o, head = eng.run_epoch(p0, init(p0), tc.lr, (idx[:S], w[:S]))
+    out = {"norms": norms(p)}
+    p, o, tail = eng.run_epoch(p, o, tc.lr, (idx[S:T], w[S:T]))
+    out["losses"] = [float(x) for x in list(head) + list(tail)]
+    out["indices"] = sel.indices.tolist()
+    out["weights"] = sel.weights.tolist()
+    eng2 = HostEngine(bundle, tc, units, device=dev, mesh=mesh,
+                      batch_units=2)
+    s_idx, s_w = eng2.subset_plan(sel.indices.cpu().numpy(),
+                                  sel.weights.cpu().numpy(), 1)
+    p, _, sub = eng2.run_epoch(p0, init(p0), tc.lr, (s_idx[:S], s_w[:S]))
+    out["subset_rows"] = s_w[:S].tolist()
+    out["subset_losses"] = [float(x) for x in sub]
+    out["subset_norms"] = norms(p)
+    return out
+
+
+def halves_steps(torch, bundle, tc, units, dev):
+    """The control of 21c on one device: the host engine's first
+    ``DIST_GLOO_TRACK`` rows of epoch 0 from the seed's params, each row's
+    gradient taken in two halves of its examples as two data ranks take
+    it (each half's weighted mean loss scaled by its weight sum over the
+    halves' mean, D1), the halves' gradients added in one fp32 buffer and
+    halved, as the ranks' all-reduce does, then clipped and applied ->
+    each row's loss (the halves' mean)."""
+    import numpy as np
+
+    from repro_torch.models.common import tree_leaves, tree_unflatten
+    from repro_torch.train.engine import HostEngine, to_device
+    from repro_torch.train.optim import clip_by_global_norm, make_update_for
+
+    eng = HostEngine(bundle, tc, units, device=dev)
+    init, update = make_update_for(tc)
+    p = bundle.init_params(torch.Generator().manual_seed(tc.seed), dev)
+    o = init(p)
+    idx, w = eng.full_plan(0)
+    losses = []
+    for sel, wr in zip(idx[:DIST_GLOO_TRACK], w[:DIST_GLOO_TRACK]):
+        batch = {k: v[sel].reshape((-1,) + v.shape[2:])
+                 for k, v in eng.units_host.items()}
+        batch["weights"] = batch["weights"] * np.repeat(wr, eng.unit_size)
+        batch = to_device(batch, dev)
+        n = int(batch["weights"].shape[0]) // 2
+        halves = [{k: v[i * n:(i + 1) * n] for k, v in batch.items()}
+                  for i in range(2)]
+        ws = [torch.sum(h["weights"].to(torch.float32)).reshape(1)
+              for h in halves]
+        w_sum = ws[0] + ws[1]
+        live = [x.detach().requires_grad_(True) for x in tree_leaves(p)]
+        flats, parts = [], []
+        for h, w_r in zip(halves, ws):
+            s = (w_r / torch.clamp(w_sum / 2, min=1e-9)).reshape(())
+            with torch.enable_grad():
+                _, m = bundle.loss_fn(tree_unflatten(p, live), h)
+                g = torch.autograd.grad(m["loss"] * s + m["aux_loss"], live)
+            flats.append(torch.cat([x.reshape(-1) for x in g]))
+            parts.append((m["loss"].detach() * s).to(torch.float32))
+        flat = (flats[0] + flats[1]) / 2
+        grads, at = [], 0
+        for x in live:
+            grads.append(flat[at:at + x.numel()].reshape(x.shape))
+            at += x.numel()
+        with torch.no_grad():
+            grads, _ = clip_by_global_norm(tree_unflatten(p, grads),
+                                           tc.grad_clip)
+            p, o = update(p, grads, o, tc.lr)
+        losses.append(float((parts[0] + parts[1]) / 2))
+    return losses
+
+
+def gloo_rank(rank: int, world: int, store_path: str, go_path: str):
+    """Phase 21c, one rank of a (world,) data mesh over gloo on the one
+    card, eager (the host engine): ``first_steps`` of the RNN-T main
+    path.  Waits for ``go_path`` after
+    joining the group (its imports and the card's context overlap 21a
+    and 21b) -> (``first_steps``' result, the kernels' launches in this
+    rank, the backend)."""
+    if str(SRC) not in sys.path:
+        sys.path.insert(0, str(SRC))
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import backend
+    from repro_torch.kernels.grad_sketch.ops import grad_sketch_units_op
+    from repro_torch.kernels.omp_gram.ops import omp_gram_batched_op
+    from repro_torch.kernels.rnnt_lattice.ops import rnnt_lattice_op
+    from repro_torch.launch.mesh import init_distributed, make_mesh
+    from repro_torch.models.api import build_model
+
+    torch.set_num_threads(2)
+    init_distributed("cuda", rank=rank, world_size=world,
+                     store=dist.FileStore(store_path, world),
+                     allow_shared_card=True)
+    backend.fp32_numerics()
+    backend.build()
+    mesh = make_mesh((world,), ("data",), "cuda")
+    bundle = build_model(get_config("rnnt-crdnn"))
+    units, val_units, tc = rnnt_setup(1)
+    while not os.path.exists(go_path):
+        time.sleep(0.05)
+    if os.path.exists(go_path + ".stop"):       # the phase failed before
+        dist.destroy_process_group()
+        return None
+    ops = {"rnnt_lattice": rnnt_lattice_op, "omp_gram": omp_gram_batched_op,
+           "grad_sketch": grad_sketch_units_op}
+    for op in ops.values():
+        op.launches = 0
+    got = first_steps(torch, bundle, tc, units, val_units,
+                      torch.device("cuda"), mesh)
+    torch.cuda.synchronize()
+    out = (got, {n: op.launches for n, op in ops.items()}, dist.get_backend())
+    dist.destroy_process_group()
+    return out
+
+
+def dist_phase(torch, np, dev, mark, bundle, tc, units, val_units,
+               rec_15a):
+    """Phase 21: distribution at world size 1 on the card (one H100): a
+    one-rank NCCL group on a (1, 1) data x pod mesh.  (a) phase 15a's
+    RNN-T path (scan engine, resident rounds, sharded stage B) twice at
+    ``REPEAT_EPOCHS`` epochs, bitwise each other and 15a's run without a
+    group over them (``rec_15a``; the CPU tests hold a group of one
+    bitwise the one-device run), its step's capture holding its
+    collectives (counted as issued inside it, D6), captures and replays
+    counted as phase 14 counts them; (b) ``starcoder2-3b`` at
+    full width and ``DIST_LM_LAYERS`` layers, S 512, through the pod step
+    in ``none``, ``bf16`` and ``topk`` against the plain step (no group),
+    each a fresh engine replaying ``DIST_STEPS`` rows: a replayed step's
+    time, the collectives' share of one under the profiler, the peak with
+    the fp32 ``err`` state, and (top-k) the collectives' share of one
+    under the profiler; on the full-width leaves (the 49,152 x 3,072
+    embedding included) top-k sends exactly the k largest of ``g + err``
+    (a real gradient and the run's residuals) and ``sent + new_err == g +
+    err`` bitwise; then a resident round on the mesh (the grad sketch and
+    the Gram); (c) two ranks on the one card over gloo (which carries the
+    CUDA tensors of every collective the port uses: all_reduce in fp32
+    and bf16, all_gather_into_tensor, barrier), rnnt-crdnn at data = 2 on
+    the host engine, eager, against one device (``first_steps``): a
+    resident round on the seed's params (stage B sharded over data; the
+    same subset, weights within 1e-4), the first ``DIST_GLOO_STEPS``
+    steps of epoch 0 and of the round's subset epoch (each rank one unit
+    of a row, weight sums that differ: the D1 scale) from the seed's
+    params (each loss within ``DIST_GLOO_LOSS_BAR``, every leaf's norm
+    after them within ``DIST_GLOO_NORM_BAR``), and, unheld, epoch 0's
+    losses over ``DIST_GLOO_TRACK`` steps beside one device's and
+    ``halves_steps``'.  -> {path: {kernel: launches}, "times": 21b's
+    numbers}."""
+    import concurrent.futures
+    import multiprocessing
+    import tempfile
+
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import PGMConfig, TrainConfig
+    from repro_torch.core.lastlayer import make_proj_for
+    from repro_torch.core.pgm import ResidentSelector
+    from repro_torch.kernels.grad_sketch.ops import grad_sketch_units_op
+    from repro_torch.kernels.omp_gram.ops import omp_gram_batched_op
+    from repro_torch.kernels.rnnt_lattice.ops import rnnt_lattice_op
+    from repro_torch.launch.mesh import init_distributed, make_mesh
+    from repro_torch.launch.train import make_units_for
+    from repro_torch.models.api import build_model
+    from repro_torch.models.common import tree_leaves, tree_unflatten
+    from repro_torch.train.compress import topk_compress
+    from repro_torch.train.engine import EpochEngine, to_device
+    from repro_torch.train.loop import train_with_selection
+    from repro_torch.train.optim import make_update_for
+
+    ops = {"rnnt_lattice": rnnt_lattice_op, "grad_sketch": grad_sketch_units_op,
+           "omp_gram": omp_gram_batched_op}
+    read = lambda: {n: op.launches for n, op in ops.items()}
+    out = {}
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_dist_")
+    # (c)'s two ranks start now: imports, the card's context and the
+    # gloo rendezvous overlap (a) and (b); they train once (b) is done
+    go = os.path.join(tmp, "go")
+    pool = concurrent.futures.ProcessPoolExecutor(
+        2, mp_context=multiprocessing.get_context("spawn"))
+    ranks = [pool.submit(gloo_rank, r, 2, os.path.join(tmp, "gloo"), go)
+             for r in range(2)]
+    try:
+        init_distributed("cuda", rank=0, world_size=1,
+                         store=dist.FileStore(os.path.join(tmp, "nccl"), 1))
+        mesh = make_mesh((1, 1), ("data", "pod"), "cuda")
+        require(dist.get_backend() == "nccl" and dist.get_world_size() == 1,
+                "21: not a one-rank NCCL group")
+        mark("21 a one-rank NCCL group and its (1, 1) mesh")
+
+        # -- (a) the RNN-T path on the mesh, twice ----------------------
+        recs = []
+        tc_r = dataclasses.replace(tc, epochs=REPEAT_EPOCHS)
+        for tag, tc_ in (("21a", tc_r), ("21a again", tc_r)):
+            for op in ops.values():
+                op.launches = 0
+            ResidentSelector.captures = ResidentSelector.replays = 0
+            EpochEngine.captures = EpochEngine.replays = 0
+            EpochEngine.warmup_steps = 0
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.time()
+            with kept_graphs(torch), engine_spy(EpochEngine) as spy, \
+                    collective_spy(torch) as coll:
+                h = train_with_selection(
+                    bundle, units, tc_, method="pgm", val_units=val_units,
+                    device="cuda", engine="scan", resident_selection=True,
+                    mesh=mesh,
+                    log_fn=lambda s: print(f"[{tag} +{time.time() - t0:.1f}"
+                                           f"s] {s}", flush=True))
+                torch.cuda.synchronize()
+                (eng,) = spy.engines
+                nodes = graph_kernels(eng._graph, {
+                    "nccl": NCCL_MARKER,
+                    "rnnt_lattice": KERNEL_MARKERS["rnnt_lattice"]})
+            secs = time.time() - t0
+            launches = read()
+            recs.append(rnnt_run_record(h))
+            print(f"[{tag}] {secs:.1f} s on a (1, 1) data x pod NCCL group "
+                  f"(scan engine, resident rounds, sharded stage B); step "
+                  f"captures {EpochEngine.captures}, warm-up steps "
+                  f"{EpochEngine.warmup_steps}, replays "
+                  f"{EpochEngine.replays}; stage-A captures "
+                  f"{ResidentSelector.captures}, replays "
+                  f"{ResidentSelector.replays}; collectives issued "
+                  f"{coll.calls}, {coll.captured} of them inside the step's "
+                  f"capture; the step graph's kernel nodes {nodes} (NCCL "
+                  f"enqueues no kernel in a group of one); launches "
+                  f"{launches}; peak "
+                  f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB",
+                  flush=True)
+            require(EpochEngine.captures == 1 and ResidentSelector.captures
+                    == 2 and coll.captured > 0
+                    and nodes["rnnt_lattice"] > 0,
+                    f"{tag}: the step's capture holds no collective or no "
+                    f"lattice, or the run captured another number of "
+                    f"graphs")
+            require(launches["rnnt_lattice"] > 0 and launches["omp_gram"] > 0,
+                    f"{tag}: a kernel of the path was not launched "
+                    f"{launches}")
+            if tag == "21a":
+                # (counted, graph nodes x replays): a replay runs every
+                # node once, so the second is what the replays launched
+                out["rnnt-mesh"] = {
+                    "rnnt_lattice": (launches["rnnt_lattice"],
+                                     nodes["rnnt_lattice"]
+                                     * EpochEngine.replays),
+                    "omp_gram": (launches["omp_gram"], 0)}
+            del h, eng, spy
+        again = recs[1] == recs[0]
+        bitwise = recs[0] == run_prefix(rec_15a)
+        print(f"[21a] two runs of seed {tc.seed} ({REPEAT_EPOCHS} epochs) "
+              f"bitwise equal: {again}; bitwise 15a's run without a group "
+              f"over its first {REPEAT_EPOCHS} epochs: {bitwise}",
+              flush=True)
+        require(again and bitwise, "21a: the mesh run is not bitwise the "
+                                   "run without a group, or not repeatable")
+        gc.collect()
+        torch.cuda.empty_cache()
+        mark("21a rnnt-crdnn on a one-rank NCCL group")
+
+        # -- (b) starcoder2-3b through the pod step -----------------------
+        lm_full = get_config("starcoder2-3b")
+        lm = build_model(dataclasses.replace(lm_full,
+                                             n_layers=DIST_LM_LAYERS))
+        lm_us, lm_vs = make_units_for(lm_full, n=LM_N, seq=LM_SEQ,
+                                      noise=0.0)
+        plan = (np.arange(DIST_STEPS, dtype=np.int32)[:, None],
+                np.ones((DIST_STEPS, 1), np.float32))
+        times = {}
+        err = params_b = None
+        t_b = time.time()
+        for mode in ("plain", "none", "bf16", "topk"):
+            tc_b = TrainConfig(lr=0.05, optimizer="sgd", epochs=1, seed=0,
+                               compress_mode="none" if mode == "plain"
+                               else mode, compress_k_frac=DIST_K_FRAC)
+            gc.collect()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            eng = EpochEngine(lm, tc_b, lm_us, batch_units=1, device=dev,
+                              mesh=None if mode == "plain" else mesh)
+            p = card_init(torch, lm, dev)
+            o = make_update_for(tc_b)[0](p)
+            eng.adopt(p, o)
+            with collective_spy(torch) as coll:      # warm-up, capture
+                eng.run_epoch(p, o, tc_b.lr, plan)
+            torch.cuda.synchronize()
+            t0 = time.time()
+            _, _, losses = eng.run_epoch(p, o, tc_b.lr, plan)
+            torch.cuda.synchronize()
+            step_ms = (time.time() - t0) * 1e3 / DIST_STEPS
+            peak = torch.cuda.max_memory_allocated() / 1e9
+            require(bool(np.all(np.isfinite(losses))),
+                    f"21b {mode}: non-finite loss")
+            if mode == "topk":
+                # the collectives' share of a replayed step, traced
+                one = (plan[0][:1], plan[1][:1])
+                times["trace"] = nccl_share(
+                    torch, lambda: eng.run_epoch(p, o, tc_b.lr, one),
+                    f"21b {mode}", "one replayed step")
+            times[mode] = (step_ms, peak)
+            print(f"[21b +{time.time() - t_b:.1f}s] starcoder2-3b "
+                  f"{DIST_LM_LAYERS} layers, S {LM_SEQ}, "
+                  f"{mode}: a replayed step {step_ms:.2f} ms (host clock over "
+                  f"{DIST_STEPS}); peak {peak:.2f} GB; collectives inside "
+                  f"the step's capture {coll.captured}; losses "
+                  f"{[round(float(x), 4) for x in losses]}", flush=True)
+            require((mode == "plain") == (coll.captured == 0),
+                    f"21b {mode}: {coll.captured} collectives in the "
+                    f"step's capture")
+            if mode == "topk":
+                err, params_b = eng.compress_state, eng.params
+            else:
+                del p, o
+            del eng
+        # top-k on the full-width leaves: a real gradient of one unit and
+        # the run's residuals
+        batch = {k: torch.as_tensor(v[0]).to(dev) for k, v in lm_us.items()}
+        live = [x.detach().requires_grad_(True) for x in tree_leaves(params_b)]
+        with torch.enable_grad():
+            total, _ = lm.loss_fn(tree_unflatten(params_b, live), batch)
+            grads = torch.autograd.grad(total, live)
+        g_tree = tree_unflatten(params_b, list(grads))
+        sent, new = topk_compress(g_tree, err, DIST_K_FRAC)
+        checked = []
+        for g, e, s_, n_ in zip(grads, tree_leaves(err), tree_leaves(sent),
+                                tree_leaves(new)):
+            flat = (g + e).reshape(-1)
+            k = max(int(flat.numel() * DIST_K_FRAC), 1)
+            top = torch.topk(flat.abs(), k).values
+            on = s_.reshape(-1) != 0
+            got = torch.sort(s_.reshape(-1)[on].abs(), descending=True).values
+            ok = (bool(torch.equal(s_ + n_, g + e))
+                  and int(on.sum()) == int((top != 0).sum())
+                  and bool(torch.equal(got, top[top != 0])))
+            checked.append((tuple(g.shape), k, ok))
+        emb = [c for c in checked if c[0] == (lm_full.vocab_size,
+                                              lm_full.d_model)]
+        print(f"[21b] top-k on {len(checked)} full-width leaves (k_frac "
+              f"{DIST_K_FRAC}; the embedding {emb}): exactly the k largest "
+              f"|g + err| sent and sent + new_err == g + err bitwise on every "
+              f"leaf: {all(c[2] for c in checked)}", flush=True)
+        require(emb and all(c[2] for c in checked),
+                f"21b: top-k sent another set than the k largest, or the "
+                f"error-feedback invariant broke: "
+                f"{[c for c in checked if not c[2]]}")
+        del live, grads, g_tree, sent, new, total, err
+        # a resident round on the mesh: the grad sketch and the Gram
+        for op in ops.values():
+            op.launches = 0
+        pc = PGMConfig(subset_fraction=0.5, n_partitions=4, select_every=1,
+                       warm_start_epochs=1, val_matching=True)
+        proj = make_proj_for(lm, torch.Generator().manual_seed(0),
+                             pc.sketch_dim_h, pc.sketch_dim_v, dev)
+        sel = ResidentSelector(lm, pc, proj, mesh=mesh, on_failure="raise")
+        s_ = sel(params_b, to_device(lm_us, dev),
+                 val_units=to_device(lm_vs, dev))
+        torch.cuda.synchronize()
+        launches = read()
+        print(f"[21b] a resident round on the mesh (sharded stage B over "
+              f"data): {s_.n_selected} units; launches {launches}",
+              flush=True)
+        require(launches["grad_sketch"] > 0 and launches["omp_gram"] > 0
+                and s_.n_selected > 0,
+                f"21b: the round launched {launches}")
+        out["lm-mesh"] = {k: launches[k] for k in ("grad_sketch", "omp_gram")}
+        out["times"] = times
+        del sel, params_b, s_, proj
+        gc.collect()
+        torch.cuda.empty_cache()
+        mark("21b starcoder2-3b through the pod step, 3 modes")
+
+        # -- (c) two ranks on the one card over gloo ----------------------
+        # the two ranks start; meanwhile the round and the first steps on
+        # one device, which theirs are held to, and the control that
+        # splits each row's gradient in two halves on one device
+        with open(go, "w"):
+            pass
+        u1, v1, tc1 = rnnt_setup(1)
+        one = first_steps(torch, bundle, tc1, u1, v1, dev, None)
+        halves = halves_steps(torch, bundle, tc1, u1, dev)
+        got = [r.result(timeout=600) for r in ranks]
+        (two, l0, be0), (two1, l1, _) = got
+        S = DIST_GLOO_STEPS
+        rel = lambda a, b: max(abs(x - y) / abs(y) for x, y in zip(a, b))
+        loss_rel = rel(two["losses"][:S], one["losses"][:S])
+        norm_rel = rel(two["norms"], one["norms"])
+        sub_loss_rel = rel(two["subset_losses"], one["subset_losses"])
+        sub_norm_rel = rel(two["subset_norms"], one["subset_norms"])
+        # the D1 scale is not 1: the two units of a subset row (one a
+        # rank) carry different weights
+        d1 = any(r[0] != r[1] for r in two["subset_rows"])
+        same = two["indices"] == one["indices"]
+        w_gap = float(np.abs(np.subtract(two["weights"],
+                                         one["weights"])).max())
+        w_ok = w_gap <= 1e-4
+        gaps = lambda a: ", ".join(f"{abs(x - y) / abs(y):.1e}" for x, y in
+                                   zip(a, one["losses"]))
+        print(f"[21c] rnnt-crdnn on two ranks sharing the card over "
+              f"{be0} (host engine, eager, data = 2) against one device, "
+              f"from the seed's params: a resident round (stage B sharded "
+              f"over data): the same subset {same} "
+              f"({sum(i >= 0 for i in two['indices'])} units), weights at "
+              f"most {w_gap:.2e} apart (1e-4); epoch 0's first {S} steps: "
+              f"losses {two['losses'][:S]} against {one['losses'][:S]}, at "
+              f"most {loss_rel:.2e} apart ({DIST_GLOO_LOSS_BAR}), every "
+              f"params leaf's norm after them at most {norm_rel:.2e} apart "
+              f"({DIST_GLOO_NORM_BAR}); the subset epoch's first {S} steps "
+              f"at two units a row (the rows' unit weights "
+              f"{two['subset_rows']}, weight sums that differ {d1}): losses "
+              f"{two['subset_losses']} against {one['subset_losses']}, at "
+              f"most {sub_loss_rel:.2e} apart, norms at most "
+              f"{sub_norm_rel:.2e} apart; both ranks the same results "
+              f"{two == two1}; launches rank 0 {l0}, rank 1 {l1}",
+              flush=True)
+        print(f"[21c] epoch 0's first {DIST_GLOO_TRACK} steps, unheld: one "
+              f"device's losses {one['losses']}; the two ranks' relative "
+              f"gaps to them per step [{gaps(two['losses'])}]; one device "
+              f"summing each row's gradient in two halves [{gaps(halves)}]; "
+              f"the two ranks against the halves at most "
+              f"{rel(two['losses'], halves):.2e} apart", flush=True)
+        require(two == two1 and be0 == "gloo" and same and w_ok and d1
+                and loss_rel <= DIST_GLOO_LOSS_BAR
+                and norm_rel <= DIST_GLOO_NORM_BAR
+                and sub_loss_rel <= DIST_GLOO_LOSS_BAR
+                and sub_norm_rel <= DIST_GLOO_NORM_BAR,
+                f"21c: the two ranks' {two} against one device's {one}")
+        require(l0["rnnt_lattice"] > 0 and l0["omp_gram"] > 0,
+                f"21c: a kernel was not launched {l0}")
+        out["rnnt-mesh-gloo"] = {k: l0[k] + l1[k]
+                                 for k in ("rnnt_lattice", "omp_gram")}
+        mark("21c two ranks on the card over gloo")
+    finally:
+        if not os.path.exists(go):              # (c) never started
+            for path in (go + ".stop", go):
+                with open(path, "w"):
+                    pass
+        pool.shutdown(wait=True, cancel_futures=True)
+        if dist.is_initialized():
+            dist.destroy_process_group()
+    return out
+
+
 def train_with_selection_logged(bundle, units, tc, val_units, logs, tag, t0,
                                 **kw):
     """Phase 5's run (the host engine) with options, its log lines
@@ -5056,10 +5677,12 @@ def main() -> None:
     # -- 15. resident selection: stage A one graph a corpus, replayed ---
     gc.collect()
     torch.cuda.empty_cache()
+    kept = {}
     resident = resident_phase(
         torch, np, bundle, tc, units, val_units, rec_14a,
         {"lm": (lm_cfg, lm_units, lm_val), "rwkv": (rw_cfg, rw_units,
-                                                    rw_val)}, dev, mark)
+                                                    rw_val)}, dev, mark,
+        keep=kept)
 
     # -- 16. the other dense archs and examples: gemma3-27b served at
     # full width and depth from bf16 weights, the serving weights bitwise
@@ -5095,6 +5718,13 @@ def main() -> None:
     torch.cuda.empty_cache()
     long = long_phase(torch, np, dev, mark)
 
+    # -- 21. distribution at world size 1: the RNN-T path and the pod
+    # step on a one-rank NCCL group, two ranks on the card over gloo ----
+    gc.collect()
+    torch.cuda.empty_cache()
+    dist = dist_phase(torch, np, dev, mark, bundle, tc, units, val_units,
+                      kept["15a"])
+
     g_err, g_ms, g_plain, g_lib, g_bound, g_by = \
         gram_rows[(P_main, n_units // P_main, D_sk)]
     print(f"[launches] RNN-T path {launches}, its preempted and resumed "
@@ -5108,7 +5738,9 @@ def main() -> None:
           f"the recurrent families (phase 18) {hybrid}, the encoder-decoder "
           f"and VLM families (phase 19) {family}, long-context training "
           f"(phase 20; a step-graph kernel as (counted, nodes x replays)) "
-          f"{long}", flush=True)
+          f"{long}, distribution (phase 21) "
+          f"{ {k: v for k, v in dist.items() if k != 'times'} }",
+          flush=True)
     # one row per kernel and main path, "launches" from that path's run;
     # the Gram's stage-B shape (4, 4, 4096) is the same on both paths
     gram = {"name": "omp_gram_batched", "route": "cuda",
@@ -5326,6 +5958,25 @@ def main() -> None:
         launches=got["grad_sketch"]))
     kernels.append(dict(gram, path="starcoder2-3b-long",
                         launches=got["omp_gram"]))
+    # phase 21: the RNN-T path on the one-rank mesh (the lattice of its
+    # step graph as (counted, nodes x replays)), the LM's resident round
+    # on it, and the two gloo ranks' RNN-T run (their launches summed)
+    row = lambda name, path: next(r for r in kernels if r["name"] == name
+                                  and r.get("path") == path)
+    for path, name, launched in (
+            ("rnnt-mesh", "rnnt_lattice", dist["rnnt-mesh"]["rnnt_lattice"]),
+            ("rnnt-mesh", "omp_gram", dist["rnnt-mesh"]["omp_gram"]),
+            ("lm-mesh", "grad_sketch", (dist["lm-mesh"]["grad_sketch"], 0)),
+            ("lm-mesh", "omp_gram", (dist["lm-mesh"]["omp_gram"], 0)),
+            ("rnnt-mesh-gloo", "rnnt_lattice",
+             (dist["rnnt-mesh-gloo"]["rnnt_lattice"], 0)),
+            ("rnnt-mesh-gloo", "omp_gram",
+             (dist["rnnt-mesh-gloo"]["omp_gram"], 0))):
+        base = {"rnnt_lattice": row("rnnt_lattice", "rnnt"),
+                "omp_gram": gram,
+                "grad_sketch": row("grad_sketch_units", "lm")}[name]
+        kernels.append(dict(base, path=path, launches=sum(launched),
+                            counted=launched[0]))
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {
@@ -5361,7 +6012,35 @@ def phase_alone(phase: int, rows_only: bool = False) -> None:
     def mark(p: str) -> None:
         print(f"[time] {p}: {time.time() - t00:.1f} s", flush=True)
 
-    if phase == 15:
+    if phase == 21:
+        from repro_torch.configs.base import PGMConfig, TrainConfig
+        from repro_torch.data.pipeline import asr_units
+        from repro_torch.data.synthetic import make_asr_corpus
+        from repro_torch.models.api import build_model
+        from repro_torch.train.loop import train_with_selection
+
+        bundle = build_model(get_config("rnnt-crdnn"))
+        units = asr_units(make_asr_corpus(0, **CORPUS), UNIT_SIZE)
+        val_units = asr_units(make_asr_corpus(7, N_VAL, **{
+            k: v for k, v in CORPUS.items()
+            if k not in ("n_examples", "noise_fraction", "snr_db")}),
+            UNIT_SIZE)
+        tc = TrainConfig(lr=0.5, optimizer="sgd", epochs=3, seed=0,
+                         pgm=PGMConfig(subset_fraction=0.5, n_partitions=4,
+                                       select_every=1, warm_start_epochs=1,
+                                       val_matching=True))
+        # 15a's run without a group, which 21a is held to
+        h = train_with_selection(bundle, units, tc, method="pgm",
+                                 val_units=val_units, device="cuda",
+                                 engine="scan", resident_selection=True)
+        torch.cuda.synchronize()
+        rec = rnnt_run_record(h)
+        del h
+        mark("15a the RNN-T path, resident, without a group")
+        out = dist_phase(torch, np, dev, mark, bundle, tc, units, val_units,
+                         rec)
+        out.pop("times")
+    elif phase == 15:
         from repro_torch.configs.base import PGMConfig, TrainConfig
         from repro_torch.data.pipeline import asr_units
         from repro_torch.data.synthetic import make_asr_corpus
@@ -5416,10 +6095,10 @@ if __name__ == "__main__":
     if sys.argv[1:2] == ["--phase"]:
         rows = sys.argv[3:] == ["--rows"]
         require((len(sys.argv) == 3 or rows)
-                and sys.argv[2] in ("15", "16", "17", "18", "19", "20")
-                and not (rows and sys.argv[2] == "15"),
-                "usage: chip_smoke.py [--phase 15|16|17|18|19|20 "
-                "[--rows (not 15)]]")
+                and sys.argv[2] in ("15", "16", "17", "18", "19", "20", "21")
+                and not (rows and sys.argv[2] in ("15", "21")),
+                "usage: chip_smoke.py [--phase 15|16|17|18|19|20|21 "
+                "[--rows (not 15, 21)]]")
         phase_alone(int(sys.argv[2]), rows)
     else:
         require(len(sys.argv) == 1, "usage: chip_smoke.py [--phase N]")

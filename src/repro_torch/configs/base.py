@@ -234,6 +234,14 @@ class TrainConfig:
     anneal_factor: float = 0.8
     improvement_threshold: float = 0.0025
     seed: int = 0
+    # cross-pod gradient compression: when the training mesh carries a
+    # `pod_axis` axis, the step averages the pods' gradients through
+    # `train/compress.py:compressed_psum` -- "none" keeps that collective
+    # dense fp32, "bf16" halves its wire width, "topk" sends the k
+    # largest entries a leaf with error feedback kept in the engine
+    compress_mode: str = "none"      # none | bf16 | topk
+    compress_k_frac: float = 0.05    # top-k fraction a gradient leaf
+    pod_axis: str = "pod"            # mesh axis name of the slow pod axis
     # fault tolerance: with `nonfinite_guard` the step checks its loss
     # and clipped gradient norm for NaN/Inf on the device and gates a
     # non-finite step into a bit-exact no-op (optim.gate_step) with no

@@ -1,5 +1,5 @@
 """PGM — Partitioned Gradient Matching (paper Algorithm 1), the
-reference's ``core/pgm.py`` without a mesh.
+reference's ``core/pgm.py``.
 
 Every ``R`` epochs:
   stage A  per-unit last-layer gradient representations of all candidate
@@ -17,6 +17,14 @@ does: ``"auto"`` and ``"pallas"`` launch the grad sketch and the Gram
 on the card, ``"xla"`` runs their plain versions there; on the CPU
 every value runs the plain versions (``kernels/backend.py:use_kernel``).
 
+Distribution: with a ``mesh`` (``launch/mesh.py``), when the ``data``
+axis divides the partitions and the units (ROADMAP hazard D4), rank r
+takes stage A over its block of units ``[r n/size, (r+1) n/size)``,
+which holds its ``D/size`` whole partitions, and runs their OMPs
+(``pgm_select_sharded``); the selection is all-gathered.  Otherwise
+every rank runs the whole round, as the reference falls back to one
+device.  Validation units are sketched whole on every rank.
+
 Residency: ``ResidentSelector`` runs stage A as one batched pass
 (``units_gradients_batched``) over the engine's device-resident units.
 On the card each unit corpus (train, val) has one CUDA graph of one
@@ -31,6 +39,7 @@ leaves alone, captured in the same graph.
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import NamedTuple, Optional
 
 import torch
@@ -84,7 +93,44 @@ def partitioned_gm(g_units: torch.Tensor, n_partitions: int,
                      errors=torch.stack([r.error for r in res]))
 
 
-def _stage_b(g_units, pgm_cfg, g_val=None) -> Selection:
+def _mesh_divides(mesh, axis: str, n_partitions: int, n_units: int) -> bool:
+    """Sharded stage B needs whole partitions (and whole units) a rank;
+    when they do not divide, every rank runs one-device stage B (D4)."""
+    from repro_torch.launch.mesh import axis_names, mesh_shape
+    if axis not in axis_names(mesh):
+        return False
+    size = mesh_shape(mesh)[axis]
+    return n_partitions % size == 0 and n_units % size == 0
+
+
+def _sharded_axis(mesh, axis: str, pgm_cfg, n_units: int) -> bool:
+    return mesh is not None and _mesh_divides(
+        mesh, axis, min(pgm_cfg.n_partitions, n_units), n_units)
+
+
+def unit_block(mesh, axis: str, n_units: int):
+    """``(lo, hi)``: the units of this rank's block, ``[r n / size, (r+1)
+    n / size)`` for its coordinate r on ``axis`` (D4)."""
+    from repro_torch.launch.mesh import coordinate, mesh_shape
+    size = mesh_shape(mesh)[axis]
+    r = coordinate(mesh)[axis]
+    per = n_units // size
+    return r * per, (r + 1) * per
+
+
+def _stage_b(g_units, pgm_cfg, g_val=None, mesh=None,
+             data_axis: str = "data") -> Selection:
+    """Stage B over stage-A vectors: with ``mesh``, ``g_units`` is this
+    rank's block of units and the partitions are spread over
+    ``data_axis`` (``pgm_select_sharded``); without, one-device stage B
+    over every unit."""
+    if mesh is not None:
+        from repro_torch.launch.mesh import mesh_shape
+        n_units = g_units.shape[0] * mesh_shape(mesh)[data_axis]
+        D = min(pgm_cfg.n_partitions, n_units)
+        cfg = pgm_cfg if pgm_cfg.n_partitions == D else \
+            dataclasses.replace(pgm_cfg, n_partitions=D)
+        return pgm_select_sharded(mesh, data_axis, g_units, cfg, g_val=g_val)
     n_units = g_units.shape[0]
     budget_total = max(int(pgm_cfg.subset_fraction * n_units), 1)
     D = min(pgm_cfg.n_partitions, n_units)
@@ -92,6 +138,52 @@ def _stage_b(g_units, pgm_cfg, g_val=None) -> Selection:
     return partitioned_gm(g_units, D, budget_per, pgm_cfg.lam, pgm_cfg.eps,
                           pgm_cfg.nonneg_weights, pgm_cfg.val_matching,
                           g_val, kernel_impl=pgm_cfg.kernel_impl)
+
+
+def pgm_select_sharded(mesh, axis: str, g_units, pgm_cfg,
+                       g_val=None) -> Selection:
+    """Stage B with the partitions spread over ``axis`` (the reference's
+    ``shard_map`` of it): ``g_units`` is this rank's block of ``n/size``
+    units, which holds ``n_partitions/size`` whole partitions; the rank
+    runs their OMPs locally, moves its indices by its block's offset, and
+    the indices, weights and errors are all-gathered in rank order along
+    the axis and ``n_selected`` summed.  Every rank returns the whole
+    selection."""
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import (all_gather_flat, coordinate,
+                                         mesh_shape)
+    size = mesh_shape(mesh)[axis]
+    per = g_units.shape[0]
+    n = per * size
+    D = pgm_cfg.n_partitions
+    if D % size:
+        raise ValueError(f"{D} partitions do not divide over {axis!r} of "
+                         f"size {size}")
+    budget_total = max(int(pgm_cfg.subset_fraction * n), 1)
+    budget_per = max(budget_total // D, 1)
+    sel = partitioned_gm(g_units, D // size, budget_per, pgm_cfg.lam,
+                         pgm_cfg.eps, pgm_cfg.nonneg_weights,
+                         pgm_cfg.val_matching,
+                         g_val if pgm_cfg.val_matching else None,
+                         kernel_impl=pgm_cfg.kernel_impl)
+    off = coordinate(mesh)[axis] * per
+    idx = torch.where(sel.indices >= 0, sel.indices + off,
+                      torch.full_like(sel.indices, -1))
+    group = mesh.get_group(axis)
+
+    def gather(t):
+        t = t.contiguous()
+        out = torch.empty((size * t.numel(),), dtype=t.dtype,
+                          device=t.device)
+        return all_gather_flat(out, t.reshape(-1), group)
+
+    n_sel = torch.tensor([sel.n_selected], dtype=torch.int64,
+                         device=g_units.device)
+    dist.all_reduce(n_sel, group=group)
+    return Selection(indices=gather(idx), weights=gather(sel.weights),
+                     n_selected=int(n_sel.item()),
+                     errors=gather(sel.errors))
 
 
 def _val_target(gv: torch.Tensor, n_units: int, pgm_cfg) -> torch.Tensor:
@@ -103,20 +195,30 @@ def _val_target(gv: torch.Tensor, n_units: int, pgm_cfg) -> torch.Tensor:
 
 def pgm_select(bundle, params, units, pgm_cfg,
                proj: Optional[Projections] = None,
-               val_units=None) -> Selection:
-    """One selection round (stages A + B) over device-resident units."""
+               val_units=None, mesh=None,
+               data_axis: str = "data") -> Selection:
+    """One selection round (stages A + B) over device-resident units.
+    With ``mesh`` (and whole partitions a rank, D4) each rank takes stage
+    A over its block of units and stage B over its partitions
+    (``pgm_select_sharded``); else every rank runs the whole round."""
     n_units = units["tokens"].shape[0]
     exact = not pgm_cfg.use_sketch
     impl = pgm_cfg.kernel_impl
     rt = _router_term_for(bundle, pgm_cfg)
-    g = units_gradients(bundle, params, units, proj, exact=exact,
+    sharded = _sharded_axis(mesh, data_axis, pgm_cfg, n_units)
+    mine = units
+    if sharded:
+        lo, hi = unit_block(mesh, data_axis, n_units)
+        mine = {k: v[lo:hi] for k, v in units.items()}
+    g = units_gradients(bundle, params, mine, proj, exact=exact,
                         kernel_impl=impl, router_term=rt)
     g_val = None
     if pgm_cfg.val_matching:
         gv = units_gradients(bundle, params, val_units, proj, exact=exact,
                              kernel_impl=impl, router_term=rt)
         g_val = _val_target(gv, n_units, pgm_cfg)
-    return _stage_b(g, pgm_cfg, g_val=g_val)
+    return _stage_b(g, pgm_cfg, g_val=g_val,
+                    mesh=mesh if sharded else None, data_axis=data_axis)
 
 
 def _router_term_for(bundle, pgm_cfg) -> bool:
@@ -194,12 +296,14 @@ class ResidentSelector:
 
     def __init__(self, bundle, pgm_cfg, proj: Optional[Projections] = None,
                  *, chunk_units: Optional[int] = None, mesh=None,
-                 vocab_chunk: int = 8192,
+                 data_axis: str = "data", vocab_chunk: int = 8192,
                  on_failure: str = "soft_random", log_fn=None):
         if mesh is not None:
-            raise ValueError(
-                "ResidentSelector(mesh=...): the sharded stage B is not "
-                "ported yet (ROADMAP.md queue 1, item 10)")
+            from repro_torch.launch.mesh import require_mesh
+            require_mesh(mesh)
+        self.mesh = mesh
+        self.data_axis = data_axis
+        self._blocks = []              # (corpus, this rank's block views)
         if on_failure not in ("soft_random", "raise"):
             raise ValueError(f"on_failure must be 'soft_random' or 'raise', "
                              f"got {on_failure!r}")
@@ -303,13 +407,31 @@ class ResidentSelector:
         ResidentSelector.replays += entry.n_chunks
         return entry.out.clone()
 
+    def _block(self, units):
+        """This rank's block of a corpus, as views made once a corpus (a
+        captured stage A reads the tensors it was captured against)."""
+        for corpus, block in self._blocks:
+            if corpus.keys() == units.keys() and \
+                    all(corpus[k] is units[k] for k in units):
+                return block
+        lo, hi = unit_block(self.mesh, self.data_axis,
+                            int(units["tokens"].shape[0]))
+        block = {k: v[lo:hi] for k, v in units.items()}
+        self._blocks.append((units, block))
+        return block
+
     def _select_round(self, params, units, val_units) -> Selection:
-        g = self.stage_a(params, units)
+        n_units = int(units["tokens"].shape[0])
+        sharded = _sharded_axis(self.mesh, self.data_axis, self.cfg,
+                                n_units)
+        g = self.stage_a(params, self._block(units) if sharded else units)
         g_val = None
         if self.cfg.val_matching:
             gv = self.stage_a(params, val_units)
-            g_val = _val_target(gv, g.shape[0], self.cfg)
-        return _stage_b(g, self.cfg, g_val=g_val)
+            g_val = _val_target(gv, n_units, self.cfg)
+        return _stage_b(g, self.cfg, g_val=g_val,
+                        mesh=self.mesh if sharded else None,
+                        data_axis=self.data_axis)
 
     def __call__(self, params, units, val_units=None) -> Selection:
         self._round += 1

@@ -1,5 +1,5 @@
-"""Training launcher of the port (the single-device host-engine part of
-the reference's ``repro.launch.train``):
+"""Training launcher of the port (the reference's
+``repro.launch.train``):
 
   PYTHONPATH=src python -m repro_torch.launch.train --arch rnnt-crdnn \
       --method pgm --epochs 6 [--noise 0.2 --snr-db 5] [--device cpu]
@@ -37,12 +37,29 @@ captured CUDA graph per unit corpus replayed every round.
 ``--selection-kernels xla`` runs the selection round's grad sketch and
 Gram as their plain versions on the card (``auto`` and ``pallas``, the
 reference's other values, launch the kernels).
+
+Distribution: one process a rank, started by ``torchrun`` (whose
+environment gives the ranks):
+
+  torchrun --standalone --nproc-per-node 4 -m repro_torch.launch.train \
+      --arch starcoder2-3b-smoke --device cpu --mesh 2x2 \
+      --mesh-axes data,pod --compress-mode topk [--compress-k-frac 0.05] \
+      [--spec-mode tp|expert|fsdp_sp|fsdp_batch]
+
+``--mesh AxB`` over the two ``--mesh-axes`` (default ``data,model``)
+trains data-parallel with params whole on every rank (``train/engine.py``),
+selection's stage B spread over ``data``; a ``pod`` axis averages the
+pods' gradients through ``--compress-mode``.  Gloo on the CPU, NCCL on
+the card (a card a rank).  A mesh whose size is not the number of
+ranks raises, saying how to launch.  Rank 0 alone prints.
 """
 from __future__ import annotations
 
 import argparse
 import dataclasses
 from typing import Optional
+
+import torch
 
 from repro_torch.configs import get_config
 from repro_torch.configs.base import PGMConfig, TrainConfig
@@ -51,6 +68,26 @@ from repro_torch.data.synthetic import make_asr_corpus, make_lm_corpus
 from repro_torch.kernels.backend import fp32_numerics, resolve_device
 from repro_torch.models.api import build_model
 from repro_torch.train.loop import METHODS, History, train_with_selection
+
+
+def parse_mesh(spec: Optional[str], axes: str = "data,model",
+               device_type: str = "cuda"):
+    """``'2x4'`` -> a 2-axis ``DeviceMesh`` over ``axes`` (comma
+    separated; ``data,pod`` is the two-level mesh of the compressed pod
+    collective), joining the process group ``torchrun`` set up;
+    ``None``/``''`` -> no mesh."""
+    if not spec:
+        return None
+    from repro_torch.launch.mesh import (check_world, init_distributed,
+                                         make_mesh)
+    dims = tuple(int(x) for x in spec.lower().split("x"))
+    names = tuple(a.strip() for a in axes.split(","))
+    if len(dims) != 2 or len(names) != 2:
+        raise ValueError(f"mesh spec must be AxB over two named axes, "
+                         f"got {spec!r} over {axes!r}")
+    check_world(dims, names)
+    init_distributed(device_type)
+    return make_mesh(dims, names, device_type)
 
 
 def make_units_for(cfg, *, n: int, noise: float, seq: int = 24,
@@ -91,7 +128,8 @@ def launch_train(arch: str, tc: TrainConfig, *, method: str = "pgm",
                  epoch_chunk: int = 1,
                  ckpt_dir: Optional[str] = None,
                  resume: bool = False, device: Optional[str] = None,
-                 log_fn=print) -> History:
+                 mesh=None, data_axis: str = "data", spec_mode: str = "tp",
+                 batch_units: int = 1, log_fn=print) -> History:
     cfg = get_config(arch)
     if loss_impl is not None and cfg.family == "rnnt":
         cfg = dataclasses.replace(
@@ -103,6 +141,8 @@ def launch_train(arch: str, tc: TrainConfig, *, method: str = "pgm",
                                 resume=resume, engine=engine,
                                 resident_selection=resident_selection,
                                 epoch_chunk=epoch_chunk, device=device,
+                                mesh=mesh, data_axis=data_axis,
+                                spec_mode=spec_mode, batch_units=batch_units,
                                 log_fn=log_fn)
 
 
@@ -123,6 +163,29 @@ def main(argv=None):
                     help="run up to N epochs as one scan-engine call "
                          "(validation and newbob on the device; metrics "
                          "read once a chunk)")
+    ap.add_argument("--mesh", default=None,
+                    help="AxB, e.g. 2x2 (default: no mesh): one process "
+                         "a rank under torchrun, the batch data-parallel "
+                         "over the mesh, params whole on every rank")
+    ap.add_argument("--mesh-axes", default="data,model",
+                    help="names of the two mesh axes; 'data,pod' builds "
+                         "the two-level data x pod mesh whose pod axis "
+                         "runs the compressed gradient collective")
+    ap.add_argument("--compress-mode", default="none",
+                    choices=["none", "bf16", "topk"],
+                    help="gradient compressor on the 'pod' mesh axis "
+                         "(train/compress.py): bf16 halves the "
+                         "collective's wire width, topk sends the k "
+                         "largest entries a leaf with error feedback; "
+                         "needs --mesh-axes data,pod")
+    ap.add_argument("--compress-k-frac", type=float, default=0.05,
+                    help="top-k fraction a gradient leaf for "
+                         "--compress-mode topk")
+    ap.add_argument("--spec-mode", default="tp",
+                    choices=["tp", "expert", "fsdp_sp", "fsdp_batch"],
+                    help="SpecBuilder policy, whose batch axes split "
+                         "the batch (fsdp_batch: every axis but pod and "
+                         "expert)")
     ap.add_argument("--subset", type=float, default=0.3)
     ap.add_argument("--partitions", type=int, default=4)
     ap.add_argument("--select-every", type=int, default=5)
@@ -170,9 +233,14 @@ def main(argv=None):
 
     device = resolve_device(args.device)
     fp32_numerics()
+    mesh = parse_mesh(args.mesh, args.mesh_axes, device.type)
+    if mesh is not None and device.type == "cuda":
+        device = torch.device("cuda", torch.cuda.current_device())
     tc = TrainConfig(
         lr=args.lr, optimizer=args.optimizer, epochs=args.epochs,
         seed=args.seed,
+        compress_mode=args.compress_mode,
+        compress_k_frac=args.compress_k_frac,
         nonfinite_guard=args.nonfinite_guard,
         max_skipped_steps=args.max_skipped_steps,
         pgm=PGMConfig(subset_fraction=args.subset,
@@ -187,8 +255,12 @@ def main(argv=None):
                      loss_impl=args.loss_impl, engine=args.engine,
                      resident_selection=args.resident_selection,
                      epoch_chunk=args.epoch_chunk, ckpt_dir=args.ckpt,
-                     resume=args.resume, device=str(device))
-    if h.val_loss:
+                     resume=args.resume, device=str(device), mesh=mesh,
+                     spec_mode=args.spec_mode)
+    rank0 = mesh is None or torch.distributed.get_rank() == 0
+    if mesh is not None:
+        torch.distributed.destroy_process_group()
+    if h.val_loss and rank0:
         print(f"done: val {h.val_loss[-1]:.4f}, "
               f"cost {h.cost_units:.2f} epoch-units, "
               f"wall {h.wall_time:.1f}s on {device}")

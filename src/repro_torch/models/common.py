@@ -7,7 +7,9 @@ device: a CPU generator gives the same parameters on the CPU and on the
 card, a card generator draws on the card (another stream of numbers,
 and no host work for a model of billions of parameters).
 Params are trees of tensors (dicts, and tuples for the LM stack) with the
-reference's key layout and (in, out) weight layout.
+reference's key layout and (in, out) weight layout.  A leaf's key is its
+path as ``jax.tree_util.keystr`` prints it (:func:`keystr`), and trees
+flatten in JAX's order (dict keys sorted).
 
 ``rms_norm``, ``rope_freqs``, ``apply_rope``, ``ffn_act`` and
 ``sigmoid`` repeat the reference's numerics: the norm in fp32 with a ``(1 + gamma)`` scale, cast
@@ -20,7 +22,7 @@ logistic as JAX evaluates it.
 from __future__ import annotations
 
 import math
-from typing import Callable, List
+from typing import Any, Callable, List, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -47,6 +49,51 @@ def tree_leaves(tree) -> List[torch.Tensor]:
     if isinstance(tree, (tuple, list)):
         return [l for t in tree for l in tree_leaves(t)]
     return [tree]
+
+
+def tree_unflatten(template, leaves):
+    """A tree of ``template``'s structure whose leaves are ``leaves``, in
+    ``tree_leaves`` order (dict keys sorted; each dict keeps its keys'
+    order)."""
+    it = iter(leaves)
+
+    def build(t):
+        if isinstance(t, dict):
+            done = {k: build(t[k]) for k in sorted(t)}
+            return {k: done[k] for k in t}
+        if isinstance(t, (tuple, list)):
+            return type(t)(build(x) for x in t)
+        return next(it)
+
+    return build(template)
+
+
+def keystr(path: Tuple) -> str:
+    """A leaf's key: ``[{key!r}]`` for a dict key, ``[i]`` for a sequence
+    index, as ``jax.tree_util.keystr`` writes them."""
+    return "".join(f"[{k!r}]" for k in path)
+
+
+def flatten_with_path(tree, path: Tuple = ()) -> List[Tuple[str, Any]]:
+    """(key, leaf) pairs of a tree of dicts, tuples and lists, in JAX's
+    flatten order."""
+    if isinstance(tree, dict):
+        return [kv for k in sorted(tree)
+                for kv in flatten_with_path(tree[k], path + (k,))]
+    if isinstance(tree, (tuple, list)):
+        return [kv for i, t in enumerate(tree)
+                for kv in flatten_with_path(t, path + (i,))]
+    return [(keystr(path), tree)]
+
+
+def map_with_path(fn: Callable[[str, Any], Any], tree, path: Tuple = ()):
+    """``tree`` with each leaf replaced by ``fn(key, leaf)``."""
+    if isinstance(tree, dict):
+        return {k: map_with_path(fn, v, path + (k,)) for k, v in tree.items()}
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(map_with_path(fn, v, path + (i,))
+                          for i, v in enumerate(tree))
+    return fn(keystr(path), tree)
 
 
 def tree_map(fn, tree, *rest):

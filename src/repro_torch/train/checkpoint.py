@@ -15,10 +15,14 @@ restore.  ``AsyncCheckpointer`` copies the tree to the host at submit
 
 A key is the path of a leaf as ``jax.tree_util.keystr`` prints it
 (``['params']['conv0']['w']``, ``[0]`` for a sequence index), built here
-by :func:`keystr` without JAX, in JAX's flatten order (dict keys
-sorted).  Each array carries the sha256 of its C-order bytes.  The port
-has no mesh and no pod compressor: ``mesh_shape`` and ``compress_mode``
-are written as null.
+by ``models/common.py:keystr`` without JAX, in JAX's flatten order (dict keys
+sorted).  Each array carries the sha256 of its C-order bytes.
+``mesh_shape`` is the run's ``{axis: size}`` (null on one device) and
+``compress_mode`` the pod axis's gradient compressor (null without a pod
+axis).  Arrays are stored whole: on a mesh rank 0 alone writes (params
+and optimizer state are whole on every rank; the per-pod error-feedback
+state is gathered under ``err`` as ``(n_pods, *shape)``), so a restore
+onto any mesh takes its pod's row (``train/engine.py:restore_sharding``).
 """
 from __future__ import annotations
 
@@ -29,40 +33,13 @@ import queue
 import shutil
 import threading
 import time
-from typing import Any, Callable, Dict, List, Optional, Tuple
+from typing import Dict, List, Optional
 
 import numpy as np
 import torch
 
-
-def keystr(path: Tuple) -> str:
-    """A leaf's key: ``[{key!r}]`` for a dict key, ``[i]`` for a sequence
-    index, as ``jax.tree_util.keystr`` writes them."""
-    return "".join(f"[{k!r}]" for k in path)
-
-
-def _flatten(tree, path: Tuple = ()) -> List[Tuple[str, Any]]:
-    """(key, leaf) pairs of a tree of dicts, tuples and lists, in JAX's
-    flatten order."""
-    if isinstance(tree, dict):
-        return [kv for k in sorted(tree) for kv in _flatten(tree[k],
-                                                            path + (k,))]
-    if isinstance(tree, (tuple, list)):
-        return [kv for i, t in enumerate(tree) for kv in _flatten(t,
-                                                                  path + (i,))]
-    return [(keystr(path), tree)]
-
-
-def _unflatten_like(template, fn: Callable[[str, Any], Any],
-                    path: Tuple = ()):
-    """``template`` with each leaf replaced by ``fn(key, leaf)``."""
-    if isinstance(template, dict):
-        return {k: _unflatten_like(v, fn, path + (k,))
-                for k, v in template.items()}
-    if isinstance(template, (tuple, list)):
-        return type(template)(_unflatten_like(v, fn, path + (i,))
-                              for i, v in enumerate(template))
-    return fn(keystr(path), template)
+from repro_torch.models.common import flatten_with_path as _flatten
+from repro_torch.models.common import keystr, map_with_path  # noqa: F401
 
 
 def _to_host(leaf) -> np.ndarray:
@@ -87,7 +64,8 @@ def _prune_tmp_dirs(ckpt_dir: str) -> None:
 
 
 def _save_host(ckpt_dir: str, step: int, flat: Dict[str, np.ndarray],
-               extra: Optional[Dict]) -> None:
+               extra: Optional[Dict], mesh_shape: Optional[Dict] = None,
+               compress_mode: Optional[str] = None) -> None:
     os.makedirs(ckpt_dir, exist_ok=True)
     _prune_tmp_dirs(ckpt_dir)
     tmp = os.path.join(ckpt_dir, f".tmp_{step}")
@@ -97,8 +75,8 @@ def _save_host(ckpt_dir: str, step: int, flat: Dict[str, np.ndarray],
     manifest = {
         "step": int(step),
         "time": time.time(),
-        "mesh_shape": None,
-        "compress_mode": None,
+        "mesh_shape": mesh_shape,
+        "compress_mode": compress_mode,
         "arrays": {k: {"shape": list(np.shape(v)),
                        "dtype": str(np.asarray(v).dtype),
                        "sha256": _sha256(v)}
@@ -113,11 +91,12 @@ def _save_host(ckpt_dir: str, step: int, flat: Dict[str, np.ndarray],
     _update_latest(ckpt_dir, step)
 
 
-def save(ckpt_dir: str, step: int, tree, extra: Optional[Dict] = None
-         ) -> None:
+def save(ckpt_dir: str, step: int, tree, extra: Optional[Dict] = None,
+         mesh_shape: Optional[Dict[str, int]] = None,
+         compress_mode: Optional[str] = None) -> None:
     """Blocking atomic save of a tree of tensors (or numpy arrays)."""
     _save_host(ckpt_dir, step, {k: _to_host(v) for k, v in _flatten(tree)},
-               extra)
+               extra, mesh_shape, compress_mode)
 
 
 def _update_latest(ckpt_dir: str, step: int) -> None:
@@ -153,11 +132,15 @@ def read_manifest(ckpt_dir: str, step: Optional[int] = None) -> Dict:
 
 
 def restore(ckpt_dir: str, step: Optional[int] = None, template=None,
-            verify: bool = True):
+            verify: bool = True, template_fn=None, sharding_fn=None):
     """Load a checkpoint -> ``(tree, manifest)``.  Without ``template``
     the tree is the flat ``{key: np.ndarray}``; with one, each leaf of
     the template is replaced by the array of its key as a tensor of the
-    template leaf's dtype on its device.  ``verify`` checks every array
+    template leaf's dtype on its device.  ``template_fn(manifest)``
+    builds the template from the manifest instead (a tree that holds
+    ``err`` only when the checkpoint does); ``sharding_fn(key, array)``
+    maps each whole array to this rank's part of it before it becomes a
+    tensor (a restore onto a mesh).  ``verify`` checks every array
     against its sha256 and raises ``IOError`` naming every bad key."""
     _prune_tmp_dirs(ckpt_dir)
     step = latest_step(ckpt_dir) if step is None else step
@@ -175,18 +158,23 @@ def restore(ckpt_dir: str, step: Optional[int] = None, template=None,
             raise IOError(
                 f"checkpoint corruption detected in {len(bad)} array(s): "
                 + ", ".join(sorted(bad)))
+    if template_fn is not None:
+        template = template_fn(manifest)
     if template is None:
         return arrays, manifest
 
     def leaf(key: str, proto):
-        t = torch.from_numpy(np.array(arrays[key], copy=True))
+        a = arrays[key]
+        if sharding_fn is not None:
+            a = sharding_fn(key, a)
+        t = torch.from_numpy(np.array(a, copy=True))
         return t.to(device=proto.device, dtype=proto.dtype)
 
-    return _unflatten_like(template, leaf), manifest
+    return map_with_path(leaf, template), manifest
 
 
 def restore_latest_intact(ckpt_dir: str, template=None, verify: bool = True,
-                          log_fn=None):
+                          log_fn=None, template_fn=None, sharding_fn=None):
     """Restore the newest checkpoint that passes verification, walking
     the ``step_<n>`` directories newest first; an unusable one is logged
     and skipped.  Raises ``FileNotFoundError`` without checkpoints and
@@ -198,7 +186,8 @@ def restore_latest_intact(ckpt_dir: str, template=None, verify: bool = True,
     last_err: Optional[BaseException] = None
     for step in steps:
         try:
-            return restore(ckpt_dir, step, template=template, verify=verify)
+            return restore(ckpt_dir, step, template=template, verify=verify,
+                           template_fn=template_fn, sharding_fn=sharding_fn)
         except Exception as e:   # a sha256 mismatch (IOError), a damaged
             last_err = e         # zip (BadZipFile, zlib.error) or a
             # missing array (KeyError): this step is unusable, try older
@@ -226,19 +215,22 @@ class AsyncCheckpointer:
             item = self._q.get()
             if item is None:
                 return
-            step, flat, extra = item
+            step, flat, extra, meta = item
             try:
-                _save_host(self.ckpt_dir, step, flat, extra)
+                _save_host(self.ckpt_dir, step, flat, extra, **meta)
             except BaseException as e:      # raised on next submit/wait
                 self._err = e
             finally:
                 self._q.task_done()
 
-    def submit(self, step: int, tree, extra: Optional[Dict] = None) -> None:
+    def submit(self, step: int, tree, extra: Optional[Dict] = None,
+               mesh_shape: Optional[Dict[str, int]] = None,
+               compress_mode: Optional[str] = None) -> None:
         if self._err:
             raise self._err
         self._q.put((step, {k: _to_host(v) for k, v in _flatten(tree)},
-                     extra))
+                     extra, {"mesh_shape": mesh_shape,
+                             "compress_mode": compress_mode}))
 
     def wait(self) -> None:
         self._q.join()

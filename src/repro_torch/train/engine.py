@@ -11,8 +11,18 @@ once per plan row; it reads the losses back once an epoch, or once a
 chunk of epochs with ``run_epochs`` (validation and the newbob update
 then run on the device between epochs).  On the CPU, which only the
 tests ask for, it runs the same device-resident loop without a graph.
-The reference's mesh, pod and compression parts of ``EpochEngine`` are
-not ported (ROADMAP.md queue 1, item 10).
+
+With a ``mesh`` (``launch/mesh.py``: a ``DeviceMesh``, one process a
+rank) both engines train data-parallel (:class:`MeshContext`), through
+the one step of ``make_step_core``: every rank holds the whole params,
+optimizer state and its pod's error-feedback state; each rank computes
+the loss of its slice of the batch's examples, scaled so that the ranks'
+mean is the global weighted mean (ROADMAP hazard D1); the gradients are
+averaged over the data axes in fp32, and over a ``pod`` axis through
+``train/compress.py:compressed_psum`` (``TrainConfig.compress_mode``,
+the reference's two-level ``data x pod`` step); every rank then clips by
+the norm of the whole averaged gradient (D5) and updates.  On the card
+the scan engine's captured graph holds these collectives (NCCL; D6).
 
 The non-finite guard (``TrainConfig.nonfinite_guard``) checks each
 step's loss and clipped gradient norm on the device and folds the result
@@ -23,7 +33,8 @@ were, and a guarded run on finite data is bitwise the unguarded one.
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Optional
+import math
+from typing import Dict, NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -32,20 +43,21 @@ from repro_torch.configs.base import TrainConfig
 from repro_torch.core.chunking import auto_vocab_chunk
 from repro_torch.data.pipeline import epoch_plan, subset_epoch_plan
 from repro_torch.models.api import build_model
-from repro_torch.models.common import tree_leaves, tree_map
+from repro_torch.models.common import tree_leaves, tree_map, tree_unflatten
 from repro_torch.train.optim import (clip_by_global_norm, commit_,
                                      make_update_for, make_update_in_place,
                                      require_masters)
 
 
-def make_step_core(bundle, cfg: TrainConfig, update=None):
+def make_step_core(bundle, cfg: TrainConfig, update=None, ctx=None):
     """One weighted SGD step: ``step(params, opt_state, batch, lr,
-    step_on=None) -> (params, opt_state, metrics)``.  Gradients come from
-    autograd through the fused loss's analytic backward, and ``update``
-    (default: the functional ``optim.make_update_for(cfg)`` update, which
-    leaves its inputs untouched) applies them; ``EpochEngine`` passes
-    ``optim.make_update_in_place(cfg)``, which writes into the trees and
-    returns them.  ``step_on`` (0-dim bool tensor) gates the update.
+    step_on=None, err=None) -> (params, opt_state, metrics)``.  Gradients
+    come from autograd through the fused loss's analytic backward, and
+    ``update`` (default: the functional ``optim.make_update_for(cfg)``
+    update, which leaves its inputs untouched) applies them;
+    ``EpochEngine`` passes ``optim.make_update_in_place(cfg)``, which
+    writes into the trees and returns them.  ``step_on`` (0-dim bool
+    tensor) gates the update.
 
     With ``cfg.nonfinite_guard`` the step also gates on ``isfinite(loss)
     & isfinite(gnorm)`` (the clip's global norm: any NaN/Inf gradient
@@ -57,16 +69,33 @@ def make_step_core(bundle, cfg: TrainConfig, update=None):
     guarded) is ``bundle.loss_fn``'s total: for an MoE bundle the
     weighted task loss plus the load-balance aux, which
     ``metrics["aux_loss"]`` carries; ``metrics["loss"]`` is the task
-    loss the epochs report, as the reference's engine has them."""
+    loss the epochs report, as the reference's engine has them.
+
+    With ``ctx`` (a :class:`MeshContext`) the step is data-parallel:
+    ``batch`` is the whole batch and this rank takes the loss of its
+    examples, scaled so that the ranks' mean is the global weighted mean
+    (D1); the gradients are averaged over the data axes and compressed
+    over the pod axis (``ctx.reduce_grads``: top-k over whole leaves,
+    D2, advancing ``err``, this rank's pod's error-feedback state, in
+    place); the metrics are the ranks' means; the clip reads the norm of
+    the whole averaged gradient, the same on every rank, as does the
+    guard, which gates every rank off the same step and leaves ``err``
+    bit for bit (D5).  A data group of one averages nothing, so at world
+    size 1 the step is the one-device step's arithmetic."""
     opt_update = make_update_for(cfg)[1] if update is None else update
     guard = bool(cfg.nonfinite_guard)
 
-    def step(params, opt_state, batch, lr, step_on=None):
+    def step(params, opt_state, batch, lr, step_on=None, err=None):
         require_masters(params)
         live = tree_map(lambda p: p.detach().requires_grad_(True), params)
         leaves = tree_leaves(live)
+        if ctx is not None:
+            batch = ctx.slice_batch(batch)
+            scale = ctx.scale(batch)
         with torch.enable_grad():
             total, metrics = bundle.loss_fn(live, batch)
+            if ctx is not None:
+                total = metrics["loss"] * scale + metrics["aux_loss"]
             grad_leaves = torch.autograd.grad(total, leaves)
         by_id = {id(l): g for l, g in zip(leaves, grad_leaves)}
         grads = tree_map(lambda p: by_id[id(p)], live)
@@ -74,6 +103,11 @@ def make_step_core(bundle, cfg: TrainConfig, update=None):
         # clipped tree frees them before the update allocates new params
         del grad_leaves, by_id
         with torch.no_grad():
+            metrics = {k: v.detach() for k, v in metrics.items()}
+            if ctx is not None:
+                grads, new_err = ctx.reduce_grads(grads, err)
+                metrics = ctx.mean_metrics(metrics, scale)
+                total = metrics["total_loss"]
             grads, gnorm = clip_by_global_norm(grads, cfg.grad_clip)
             ok = step_on
             if guard:
@@ -81,7 +115,10 @@ def make_step_core(bundle, cfg: TrainConfig, update=None):
                 ok = finite if step_on is None else step_on & finite
             params, opt_state = opt_update(params, grads, opt_state, lr,
                                            step_on=ok)
-            metrics = {k: v.detach() for k, v in metrics.items()}
+            if err is not None:
+                for old, new in zip(tree_leaves(err), tree_leaves(new_err)):
+                    old.copy_(new if ok is None else
+                              torch.where(ok, new, old))
             metrics["grad_norm"] = gnorm
             if ok is not None:
                 metrics = {k: torch.where(ok, v, torch.zeros_like(v))
@@ -93,6 +130,195 @@ def make_step_core(bundle, cfg: TrainConfig, update=None):
         return params, opt_state, metrics
 
     return step
+
+
+class PodSpec(NamedTuple):
+    """The two-level ``data x pod`` step's slow cross-pod axis: its name,
+    its pod count and the ``train/compress.py`` compressor of its
+    gradient collective."""
+
+    axis: str
+    n_pods: int
+    mode: str          # none | bf16 | topk
+    k_frac: float      # top-k fraction a leaf (mode == "topk")
+
+
+def _compress_check(cfg: TrainConfig, axes) -> None:
+    """A compressor needs a pod axis among the mesh's ``axes`` (None: no
+    mesh)."""
+    if cfg.compress_mode != "none" and cfg.pod_axis not in (axes or ()):
+        raise ValueError(
+            f"compress_mode={cfg.compress_mode!r} needs a mesh with a "
+            f"{cfg.pod_axis!r} axis (e.g. --mesh 2x2 with axes "
+            f"data x pod); got mesh={axes}")
+
+
+class MeshContext:
+    """An engine's distribution on ``mesh``: this rank's slice of each
+    batch and the step's collectives.
+
+    * Storage: every rank holds the whole params, optimizer state and
+      its pod's whole error-feedback state (replicated, as DDP does).
+      Shards gathered whole once a step, the only granularity there is
+      without per-layer gathers, would peak at the same memory and move
+      more; sharded storage pays with per-layer gathers (ROADMAP queue
+      1, item 17).  The mesh's ``SpecBuilder`` gives the batch axes.
+    * Compute: a batch's examples split into ``n_pods`` slices, pod-major
+      (the reference's ``(pod, data)`` placement), and each pod slice
+      over the spec's batch axes (``data``; every axis but pod and
+      expert in ``fsdp_batch``) when they divide it, else every rank of
+      the pod computes the pod's slice.  Ranks along ``model`` compute
+      the same examples.  The units are held whole on every rank.
+    * D7: an MoE bundle groups tokens over the reference's whole batch
+      (M1); when a rank's tokens are not a whole number of those groups
+      the grouping cannot be reproduced, and the engine raises."""
+
+    def __init__(self, mesh, cfg: TrainConfig, bundle, spec_mode: str,
+                 batch_units: int, unit_size: int, seq: int):
+        import torch.distributed as dist
+
+        from repro_torch.launch.mesh import (axes_group, axis_names,
+                                             coordinate, mesh_shape,
+                                             require_mesh)
+        from repro_torch.sharding.specs import SpecBuilder
+
+        require_mesh(mesh)
+        self.shape = mesh_shape(mesh)
+        names = axis_names(mesh)
+        pod_active = cfg.pod_axis in names
+        _compress_check(cfg, names)
+        n_pods = self.shape[cfg.pod_axis] if pod_active else 1
+        self.pod = (PodSpec(cfg.pod_axis, n_pods, cfg.compress_mode,
+                            cfg.compress_k_frac) if pod_active else None)
+        self.spec = SpecBuilder(mesh, mode=spec_mode,
+                                pod_axis=cfg.pod_axis if pod_active else None,
+                                arch=bundle.cfg.name)
+        self.coord = coordinate(mesh)
+        self.is_writer = dist.get_rank() == 0
+        n_examples = batch_units * unit_size
+        if n_examples % n_pods:
+            raise ValueError(
+                f"batch ({batch_units} units x {unit_size} "
+                f"examples) must divide into n_pods={n_pods} equal "
+                f"per-pod slices")
+        per_pod = n_examples // n_pods
+        batch_axes = self.spec.batch_axes
+        size = math.prod(self.shape[a] for a in batch_axes)
+        #: the data ranks a pod slice splits over (1: not split, and the
+        #: step averages nothing over them)
+        self.n_data = size if size > 1 and per_pod % size == 0 else 1
+        self.data_group = (axes_group(mesh, batch_axes) if self.n_data > 1
+                           else None)
+        self.pod_group = (mesh.get_group(cfg.pod_axis) if pod_active
+                          else None)
+        j = 0
+        for a in batch_axes:
+            j = j * self.shape[a] + self.coord[a]
+        per_rank = per_pod // self.n_data
+        pod_i = self.coord[cfg.pod_axis] if pod_active else 0
+        self.lo = pod_i * per_pod + (j if self.n_data > 1 else 0) * per_rank
+        self.hi = self.lo + per_rank
+        if bundle.cfg.family == "moe" and self.n_data > 1:
+            from repro_torch.models.moe import DEFAULT_GROUP
+            g = min(DEFAULT_GROUP, per_pod * seq)
+            if (per_rank * seq) % g:
+                raise ValueError(
+                    f"MoE groups (ROADMAP hazards M1 and D7): a rank's "
+                    f"{per_rank * seq} tokens ({per_rank} examples x "
+                    f"{seq}) are not a whole number of the reference's "
+                    f"groups of {g} tokens over its batch of {per_pod} "
+                    f"examples; the data-parallel step cannot reproduce "
+                    f"its grouping (grow the batch or drop the data axis)")
+
+    # -- the step's collectives -------------------------------------------
+    def slice_batch(self, batch):
+        """This rank's examples of a whole batch (views)."""
+        if self.hi - self.lo == int(next(iter(batch.values())).shape[0]):
+            return batch
+        return {k: v[self.lo:self.hi] for k, v in batch.items()}
+
+    def _sum(self, t: torch.Tensor, group) -> torch.Tensor:
+        import torch.distributed as dist
+        dist.all_reduce(t, group=group)
+        return t
+
+    def scale(self, batch) -> torch.Tensor:
+        """The factor of this rank's weighted mean loss on its slice
+        ``batch`` that makes the ranks' mean the global weighted mean
+        (D1): ``W_r / mean_data W`` within the pod, times ``W_pod /
+        mean_pods W_pod`` across pods (``W``: the slice's weight sum, or
+        its example count without weights)."""
+        first = next(iter(batch.values()))
+        w = batch.get("weights")
+        w = (torch.sum(w.to(torch.float32)) if w is not None else
+             torch.full((), float(first.shape[0]), device=first.device))
+        w = w.reshape(1)
+        if self.n_data > 1:
+            w_pod = self._sum(w.clone(), self.data_group)
+            s = w / torch.clamp(w_pod / self.n_data, min=1e-9)
+        else:
+            w_pod, s = w, None
+        if self.pod is not None:
+            w_all = self._sum(w_pod.clone(), self.pod_group)
+            sp = w_pod / torch.clamp(w_all / self.pod.n_pods, min=1e-9)
+            s = sp if s is None else s * sp
+        return (torch.ones_like(w) if s is None else s).reshape(())
+
+    def mean_metrics(self, metrics, scale):
+        """The ranks' means of this rank's scaled task loss and its aux
+        -> ``loss``, ``aux_loss``, ``total_loss``."""
+        from repro_torch.train.compress import _mean
+        values = [(metrics["loss"] * scale).to(torch.float32),
+                  metrics["aux_loss"].to(torch.float32)]
+        if self.n_data > 1:
+            values = _mean(values, self.data_group, self.n_data,
+                           torch.float32)
+        if self.pod is not None:
+            values = _mean(values, self.pod_group, self.pod.n_pods,
+                           torch.float32)
+        loss, aux = values
+        return {"loss": loss, "aux_loss": aux, "total_loss": loss + aux}
+
+    def reduce_grads(self, grads, err):
+        """The data axes' fp32 mean, then the pod axis's compressed mean
+        -> (mean gradient tree, the pod's new error state)."""
+        from repro_torch.train.compress import _mean, compressed_psum
+        if self.n_data > 1:
+            leaves = tree_leaves(grads)
+            red = _mean(leaves, self.data_group, self.n_data, torch.float32)
+            grads = tree_unflatten(grads, red)
+        if self.pod is None:
+            return grads, err
+        return compressed_psum(grads, self.pod_group, self.pod.mode, err,
+                               self.pod.k_frac)
+
+    def gather_pods(self, tree):
+        """The ``(n_pods, *shape)`` stack of every pod's copy of a
+        params-shaped tree (a collective over the pod axis, in one
+        buffer)."""
+        from repro_torch.launch.mesh import all_gather_flat
+        n = self.pod.n_pods
+        leaves = tree_leaves(tree)
+        flat = torch.cat([l.reshape(-1) for l in leaves])
+        got = torch.empty((n * flat.numel(),), dtype=flat.dtype,
+                          device=flat.device)
+        all_gather_flat(got, flat, self.pod_group)
+        got = got.view(n, -1)
+        out, at = [], 0
+        for l in leaves:
+            out.append(got[:, at:at + l.numel()].reshape(
+                (n,) + tuple(l.shape)))
+            at += l.numel()
+        return tree_unflatten(tree, out)
+
+    def any(self, flag: bool) -> bool:
+        """``flag`` on any rank (a host-side collective)."""
+        import torch.distributed as dist
+        t = torch.tensor([int(bool(flag))], dtype=torch.int32)
+        if dist.get_backend() == "nccl":
+            t = t.cuda()
+        dist.all_reduce(t)
+        return bool(t.item())
 
 
 def autotune_loss_vocab_chunk(bundle, units, batch_units: int):
@@ -151,7 +377,106 @@ def _plan_tensor(x, dtype, device) -> torch.Tensor:
     return torch.as_tensor(np.asarray(x)).to(device=device, dtype=dtype)
 
 
-class EpochEngine:
+
+
+class _MeshState:
+    """The mesh parts the engines share: the error-feedback state, the
+    whole ``(n_pods, *shape)`` state a checkpoint holds, and
+    ``restore_sharding``.  Without a mesh they are inert."""
+
+    ctx: Optional[MeshContext] = None
+    compress_state = None
+
+    def _mesh_setup(self, mesh, cfg, bundle, spec_mode, units) -> None:
+        self.ctx = None
+        if mesh is None:
+            _compress_check(cfg, None)
+            return
+        tok = units["tokens"]
+        self.ctx = MeshContext(mesh, cfg, bundle, spec_mode,
+                               self.batch_units, int(tok.shape[1]),
+                               int(tok.shape[-1]))
+
+    @property
+    def mesh_shape(self):
+        """``{axis: size}`` of the mesh (None without one)."""
+        return None if self.ctx is None else dict(self.ctx.shape)
+
+    @property
+    def pod_axis(self):
+        return (None if self.ctx is None or self.ctx.pod is None
+                else self.ctx.pod.axis)
+
+    @property
+    def is_writer(self) -> bool:
+        """Whether this rank prints and writes checkpoints (rank 0)."""
+        return self.ctx is None or self.ctx.is_writer
+
+    @property
+    def uses_error_feedback(self) -> bool:
+        """True when the engine carries per-pod top-k residuals, which
+        the loop checkpoints under ``err``."""
+        return (self.ctx is not None and self.ctx.pod is not None
+                and self.ctx.pod.mode == "topk")
+
+    def init_compress_state(self, params):
+        """Zero error-feedback state: this rank's pod's residuals, shaped
+        like ``params``; None unless the engine compresses with error
+        feedback."""
+        if not self.uses_error_feedback:
+            return None
+        from repro_torch.train.compress import init_error_state
+        return init_error_state(params)
+
+    def init_compress_state_once(self, params):
+        """The error-feedback state, made (zero) at its first use."""
+        if self.uses_error_feedback and self.compress_state is None:
+            self.compress_state = self.init_compress_state(params)
+        return self.compress_state
+
+    def set_compress_state(self, err) -> None:
+        """Take a restored error-feedback tree (this rank's pod's), or
+        zero residuals for ``None``: copied into the engine's buffers
+        when they exist (a captured step reads them), else adopted (for
+        ``None``, made zero at first use)."""
+        if not self.uses_error_feedback:
+            return
+        if self.compress_state is None:
+            self.compress_state = err
+            return
+        olds = tree_leaves(self.compress_state)
+        news = [None] * len(olds) if err is None else tree_leaves(err)
+        for old, new in zip(olds, news):
+            if new is None:
+                old.zero_()
+            else:
+                old.copy_(new)
+
+    def full_err(self):
+        """The whole ``(n_pods, *shape)`` error-feedback tree (a
+        collective over the pod axis), what a checkpoint holds under
+        ``err``."""
+        return self.ctx.gather_pods(self.compress_state)
+
+    def restore_sharding(self, path: str, arr):
+        """``checkpoint.restore(sharding_fn=...)``: this rank's part of a
+        whole restored array: an ``err`` leaf ``(n_pods, *shape)`` gives
+        its pod's residuals, any other leaf is whole on every rank.  A
+        checkpoint of any mesh restores onto any other."""
+        if self.ctx is not None and "['err']" in path:
+            return np.asarray(arr)[self.ctx.coord[self.pod_axis]]
+        return arr
+
+    def barrier(self) -> None:
+        if self.ctx is not None:
+            import torch.distributed as dist
+            dist.barrier()
+
+    def any_rank(self, flag: bool) -> bool:
+        return bool(flag) if self.ctx is None else self.ctx.any(flag)
+
+
+class EpochEngine(_MeshState):
     """The scanned epoch engine on one device (``engine="scan"``).
 
     Residency: ``units`` and ``val_units`` move to the device once; each
@@ -207,18 +532,23 @@ class EpochEngine:
     def __init__(self, bundle, cfg: TrainConfig, units: Dict[str, np.ndarray],
                  val_units: Optional[Dict[str, np.ndarray]] = None,
                  batch_units: int = 1,
-                 device: torch.device = torch.device("cpu"), mesh=None):
-        if mesh is not None:
-            raise ValueError(
-                "EpochEngine(mesh=...): the mesh, pod and compression parts "
-                "of the scanned engine are not ported yet (ROADMAP.md queue "
-                "1, item 10)")
+                 device: torch.device = torch.device("cpu"), mesh=None,
+                 spec_mode: str = "tp"):
         bundle, self.loss_vocab_chunk = autotune_loss_vocab_chunk(
             bundle, units, batch_units)
         self.bundle = bundle
         self.cfg = cfg
         self.device = dev = torch.device(device)
         self.batch_units = int(batch_units)
+        self._mesh_setup(mesh, cfg, bundle, spec_mode, units)
+        if mesh is not None and dev.type == "cuda":
+            import torch.distributed as dist
+            if dist.get_backend() != "nccl":
+                raise ValueError(
+                    f"EpochEngine on the card captures its step, and the "
+                    f"step's collectives, in a CUDA graph (ROADMAP hazard "
+                    f"D6); {dist.get_backend()} collectives cannot be "
+                    f"captured: use NCCL, or engine='host'")
         self.units = to_device(units, dev)
         self.val_units = (None if val_units is None
                           else to_device(val_units, dev))
@@ -233,7 +563,8 @@ class EpochEngine:
         self.last_skipped: Optional[torch.Tensor] = None
         self.last_n_skipped: Optional[torch.Tensor] = None
         self._step = make_step_core(bundle, cfg,
-                                    update=make_update_in_place(cfg))
+                                    update=make_update_in_place(cfg),
+                                    ctx=self.ctx)
         self._plan_idx = torch.full((n, self.batch_units), -1,
                                     dtype=torch.int32, device=dev)
         self._plan_w = torch.zeros((n, self.batch_units), device=dev)
@@ -326,7 +657,8 @@ class EpochEngine:
             batch["weights"] = batch["weights"] * w[:, None].expand(
                 -1, self.unit_size).reshape(-1)
         _, _, metrics = self._step(self.params, self.opt_state, batch,
-                                   self._lr, step_on=live)
+                                   self._lr, step_on=live,
+                                   err=self.compress_state)
         self._losses.index_copy_(
             0, k, metrics["loss"].to(torch.float32).reshape(1))
         if self.guard:
@@ -381,7 +713,8 @@ class EpochEngine:
         return n
 
     def _val_mean(self, params) -> torch.Tensor:
-        """Mean of the per-unit mean validation losses, on the device."""
+        """Mean of the per-unit mean validation losses, on the device
+        (with a mesh every rank validates every unit)."""
         n_val = int(self.val_units["tokens"].shape[0])
         with torch.no_grad():
             per_unit = [self.bundle.per_example_loss(
@@ -398,6 +731,7 @@ class EpochEngine:
         w = _plan_tensor(plan[1], torch.float32, self.device)
         self._load(params, opt_state)
         self._set_lr(lr)
+        self.init_compress_state_once(self.params)
         self._ensure_graph()
         self._n_skipped.zero_()
         n = self._run_rows(idx, w)
@@ -427,6 +761,7 @@ class EpochEngine:
         prev = torch.tensor(prev_loss, dtype=torch.float32, device=dev)
         self._load(params, opt_state)
         self._set_lr(lr)
+        self.init_compress_state_once(self.params)
         self._ensure_graph()
         E, n = int(idx_all.shape[0]), int(idx_all.shape[1])
         losses = torch.zeros((E, n), device=dev)
@@ -463,7 +798,7 @@ class EpochEngine:
         return float(self._val_mean(params))
 
 
-class HostEngine:
+class HostEngine(_MeshState):
     """The per-batch host loop: one step per host-assembled batch, one
     evaluation per validation unit.  Units are kept on the host (to
     assemble batches) and on the device (for selection rounds).
@@ -479,13 +814,20 @@ class HostEngine:
     def __init__(self, bundle, cfg: TrainConfig, units: Dict[str, np.ndarray],
                  val_units: Optional[Dict[str, np.ndarray]] = None,
                  batch_units: int = 1,
-                 device: torch.device = torch.device("cpu")):
+                 device: torch.device = torch.device("cpu"), mesh=None,
+                 spec_mode: str = "tp"):
+        if cfg.compress_mode != "none":
+            raise ValueError(
+                f"compress_mode={cfg.compress_mode!r} is scan-engine-only "
+                f"(the host loop trains dense); use engine='scan' with a "
+                f"data x {cfg.pod_axis} mesh")
         bundle, self.loss_vocab_chunk = autotune_loss_vocab_chunk(
             bundle, units, batch_units)
         self.bundle = bundle
         self.cfg = cfg
         self.device = device
         self.batch_units = int(batch_units)
+        self._mesh_setup(mesh, cfg, bundle, spec_mode, units)
         self.units_host = {k: np.asarray(v) for k, v in units.items()}
         self.units = to_device(self.units_host, device)
         self.val_units = (None if val_units is None
@@ -496,7 +838,7 @@ class HostEngine:
         self.plan_salt = 0
         self.last_skipped: Optional[np.ndarray] = None
         self.last_n_skipped: Optional[int] = None
-        self._step = make_step_core(bundle, cfg)
+        self._step = make_step_core(bundle, cfg, ctx=self.ctx)
 
     def _plan_seed(self) -> int:
         return self.cfg.seed + 1_000_003 * self.plan_salt
@@ -551,16 +893,15 @@ class HostEngine:
 
 def make_engine(name: str, bundle, cfg: TrainConfig, units,
                 val_units=None, batch_units: int = 1,
-                device: torch.device = torch.device("cpu"), mesh=None):
+                device: torch.device = torch.device("cpu"), mesh=None,
+                spec_mode: str = "tp"):
     """The engine factory the training loop consumes: ``"scan"`` (the
-    default of ``train_with_selection``) or ``"host"``."""
+    default of ``train_with_selection``) or ``"host"``, each on ``mesh``
+    when one is given."""
+    kw = dict(val_units=val_units, batch_units=batch_units, device=device,
+              mesh=mesh, spec_mode=spec_mode)
     if name == "scan":
-        return EpochEngine(bundle, cfg, units, val_units=val_units,
-                           batch_units=batch_units, device=device, mesh=mesh)
+        return EpochEngine(bundle, cfg, units, **kw)
     if name == "host":
-        if mesh is not None:
-            raise ValueError("engine='host' with a mesh: distribution is not "
-                             "ported yet (ROADMAP.md queue 1, item 10)")
-        return HostEngine(bundle, cfg, units, val_units=val_units,
-                          batch_units=batch_units, device=device)
+        return HostEngine(bundle, cfg, units, **kw)
     raise ValueError(f"unknown engine {name!r}; 'scan' or 'host'")

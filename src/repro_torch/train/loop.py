@@ -96,9 +96,10 @@ def _max_consecutive(mask: np.ndarray) -> int:
 
 def _select(method, bundle, params, units, tc: TrainConfig, epoch: int,
             key_seed: int, proj, val_units, durations,
-            resident: Optional[ResidentSelector] = None) -> Selection:
+            resident: Optional[ResidentSelector] = None, mesh=None,
+            data_axis: str = "data") -> Selection:
     """One selection round of ``method`` over the device-resident units
-    (the reference's ``train/loop.py:_select`` without a mesh)."""
+    (the reference's ``train/loop.py:_select``); ``params`` whole."""
     pc = tc.pgm
     n_units = units["tokens"].shape[0]
     budget = max(int(pc.subset_fraction * n_units), 1)
@@ -106,7 +107,8 @@ def _select(method, bundle, params, units, tc: TrainConfig, epoch: int,
         if resident is not None:
             return resident(params, units, val_units=val_units)
         return pgm_select(bundle, params, units, pc, proj,
-                          val_units=val_units)
+                          val_units=val_units, mesh=mesh,
+                          data_axis=data_axis)
     if method == "random":
         gen = torch.Generator().manual_seed(key_seed * 1_000_003 + 1000
                                             + epoch)
@@ -157,18 +159,32 @@ def train_with_selection(
     device: Optional[str] = None,
     params=None,
     proj: Optional[Projections] = None,
+    mesh=None,
+    data_axis: str = "data",
+    spec_mode: str = "tp",
     log_fn: Callable[[str], None] = lambda s: None,
 ) -> History:
     """Run Algorithm 1 on ``device`` (the card unless ``"cpu"`` is asked
     for) through ``engine`` (``"scan"`` or ``"host"``).  ``params``/
     ``proj``: optional initial params tree and sketch projections (moved
     to the device).  On the scan engine ``History.final_params`` are the
-    engine's buffers."""
+    engine's buffers.
+
+    With ``mesh`` (a ``DeviceMesh``; every rank calls this with the same
+    arguments) the engine trains data-parallel on it (``spec_mode``: the
+    ``SpecBuilder`` policy whose batch axes split the batch; a ``pod``
+    axis runs ``tc.compress_mode``), selection rounds take the sharded
+    stage B over ``data_axis``, checkpoints hold whole arrays written by
+    rank 0 (per-pod error-feedback state under ``err``) and restore onto
+    any mesh, and only rank 0 logs."""
     if method not in METHODS:
         raise ValueError(f"unknown method {method!r}; one of {METHODS}")
     dev = resolve_device(device)
     eng = make_engine(engine, bundle, tc, units, val_units=val_units,
-                      batch_units=batch_units, device=dev)
+                      batch_units=batch_units, device=dev, mesh=mesh,
+                      spec_mode=spec_mode)
+    if not eng.is_writer:
+        log_fn = lambda s: None     # noqa: E731 (rank 0 alone prints)
     is_scan = eng.kind == "scan"
     # the engine may rebuild the bundle (loss_vocab_chunk auto-tune)
     bundle = eng.bundle
@@ -181,7 +197,8 @@ def train_with_selection(
             else Projections(*(torch.tensor(x, device=dev) for x in proj)))
     # resident rounds: one selector (on the card, one graph a corpus)
     # for the whole run, built on the engine's tuned bundle
-    resident = (ResidentSelector(bundle, tc.pgm, proj, log_fn=log_fn)
+    resident = (ResidentSelector(bundle, tc.pgm, proj, mesh=mesh,
+                                 data_axis=data_axis, log_fn=log_fn)
                 if resident_selection and method == "pgm" else None)
     opt_init, _ = make_update_for(tc)
     opt_state = opt_init(params)
@@ -195,20 +212,39 @@ def train_with_selection(
     selection: Optional[Selection] = None
     start_epoch = 0
     guard_on = bool(tc.nonfinite_guard)
+    mesh_shape = eng.mesh_shape
+    # pod-axis compression: the per-pod top-k residuals ride the
+    # checkpoint under "err", so a resume continues from them
+    uses_err = eng.uses_error_feedback
+    pod_mode = eng.pod_axis is not None
+
+    def _template_fn(manifest):
+        tmpl = {"params": params, "opt": opt_state}
+        if uses_err and any("'err'" in k for k in manifest["arrays"]):
+            tmpl["err"] = eng.init_compress_state(params)
+        return tmpl
 
     def _restore_newest():
         """State from the newest checkpoint that passes verification ->
-        ``(params, opt_state, newbob, selection, next epoch)``."""
+        ``(params, opt_state, newbob, selection, next epoch)``; on a mesh
+        this rank's pod's error-feedback state."""
         loaded, manifest = ckpt_mod.restore_latest_intact(
-            ckpt_dir, template={"params": params, "opt": opt_state},
-            log_fn=log_fn)
+            ckpt_dir, template_fn=_template_fn,
+            sharding_fn=eng.restore_sharding, log_fn=log_fn)
+        if uses_err:
+            if "err" not in loaded:
+                log_fn("warning: no error-feedback state in checkpoint; "
+                       "top-k residuals restart from zero")
+            eng.set_compress_state(loaded.get("err"))
         saved_cm = manifest.get("compress_mode")
-        if (saved_cm or "none") != "none":
+        if (saved_cm or "none") != tc.compress_mode:
             log_fn(f"warning: checkpoint was written with compress_mode="
-                   f"{saved_cm!r}, resuming with 'none'")
-        if manifest.get("mesh_shape") is not None:
-            log_fn(f"resharded checkpoint (saved mesh "
-                   f"{manifest['mesh_shape']} -> current None)")
+                   f"{saved_cm or 'none'!r}, resuming with "
+                   f"{tc.compress_mode!r}")
+        saved_mesh = manifest.get("mesh_shape")
+        if saved_mesh != mesh_shape:
+            log_fn(f"resharded checkpoint (saved mesh {saved_mesh} -> "
+                   f"current {mesh_shape})")
         extra = manifest["extra"]
         sel = None
         if extra.get("sel_indices") is not None:
@@ -269,7 +305,8 @@ def train_with_selection(
             return build()
         return prefetcher.get(_plan_key(e, sel_round), build)
 
-    writer = ckpt_mod.AsyncCheckpointer(ckpt_dir) if ckpt_dir else None
+    writer = (ckpt_mod.AsyncCheckpointer(ckpt_dir)
+              if ckpt_dir and eng.is_writer else None)
     preempt = faults_mod.PreemptionHandler(log_fn=log_fn).install()
     t0 = time.time()
     try:
@@ -279,9 +316,11 @@ def train_with_selection(
             # --- selection round ---
             if not use_full and (selection is None or _is_sel_epoch(epoch)):
                 t_sel = time.time()
-                new_sel = _select(method, bundle, params, eng.units, tc,
-                                  epoch, key_seed, proj, eng.val_units,
-                                  durations, resident=resident)
+                new_sel = _select(method, bundle, params,
+                                  eng.units, tc, epoch, key_seed, proj,
+                                  eng.val_units, durations,
+                                  resident=resident, mesh=mesh,
+                                  data_axis=data_axis)
                 oi = (overlap_index(selection.indices.cpu().numpy(),
                                     new_sel.indices.cpu().numpy())
                       if selection is not None else float("nan"))
@@ -395,6 +434,7 @@ def train_with_selection(
                         except Exception as e:
                             log_fn(f"warning: async checkpoint write "
                                    f"failed: {e}")
+                    eng.barrier()      # every rank reads what rank 0 wrote
                     eng.plan_salt += 1
                     sel_round += 1
                     if prefetcher is not None:
@@ -410,6 +450,8 @@ def train_with_selection(
                         params = bundle.init_params(
                             torch.Generator().manual_seed(key_seed), dev)
                         opt_state = opt_init(params)
+                        if uses_err:
+                            eng.set_compress_state(None)
                         newbob = NewbobState(tc.lr)
                         selection = None
                         epoch = 0
@@ -428,8 +470,8 @@ def train_with_selection(
             last = chunk_epochs[-1]
             if fault_plan is not None:
                 fault_plan.maybe_preempt(last)
-            preempted = preempt.triggered
-            if writer is not None:
+            preempted = eng.any_rank(preempt.triggered)
+            if ckpt_dir:
                 extra = {"epoch": last, "lr": newbob.lr,
                          "prev_loss": newbob.prev_loss,
                          "sel_indices": (selection.indices.cpu().tolist()
@@ -438,8 +480,14 @@ def train_with_selection(
                                          if selection is not None else None)}
                 if preempted:
                     extra["preempted"] = True
-                writer.submit(last, {"params": params, "opt": opt_state},
-                              extra)
+                tree = {"params": params, "opt": opt_state}
+                if uses_err:        # every pod's (a collective)
+                    eng.init_compress_state_once(params)
+                    tree["err"] = eng.full_err()
+                if writer is not None:
+                    writer.submit(last, tree, extra, mesh_shape=mesh_shape,
+                                  compress_mode=(tc.compress_mode if pod_mode
+                                                 else None))
             if preempted:
                 if writer is not None:
                     writer.wait()
@@ -459,6 +507,9 @@ def train_with_selection(
                 writer.close()
             except Exception as e:
                 log_fn(f"warning: checkpoint writer failed on close: {e}")
+    # on a mesh no rank returns (and, say, resumes from the checkpoints)
+    # before rank 0's last write is in place
+    eng.barrier()
 
     hist.wall_time = time.time() - t0
     hist.final_params = params

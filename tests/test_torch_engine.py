@@ -303,7 +303,8 @@ def test_engine_factory_and_mesh_refusal():
     assert make_engine("scan", bundle, tc, units).kind == "scan"
     assert make_engine("host", bundle, tc, units).kind == "host"
     for name in ("scan", "host"):
-        with pytest.raises(ValueError, match=r"queue 1, item 10"):
+        with pytest.raises(ValueError, match=r"must be a torch.distributed "
+                           r"DeviceMesh"):
             make_engine(name, bundle, tc, units, mesh=object())
     with pytest.raises(ValueError, match="unknown engine"):
         make_engine("pod", bundle, tc, units)
