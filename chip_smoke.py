@@ -4,10 +4,11 @@
     python3 chip_smoke.py
 
 run from the root of a checkout, on a machine with one NVIDIA H100.
-``python3 chip_smoke.py --phase N`` (N in 15 to 21) runs phases 1
+``python3 chip_smoke.py --phase N`` (N in 15 to 22) runs phases 1
 and 2, then phase N's kernel rows and phase N alone (phase 15 after the
 RNN-T run on the scan engine it is held against, phase 21 after the
-resident RNN-T run without a group that 21a is held to), and prints the
+resident RNN-T run without a group that 21a is held to, phase 22 after
+phases 20 and 21, whose steps it reads), and prints the
 card's name and power limit and the phase's launch counts; it is for trying a
 phase, and the contract below holds for the whole run only.  It
 imports no JAX and nothing of the JAX package, and runs in phases; any
@@ -280,7 +281,29 @@ failure exits non-zero, and no phase catches an error and carries on:
    resident round on the mesh (grad sketch, Gram); (c) two ranks sharing
    the card over gloo (spawned at the phase's start, waiting), the host
    engine, eager: a resident round on the seed's params and the first 2
-   steps from them against one device's.
+   steps from them against one device's;
+22. the contracts' card side and the roofline (ROADMAP item 11): graphs
+   built through the driver with a host node and a device-to-host memcpy
+   node refused by ``assert_graph_device_only``, ``no_host_sync`` raising
+   on ``.item()`` and on a stream's ``synchronize()``; the dry run
+   (``repro_torch/launch/dryrun.py``, fake CUDA tensors) of 20a's step and
+   21b's plain step: each step's MFU (model FLOPs, 6 N D, over its wall
+   time over 989 TFLOP/s), its useful ratio (model FLOPs over the op
+   count), its roofline bound, and the dry run's memory floor against
+   the measured peak (20a's must not exceed it).
+
+The contracts (``repro_torch/analysis/contracts.py``) hold on the runs
+above: phase 11's slot pool is updated in place across its admits and
+decodes; in phase 14 no capture follows the first (the second epoch,
+the 3- and 2-row plans, the traced rows), the params and optimizer
+buffers stay in place, the replay loops run under ``no_host_sync`` and
+the step graph is device-only; in phase 15 every stage A after a
+corpus's capture captures nothing, reads nothing back and keeps the
+selector's buffers in place, and every stage-A graph is device-only; in
+phase 21 the captured step's collectives run at fp32 (``none``), the pod
+mean at bf16 once a step in ``bf16``, every collective over the pod
+axis's group.  Phase 2 holds the driver's graph node types against the
+toolkit's ``cuda.h``.
 
 Phases 9, 12 and 15c draw their 3B models' initial weights with a
 generator on the card (the host generator took ~20 s a model).
@@ -1238,7 +1261,9 @@ def serve_lm(torch, bundle, params, dev, swa_op, other_ops):
     """The full-depth serving run: ``generate`` on 2 prompts of
     SERVE_PROMPT, then the slot engine on the launcher's requests; the
     band kernel's launches are counted over the two and must be 30 for
-    every prefill with S > window + 1024 -> (launches, a summary)."""
+    every prefill with S > window + 1024, and the slot pool is updated in
+    place across the admits and decodes -> (launches, a summary)."""
+    from repro_torch.analysis import contracts
     from repro_torch.launch.serve import make_requests
     from repro_torch.serve.engine import SlotEngine, generate
     cfg = bundle.cfg
@@ -1260,9 +1285,15 @@ def serve_lm(torch, bundle, params, dev, swa_op, other_ops):
     eng = SlotEngine(bundle, params, n_slots=SERVE_SLOTS,
                      max_new_tokens=SERVE_NEW, max_prompt_len=SERVE_PROMPT,
                      sync_every=4, seed=0)
+    pool_at = contracts.pointers(eng._state["cache"])
     t0 = time.time()
     comps = eng.run(reqs)
     wall = time.time() - t0
+    contracts.assert_in_place(pool_at, eng._state["cache"],
+                              "the SlotEngine cache pool")
+    print(f"[serve lm] contracts: the slot pool's {len(pool_at)} cache "
+          f"leaves in place across {SERVE_REQUESTS} admits and every "
+          f"decode scan", flush=True)
     launches = swa_op.launches
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     require(all(op.launches == 0 for op in other_ops),
@@ -1652,69 +1683,67 @@ class kept_graphs:
 def graph_kernels(graph, markers):
     """{name: kernel nodes of a captured graph (kept, ``kept_graphs``)
     whose function's name holds ``markers[name]``}, read through the
-    driver (``cuGraphGetNodes``, ``cuGraphKernelNodeGetParams``, then
-    ``cuFuncGetName`` or ``cuKernelGetName``; child graphs walked).  A
-    replay runs every node once, so nodes x replays is exactly what the
-    replays launched; the profiler's trace is the measurement beside it,
-    and can drop a record (PERF.md section 7, 15d)."""
-    import ctypes
-
-    cu = ctypes.CDLL("libcuda.so.1")
-    vp, pp = ctypes.c_void_p, ctypes.POINTER(ctypes.c_void_p)
-    for fn, args in (
-            ("cuGraphGetNodes", (vp, vp, ctypes.POINTER(ctypes.c_size_t))),
-            ("cuGraphNodeGetType", (vp, ctypes.POINTER(ctypes.c_int))),
-            ("cuGraphChildGraphNodeGetGraph", (vp, pp)),
-            ("cuGraphKernelNodeGetParams_v2", (vp, vp)),
-            ("cuFuncGetName", (ctypes.POINTER(ctypes.c_char_p), vp)),
-            ("cuKernelGetName", (ctypes.POINTER(ctypes.c_char_p), vp))):
-        getattr(cu, fn).argtypes = args
-        getattr(cu, fn).restype = ctypes.c_int          # CUresult
-
-    def ok(status, what):
-        require(status == 0, f"graph_kernels: {what} returned {status}")
-
-    def nodes_of(g):
-        n = ctypes.c_size_t(0)
-        ok(cu.cuGraphGetNodes(g, None, ctypes.byref(n)), "cuGraphGetNodes")
-        arr = (ctypes.c_void_p * n.value)()
-        ok(cu.cuGraphGetNodes(g, arr, ctypes.byref(n)), "cuGraphGetNodes")
-        return list(arr)
-
-    def names(g):
-        out = []
-        for node in nodes_of(g):
-            kind = ctypes.c_int(-1)
-            ok(cu.cuGraphNodeGetType(ctypes.c_void_p(node),
-                                     ctypes.byref(kind)), "cuGraphNodeGetType")
-            if kind.value == 6:             # CU_GRAPH_NODE_TYPE_GRAPH
-                child = ctypes.c_void_p()
-                ok(cu.cuGraphChildGraphNodeGetGraph(
-                    ctypes.c_void_p(node), ctypes.byref(child)),
-                    "cuGraphChildGraphNodeGetGraph")
-                out += names(child)
-                continue
-            if kind.value != 0:             # CU_GRAPH_NODE_TYPE_KERNEL
-                continue
-            # CUDA_KERNEL_NODE_PARAMS_v2: func at 0, kern at 56 (72 bytes)
-            buf = (ctypes.c_char * 128)()
-            ok(cu.cuGraphKernelNodeGetParams_v2(ctypes.c_void_p(node), buf),
-               "cuGraphKernelNodeGetParams_v2")
-            func = ctypes.c_void_p.from_buffer(buf, 0).value
-            kern = ctypes.c_void_p.from_buffer(buf, 56).value
-            name = ctypes.c_char_p()
-            if func:
-                ok(cu.cuFuncGetName(ctypes.byref(name),
-                                    ctypes.c_void_p(func)), "cuFuncGetName")
-            else:
-                ok(cu.cuKernelGetName(ctypes.byref(name),
-                                      ctypes.c_void_p(kern)),
-                   "cuKernelGetName")
-            out.append(name.value.decode())
-        return out
-
-    found = names(ctypes.c_void_p(graph.raw_cuda_graph()))
+    driver by ``contracts.graph_nodes`` (child graphs walked).  A replay
+    runs every node once, so nodes x replays is exactly what the replays
+    launched; the profiler's trace is the measurement beside it, and can
+    drop a record (PERF.md section 7, 15d)."""
+    from repro_torch.analysis import contracts
+    found = [d for kind, d in contracts.graph_nodes(graph) if kind == "KERNEL"]
     return {n: sum(m in f for f in found) for n, m in markers.items()}
+
+
+def device_only(graph, tag: str) -> dict:
+    """``contracts.assert_graph_device_only`` on a kept graph -> its node
+    types counted (``CUgraphNodeType`` names): no host node, no memcpy
+    to or from the host."""
+    from repro_torch.analysis import contracts
+    contracts.assert_graph_device_only(graph, tag)
+    kinds = {}
+    for kind, _ in contracts.graph_nodes(graph):
+        kinds[kind] = kinds.get(kind, 0) + 1
+    return kinds
+
+
+def check_node_types() -> str:
+    """``contracts.NODE_TYPES`` (the driver's ``CUgraphNodeType``, which
+    ``graph_nodes`` reads) against the toolkit's ``cuda.h``: every
+    enumerator both name must have one value."""
+    from repro_torch.analysis import contracts
+    from repro_torch.kernels import backend
+    header = Path(backend._nvcc()).resolve().parents[1] / "include" / "cuda.h"
+    got = contracts.header_node_types(str(header))
+    both = sorted(set(got) & set(contracts.NODE_TYPES))
+    require(len(both) >= 8 and all(got[k] == contracts.NODE_TYPES[k]
+                                   for k in both),
+            f"CUgraphNodeType in {header}: {got} against "
+            f"{contracts.NODE_TYPES}")
+    return (f"{header}: CU_GRAPH_NODE_TYPE_ " + ", ".join(
+        f"{k} {got[k]}" for k in sorted(both, key=got.get)))
+
+
+class guarded_replays:
+    """Within the block every ``EpochEngine`` replay loop (``_run_rows``:
+    the plan's rows copied on the card, then one replay a row) runs under
+    ``contracts.no_host_sync``: ``torch.cuda.set_sync_debug_mode("error")``
+    and a mode that raises on any host read of a tensor."""
+
+    def __init__(self, engine_cls, tag: str):
+        self.cls, self.tag = engine_cls, tag
+
+    def __enter__(self):
+        from repro_torch.analysis import contracts
+        orig = self.orig = self.cls._run_rows
+        tag = self.tag
+
+        def run_rows(eng, idx, w):
+            with contracts.no_host_sync(f"{tag}: the replay loop"):
+                return orig(eng, idx, w)
+
+        self.cls._run_rows = run_rows
+        return self
+
+    def __exit__(self, *exc):
+        self.cls._run_rows = self.orig
 
 
 def replay_check(torch, np, bundle, tc, units, dev, params, ops, tag,
@@ -1735,7 +1764,11 @@ def replay_check(torch, np, bundle, tc, units, dev, params, ops, tag,
     under the profiler: the counts unchanged, each marker kernel traced
     per-step launches x rows times.  -> (per-step launches, the replayed
     rows' profile a step, ms a step of the timed epoch, the traced rows'
-    launches)."""
+    launches).  The contracts hold from the capture on: no capture in
+    (2)-(5) (plans of every row count: the full epoch, 3 rows, 2 rows),
+    the params and optimizer buffers in place across them, the replay
+    loops of (2)-(4) under ``no_host_sync``, the step graph device-only."""
+    from repro_torch.analysis import contracts
     from repro_torch.models.common import tree_leaves, tree_map
     from repro_torch.train.engine import (EpochEngine, make_step_core,
                                           to_device)
@@ -1798,16 +1831,24 @@ def replay_check(torch, np, bundle, tc, units, dev, params, ops, tag,
             and EpochEngine.replays == n_rows,
             f"{tag}: launches {got} against {want} or captures "
             f"{EpochEngine.captures}")
+    kinds = device_only(eng._graph, f"{tag}: the step graph")
+    state_at = contracts.pointers((eng.params, eng.opt_state))
+    no_capture = contracts.assert_recapture_free(
+        f"{tag}: the epochs after the capture")
+    no_capture.__enter__()
     torch.cuda.synchronize()
     t0 = time.time()
-    eng.run_epoch(eng.params, eng.opt_state, tc.lr, eng.full_plan(1))
+    with guarded_replays(EpochEngine, tag):
+        eng.run_epoch(eng.params, eng.opt_state, tc.lr, eng.full_plan(1))
     torch.cuda.synchronize()
     step_ms = (time.time() - t0) * 1e3 / n_rows
     idx, w = eng.full_plan(2)
     idx, w = idx[:3].copy(), w[:3].copy()
     idx[2], w[2] = -1, 0.0
     start = tree_map(lambda x: x.clone(), (eng.params, eng.opt_state))
-    _, _, l_graph = eng.run_epoch(eng.params, eng.opt_state, tc.lr, (idx, w))
+    with guarded_replays(EpochEngine, tag):
+        _, _, l_graph = eng.run_epoch(eng.params, eng.opt_state, tc.lr,
+                                      (idx, w))
     eager = Eager(bundle, tc, units, device=dev)
     p_e, o_e, l_eager = eager.run_epoch(*start, tc.lr, (idx, w))
     torch.cuda.synchronize()
@@ -1817,7 +1858,8 @@ def replay_check(torch, np, bundle, tc, units, dev, params, ops, tag,
     before = tree_map(lambda x: x.clone(), (eng.params, eng.opt_state))
     pad = (np.full((2, eng.batch_units), -1, np.int32),
            np.zeros((2, eng.batch_units), np.float32))
-    _, _, l_pad = eng.run_epoch(eng.params, eng.opt_state, tc.lr, pad)
+    with guarded_replays(EpochEngine, tag):
+        _, _, l_pad = eng.run_epoch(eng.params, eng.opt_state, tc.lr, pad)
     torch.cuda.synchronize()
     held = bitwise(before, (eng.params, eng.opt_state))
     del before
@@ -1841,6 +1883,14 @@ def replay_check(torch, np, bundle, tc, units, dev, params, ops, tag,
         tag, f"{TRACE_ROWS} replayed rows of an epoch of {n_rows}",
         per=TRACE_ROWS, count=markers)
     counted = {n: c - n0[n] for n, c in read().items()}
+    no_capture.__exit__(None, None, None)
+    contracts.assert_in_place(state_at, (eng.params, eng.opt_state),
+                              f"{tag}: the params and optimizer buffers")
+    print(f"[{tag}] contracts: no capture after the first in the second "
+          f"epoch ({n_rows} rows), the 3- and 2-row plans and the traced "
+          f"rows; the params and optimizer buffers in place across them "
+          f"({len(state_at)} leaves); the replay loops under no_host_sync; "
+          f"the step graph device-only, its nodes {kinds}", flush=True)
     want = {n: d * TRACE_ROWS for n, d in per_step.items()}
     nodes = graph_kernels(eng._graph, markers)
     ran = {n: v * TRACE_ROWS for n, v in nodes.items()}
@@ -2024,7 +2074,9 @@ def resident_against_host(torch, b, pgm_cfg, params, us, vs, proj, read):
     selector, its train vectors, the larger max error over the largest
     entry, whether the subsets and the weights (1e-4) are the same,
     whether two replays are bitwise equal, the launches counted at the
-    warm-ups and captures)."""
+    warm-ups and captures).  The replays run under the contracts: no
+    capture, no host read, the selector's params and outputs in place."""
+    from repro_torch.analysis import contracts
     from repro_torch.core.lastlayer import units_gradients
     from repro_torch.core.pgm import (ResidentSelector, _router_term_for,
                                       pgm_select)
@@ -2034,7 +2086,12 @@ def resident_against_host(torch, b, pgm_cfg, params, us, vs, proj, read):
     sel = ResidentSelector(b, pgm_cfg, proj)
     g1, gv1 = sel.stage_a(params, us), sel.stage_a(params, vs)
     counted = {n: c - n0[n] for n, c in read().items() if c - n0[n]}
-    g2, gv2 = sel.stage_a(params, us), sel.stage_a(params, vs)
+    held = (sel._params, [c.out for c in sel._captured])
+    at = contracts.pointers(held)
+    with contracts.assert_recapture_free("a replayed stage A"), \
+            contracts.no_host_sync("a replayed stage A"):
+        g2, gv2 = sel.stage_a(params, us), sel.stage_a(params, vs)
+    contracts.assert_in_place(at, held, "the selector's params and outputs")
     torch.cuda.synchronize()
     bitwise = bool(torch.equal(g1, g2) and torch.equal(gv1, gv2))
     host, host_v = (units_gradients(b, params, us, proj, router_term=rt),
@@ -2070,6 +2127,7 @@ def resident_phase(torch, np, bundle, tc, units, val_units, rec_14a, models,
     counted, the launches of the selector's warm-ups and captures; stage
     B's Gram (eager) has its count in both."""
     import repro_torch.train.loop as loop_mod
+    from repro_torch.analysis import contracts
     from repro_torch.configs.base import PGMConfig, TrainConfig
     from repro_torch.core.lastlayer import _chunk_size, make_proj_for
     from repro_torch.core.pgm import ResidentSelector
@@ -2091,12 +2149,23 @@ def resident_phase(torch, np, bundle, tc, units, val_units, rec_14a, models,
 
     class Timed(ResidentSelector):
         """Each stage-A call timed on the host clock after a synchronize,
-        with the captures so far."""
+        with the captures so far; the calls after the first round's two
+        (its captures) under the contracts: no capture, no host read, the
+        selector's params buffers (the scan engine's) in place."""
 
         def stage_a(self, params, units_):
             torch.cuda.synchronize()
             t0 = time.time()
-            g = super().stage_a(params, units_)
+            if len(stage_a_log) < 2:
+                g = super().stage_a(params, units_)
+                self.held = contracts.pointers(self._params)
+            else:
+                with contracts.assert_recapture_free(
+                        "a later round's stage A"), \
+                        contracts.no_host_sync("a later round's stage A"):
+                    g = super().stage_a(params, units_)
+                contracts.assert_in_place(self.held, self._params,
+                                          "the selector's params buffers")
             torch.cuda.synchronize()
             stage_a_log.append((ResidentSelector.captures, time.time() - t0))
             return g
@@ -2162,6 +2231,13 @@ def resident_phase(torch, np, bundle, tc, units, val_units, rec_14a, models,
         with kept_graphs(torch):        # the captures keep their graphs
             sel, g1, err, same, bitwise, counted = resident_against_host(
                 torch, b, pgm_cfg, params, us, vs, proj, read)
+        graphs = [c.graph for c in sel._captured] + (
+            [] if sel._head_graph is None else [sel._head_graph])
+        kinds = [device_only(g, f"{tag}: a stage-A graph") for g in graphs]
+        print(f"[{tag}] contracts: the replayed stage A (train + val) "
+              f"captured nothing, read nothing back, kept the selector's "
+              f"params and outputs in place; its {len(graphs)} graphs "
+              f"device-only, their nodes {kinds}", flush=True)
         t0 = time.time()
         sel.stage_a(params, us)
         sel.stage_a(params, vs)
@@ -4355,6 +4431,16 @@ def long_phase(torch, np, dev, mark):
                                               tc.lr, row),
                  "20a", f"{arch} one replayed step (B {LONG_UNIT} x "
                         f"{LONG_SEQ}, full depth, remat)")
+    # the same row untraced, on the host clock after a synchronize (phase
+    # 22's MFU reads it)
+    torch.cuda.synchronize()
+    t0 = time.time()
+    eng.run_epoch(eng.params, eng.opt_state, tc.lr, row)
+    torch.cuda.synchronize()
+    step_s = time.time() - t0
+    print(f"[20a] one replayed step untraced: {step_s * 1e3:.1f} ms (host "
+          f"clock, the row's plan copy and loss read included)", flush=True)
+    out["times"] = {"step_s": step_s, "peak_gb": peak}
     del h, eng, spy, nodes
     gc.collect()
     torch.cuda.empty_cache()
@@ -4475,44 +4561,6 @@ DIST_GLOO_TRACK = 8
 DIST_GLOO_LOSS_BAR = 1e-5
 DIST_GLOO_NORM_BAR = 1e-4
 NCCL_MARKER = "nccl"
-
-
-class collective_spy:
-    """Within the block every ``torch.distributed`` collective the port
-    calls is counted, and so are those issued while the current stream
-    captures a CUDA graph (``captured``): what a captured step holds.  In
-    a group of one NCCL moves nothing and enqueues no kernel, so the
-    step graph's nodes cannot show its collectives; the count of those
-    issued inside the capture shows only that their calls did not break
-    it.  That real NCCL work captures and replays (D6) is not shown
-    until a run on more than one card."""
-
-    NAMES = ("all_reduce", "all_gather_into_tensor", "all_gather_single")
-
-    def __init__(self, torch):
-        self.torch, self.calls, self.captured = torch, 0, 0
-
-    def __enter__(self):
-        import torch.distributed as dist
-        self.orig = {n: getattr(dist, n) for n in self.NAMES
-                     if hasattr(dist, n)}
-
-        def wrap(fn):
-            def counted(*a, **kw):
-                self.calls += 1
-                if self.torch.cuda.is_current_stream_capturing():
-                    self.captured += 1
-                return fn(*a, **kw)
-            return counted
-
-        for n, fn in self.orig.items():
-            setattr(dist, n, wrap(fn))
-        return self
-
-    def __exit__(self, *exc):
-        import torch.distributed as dist
-        for n, fn in self.orig.items():
-            setattr(dist, n, fn)
 
 
 def nccl_share(torch, fn, tag: str, what: str):
@@ -4748,6 +4796,7 @@ def dist_phase(torch, np, dev, mark, bundle, tc, units, val_units,
 
     import torch.distributed as dist
 
+    from repro_torch.analysis import contracts
     from repro_torch.configs import get_config
     from repro_torch.configs.base import PGMConfig, TrainConfig
     from repro_torch.core.lastlayer import make_proj_for
@@ -4797,7 +4846,7 @@ def dist_phase(torch, np, dev, mark, bundle, tc, units, val_units,
             torch.cuda.reset_peak_memory_stats()
             t0 = time.time()
             with kept_graphs(torch), engine_spy(EpochEngine) as spy, \
-                    collective_spy(torch) as coll:
+                    contracts.record_collectives() as coll:
                 h = train_with_selection(
                     bundle, units, tc_, method="pgm", val_units=val_units,
                     device="cuda", engine="scan", resident_selection=True,
@@ -4819,7 +4868,7 @@ def dist_phase(torch, np, dev, mark, bundle, tc, units, val_units,
                   f"{EpochEngine.replays}; stage-A captures "
                   f"{ResidentSelector.captures}, replays "
                   f"{ResidentSelector.replays}; collectives issued "
-                  f"{coll.calls}, {coll.captured} of them inside the step's "
+                  f"{coll.count}, {coll.captured} of them inside the step's "
                   f"capture; the step graph's kernel nodes {nodes} (NCCL "
                   f"enqueues no kernel in a group of one); launches "
                   f"{launches}; peak "
@@ -4834,6 +4883,16 @@ def dist_phase(torch, np, dev, mark, bundle, tc, units, val_units,
             require(launches["rnnt_lattice"] > 0 and launches["omp_gram"] > 0,
                     f"{tag}: a kernel of the path was not launched "
                     f"{launches}")
+            # the captured step's collectives all at fp32 (compress mode
+            # none), every collective over the pod axis's group
+            contracts.assert_collective_width(coll.in_capture(),
+                                              dtype=torch.float32)
+            contracts.assert_replica_groups(coll, mesh, "pod",
+                                            min_count=coll.count)
+            print(f"[{tag}] contracts: the step's {coll.captured} captured "
+                  f"collectives at fp32; all {coll.count} over the pod "
+                  f"axis's groups {contracts.expected_groups(mesh, 'pod')}",
+                  flush=True)
             if tag == "21a":
                 # (counted, graph nodes x replays): a replay runs every
                 # node once, so the second is what the replays launched
@@ -4878,7 +4937,7 @@ def dist_phase(torch, np, dev, mark, bundle, tc, units, val_units,
             p = card_init(torch, lm, dev)
             o = make_update_for(tc_b)[0](p)
             eng.adopt(p, o)
-            with collective_spy(torch) as coll:      # warm-up, capture
+            with contracts.record_collectives() as coll:  # warm-up, capture
                 eng.run_epoch(p, o, tc_b.lr, plan)
             torch.cuda.synchronize()
             t0 = time.time()
@@ -4904,6 +4963,22 @@ def dist_phase(torch, np, dev, mark, bundle, tc, units, val_units,
             require((mode == "plain") == (coll.captured == 0),
                     f"21b {mode}: {coll.captured} collectives in the "
                     f"step's capture")
+            if mode != "plain":
+                # the pod mean at bf16 in bf16 mode, one a step (the warm-up
+                # steps and the capture), the rest fp32; fp32 in none and
+                # topk; every collective over the pod axis's group
+                if mode == "bf16":
+                    contracts.assert_collective_width(
+                        coll, dtype=torch.bfloat16,
+                        n_expected=EpochEngine.WARMUP_STEPS + 1)
+                else:
+                    contracts.assert_collective_width(coll,
+                                                      dtype=torch.float32)
+                contracts.assert_replica_groups(coll, mesh, "pod",
+                                                min_count=coll.count)
+                widths = sorted({str(c.dtype) for c in coll.calls})
+                print(f"[21b] {mode} contracts: {coll.count} collectives "
+                      f"at {widths}, over the pod axis's groups", flush=True)
             if mode == "topk":
                 err, params_b = eng.compress_state, eng.params
             else:
@@ -5037,6 +5112,171 @@ def dist_phase(torch, np, dev, mark, bundle, tc, units, val_units,
     return out
 
 
+# phase 22: the contracts' card side and the roofline.  A violating graph
+# is built through the driver (a host node, a device-to-host memcpy node),
+# so nothing of the port is captured wrongly on purpose
+HOST_FN = None                       # keeps the host node's callback alive
+
+
+def driver_graph(torch, kind: str, src=None, dst=None) -> int:
+    """A ``CUgraph`` of one node made through the driver API: ``"host"``
+    a host-function node, ``"d2h"`` a memcpy node of ``src`` (a card
+    tensor) into ``dst`` (pinned host memory) -> the raw handle."""
+    import ctypes
+    global HOST_FN
+    cu = ctypes.CDLL("libcuda.so.1")
+    vp = ctypes.c_void_p
+    for fn, args in (("cuGraphCreate", (ctypes.POINTER(vp), ctypes.c_uint)),
+                     ("cuGraphAddHostNode", (ctypes.POINTER(vp), vp, vp,
+                                             ctypes.c_size_t, vp)),
+                     ("cuGraphAddMemcpyNode", (ctypes.POINTER(vp), vp, vp,
+                                               ctypes.c_size_t, vp, vp)),
+                     ("cuCtxGetCurrent", (ctypes.POINTER(vp),))):
+        getattr(cu, fn).argtypes = args
+        getattr(cu, fn).restype = ctypes.c_int
+    g, node = vp(), vp()
+    require(cu.cuGraphCreate(ctypes.byref(g), 0) == 0, "cuGraphCreate")
+    if kind == "host":
+        HOST_FN = ctypes.CFUNCTYPE(None, vp)(lambda _: None)
+        params = (vp * 2)(ctypes.cast(HOST_FN, vp), None)
+        require(cu.cuGraphAddHostNode(ctypes.byref(node), g, None, 0,
+                                      params) == 0, "cuGraphAddHostNode")
+        return g.value
+    ctx = vp()
+    require(cu.cuCtxGetCurrent(ctypes.byref(ctx)) == 0, "cuCtxGetCurrent")
+    buf = (ctypes.c_char * 200)()                   # CUDA_MEMCPY3D
+    put = lambda off, t, v: t.from_buffer(buf, off).__setattr__("value", v)
+    put(32, ctypes.c_int, 2)                        # srcMemoryType device
+    put(48, ctypes.c_uint64, src.data_ptr())        # srcDevice
+    put(120, ctypes.c_int, 1)                       # dstMemoryType host
+    put(128, ctypes.c_uint64, dst.data_ptr())       # dstHost
+    put(176, ctypes.c_size_t, src.numel() * src.element_size())
+    put(184, ctypes.c_size_t, 1)                    # Height
+    put(192, ctypes.c_size_t, 1)                    # Depth
+    require(cu.cuGraphAddMemcpyNode(ctypes.byref(node), g, None, 0, buf,
+                                    ctx) == 0, "cuGraphAddMemcpyNode")
+    return g.value
+
+
+def raises(fn, exc) -> bool:
+    """Whether ``fn()`` raises ``exc`` (a deliberate violation caught by
+    a contract); any other error propagates."""
+    try:
+        fn()
+    except exc:
+        return True
+    return False
+
+
+def roofline_phase(torch, np, dev, mark, card, long_times, dist_times):
+    """Phase 22: (a) the contracts' card side, each on a deliberate
+    violation: a host node and a device-to-host memcpy node refused by
+    ``assert_graph_device_only``, a captured device graph passed and
+    counted by ``track_captures``; ``no_host_sync`` raising on ``.item()``
+    (its function mode) and on a stream's ``synchronize()`` (the sync
+    debug mode); (b) the dry run of 20a's step (``launch/dryrun.py``:
+    fake CUDA tensors, nothing allocated): its op count and its memory
+    floor against 20a's measured peak, which it must not exceed; the MFU
+    of 20a's replayed step (model FLOPs over its wall time over 989
+    TFLOP/s) and the useful ratio (model FLOPs over the counted FLOPs);
+    (c) the same for 21b's plain step.  -> the numbers."""
+    from repro_torch.analysis import contracts
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch import dryrun, roofline
+
+    # (a) the card side of the contracts
+    x = torch.randn(1 << 16, device=dev)
+    y, z = torch.empty_like(x), torch.empty_like(x)
+    host = torch.empty(x.shape, pin_memory=True)
+    y.copy_(x * 2)
+    torch.cuda.synchronize()
+    with kept_graphs(torch), contracts.track_captures() as log:
+        g_dev = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(g_dev):
+            y.copy_(x * 2)
+            z.copy_(y)
+    g_dev.replay()
+    torch.cuda.synchronize()
+    nodes = contracts.graph_nodes(g_dev)
+    kinds = device_only(g_dev, "22a: a device graph")
+    bad = {k: driver_graph(torch, k, x, host) for k in ("host", "d2h")}
+    found = {k: contracts.graph_nodes(g) for k, g in bad.items()}
+    refused = {k: raises(lambda g=g: contracts.assert_graph_device_only(
+        g, f"22a: a {k} graph"), AssertionError) for k, g in bad.items()}
+    guard = contracts.no_host_sync("22a")
+
+    def under_guard(fn):
+        with guard:
+            fn()
+    item = raises(lambda: under_guard(lambda: x.sum().item()),
+                  contracts.HostSyncError)
+    sync = raises(lambda: under_guard(
+        lambda: torch.cuda.current_stream().synchronize()), RuntimeError)
+    under_guard(lambda: (x * 2).sum())
+    print(f"[22a] contracts on the card: a captured device graph (captures "
+          f"counted {log.count}, sites {log.sites}) device-only, its nodes "
+          f"{kinds} ({nodes}); graphs built through the driver: a host node "
+          f"{found['host']} and a device-to-host memcpy node {found['d2h']}, "
+          f"refused: {refused}; no_host_sync raised on .item() {item} and "
+          f"on a stream synchronize {sync} (the sync debug mode), not on "
+          f"device work", flush=True)
+    require(log.count == 1 and kinds.get("KERNEL", 0) >= 1
+            and found["host"] == [("HOST", None)]
+            and found["d2h"] == [("MEMCPY", ("device", "host"))]
+            and all(refused.values()) and item and sync,
+            "22a: a contract did not catch its violation on the card")
+    del g_dev, bad, host, x, y, z
+    mark("22a the contracts on deliberate violations")
+
+    # (b) 20a's step: the dry run against the card
+    out = {}
+    cfg_steps = (
+        ("20a", "starcoder2-3b", ShapeConfig("20a", LONG_SEQ, LONG_UNIT,
+                                             "train"), None, long_times),
+        ("21b", "starcoder2-3b", ShapeConfig("21b", LM_SEQ, UNIT_SIZE,
+                                             "train"), DIST_LM_LAYERS,
+         {"step_s": dist_times["plain"][0] / 1e3,
+          "peak_gb": dist_times["plain"][1]}))
+    for tag, arch, shape, layers, meas in cfg_steps:
+        rec = dryrun.run_cell(arch, shape.name, shape=shape, mesh="none",
+                              device="cuda", optimizer="sgd",
+                              n_layers=layers, verbose=True)
+        require(rec["status"] == "ok", f"22 {tag}: the dry run {rec}")
+        t = roofline.roofline_terms(rec)
+        mf, step_s = rec["model_flops"], meas["step_s"]
+        est = rec["memory"]["total"] / 1e9
+        res = {"mfu": roofline.mfu(mf, step_s),
+               "useful": mf / rec["flops"], "model_flops": mf,
+               "counted_flops": rec["flops"], "step_s": step_s,
+               "achieved_tflops": rec["flops"] / step_s / 1e12,
+               "bound_s": t["bound_s"], "dominant": t["dominant"],
+               "memory_gb": est, "peak_gb": meas["peak_gb"],
+               "seconds": rec["seconds"]}
+        out[tag] = res
+        print(f"[22 {tag}] {card}: starcoder2-3b "
+              f"({layers or 'all'} layers, B {shape.global_batch} x S "
+              f"{shape.seq_len}) step {step_s * 1e3:.1f} ms: model FLOPs "
+              f"{mf:.4e} -> MFU {100 * res['mfu']:.2f}% of 989 TFLOP/s; "
+              f"counted {rec['flops']:.4e} FLOP ({rec['dot_flops']:.4e} in "
+              f"matmuls, kernels {rec['kernels']}), useful ratio "
+              f"{res['useful']:.3f}, achieved {res['achieved_tflops']:.1f} "
+              f"TFLOP/s of the count; roofline bound {t['bound_s'] * 1e3:.1f}"
+              f" ms ({t['dominant']}), the step {step_s / t['bound_s']:.2f}x "
+              f"it; the dry run's memory floor {est:.2f} GB "
+              f"({rec['memory']}) against the measured peak "
+              f"{meas['peak_gb']:.2f} GB: ratio {est / meas['peak_gb']:.3f} "
+              f"(dry run {rec['seconds']:.1f} s)", flush=True)
+        require(0 < res["mfu"] < 1 and 0 < res["useful"] <= 1,
+                f"22 {tag}: MFU {res['mfu']} or useful ratio "
+                f"{res['useful']} out of range")
+        if tag == "20a":
+            require(est <= meas["peak_gb"],
+                    f"22 20a: the dry run's floor {est:.2f} GB exceeds the "
+                    f"measured peak {meas['peak_gb']:.2f} GB")
+    mark("22b-c the roofline and the dry run against 20a and 21b")
+    return out
+
+
 def train_with_selection_logged(bundle, units, tc, val_units, logs, tag, t0,
                                 **kw):
     """Phase 5's run (the host engine) with options, its log lines
@@ -5115,6 +5355,8 @@ def main() -> None:
     for name, log in backend.BUILD_LOG.items():
         regs = [ln.strip() for ln in log.splitlines() if "registers" in ln]
         print(f"[build] {name}: {'; '.join(regs)}", flush=True)
+    print(f"[build] the driver's graph node types {check_node_types()}",
+          flush=True)
 
     mark("build")
 
@@ -5725,6 +5967,12 @@ def main() -> None:
     dist = dist_phase(torch, np, dev, mark, bundle, tc, units, val_units,
                       kept["15a"])
 
+    # -- 22. the contracts' card side, the roofline and the dry run
+    # against 20a's and 21b's steps ------------------------------------
+    gc.collect()
+    torch.cuda.empty_cache()
+    roofline_phase(torch, np, dev, mark, card, long["times"], dist["times"])
+
     g_err, g_ms, g_plain, g_lib, g_bound, g_by = \
         gram_rows[(P_main, n_units // P_main, D_sk)]
     print(f"[launches] RNN-T path {launches}, its preempted and resumed "
@@ -5738,7 +5986,8 @@ def main() -> None:
           f"the recurrent families (phase 18) {hybrid}, the encoder-decoder "
           f"and VLM families (phase 19) {family}, long-context training "
           f"(phase 20; a step-graph kernel as (counted, nodes x replays)) "
-          f"{long}, distribution (phase 21) "
+          f"{ {k: v for k, v in long.items() if k != 'times'} }, "
+          f"distribution (phase 21) "
           f"{ {k: v for k, v in dist.items() if k != 'times'} }",
           flush=True)
     # one row per kernel and main path, "launches" from that path's run;
@@ -6008,11 +6257,13 @@ def phase_alone(phase: int, rows_only: bool = False) -> None:
           f"{torch.version.cuda}", flush=True)
     backend.fp32_numerics()
     backend.build()
+    print(f"[build] the driver's graph node types {check_node_types()}",
+          flush=True)
 
     def mark(p: str) -> None:
         print(f"[time] {p}: {time.time() - t00:.1f} s", flush=True)
 
-    if phase == 21:
+    if phase in (21, 22):
         from repro_torch.configs.base import PGMConfig, TrainConfig
         from repro_torch.data.pipeline import asr_units
         from repro_torch.data.synthetic import make_asr_corpus
@@ -6037,9 +6288,14 @@ def phase_alone(phase: int, rows_only: bool = False) -> None:
         rec = rnnt_run_record(h)
         del h
         mark("15a the RNN-T path, resident, without a group")
+        long = long_phase(torch, np, dev, mark) if phase == 22 else None
         out = dist_phase(torch, np, dev, mark, bundle, tc, units, val_units,
                          rec)
-        out.pop("times")
+        times = out.pop("times")
+        if phase == 22:
+            # 22 reads 20a's replayed step and 21b's plain step
+            out = roofline_phase(torch, np, dev, mark, card,
+                                 long.pop("times"), times)
     elif phase == 15:
         from repro_torch.configs.base import PGMConfig, TrainConfig
         from repro_torch.data.pipeline import asr_units
@@ -6095,10 +6351,11 @@ if __name__ == "__main__":
     if sys.argv[1:2] == ["--phase"]:
         rows = sys.argv[3:] == ["--rows"]
         require((len(sys.argv) == 3 or rows)
-                and sys.argv[2] in ("15", "16", "17", "18", "19", "20", "21")
-                and not (rows and sys.argv[2] in ("15", "21")),
-                "usage: chip_smoke.py [--phase 15|16|17|18|19|20|21 "
-                "[--rows (not 15, 21)]]")
+                and sys.argv[2] in ("15", "16", "17", "18", "19", "20", "21",
+                                    "22")
+                and not (rows and sys.argv[2] in ("15", "21", "22")),
+                "usage: chip_smoke.py [--phase 15|16|17|18|19|20|21|22 "
+                "[--rows (not 15, 21, 22)]]")
         phase_alone(int(sys.argv[2]), rows)
     else:
         require(len(sys.argv) == 1, "usage: chip_smoke.py [--phase N]")

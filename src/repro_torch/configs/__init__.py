@@ -1,11 +1,18 @@
-"""Config registry of the port: ``get_config(name)``."""
+"""Config registry of the port: ``get_config(name)``, and the dry run's
+shapes and cells (``get_shape``, ``cells``), the reference's."""
 from __future__ import annotations
 
 from repro_torch.configs.base import (  # noqa: F401 (public re-exports)
+    DECODE_32K,
+    LONG_500K,
+    PREFILL_32K,
+    SHAPES,
+    TRAIN_4K,
     ModelConfig,
     MoEConfig,
     PGMConfig,
     RNNTConfig,
+    ShapeConfig,
     TrainConfig,
     reduce_for_smoke,
 )
@@ -43,3 +50,30 @@ def get_config(name: str) -> ModelConfig:
                        f"{sorted(_ARCHS)} (and their -smoke variants)")
     cfg = _ARCHS[base]
     return reduce_for_smoke(cfg) if smoke else cfg
+
+
+#: the reference's assigned archs (every arch but the paper's RNN-T), in
+#: the reference's order
+ASSIGNED_ARCHS = ["mixtral-8x7b", "olmoe-1b-7b", "minitron-8b",
+                  "starcoder2-3b", "gemma3-27b", "gemma-7b",
+                  "seamless-m4t-medium", "rwkv6-3b", "recurrentgemma-9b",
+                  "paligemma-3b"]
+
+
+def get_shape(name: str) -> ShapeConfig:
+    return SHAPES[name]
+
+
+def cells(include_skips: bool = False):
+    """Every (arch, shape) dry-run cell, the reference's: ``long_500k``
+    is skipped for pure full-attention archs (listed with ``"skip"`` when
+    ``include_skips``)."""
+    for arch in ASSIGNED_ARCHS:
+        cfg = get_config(arch)
+        for shape in SHAPES.values():
+            if shape.name == "long_500k" and not cfg.is_subquadratic():
+                if include_skips:
+                    yield arch, shape.name, "skip"
+                continue
+            yield (arch, shape.name, "run") if include_skips \
+                else (arch, shape.name)

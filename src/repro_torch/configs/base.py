@@ -6,7 +6,8 @@ RG-LRU hybrid, the encoder-decoder and the VLM prefix, training + PGM
 selection + serving): the field names, defaults and the smoke reduction
 are the reference's, so a config built here and one built there
 describe the same model and run.  Fields of later slices (mesh,
-compression) are not carried.
+compression) are not carried.  The dry run's shapes (``ShapeConfig``,
+``SHAPES``) are the reference's.
 """
 from __future__ import annotations
 
@@ -131,6 +132,18 @@ class ModelConfig:
         rem = self.n_layers % len(self.pattern)
         return tuple(self.pattern) * reps + tuple(self.pattern[:rem])
 
+    def is_subquadratic(self) -> bool:
+        """True when the arch can serve 500k-token contexts without an
+        unbounded full-attention KV cache in every layer: recurrent or
+        local layers only, local layers beside a few global ones
+        (gemma3), or any recurrent layer (the reference's rule)."""
+        kinds = set(self.layer_kinds())
+        if kinds <= {BLOCK_REC, BLOCK_RWKV, BLOCK_LOCAL}:
+            return True
+        if BLOCK_GLOBAL in kinds and BLOCK_LOCAL in kinds:
+            return True
+        return bool(kinds & {BLOCK_REC, BLOCK_RWKV})
+
     def n_params(self) -> int:
         """Analytic parameter count (embedding + stack + head), the
         reference's formula for RNN-T, dense and MoE attention stacks,
@@ -191,6 +204,26 @@ class ModelConfig:
         per_expert = len(self.layer_kinds()) * 3 * self.d_model \
             * e.d_ff_expert
         return self.n_params() - (e.n_experts - e.top_k) * per_expert
+
+
+# ---------------------------------------------------------------------------
+# Shapes of the dry run (the reference's, ``repro/configs/base.py``)
+# ---------------------------------------------------------------------------
+
+@dataclass(frozen=True)
+class ShapeConfig:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str                        # train | prefill | decode
+
+
+TRAIN_4K = ShapeConfig("train_4k", 4096, 256, "train")
+PREFILL_32K = ShapeConfig("prefill_32k", 32768, 32, "prefill")
+DECODE_32K = ShapeConfig("decode_32k", 32768, 128, "decode")
+LONG_500K = ShapeConfig("long_500k", 524288, 1, "decode")
+
+SHAPES = {s.name: s for s in (TRAIN_4K, PREFILL_32K, DECODE_32K, LONG_500K)}
 
 
 @dataclass(frozen=True)

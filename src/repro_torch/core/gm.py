@@ -104,7 +104,7 @@ def gram_omp(K: torch.Tensor, c: torch.Tensor, target_sq: torch.Tensor,
         taken = torch.zeros((n,), dtype=torch.bool, device=dev)
         taken[sel[sel >= 0]] = True
         scores = torch.where(taken, float("-inf"), scores)
-        j = int(torch.argmax(scores))
+        j = int(torch.argmax(scores))  # repro_torch: noqa[host-sync-loop] -- the greedy pick indexes the next solve; stage B is eager, one read an OMP iteration (a budget of units)
         sel[i] = j
         safe = torch.where(sel >= 0, sel, torch.zeros_like(sel))
         c_sub = c[safe]

@@ -23,7 +23,7 @@ import os
 import shutil
 import subprocess
 from pathlib import Path
-from typing import Dict, Iterable, Optional
+from typing import Dict, Iterable, List, Optional
 
 import torch
 
@@ -169,6 +169,47 @@ def stream_handle(device: torch.device) -> ctypes.c_void_p:
     """PyTorch's current CUDA stream on ``device``, as the C functions
     take it."""
     return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
+
+
+def shape_only(*tensors: torch.Tensor) -> bool:
+    """True when every tensor is a ``FakeTensor`` or lies on the meta
+    device (a dry run, ``launch/dryrun.py``): the wrapper returns empty
+    outputs of the right shapes and launches nothing.  False when none
+    is; raises on a mix, so a real tensor never takes that route."""
+    from torch._subclasses.fake_tensor import FakeTensor
+    kinds = {isinstance(t, FakeTensor) or t.device.type == "meta"
+             for t in tensors}
+    if kinds == {True}:
+        return True
+    if kinds == {False}:
+        return False
+    raise ValueError("fake or meta tensors mixed with real ones")
+
+
+#: op counters listening for kernel calls (``launch/op_analysis.py``)
+WORK_SINKS: List = []
+
+
+class kernel_work:
+    """``with kernel_work(name, flops, n_bytes): <any route>``: one call
+    of kernel ``name`` doing ``flops`` operations and moving ``n_bytes``
+    by its formula (``PERF.md``'s bound line), reported to every active
+    op counter, which counts no aten op inside the block.  So a count is
+    the same whether the kernel, its plain version or the shape-only
+    route ran.  Free when no counter listens."""
+
+    __slots__ = ("args",)
+
+    def __init__(self, name: str, flops: float, n_bytes: float):
+        self.args = (name, float(flops), float(n_bytes))
+
+    def __enter__(self):
+        for sink in WORK_SINKS:
+            sink.enter_kernel(*self.args)
+
+    def __exit__(self, *exc):
+        for sink in WORK_SINKS:
+            sink.exit_kernel()
 
 
 def check(name: str, status: int) -> None:

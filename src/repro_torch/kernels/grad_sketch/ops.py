@@ -21,7 +21,10 @@ embedding's ``embed.w.t()`` is, an untied (d, V) head is copied by the
 caller (``lm_unit_sketch``).
 
 ``grad_sketch_units_op.launches`` counts kernel launches (never
-plain-path calls); ``grad_sketch_op`` is its U = 1 case.
+plain-path calls); ``grad_sketch_op`` is its U = 1 case.  :func:`work`
+is its count for ``launch/op_analysis.py``, the same on every route;
+fake or meta tensors (a dry run) take a shape-only route that launches
+nothing.
 """
 from __future__ import annotations
 
@@ -47,6 +50,16 @@ def _launcher():
         + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
+
+
+def work(U: int, n: int, d: int, V: int, k1: int, k2: int):
+    """(FLOPs, bytes) of one call: the function's four products h.W,
+    p.R2, h.R1 and hr^T er2; h, w, r_h, r_v, targets and scale read
+    once, the sketch written once."""
+    flops = 2 * U * n * (d * V + V * k2 + d * k1 + k1 * k2)
+    n_bytes = 4 * (U * n * d + d * V + d * k1 + V * k2 + 2 * U * n
+                   + U * k1 * k2)
+    return flops, n_bytes
 
 
 def vocab_splits(U: int, n: int, V: int):
@@ -83,8 +96,17 @@ def grad_sketch_units_op(h: torch.Tensor, w: torch.Tensor,
     plain path's streaming width; the kernel tiles the vocab its own
     way.  ``impl`` is ``PGMConfig.kernel_impl`` (``backend.use_kernel``:
     ``"xla"`` runs the plain path on the card)."""
-    if not backend.use_kernel(impl, h, w, r_h, r_v, targets, scale):
-        return _plain(h, w, r_h, r_v, targets, scale, vocab_chunk)
+    U, n, d = h.shape
+    V, k1, k2 = w.shape[-1], r_h.shape[-1], r_v.shape[-1]
+    with backend.kernel_work(NAME, *work(U, n, d, V, k1, k2)):
+        if backend.shape_only(h, w, r_h, r_v, targets, scale):
+            return h.new_empty((U, k1, k2), dtype=torch.float32)
+        if not backend.use_kernel(impl, h, w, r_h, r_v, targets, scale):
+            return _plain(h, w, r_h, r_v, targets, scale, vocab_chunk)
+        return _launch(h, w, r_h, r_v, targets, scale)
+
+
+def _launch(h, w, r_h, r_v, targets, scale) -> torch.Tensor:
     backend.check_input(NAME, h, 3)
     wt = w.t()
     backend.check_input(NAME, wt, 2)

@@ -16,7 +16,9 @@ card's SM count.
 
 ``omp_gram_batched_op.launches`` counts launches of the Gram kernel
 (never plain-path calls; the partials' reduction rides on the same
-count).
+count).  :func:`work` is its count for ``launch/op_analysis.py``, the
+same on every route; fake or meta tensors (a dry run) take a shape-only
+route that launches nothing.
 """
 from __future__ import annotations
 
@@ -69,6 +71,12 @@ def gram_tile(t: int, n_side: int):
     return ti, ti + t
 
 
+def work(P: int, n: int, D: int):
+    """(FLOPs, bytes) of one (P, n, D) Gram: the upper triangle's
+    P n (n+1) D FLOPs, g read and the (P, n, n) Grams written."""
+    return P * n * (n + 1) * D, 4 * (P * n * D + P * n * n)
+
+
 @functools.cache
 def _launcher():
     fn = backend.library(NAME).omp_gram_batched_launch
@@ -87,8 +95,15 @@ def omp_gram_batched_op(g: torch.Tensor, impl: str = "auto") -> torch.Tensor:
     """(P, n, D) fp32 -> (P, n, n) fp32 per-partition Gram matrices.
     ``impl`` is ``PGMConfig.kernel_impl`` (``backend.use_kernel``:
     ``"xla"`` runs the plain version on the card)."""
-    if not backend.use_kernel(impl, g):
-        return omp_gram_batched_ref(g)
+    with backend.kernel_work(NAME, *work(*g.shape)):
+        if backend.shape_only(g):
+            return g.new_empty((g.shape[0], g.shape[1], g.shape[1]))
+        if not backend.use_kernel(impl, g):
+            return omp_gram_batched_ref(g)
+        return _launch(g)
+
+
+def _launch(g: torch.Tensor) -> torch.Tensor:
     backend.check_input(NAME, g, 3)
     P, n, D = g.shape
     out = torch.empty((P, n, n), dtype=torch.float32, device=g.device)

@@ -15,6 +15,9 @@ source has the details, :func:`lane_columns` the column split).
 
 ``rnnt_lattice_op.launches`` counts kernel launches (never plain-path
 calls), so a run can show that its main path went through the kernel.
+:func:`work` is its count for ``launch/op_analysis.py``, the same on
+every route; fake or meta tensors (a dry run) take a shape-only route
+that launches nothing.
 """
 from __future__ import annotations
 
@@ -49,6 +52,13 @@ def lane_columns(U1: int):
     return [(min(l * q, U1), min(l * q + q, U1)) for l in range(WARP)]
 
 
+def work(cells: int):
+    """(FLOPs, bytes) of one call over ``cells`` = T B U1 cells: a
+    cell's two adds and two logaddexps of six operations each, its three
+    inputs read and its output written (16 bytes)."""
+    return 14 * cells, 16 * cells
+
+
 def _launcher():
     fn = backend.library(NAME).rnnt_lattice_launch
     fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 \
@@ -60,8 +70,15 @@ def _launcher():
 def rnnt_lattice_op(mult: torch.Tensor, add: torch.Tensor,
                     emit: torch.Tensor) -> torch.Tensor:
     """(T, B, U1) x3 fp32 -> lattice rows (T, B, U1) fp32."""
-    if not backend.on_card(mult, add, emit):
-        return rnnt_lattice_ref(mult, add, emit)
+    with backend.kernel_work(NAME, *work(mult.numel())):
+        if backend.shape_only(mult, add, emit):
+            return torch.empty_like(mult)
+        if not backend.on_card(mult, add, emit):
+            return rnnt_lattice_ref(mult, add, emit)
+        return _launch(mult, add, emit)
+
+
+def _launch(mult, add, emit):
     for t in (mult, add, emit):
         backend.check_input(NAME, t, 3)
     if not (mult.shape == add.shape == emit.shape):

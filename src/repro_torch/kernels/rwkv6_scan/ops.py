@@ -24,7 +24,13 @@ cores in 3xTF32 (the note in the source has the details).
 kernels (one per forward, although a forward is three kernel launches)
 and ``rwkv6_wkv_op.bwd_launches`` backward calls (one per backward, also
 three kernel launches; never plain-path calls); ``wkv_forward`` and
-``wkv_backward`` are the two, which the autograd function wraps.
+``wkv_backward`` are the two, which the autograd function wraps.  On
+the CPU ``_WKVPlain`` wraps the plain chunk algebra the same way (its
+backward is autograd of that algebra, as before), so both routes have
+one forward and one backward call; :func:`work` and :func:`bwd_work`
+are their counts for ``launch/op_analysis.py``, the same on every
+route.  Fake or meta tensors (a dry run) take a shape-only route that
+launches nothing.
 """
 from __future__ import annotations
 
@@ -48,6 +54,30 @@ def _fwd_launcher():
         + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
+
+
+def work(B: int, S: int, H: int, N: int, C: int):
+    """(FLOPs, bytes) of one forward: 4 N^2 FLOP a (token, head); r, k,
+    v, lw and u read, y, the final state and the chunk states written."""
+    bshn, bhnn = B * S * H * N, B * H * N * N
+    n_states = B * H * (S // C) * N * N
+    return 4 * N * N * B * S * H, 4 * (5 * bshn + H * N + bhnn + n_states)
+
+
+def bwd_work(B: int, S: int, H: int, N: int, C: int):
+    """(FLOPs, bytes) of one backward: 8 N^2 FLOP a (token, head)
+    (dy S^T, r^T dy, v dS^T, k dS); r, k, v, lw, u, dy, the state's
+    cotangent and the chunk states read, dr, dk, dv, dlw and du
+    written."""
+    bshn, bhnn = B * S * H * N, B * H * N * N
+    n_states = B * H * (S // C) * N * N
+    return (8 * N * N * B * S * H,
+            4 * (5 * bshn + H * N + bhnn + n_states + 4 * bshn + H * N))
+
+
+def _dims(r, chunk: int):
+    B, S, H, N = r.shape
+    return B, S, H, N, min(chunk, S)
 
 
 def wkv_grid(B: int, S: int, H: int, N: int, C: int):
@@ -196,10 +226,21 @@ def wkv_backward(r, k, v, lw, u, states, dy, ds, chunk: int):
 
 
 class _WKV(torch.autograd.Function):
+    """The kernels on card tensors; empty outputs of the right shapes on
+    fake or meta ones (a dry run)."""
+
     @staticmethod
     def forward(ctx, r, k, v, lw, u, chunk):
+        ctx.set_materialize_grads(False)
         keep = any(ctx.needs_input_grad[:5])
-        y, s_out, states = wkv_forward(r, k, v, lw, u, chunk, keep)
+        dims = _dims(r, chunk)
+        with backend.kernel_work(NAME, *work(*dims)):
+            if backend.shape_only(r, k, v, lw, u):
+                B, S, H, N, C = dims
+                y, s_out = torch.empty_like(r), r.new_empty((B, H, N, N))
+                states = r.new_empty((B * H, S // C, N, N)) if keep else None
+            else:
+                y, s_out, states = wkv_forward(r, k, v, lw, u, chunk, keep)
         if keep:
             ctx.save_for_backward(r, k, v, lw, u, states)
         ctx.chunk = chunk
@@ -208,8 +249,53 @@ class _WKV(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dy, ds):
         r, k, v, lw, u, states = ctx.saved_tensors
-        grads = wkv_backward(r, k, v, lw, u, states, dy.contiguous(),
-                             ds.contiguous(), ctx.chunk)
+        with backend.kernel_work(NAME + "_bwd",
+                                 *bwd_work(*_dims(r, ctx.chunk))):
+            # an output autograd did not reach has no cotangent: zeros
+            dy = torch.zeros_like(r) if dy is None else dy
+            B, _, H, N = r.shape
+            ds = r.new_zeros((B, H, N, N)) if ds is None else ds
+            if backend.shape_only(r, dy):
+                grads = tuple(torch.empty_like(t) for t in (r, k, v, lw, u))
+            else:
+                grads = wkv_backward(r, k, v, lw, u, states, dy.contiguous(),
+                                     ds.contiguous(), ctx.chunk)
+        return (*grads, None)
+
+
+class _WKVPlain(torch.autograd.Function):
+    """The plain chunk algebra on CPU tensors, from a zero initial state:
+    its forward records its own graph, its backward is autograd of that
+    graph (the same operations as autograd of the algebra itself), each
+    counted as one call of the kernel it stands for."""
+
+    @staticmethod
+    def forward(ctx, r, k, v, lw, u, chunk):
+        ctx.set_materialize_grads(False)
+        ctx.dims = _dims(r, chunk)
+        B, S, H, N = r.shape
+        ins = [t.detach().requires_grad_(need)
+               for t, need in zip((r, k, v, lw, u), ctx.needs_input_grad)]
+        with backend.kernel_work(NAME, *work(*ctx.dims)), \
+                torch.enable_grad():
+            s0 = torch.zeros((B, H, N, N), dtype=torch.float32)
+            outs = wkv_chunked_lw(*ins, s0, chunk)
+        if any(ctx.needs_input_grad[:5]):
+            ctx.graph = (ins, outs)
+        return tuple(o.detach() for o in outs)
+
+    @staticmethod
+    def backward(ctx, dy, ds):
+        ins, outs = ctx.graph
+        del ctx.graph
+        pairs = [(o, g) for o, g in zip(outs, (dy, ds))
+                 if g is not None and o.requires_grad]
+        want = [t for t in ins if t.requires_grad]
+        with backend.kernel_work(NAME + "_bwd", *bwd_work(*ctx.dims)):
+            got = iter(torch.autograd.grad(
+                [o for o, _ in pairs], want, [g for _, g in pairs],
+                allow_unused=True) if pairs else [None] * len(want))
+        grads = [next(got) if t.requires_grad else None for t in ins]
         return (*grads, None)
 
 
@@ -218,10 +304,9 @@ def rwkv6_wkv_op(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """r, k, v, lw (B,S,H,N) fp32, lw = log(clip(w, 1e-8, 1)); u (H,N)
     -> (y (B,S,H,N) fp32, final state (B,H,N,N)), from a zero initial
     state, differentiable in r, k, v, lw and u."""
-    if not backend.on_card(r, k, v, lw, u):
-        B, S, H, N = r.shape
-        s0 = torch.zeros((B, H, N, N), dtype=torch.float32)
-        return wkv_chunked_lw(r, k, v, lw, u, s0, chunk)
+    if not backend.shape_only(r, k, v, lw, u) and \
+            not backend.on_card(r, k, v, lw, u):
+        return _WKVPlain.apply(r, k, v, lw, u, chunk)
     return _WKV.apply(r, k, v, lw, u, chunk)
 
 

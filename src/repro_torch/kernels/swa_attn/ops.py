@@ -45,11 +45,14 @@ build or launch raises, and nothing falls back to the plain version.
 
 ``swa_attn_op.launches`` counts forward launches and
 ``swa_attn_op.bwd_launches`` backward calls (four kernels each at bf16),
-never plain-path calls.
+never plain-path calls.  :func:`work` and :func:`bwd_work` are their
+counts for ``launch/op_analysis.py``, the same on every route; fake or
+meta tensors (a dry run) take a shape-only route that launches nothing.
 """
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -60,6 +63,46 @@ from repro_torch.kernels.swa_attn.ref import (attn_scale, swa_attn_bwd_ref,
 NAME = "swa_attn"
 HEAD_DIMS = (16, 32, 64, 128, 256)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+@functools.lru_cache(maxsize=None)
+def softmax_scale(hd: int) -> float:
+    """The fp32 ``1/sqrt(hd)`` of ``ref.attn_scale`` as a Python float,
+    read from its host tensor once a head dim (every head dim up to 512
+    at import), so a step reads nothing back for it and an op count of
+    a step does not depend on what ran before."""
+    return float(attn_scale(hd))  # repro_torch: noqa[kernel-no-fallback] -- the softmax scale, a constant of hd, not a plain version
+
+
+for _hd in range(1, 513):
+    softmax_scale(_hd)
+del _hd
+
+
+def band_pairs(S: int, W: int) -> int:
+    """(query, key) pairs of a causal window W over S tokens."""
+    W = min(W, S)
+    return W * (W + 1) // 2 + (S - W) * W
+
+
+def work(q, k, v, window: int, with_lse: bool):
+    """(FLOPs, bytes) of one forward: 4 hd FLOP a (query, key) pair of
+    the band and query head (rows at full length); q, k and v read, the
+    output (and lse) written."""
+    B, S, KV, G, hd = q.shape
+    esz = q.element_size()
+    lse = 4 * B * S * KV * G if with_lse else 0
+    return (4 * hd * band_pairs(S, window) * KV * G * B,
+            esz * (2 * q.numel() + k.numel() + v.numel()) + lse)
+
+
+def bwd_work(q, k, v, window: int):
+    """(FLOPs, bytes) of one backward: 10 hd FLOP a pair and query head;
+    q, k, v, out, dout and lse read, dq, dk and dv written."""
+    B, S, KV, G, hd = q.shape
+    return (10 * hd * band_pairs(S, window) * KV * G * B,
+            q.element_size() * (4 * q.numel() + 2 * k.numel()
+                                + 2 * v.numel()) + 4 * B * S * KV * G)
 
 
 def _launcher():
@@ -131,7 +174,7 @@ def _launch(q, k, v, lengths, window: int, with_lse: bool = False):
     status = _launcher()(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(lengths),
         out.data_ptr(), _ptr(lse), B, S, KV, G, hd, int(window),
-        float(attn_scale(hd)), _DTYPES[q.dtype],
+        softmax_scale(hd), _DTYPES[q.dtype],
         backend.stream_handle(q.device))
     backend.check(NAME, status)
     swa_attn_op.launches += 1
@@ -162,7 +205,7 @@ def swa_attn_bwd(q, k, v, out, lse, dout, window: int, lengths=None):
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
         lse.data_ptr(), dout.data_ptr(), _ptr(lengths), dq.data_ptr(),
         dk.data_ptr(), dv.data_ptr(), scratch.data_ptr(), B, S, KV, G, hd,
-        int(window), float(attn_scale(hd)), _DTYPES[q.dtype],
+        int(window), softmax_scale(hd), _DTYPES[q.dtype],
         backend.stream_handle(q.device))
     backend.check(NAME, status)
     swa_attn_op.bwd_launches += 1
@@ -171,17 +214,23 @@ def swa_attn_bwd(q, k, v, out, lse, dout, window: int, lengths=None):
 
 class _SWA(torch.autograd.Function):
     """The band on both devices: the kernels on card tensors, the plain
-    forward and backward on CPU ones.  The forward keeps lse only when a
-    gradient is wanted."""
+    forward and backward on CPU ones, empty outputs of the right shapes
+    on fake or meta ones.  The forward keeps lse only when a gradient is
+    wanted."""
 
     @staticmethod
     def forward(ctx, q, k, v, lengths, window):
         train = any(ctx.needs_input_grad[:3])
-        if q.is_cuda:
-            out, lse = _launch(q, k, v, lengths, window, with_lse=train)
-        else:
-            out, lse = swa_attn_fwd_ref(q, k, v, window=window,
-                                        lengths=lengths)
+        with backend.kernel_work(NAME, *work(q, k, v, window, train)):
+            if backend.shape_only(q, k, v):
+                B, S, KV, G, _ = q.shape
+                out = torch.empty_like(q)
+                lse = q.new_empty((B, S, KV, G), dtype=torch.float32)
+            elif backend.on_card(q, k, v):
+                out, lse = _launch(q, k, v, lengths, window, with_lse=train)
+            else:
+                out, lse = swa_attn_fwd_ref(q, k, v, window=window,
+                                            lengths=lengths)
         if train:
             ctx.save_for_backward(q, k, v, out, lse, lengths)
             ctx.window = window
@@ -191,12 +240,16 @@ class _SWA(torch.autograd.Function):
     def backward(ctx, dout):
         q, k, v, out, lse, lengths = ctx.saved_tensors
         dout = dout.contiguous()
-        if q.is_cuda:
-            grads = swa_attn_bwd(q, k, v, out, lse, dout, ctx.window,
-                                 lengths)
-        else:
-            grads = swa_attn_bwd_ref(q, k, v, out, lse, dout,
-                                     window=ctx.window, lengths=lengths)
+        with backend.kernel_work(NAME + "_bwd",
+                                 *bwd_work(q, k, v, ctx.window)):
+            if backend.shape_only(q, k, v, dout):
+                grads = tuple(torch.empty_like(t) for t in (q, k, v))
+            elif backend.on_card(q, k, v, dout):
+                grads = swa_attn_bwd(q, k, v, out, lse, dout, ctx.window,
+                                     lengths)
+            else:
+                grads = swa_attn_bwd_ref(q, k, v, out, lse, dout,
+                                         window=ctx.window, lengths=lengths)
         return (*grads, None, None)
 
 
@@ -206,7 +259,8 @@ def swa_attn_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     (B,) -> (B,S,KV,G,hd) in q's dtype: query s attends to the valid
     keys in (s - window, s]; rows at or past their length are zeros.
     Differentiable in q, k and v on both devices."""
-    backend.on_card(q, k, v)
+    if not backend.shape_only(q, k, v):
+        backend.on_card(q, k, v)
     return _SWA.apply(q, k, v, lengths, window)
 
 

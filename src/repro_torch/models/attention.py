@@ -39,8 +39,8 @@ from typing import Callable, Dict, Optional
 
 import torch
 
-from repro_torch.kernels.swa_attn.ops import swa_attn_op
-from repro_torch.kernels.swa_attn.ref import attn_scale
+from repro_torch.kernels import backend
+from repro_torch.kernels.swa_attn.ops import softmax_scale, swa_attn_op
 from repro_torch.models.common import apply_rope, dense_init, rms_norm
 
 NEG_INF = -1e30
@@ -82,8 +82,8 @@ def _valid(kv_pos):
 
 def _scale(hd: int) -> float:
     """The fp32 ``1/sqrt(hd)`` as a Python float (exact, so a product
-    with it is the product with the fp32 tensor)."""
-    return float(attn_scale(hd))
+    with it is the product with the fp32 tensor), read from no tensor."""
+    return softmax_scale(hd)
 
 
 def init_attn_params(gen: torch.Generator, cfg, device: torch.device) -> Dict:
@@ -171,9 +171,11 @@ def band_lengths(pos: torch.Tensor) -> torch.Tensor:
     """Per-row valid lengths (B,) int32 of positions (B,S) that are
     ``arange(S)`` below the length and -1 from it on (what a prefill
     makes); raises on any other form, which the band kernel cannot
-    express."""
+    express.  A dry run's fake positions hold no values to check."""
     S = pos.shape[1]
     n = (pos >= 0).sum(dim=1).to(torch.int32)
+    if backend.shape_only(pos):
+        return n
     ar = torch.arange(S, device=pos.device)
     want = torch.where(ar[None, :] < n[:, None], ar[None, :], -1)
     if not torch.equal(pos.to(want.dtype), want):

@@ -122,7 +122,7 @@ def rope_freqs(head_dim: int, theta: float,
     compiled code has them (XLA folds the constant exactly rounded; an
     fp32 ``pow`` is an ulp off in about a third of the entries, which
     moves a rotation by ~1e-4 at positions in the thousands)."""
-    exps = torch.arange(0, head_dim, 2, dtype=torch.float64,
+    exps = torch.arange(0, head_dim, 2, dtype=torch.float64,  # repro_torch: noqa[dtype-widen] -- S9: the RoPE frequencies rounded once to fp32, as XLA folds them
                         device=device) / head_dim
     return (1.0 / (float(theta) ** exps)).to(torch.float32)
 

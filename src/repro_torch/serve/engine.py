@@ -157,7 +157,7 @@ def generate(bundle, params, prompts: torch.Tensor, max_new_tokens: int, *,
     t0 = time.perf_counter()
     for i in range(max_new_tokens - 1):
         # one device->host sync per `sync_every` steps, not per token
-        if done is not None and i % sync_every == 0 and bool(done.all()):
+        if done is not None and i % sync_every == 0 and bool(done.all()):  # repro_torch: noqa[host-sync-loop] -- the early-exit probe, once every sync_every steps
             break
         logits, cache = bundle.decode(params, cache, tok)
         tok = sample_token(logits, generator, temperature)
@@ -461,7 +461,7 @@ class SlotEngine:
             self._decode_scan()
             self.n_decode_dispatches += 1
             # ONE host fetch per scan: live flags and emission counts
-            flags = torch.stack([self._state["live"].to(torch.int32),
+            flags = torch.stack([self._state["live"].to(torch.int32),  # repro_torch: noqa[host-sync-loop] -- the one host read a decode scan (live flags and counts)
                                  self._state["n_out"]]).cpu().numpy()
             live, n_out = flags[0].astype(bool), flags[1]
             now = clock() - t0
@@ -476,7 +476,7 @@ class SlotEngine:
             finished = [s for s in list(active) if not live[s]]
             if finished:
                 # one fetch of the whole output pool for the sweep
-                out_pool = self._state["out"].cpu().numpy()
+                out_pool = self._state["out"].cpu().numpy()  # repro_torch: noqa[host-sync-loop] -- one pool read, on sweeps that finish a slot
             for slot in finished:
                 req, admit_s = active.pop(slot)
                 toks = out_pool[slot][: int(n_out[slot])]
@@ -518,7 +518,7 @@ def rnnt_greedy_reference(bundle, params, feats, feat_lens,
         for t in range(int(t_lens[b])):
             for _ in range(max_symbols):
                 logits = rnnt_mod.joint_step(params, enc[b: b + 1, t], g)
-                k = int(torch.argmax(logits[0]))
+                k = int(torch.argmax(logits[0]))  # repro_torch: noqa[host-sync-loop] -- the host-loop oracle; a read a symbol is its definition
                 if k == rnnt_mod.BLANK_ID:
                     break
                 toks.append(k)

@@ -872,9 +872,9 @@ class HostEngine(_MeshState):
             batch["weights"] = batch["weights"] * np.repeat(w, self.unit_size)
             params, opt_state, metrics = self._step(
                 params, opt_state, to_device(batch, self.device), lr)
-            losses.append(float(metrics["loss"]))
+            losses.append(float(metrics["loss"]))  # repro_torch: noqa[host-sync-loop] -- HostEngine is the parity oracle: a read a step, as the reference's host loop
             if self.guard:
-                skipped.append(float(metrics["skipped"]))
+                skipped.append(float(metrics["skipped"]))  # repro_torch: noqa[host-sync-loop] -- the same step's skip flag
         if self.guard:
             self.last_skipped = np.asarray(skipped, np.float32)
             self.last_n_skipped = int(sum(skipped))

@@ -321,8 +321,8 @@ def train_with_selection(
                                   eng.val_units, durations,
                                   resident=resident, mesh=mesh,
                                   data_axis=data_axis)
-                oi = (overlap_index(selection.indices.cpu().numpy(),
-                                    new_sel.indices.cpu().numpy())
+                oi = (overlap_index(selection.indices.cpu().numpy(),  # repro_torch: noqa[host-sync-loop] -- one read a selection round (the overlap index), not a step
+                                    new_sel.indices.cpu().numpy())  # repro_torch: noqa[host-sync-loop] -- the same read, of the new round
                       if selection is not None else float("nan"))
                 selection = new_sel
                 sel_round += 1
@@ -376,7 +376,7 @@ def train_with_selection(
                 params, opt_state, step_losses = eng.run_epoch(
                     params, opt_state, newbob.lr, plans[0])
                 losses = step_losses[eng.plan_live_steps(plans[0])]
-                train_losses = [float(losses.mean()) if losses.size
+                train_losses = [float(np.mean(losses)) if losses.size
                                 else float("nan")]
                 has_live = [losses.size > 0]
                 if eng.val_units is not None:
@@ -393,7 +393,7 @@ def train_with_selection(
                 train_losses, has_live = [], []
                 for i, p in enumerate(plans):
                     l = step_losses[i][eng.plan_live_steps(p)]
-                    train_losses.append(float(l.mean()) if l.size
+                    train_losses.append(float(np.mean(l)) if l.size
                                         else float("nan"))
                     has_live.append(l.size > 0)
                 val_losses = [float(v) for v in vls]
@@ -405,7 +405,7 @@ def train_with_selection(
                 skm = (_host(eng.last_skipped).reshape(-1) > 0.5
                        if eng.last_skipped is not None
                        else np.zeros(0, bool))
-                n_sk = int(skm.sum())
+                n_sk = int(np.sum(skm))
                 hist.skipped_steps += n_sk
                 span = f"epochs {chunk_epochs[0]}..{chunk_epochs[-1]}"
                 if n_sk:

@@ -350,16 +350,15 @@ def test_dead_slots_are_bit_exact_no_ops(lm):
 
 def test_decode_writes_the_cache_pool_in_place(lm):
     """A decode scan writes the live slots' rows into the one cache pool:
-    no leaf of the pool is replaced by a copy."""
-    from repro_torch.models.common import tree_leaves
+    no leaf of the pool is replaced by a copy (``contracts.assert_in_place``)."""
+    from repro_torch.analysis import contracts
     _, _, mt, pt = lm
     eng = SlotEngine(mt, pt, n_slots=2, max_new_tokens=8, max_prompt_len=16)
     eng._admit(0, _lm_requests([7], seed=9, max_new=8)[0])
-    pool = tree_leaves(eng._state["cache"])
+    pool = contracts.pointers(eng._state["cache"])
     eng._decode_scan()
     assert int(eng._state["n_out"][0]) > 1
-    after = tree_leaves(eng._state["cache"])
-    assert [t.data_ptr() for t in after] == [t.data_ptr() for t in pool]
+    contracts.assert_in_place(pool, eng._state["cache"], "the cache pool")
 
 
 def _leaves(state):
