@@ -4,11 +4,12 @@
     python3 chip_smoke.py
 
 run from the root of a checkout, on a machine with one NVIDIA H100.
-``python3 chip_smoke.py --phase N`` (N in 15 to 22) runs phases 1
+``python3 chip_smoke.py --phase N`` (N in 15 to 23) runs phases 1
 and 2, then phase N's kernel rows and phase N alone (phase 15 after the
 RNN-T run on the scan engine it is held against, phase 21 after the
 resident RNN-T run without a group that 21a is held to, phase 22 after
-phases 20 and 21, whose steps it reads), and prints the
+phases 20 and 21, whose steps it reads, phase 23 after phase 21, which
+runs its part (a)), and prints the
 card's name and power limit and the phase's launch counts; it is for trying a
 phase, and the contract below holds for the whole run only.  It
 imports no JAX and nothing of the JAX package, and runs in phases; any
@@ -281,7 +282,9 @@ failure exits non-zero, and no phase catches an error and carries on:
    resident round on the mesh (grad sketch, Gram); (c) two ranks sharing
    the card over gloo (spawned at the phase's start, waiting), the host
    engine, eager: a resident round on the seed's params and the first 2
-   steps from them against one device's;
+   steps from them against one device's.  The mesh engines store
+   sharded state (phase 23), one block a rank, the whole leaf at world
+   size 1;
 22. the contracts' card side and the roofline (ROADMAP item 11): graphs
    built through the driver with a host node and a device-to-host memcpy
    node refused by ``assert_graph_device_only``, ``no_host_sync`` raising
@@ -290,7 +293,21 @@ failure exits non-zero, and no phase catches an error and carries on:
    21b's plain step: each step's MFU (model FLOPs, 6 N D, over its wall
    time over 989 TFLOP/s), its useful ratio (model FLOPs over the op
    count), its roofline bound, and the dry run's memory floor against
-   the measured peak (20a's must not exceed it).
+   the measured peak (20a's must not exceed it);
+23. sharded storage (ROADMAP item 17, hazards S1-S6;
+   ``repro_torch/sharding/fsdp.py``): (a) in phase 21's runs at world
+   size 1, the gathers and reduce-scatters counted inside the step's
+   one capture at fp32, 21a bitwise the run with whole storage and no
+   group, 21b's ``none`` step bitwise the plain step in losses and every
+   param; (b) two gloo ranks sharing the card (host engine, eager; the
+   collectives' route printed, S1): ``rnnt-crdnn``, then
+   ``starcoder2-3b`` at full width, 2 layers, S 512, AdamW, 3 rows each,
+   every loss and param bitwise one device summing each row's halves
+   (the clip not binding), each rank's peak beside that device's with
+   whole state, the LM's at least ``FSDP_SAVING_GB`` under it; (c)
+   ``starcoder2-3b`` at full depth, AdamW, one row on each of the two
+   ranks: both peaks together under 80 GB, the step's wall time and the
+   dry run's per-rank floor on a (2,) data mesh.
 
 The contracts (``repro_torch/analysis/contracts.py``) hold on the runs
 above: phase 11's slot pool is updated in place across its admits and
@@ -343,7 +360,10 @@ the Gram of 20a; then phase 21's: the lattice and the Gram of
 ``rnnt-mesh`` (21a; the lattice of the step graph as counted plus its
 nodes x replays), the grad sketch and the Gram of ``lm-mesh`` (21b's
 round) and the lattice and the Gram of ``rnnt-mesh-gloo`` (21c, both
-ranks' launches), the card's name and power limit
+ranks' launches); then phase 23's: the lattice of ``rnnt-fsdp-gloo``
+(23b's sharded RNN-T steps, both ranks' launches), the card's name and
+power limit
+
 as ``nvidia-smi`` prints them, and the line ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
@@ -1977,13 +1997,16 @@ def scan_engine_phase(torch, np, bundle, tc, units, val_units, first,
         require(subsets and weights and len(tl) == len(tl0)
                 and loss_rel < 1e-3, f"{tag}: {rec} against {ref_tag} {ref}")
 
-    # (a) the RNN-T main path through the scan engine (15a repeats the
-    # path resident with one seed)
-    h, launches, secs = scan_run(bundle, units, val_units, tc, rnnt_ops,
-                                 "14a", engine="scan")
+    # (a) the RNN-T main path through the scan engine, its first
+    # REPEAT_EPOCHS epochs held to that prefix of phase 5's host run (15a
+    # repeats the path resident with one seed)
+    h, launches, secs = scan_run(bundle, units, val_units,
+                                 dataclasses.replace(tc,
+                                                     epochs=REPEAT_EPOCHS),
+                                 rnnt_ops, "14a", engine="scan")
     runs = [(rnnt_run_record(h), launches, secs, h.final_params)]
     del h
-    agree(runs[0][0], first, "14a", "phase 5's host run")
+    agree(runs[0][0], run_prefix(first), "14a", "phase 5's host run")
     # the eager step was traced and counted in phase 7
     per_step, replayed, step_ms, traced = replay_check(
         torch, np, bundle, tc, units, dev, runs[0][3],
@@ -2283,15 +2306,17 @@ def resident_phase(torch, np, bundle, tc, units, val_units, rec_14a, models,
                 f"holds none of a kernel")
         return g1, {k: (ran[k], counted.get(k, 0)) for k in markers}
 
-    # (a) the RNN-T main path, resident, twice with one seed
+    # (a) the RNN-T main path, resident, twice with one seed, each its
+    # first REPEAT_EPOCHS epochs
     runs = []
-    for tag, tc_ in (("15a", tc), ("15a again", dataclasses.replace(
-            tc, epochs=REPEAT_EPOCHS))):
-        h, launches, _ = resident_run(bundle, units, val_units, tc_, tag)
+    for tag in ("15a", "15a again"):
+        h, launches, _ = resident_run(
+            bundle, units, val_units,
+            dataclasses.replace(tc, epochs=REPEAT_EPOCHS), tag)
         runs.append((rnnt_run_record(h), launches, h.final_params))
         del h
-    again = runs[1][0] == run_prefix(runs[0][0])
-    (tl, vl, sels), (tl0, vl0, sels0) = runs[0][0], rec_14a
+    again = runs[1][0] == runs[0][0]
+    (tl, vl, sels), (tl0, vl0, sels0) = runs[0][0], run_prefix(rec_14a)
     same = [(e, i) for e, i, _ in sels] == [(e, i) for e, i, _ in sels0]
     w_ok = all(np.allclose(w, w0, rtol=0, atol=1e-4)
                for (_, _, w), (_, _, w0) in zip(sels, sels0))
@@ -2301,7 +2326,7 @@ def resident_phase(torch, np, bundle, tc, units, val_units, rec_14a, models,
           f"(host stage A, scan "
           f"engine): same subsets {same}, weights within 1e-4 {w_ok}, losses "
           f"at most {loss_rel:.2e} apart (rtol 1e-3), bitwise equal: "
-          f"{runs[0][0] == rec_14a}", flush=True)
+          f"{runs[0][0] == run_prefix(rec_14a)}", flush=True)
     require(again, "15a: two resident runs differ")
     require(same and w_ok and loss_rel < 1e-3 and len(tl) == len(tl0),
             f"15a: {runs[0][0]} against 14a {rec_14a}")
@@ -4557,7 +4582,8 @@ DIST_K_FRAC = 0.05
 # and of one device summing each row's gradient in two halves as the two
 # ranks do (``halves_steps``), printed side by side
 DIST_GLOO_STEPS = 2
-DIST_GLOO_TRACK = 8
+DIST_GLOO_TRACK = 4
+
 DIST_GLOO_LOSS_BAR = 1e-5
 DIST_GLOO_NORM_BAR = 1e-4
 NCCL_MARKER = "nccl"
@@ -4643,7 +4669,9 @@ def first_steps(torch, bundle, tc, units, val_units, dev, mesh):
                                                val_units=eng.val_units)
     idx, w = eng.full_plan(0)
     p, o, head = eng.run_epoch(p0, init(p0), tc.lr, (idx[:S], w[:S]))
-    out = {"norms": norms(p)}
+    # on the mesh the engine returns this rank's shards: the norms are
+    # the whole leaves'
+    out = {"norms": norms(eng.whole_state(p))}
     p, o, tail = eng.run_epoch(p, o, tc.lr, (idx[S:T], w[S:T]))
     out["losses"] = [float(x) for x in list(head) + list(tail)]
     out["indices"] = sel.indices.tolist()
@@ -4655,18 +4683,20 @@ def first_steps(torch, bundle, tc, units, val_units, dev, mesh):
     p, _, sub = eng2.run_epoch(p0, init(p0), tc.lr, (s_idx[:S], s_w[:S]))
     out["subset_rows"] = s_w[:S].tolist()
     out["subset_losses"] = [float(x) for x in sub]
-    out["subset_norms"] = norms(p)
+    out["subset_norms"] = norms(eng2.whole_state(p))
     return out
 
 
-def halves_steps(torch, bundle, tc, units, dev):
-    """The control of 21c on one device: the host engine's first
-    ``DIST_GLOO_TRACK`` rows of epoch 0 from the seed's params, each row's
-    gradient taken in two halves of its examples as two data ranks take
-    it (each half's weighted mean loss scaled by its weight sum over the
-    halves' mean, D1), the halves' gradients added in one fp32 buffer and
-    halved, as the ranks' all-reduce does, then clipped and applied ->
-    each row's loss (the halves' mean)."""
+def halves_steps(torch, bundle, tc, units, dev, rows=DIST_GLOO_TRACK,
+                 p=None):
+    """The control of 21c and 23b on one device: the host engine's first
+    ``rows`` rows of epoch 0 from ``p`` (default the seed's params), each
+    row's gradient taken in two halves of its examples as two data ranks
+    take it (each half's weighted mean loss scaled by its weight sum over
+    the halves' mean, D1), the halves' gradients added in one fp32
+    buffer and halved, as the ranks' all-reduce (or reduce-scatter) does,
+    then clipped and applied -> (each row's loss (the halves' mean), the
+    params, the optimizer state)."""
     import numpy as np
 
     from repro_torch.models.common import tree_leaves, tree_unflatten
@@ -4675,11 +4705,12 @@ def halves_steps(torch, bundle, tc, units, dev):
 
     eng = HostEngine(bundle, tc, units, device=dev)
     init, update = make_update_for(tc)
-    p = bundle.init_params(torch.Generator().manual_seed(tc.seed), dev)
+    if p is None:
+        p = bundle.init_params(torch.Generator().manual_seed(tc.seed), dev)
     o = init(p)
     idx, w = eng.full_plan(0)
     losses = []
-    for sel, wr in zip(idx[:DIST_GLOO_TRACK], w[:DIST_GLOO_TRACK]):
+    for sel, wr in zip(idx[:rows], w[:rows]):
         batch = {k: v[sel].reshape((-1,) + v.shape[2:])
                  for k, v in eng.units_host.items()}
         batch["weights"] = batch["weights"] * np.repeat(wr, eng.unit_size)
@@ -4709,7 +4740,8 @@ def halves_steps(torch, bundle, tc, units, dev):
                                            tc.grad_clip)
             p, o = update(p, grads, o, tc.lr)
         losses.append(float((parts[0] + parts[1]) / 2))
-    return losses
+        del grads, flat, flats, live
+    return losses, p, o
 
 
 def gloo_rank(rank: int, world: int, store_path: str, go_path: str):
@@ -4893,6 +4925,22 @@ def dist_phase(torch, np, dev, mark, bundle, tc, units, val_units,
                   f"collectives at fp32; all {coll.count} over the pod "
                   f"axis's groups {contracts.expected_groups(mesh, 'pod')}",
                   flush=True)
+            # the step's (stage B gathers int32 / int64 picks outside it)
+            n_g, n_rs = fsdp_counts(coll.in_capture())
+            contracts.assert_collective_width(coll.in_capture(),
+                                              dtype=torch.float32,
+                                              ops=FSDP_OPS)
+            contracts.assert_replica_groups(coll.in_capture(), mesh, "data",
+                                            min_count=n_g + n_rs,
+                                            ops=FSDP_OPS)
+
+            print(f"[23a] {tag}: sharded storage at world size 1, the step "
+                  f"captured {EpochEngine.captures} time(s) with {n_g} "
+                  f"gathers and {n_rs} reduce-scatters inside (fp32, over "
+                  f"the data axis's group; NCCL in a group of one copies: "
+                  f"unverified across ranks, S6)", flush=True)
+            require(n_g > 0 and n_rs > 0, f"{tag}: no gather or no "
+                                          f"reduce-scatter in the capture")
             if tag == "21a":
                 # (counted, graph nodes x replays): a replay runs every
                 # node once, so the second is what the replays launched
@@ -4908,6 +4956,9 @@ def dist_phase(torch, np, dev, mark, bundle, tc, units, val_units,
               f"bitwise equal: {again}; bitwise 15a's run without a group "
               f"over its first {REPEAT_EPOCHS} epochs: {bitwise}",
               flush=True)
+        print(f"[23a] rnnt-crdnn with sharded storage (one-rank NCCL group) "
+              f"bitwise the run with whole storage and no group: {bitwise} "
+              f"(every epoch's loss, subset and weights)", flush=True)
         require(again and bitwise, "21a: the mesh run is not bitwise the "
                                    "run without a group, or not repeatable")
         gc.collect()
@@ -4923,7 +4974,7 @@ def dist_phase(torch, np, dev, mark, bundle, tc, units, val_units,
         plan = (np.arange(DIST_STEPS, dtype=np.int32)[:, None],
                 np.ones((DIST_STEPS, 1), np.float32))
         times = {}
-        err = params_b = None
+        err = params_b = plain = None
         t_b = time.time()
         for mode in ("plain", "none", "bf16", "topk"):
             tc_b = TrainConfig(lr=0.05, optimizer="sgd", epochs=1, seed=0,
@@ -4979,11 +5030,29 @@ def dist_phase(torch, np, dev, mark, bundle, tc, units, val_units,
                 widths = sorted({str(c.dtype) for c in coll.calls})
                 print(f"[21b] {mode} contracts: {coll.count} collectives "
                       f"at {widths}, over the pod axis's groups", flush=True)
+            if mode == "none":
+                n_g, n_rs = fsdp_counts(coll.in_capture())
+                same_l = list(losses) == plain[0]
+                same_p = all(torch.equal(a, b) for a, b in
+                             zip(tree_leaves(eng.params), plain[1]))
+                print(f"[23a] starcoder2-3b {DIST_LM_LAYERS} layers, S "
+                      f"{LM_SEQ}, sharded storage at world size 1 ({n_g} "
+                      f"gathers, {n_rs} reduce-scatters in the step's one "
+                      f"capture) bitwise the plain step with whole storage: "
+                      f"losses {same_l}, every param {same_p}", flush=True)
+                require(same_l and same_p and n_g > 0 and n_rs > 0
+                        and eng._graph is not None,
+                        "23a: the sharded LM step is not the plain one")
+                plain = None
             if mode == "topk":
                 err, params_b = eng.compress_state, eng.params
+            elif mode == "plain":
+                plain = (list(losses), tree_leaves(p))
+                del o
             else:
                 del p, o
             del eng
+
         # top-k on the full-width leaves: a real gradient of one unit and
         # the run's residuals
         batch = {k: torch.as_tensor(v[0]).to(dev) for k, v in lm_us.items()}
@@ -5049,7 +5118,8 @@ def dist_phase(torch, np, dev, mark, bundle, tc, units, val_units,
             pass
         u1, v1, tc1 = rnnt_setup(1)
         one = first_steps(torch, bundle, tc1, u1, v1, dev, None)
-        halves = halves_steps(torch, bundle, tc1, u1, dev)
+        halves = halves_steps(torch, bundle, tc1, u1, dev)[0]
+
         got = [r.result(timeout=600) for r in ranks]
         (two, l0, be0), (two1, l1, _) = got
         S = DIST_GLOO_STEPS
@@ -5110,6 +5180,257 @@ def dist_phase(torch, np, dev, mark, bundle, tc, units, val_units,
         if dist.is_initialized():
             dist.destroy_process_group()
     return out
+
+
+# phase 23: sharded storage (``sharding/fsdp.py``).  (a) rides phase 21's
+# one-rank runs ("[23a]" lines); (b) and (c) run on two gloo ranks sharing
+# the card, eagerly on the host engine (the scan engine refuses gloo on the
+# card, D6), against one device in this process.  (b): FSDP_ROWS rows of
+# epoch 0 of rnnt-crdnn, then of starcoder2-3b at full width,
+# DIST_LM_LAYERS layers, S 512, AdamW, the clip at FSDP_CLIP so it does
+# not bind: every row's loss and every param bitwise one device taking
+# each row in two halves (``halves_steps``), each rank's peak at least
+# FSDP_SAVING_GB under that device's with whole state.  (c): starcoder2-3b
+# at full depth, AdamW, one row a rank: both peaks together under the
+# card's 80 GB, beside the dry run's per-rank floor
+FSDP_OPS = ("all_gather_into_tensor", "reduce_scatter_tensor")
+FSDP_ROWS = 3
+FSDP_CLIP = 1e9
+FSDP_SAVING_GB = 1.4
+CARD_GB = 80.0
+
+
+def fsdp_counts(log):
+    """(gathers, reduce-scatters) among a collective log's calls."""
+    return tuple(sum(c.op == op for c in log.calls) for op in FSDP_OPS)
+
+
+def tree_digest(torch, tree) -> list:
+    """The sha256 of each leaf's bytes, in ``tree_leaves`` order."""
+    import hashlib
+
+    from repro_torch.models.common import tree_leaves
+    return [hashlib.sha256(x.detach().cpu().numpy().tobytes()).hexdigest()
+            for x in tree_leaves(tree)]
+
+
+def fsdp_lm(torch, layers: int):
+    """starcoder2-3b cut to ``layers`` layers, its S 512 units and the
+    AdamW run of (b) and (c)."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.launch.train import make_units_for
+    from repro_torch.models.api import build_model
+
+    full = get_config("starcoder2-3b")
+    bundle = build_model(dataclasses.replace(full, n_layers=layers))
+    us, _ = make_units_for(full, n=LM_N, seq=LM_SEQ, noise=0.0)
+    tc = TrainConfig(lr=1e-4, optimizer="adamw", epochs=1, seed=0,
+                     grad_clip=FSDP_CLIP)
+    return bundle, us, tc
+
+
+def fsdp_rnnt():
+    from repro_torch.configs import get_config
+    from repro_torch.models.api import build_model
+
+    units, _, tc = rnnt_setup(1)
+    return (build_model(get_config("rnnt-crdnn")), units,
+            dataclasses.replace(tc, grad_clip=FSDP_CLIP))
+
+
+def seed_params(torch, bundle, dev, seed: int):
+    """The seed's params: drawn by a generator on the card
+    (``card_init``), but for the RNN-T, whose init draws on the host."""
+    if bundle.cfg.family == "rnnt":
+        return bundle.init_params(torch.Generator().manual_seed(seed), dev)
+    return card_init(torch, bundle, dev, seed)
+
+
+def fsdp_steps(torch, bundle, tc, units, dev, mesh, rows, digest=True,
+               in_place=False):
+    """The seed's params cut into this rank's shards, then ``rows`` rows
+    of epoch 0 on the host engine -> {losses, digests of the whole
+    params gathered back, peak GB from the shards on, wall s}.
+    ``in_place``: the optimizer commits into the state's tensors, as the
+    scan engine's does (the host engine's functional update holds a
+    second copy of params and moments: 36 GB a rank at full depth)."""
+    from repro_torch.train.engine import HostEngine, make_step_core
+    from repro_torch.train.optim import make_update_for, make_update_in_place
+
+    eng = HostEngine(bundle, tc, units, device=dev, mesh=mesh)
+    if in_place:
+        eng._step = make_step_core(eng.bundle, tc,
+                                   update=make_update_in_place(tc),
+                                   ctx=eng.ctx)
+    p = eng.shard_state(seed_params(torch, bundle, dev, tc.seed))
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    o = make_update_for(tc)[0](p)
+    idx, w = eng.full_plan(0)
+    t0 = time.time()
+    p, o, losses = eng.run_epoch(p, o, tc.lr, (idx[:rows], w[:rows]))
+    torch.cuda.synchronize()
+    out = {"losses": [float(x) for x in losses],
+           "wall_s": time.time() - t0,
+           "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+    del o
+    if digest:
+        out["digests"] = tree_digest(torch, eng.whole_state(p))
+    del p, eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def fsdp_rank(rank: int, world: int, store_path: str, go_path: str):
+    """Phase 23 (b) and (c), one rank of a (world,) data mesh over gloo on
+    the one card -> ({job: ``fsdp_steps``' result}, the lattice's
+    launches, the backend, the collectives' route)."""
+    if str(SRC) not in sys.path:
+        sys.path.insert(0, str(SRC))
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import backend
+    from repro_torch.kernels.rnnt_lattice.ops import rnnt_lattice_op
+    from repro_torch.launch.mesh import init_distributed, make_mesh
+
+    torch.set_num_threads(2)
+    init_distributed("cuda", rank=rank, world_size=world,
+                     store=dist.FileStore(store_path, world),
+                     allow_shared_card=True)
+    backend.fp32_numerics()
+    backend.build()
+    dev = torch.device("cuda")
+    mesh = make_mesh((world,), ("data",), "cuda")
+    while not os.path.exists(go_path):
+        time.sleep(0.05)
+    if os.path.exists(go_path + ".stop"):
+        dist.destroy_process_group()
+        return None
+    # the one route there is: gloo's all_gather_into_tensor and
+    # reduce_scatter_tensor on CUDA tensors (S1)
+    route = f"{dist.get_backend()} on {dev.type} tensors"
+    rnnt_lattice_op.launches = 0
+    bundle, units, tc = fsdp_rnnt()
+    out = {"rnnt": fsdp_steps(torch, bundle, tc, units, dev, mesh,
+                              FSDP_ROWS)}
+    launches = rnnt_lattice_op.launches
+    bundle, units, tc = fsdp_lm(torch, DIST_LM_LAYERS)
+    out["lm"] = fsdp_steps(torch, bundle, tc, units, dev, mesh, FSDP_ROWS)
+    bundle, units, tc = fsdp_lm(torch, get_config("starcoder2-3b").n_layers)
+    out["lm_full"] = fsdp_steps(torch, bundle, tc, units, dev, mesh, 1,
+                                digest=False, in_place=True)
+
+    backend_name = dist.get_backend()
+
+    dist.destroy_process_group()
+    return out, launches, backend_name, route
+
+
+def fsdp_phase(torch, np, dev, mark):
+    """Phase 23 (b) and (c) (see the comment above ``FSDP_OPS``) -> the
+    lattice's launches in the ranks' RNN-T steps."""
+    import concurrent.futures
+    import multiprocessing
+    import tempfile
+
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch.dryrun import build_and_count
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_fsdp_")
+    go = os.path.join(tmp, "go")
+    pool = concurrent.futures.ProcessPoolExecutor(
+        2, mp_context=multiprocessing.get_context("spawn"))
+    ranks = [pool.submit(fsdp_rank, r, 2, os.path.join(tmp, "gloo"), go)
+             for r in range(2)]
+    try:
+        # the one-device controls while the ranks start
+        ctrl = {}
+        for job, (bundle, units, tc) in (
+                ("rnnt", fsdp_rnnt()),
+                ("lm", fsdp_lm(torch, DIST_LM_LAYERS))):
+            gc.collect()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            losses, p, o = halves_steps(
+                torch, bundle, tc, units, dev, FSDP_ROWS,
+                seed_params(torch, bundle, dev, tc.seed))
+            torch.cuda.synchronize()
+            ctrl[job] = {"losses": losses, "digests": tree_digest(torch, p),
+                         "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+            del p, o
+        gc.collect()
+        torch.cuda.empty_cache()
+        full_layers = get_config("starcoder2-3b").n_layers
+        floor = build_and_count(
+            "starcoder2-3b", ShapeConfig(name="23c", seq_len=LM_SEQ,
+                                         global_batch=UNIT_SIZE,
+                                         kind="train"),
+            step="train", mesh={"data": 2}, device="cpu",
+            optimizer="adamw")
+        mark("23b-c the one-device controls and the dry run's floor")
+        with open(go, "w"):
+            pass
+        got = [r.result(timeout=900) for r in ranks]
+        (r0, l0, be, route), (r1, l1, _, _) = got
+        for job, what in (("rnnt", "rnnt-crdnn"),
+                          ("lm", f"starcoder2-3b {DIST_LM_LAYERS} layers, "
+                                 f"S {LM_SEQ}, AdamW")):
+            c = ctrl[job]
+            same = [r[job]["losses"] == c["losses"]
+                    and r[job]["digests"] == c["digests"] for r in (r0, r1)]
+            saving = [c["peak_gb"] - r[job]["peak_gb"] for r in (r0, r1)]
+            print(f"[23b] {what} on two ranks sharing the card over {be} "
+                  f"(route {route}; host engine, eager, data = 2, sharded "
+                  f"storage) against one device summing halves, "
+                  f"{FSDP_ROWS} rows of epoch 0: losses {r0[job]['losses']}"
+                  f" against {c['losses']}; losses and every param bitwise "
+                  f"on each rank {same}; peak a rank "
+                  f"{r0[job]['peak_gb']:.3f} / {r1[job]['peak_gb']:.3f} GB "
+                  f"against one device with whole state "
+                  f"{c['peak_gb']:.3f} GB ({saving[0]:.3f} / "
+                  f"{saving[1]:.3f} GB under it)", flush=True)
+            require(all(same), f"23b {what}: the ranks are not bitwise one "
+                               f"device summing halves")
+            if job == "lm":
+                require(min(saving) >= FSDP_SAVING_GB,
+                        f"23b {what}: a rank's peak is not "
+                        f"{FSDP_SAVING_GB} GB under whole state's")
+        m = floor["memory"]
+        peaks = [r["lm_full"]["peak_gb"] for r in (r0, r1)]
+        print(f"[23c] starcoder2-3b at full depth ({full_layers} layers), "
+              f"S {LM_SEQ}, AdamW, one row a rank on two ranks sharing the "
+              f"card: peaks {peaks[0]:.3f} / {peaks[1]:.3f} GB, together "
+              f"{sum(peaks):.3f} GB of {CARD_GB:.0f}; the step's wall "
+              f"{r0['lm_full']['wall_s']:.1f} / {r1['lm_full']['wall_s']:.1f}"
+              f" s; the dry run's floor a rank on data 2 (fake CPU tensors) "
+              f"{m['total'] / 1e9:.3f} GB (params {m['params'] / 1e9:.3f}, "
+              f"grads {m['grads'] / 1e9:.3f}, moments "
+              f"{m['opt_state'] / 1e9:.3f}, activations "
+              f"{m['activations'] / 1e9:.3f}; saved gathered weights "
+              f"{floor['saved_gathered']}); losses "
+              f"{r0['lm_full']['losses']} / {r1['lm_full']['losses']}",
+              flush=True)
+        require(sum(peaks) < CARD_GB and floor["saved_gathered"] == 0
+                and all(np.isfinite(r["lm_full"]["losses"]).all()
+                        for r in (r0, r1)),
+                "23c: the full-depth ranks do not fit the card together")
+        require(l0 > 0 and l1 > 0, f"23b: the lattice was not launched "
+                                   f"({l0}, {l1})")
+        mark("23b-c sharded storage on two gloo ranks")
+        return {"rnnt-fsdp-gloo": l0 + l1}
+    finally:
+        if not os.path.exists(go):
+            for path in (go + ".stop", go):
+                with open(path, "w"):
+                    pass
+        pool.shutdown(wait=True, cancel_futures=True)
 
 
 # phase 22: the contracts' card side and the roofline.  A violating graph
@@ -5973,6 +6294,12 @@ def main() -> None:
     torch.cuda.empty_cache()
     roofline_phase(torch, np, dev, mark, card, long["times"], dist["times"])
 
+    # -- 23. sharded storage: (a) rode phase 21's one-rank runs; (b) and
+    # (c) on two gloo ranks sharing the card against one device -------
+    gc.collect()
+    torch.cuda.empty_cache()
+    sharded = fsdp_phase(torch, np, dev, mark)
+
     g_err, g_ms, g_plain, g_lib, g_bound, g_by = \
         gram_rows[(P_main, n_units // P_main, D_sk)]
     print(f"[launches] RNN-T path {launches}, its preempted and resumed "
@@ -6220,7 +6547,9 @@ def main() -> None:
             ("rnnt-mesh-gloo", "rnnt_lattice",
              (dist["rnnt-mesh-gloo"]["rnnt_lattice"], 0)),
             ("rnnt-mesh-gloo", "omp_gram",
-             (dist["rnnt-mesh-gloo"]["omp_gram"], 0))):
+             (dist["rnnt-mesh-gloo"]["omp_gram"], 0)),
+            ("rnnt-fsdp-gloo", "rnnt_lattice",
+             (sharded["rnnt-fsdp-gloo"], 0))):
         base = {"rnnt_lattice": row("rnnt_lattice", "rnnt"),
                 "omp_gram": gram,
                 "grad_sketch": row("grad_sketch_units", "lm")}[name]
@@ -6263,7 +6592,7 @@ def phase_alone(phase: int, rows_only: bool = False) -> None:
     def mark(p: str) -> None:
         print(f"[time] {p}: {time.time() - t00:.1f} s", flush=True)
 
-    if phase in (21, 22):
+    if phase in (21, 22, 23):
         from repro_torch.configs.base import PGMConfig, TrainConfig
         from repro_torch.data.pipeline import asr_units
         from repro_torch.data.synthetic import make_asr_corpus
@@ -6296,6 +6625,8 @@ def phase_alone(phase: int, rows_only: bool = False) -> None:
             # 22 reads 20a's replayed step and 21b's plain step
             out = roofline_phase(torch, np, dev, mark, card,
                                  long.pop("times"), times)
+        if phase == 23:
+            out.update(fsdp_phase(torch, np, dev, mark))
     elif phase == 15:
         from repro_torch.configs.base import PGMConfig, TrainConfig
         from repro_torch.data.pipeline import asr_units
@@ -6352,10 +6683,11 @@ if __name__ == "__main__":
         rows = sys.argv[3:] == ["--rows"]
         require((len(sys.argv) == 3 or rows)
                 and sys.argv[2] in ("15", "16", "17", "18", "19", "20", "21",
-                                    "22")
-                and not (rows and sys.argv[2] in ("15", "21", "22")),
-                "usage: chip_smoke.py [--phase 15|16|17|18|19|20|21|22 "
-                "[--rows (not 15, 21, 22)]]")
+                                    "22", "23")
+                and not (rows and sys.argv[2] in ("15", "21", "22", "23")),
+                "usage: chip_smoke.py [--phase 15|16|17|18|19|20|21|22|23 "
+                "[--rows (not 15, 21, 22, 23)]]")
+
         phase_alone(int(sys.argv[2]), rows)
     else:
         require(len(sys.argv) == 1, "usage: chip_smoke.py [--phase N]")

@@ -27,7 +27,9 @@ this module makes them checkers any test or card run can turn on:
     ``expected_groups`` and ``assert_replica_groups``: every
     ``torch.distributed`` collective issued in the block (op, dtype,
     elements, the group's ranks, whether a capture was running), its
-    wire width, and its groups against a mesh axis's.
+    wire width, and its groups against a mesh axis's (or a tuple of
+    axes': sharded storage's gathers and reduce-scatters run over a
+    leaf's storage group).
 """
 from __future__ import annotations
 
@@ -478,16 +480,20 @@ def _dtype(d) -> torch.dtype:
 
 
 def assert_collective_width(log: CollectiveLog, *, dtype,
-                            n_expected: Optional[int] = None) -> None:
-    """The log's reductions (all-reduce, reduce-scatter) run at
-    ``dtype``: the wire moves that many bytes an element.  With
-    ``n_expected`` exactly that many run at ``dtype`` and reductions of
-    another width (the step's fp32 metric and weight sums) are
-    tolerated; without it every reduction runs at ``dtype``."""
+                            n_expected: Optional[int] = None,
+                            ops: Sequence[str] = _REDUCTIONS) -> None:
+    """The log's calls of ``ops`` (by default the reductions: all-reduce,
+    reduce-scatter) run at ``dtype``: the wire moves that many bytes an
+    element.  With ``n_expected`` exactly that many run at ``dtype`` and
+    calls of another width (the step's fp32 metric and weight sums) are
+    tolerated; without it every call runs at ``dtype``.  Sharded storage
+    gathers and reduce-scatters its weights at fp32, the reference's
+    collective-cast order (``ops=("all_gather_into_tensor",
+    "reduce_scatter_tensor")``)."""
     want = _dtype(dtype)
-    got = [c.dtype for c in log.calls if c.op in _REDUCTIONS]
+    got = [c.dtype for c in log.calls if c.op in ops]
     if not got:
-        raise AssertionError("no reductions in the log")
+        raise AssertionError(f"no {'/'.join(ops)} in the log")
     if n_expected is not None:
         n_at = sum(d == want for d in got)
         if n_at != n_expected:
@@ -510,24 +516,32 @@ def _mesh_ranks(mesh) -> Tuple[np.ndarray, List[str]]:
             list(mesh.mesh_dim_names))
 
 
-def expected_groups(mesh, axis: str) -> List[List[int]]:
-    """The rank groups a collective over mesh axis ``axis`` must form:
-    one a cross-section, each holding the ranks along ``axis``.  ``mesh``
-    is a ``DeviceMesh`` or a mapping ``{axis: size}`` in axis order
-    (ranks row-major, as ``init_device_mesh`` lays them out)."""
+def expected_groups(mesh, axis) -> List[List[int]]:
+    """The rank groups a collective over mesh axis ``axis`` (or over a
+    tuple of axes, a leaf's storage group under sharded storage) must
+    form: one a cross-section, each holding the ranks that differ only
+    on those axes.  ``mesh`` is a ``DeviceMesh`` or a mapping ``{axis:
+    size}`` in axis order (ranks row-major, as ``init_device_mesh`` lays
+    them out)."""
     ids, names = _mesh_ranks(mesh)
-    k = names.index(axis)
-    return np.moveaxis(ids, k, -1).reshape(-1, ids.shape[k]).tolist()
+    axes = (axis,) if isinstance(axis, str) else tuple(axis)
+    ks = [names.index(a) for a in axes]
+    moved = np.moveaxis(ids, ks, list(range(-len(ks), 0)))
+    n = int(np.prod([ids.shape[k] for k in ks]))
+    return moved.reshape(-1, n).tolist()
 
 
-def assert_replica_groups(log: CollectiveLog, mesh, axis: str,
-                          min_count: int = 1) -> None:
-    """At least ``min_count`` logged collectives ran over a group of
-    mesh axis ``axis``: exactly the ranks along it through the issuing
-    rank."""
+def assert_replica_groups(log: CollectiveLog, mesh, axis,
+                          min_count: int = 1,
+                          ops: Optional[Sequence[str]] = None) -> None:
+    """At least ``min_count`` logged collectives (of ``ops``, or any) ran
+    over a group of mesh axis ``axis`` (or of a tuple of axes): exactly
+    the ranks that differ only on it through the issuing rank."""
     want = {tuple(sorted(g)) for g in expected_groups(mesh, axis)}
-    seen = [tuple(sorted(c.ranks)) for c in log.calls]
+    seen = [tuple(sorted(c.ranks)) for c in log.calls
+            if ops is None or c.op in ops]
     found = sum(s in want for s in seen)
+
     if found < min_count:
         raise AssertionError(
             f"{found} collective(s) grouped over mesh axis {axis!r}, want "

@@ -50,6 +50,7 @@ from repro_torch.core.sketch import (Projections, exact_from_factors,
                                      make_projections, sketch_from_factors)
 from repro_torch.models import rnnt as rnnt_mod
 from repro_torch.models.common import tree_map
+from repro_torch.sharding import fsdp
 
 
 # ---------------------------------------------------------------------------
@@ -156,16 +157,18 @@ def moe_router_grads(bundle, params, batch):
         raise ValueError(
             f"{bundle.cfg.name}: moe_router_term set but the params tree "
             f"has no 'router' leaves (family={bundle.cfg.family!r})")
-    # a tree of new containers over the same leaves; a router sits in an
-    # ``moe`` dict, so it is swapped in place there
-    live = tree_map(lambda l: l.detach(), params)
+    # a tree of new containers over the same leaves (a mesh's shards stay
+    # the tensors its units gather); a router sits in an ``moe`` dict, so
+    # it is swapped in place there, whole (``sharding/fsdp.py``)
+    live = tree_map(lambda l: l, params)
     routers = []
     for path in paths:
         parent = live
         for k in path[:-1]:
             parent = parent[k]
-        leaf = parent[path[-1]]
+        leaf = fsdp.gather(parent[path[-1]]).detach()
         r = leaf.to(torch.float32).requires_grad_(True)
+
         routers.append(r)
         parent[path[-1]] = r.to(leaf.dtype)
     with torch.enable_grad():

@@ -10,12 +10,17 @@ Per cell it records, per rank:
     bytes, each hand-written kernel by its formula through the wrappers'
     shape-only route, the collective schedule and its wire bytes);
   * the bytes of params, gradients, optimizer state and error-feedback
-    state under the port's storage, which keeps them whole on every rank
-    (``train/engine.py:MeshContext``; sharded storage is ROADMAP item
-    17); the decode cache; and the activations saved for the backward
+    state under the port's storage: on a mesh this rank's shards, cut
+    by the real ``MeshContext`` (``train/engine.py``, sharded storage;
+    a leaf whose dims the axes do not divide stays whole); the decode
+    cache; and the activations saved for the backward
     (``torch.autograd.graph.saved_tensors_hooks``, storages counted once,
     params excluded; under group remat only each group's inputs are
-    saved); transient buffers are not counted, so the total is a floor;
+    saved), with the count of saved tensors that are a gathered weight
+    or a cast or view of one (``saved_gathered``: 0, since each unit
+    gathers its weights inside its checkpoint region, hazard S2);
+    transient buffers (one unit's gathered weights among them) are not
+    counted, so the total is a floor;
   * ``fits``: that floor within one 80 GB card.
 
 Fake tensors hold no values, so what reads values is not run and not
@@ -82,10 +87,13 @@ def mesh_name(mesh: Mapping[str, int]) -> str:
 def train_policy(cfg, shape: ShapeConfig, mesh: Mapping[str, int]) -> str:
     """The reference's spec mode a training cell: MoE and RNN-T keep
     ``tp``; recurrent stacks ``fsdp_batch`` when the batch covers every
-    rank, else ``tp``; dense attention ``fsdp_sp``."""
+    rank, else ``tp``; dense attention ``fsdp_sp`` (its sequence split
+    is over ``model``: ``tp`` on a mesh without that axis)."""
     total = math.prod(mesh.values()) if mesh else 1
-    if cfg.moe is not None or cfg.family == "rnnt":
+    if (cfg.moe is not None or cfg.family == "rnnt"
+            or (mesh and "model" not in mesh)):
         return "tp"
+
     if set(cfg.layer_kinds()) & {"rec", "rwkv"}:
         return "fsdp_batch" if shape.global_batch % total == 0 else "tp"
     return "fsdp_sp"
@@ -101,6 +109,25 @@ def _storage_key(t: torch.Tensor) -> int:
     return t.untyped_storage()._cdata
 
 
+#: autograd nodes that only cast or view a tensor
+_VIEWS = ("ToCopyBackward0", "TBackward0", "ViewBackward0",
+          "PermuteBackward0", "TransposeBackward0", "UnsafeViewBackward0")
+
+
+def _is_gathered(t: torch.Tensor) -> bool:
+    """Whether ``t`` is a weight gathered by ``sharding/fsdp.py`` or a
+    cast or view of one."""
+    fn = t.grad_fn
+    while fn is not None:
+        name = type(fn).__name__
+        if name == "GatherShardBackward":
+            return True
+        if name not in _VIEWS or not fn.next_functions:
+            return False
+        fn = fn.next_functions[0][0]
+    return False
+
+
 class saved_bytes:
     """``with saved_bytes(exclude) as s: ...``: the bytes of every
     storage autograd saves for the backward in the block, each storage
@@ -109,11 +136,13 @@ class saved_bytes:
     def __init__(self, exclude=()):
         self.exclude = {_storage_key(t) for t in exclude}
         self.seen: Dict[int, int] = {}
+        self.gathered = 0
 
     def _pack(self, t):
         key = _storage_key(t)
         if key not in self.exclude and key not in self.seen:
             self.seen[key] = t.untyped_storage().nbytes()
+        self.gathered += _is_gathered(t)
         return t
 
     def __enter__(self):
@@ -209,6 +238,7 @@ def build_and_count(arch: str, shape: ShapeConfig, *, step: str,
     with _fake_world(sizes, dev.type) as dmesh:
         ctx = None
         if dmesh is not None and step == "train":
+            from repro_torch.launch.mesh import rank_coords
             from repro_torch.train.engine import MeshContext
             # the mesh's rank tables are real tensors: built before the
             # fake mode
@@ -217,6 +247,8 @@ def build_and_count(arch: str, shape: ShapeConfig, *, step: str,
                                   shape.global_batch, 1, shape.seq_len)
             except ValueError as e:
                 raise Refused(str(e)) from e
+            rank_coords(dmesh)
+
         if mode is not None:
             mode.__enter__()
         try:
@@ -226,6 +258,8 @@ def build_and_count(arch: str, shape: ShapeConfig, *, step: str,
                 from repro_torch.train.optim import (make_update_for,
                                                      make_update_in_place)
                 params = bundle.init_params(gen, dev)
+                if ctx is not None:         # this rank's shards
+                    params = ctx.shard_tree(params)
                 opt = make_update_for(tc)[0](params)
                 err = (init_error_state(params) if compress_mode == "topk"
                        else None)
@@ -242,6 +276,7 @@ def build_and_count(arch: str, shape: ShapeConfig, *, step: str,
                         saved_bytes(tree_leaves(params)) as saved:
                     stepf(params, opt, batch, lr, err=err)
                 mem["activations"] = saved.total
+                rec["saved_gathered"] = saved.gathered
             elif step in ("prefill", "decode"):
                 params = bundle.init_params(
                     gen, dev, dtype=getattr(torch, cfg.compute_dtype))

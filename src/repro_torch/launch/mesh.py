@@ -134,7 +134,10 @@ def coordinate(mesh) -> Dict[str, int]:
 
 
 def rank_coords(mesh) -> Dict[int, Dict[str, int]]:
-    """Every rank's coordinate: ``{rank: {axis: index}}``."""
+    """Every rank's coordinate: ``{rank: {axis: index}}`` (made once and
+    cached on the mesh)."""
+    if "_repro_rank_coords" in mesh.__dict__:
+        return mesh.__dict__["_repro_rank_coords"]
     names = axis_names(mesh)
     grid = mesh.mesh
     out = {}
@@ -144,7 +147,9 @@ def rank_coords(mesh) -> Dict[int, Dict[str, int]]:
             idx.append(rest % n)
             rest //= n
         out[int(r)] = dict(zip(names, reversed(idx)))
+    mesh.__dict__["_repro_rank_coords"] = out
     return out
+
 
 
 def axes_group(mesh, axes: Sequence[str]):
@@ -171,6 +176,23 @@ def axes_group(mesh, axes: Sequence[str]):
             if me in parts[key]:
                 cache[axes] = g
     return cache[axes]
+
+
+def storage_group(mesh, axes: Sequence[str]):
+    """The group that stores one leaf split over ``axes`` (a spec's axis
+    names) and the coordinate of each of its ranks, in the group's rank
+    order -> ``(group, [{axis: index}, ...])``, made once an axes tuple
+    and cached on the mesh.  A member's block follows from its
+    coordinate by the spec's own major order (``sharding/specs.py:
+    shard_slices``), whatever order the group lists its ranks in."""
+    key = tuple(a for a in axis_names(mesh) if a in set(axes))
+    cache = mesh.__dict__.setdefault("_repro_storage_groups", {})
+    if key not in cache:
+        group = axes_group(mesh, key)
+        coords = rank_coords(mesh)
+        cache[key] = (group, [coords[int(r)] for r in
+                              dist.get_process_group_ranks(group)])
+    return cache[key]
 
 
 def all_gather_flat(out: torch.Tensor, inp: torch.Tensor, group=None):

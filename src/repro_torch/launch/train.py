@@ -47,8 +47,10 @@ environment gives the ranks):
       [--spec-mode tp|expert|fsdp_sp|fsdp_batch]
 
 ``--mesh AxB`` over the two ``--mesh-axes`` (default ``data,model``)
-trains data-parallel with params whole on every rank (``train/engine.py``),
-selection's stage B spread over ``data``; a ``pod`` axis averages the
+trains data-parallel, each rank storing its shard of params and
+optimizer state and gathering a unit's weights at a time
+(``train/engine.py``, ``sharding/fsdp.py``), selection's stage B spread
+over ``data``; a ``pod`` axis averages the
 pods' gradients through ``--compress-mode``.  Gloo on the CPU, NCCL on
 the card (a card a rank).  A mesh whose size is not the number of
 ranks raises, saying how to launch.  Rank 0 alone prints.
@@ -166,7 +168,8 @@ def main(argv=None):
     ap.add_argument("--mesh", default=None,
                     help="AxB, e.g. 2x2 (default: no mesh): one process "
                          "a rank under torchrun, the batch data-parallel "
-                         "over the mesh, params whole on every rank")
+                         "over the mesh, each rank storing its shard of "
+                         "params and optimizer state")
     ap.add_argument("--mesh-axes", default="data,model",
                     help="names of the two mesh axes; 'data,pod' builds "
                          "the two-level data x pod mesh whose pod axis "

@@ -48,6 +48,7 @@ from repro_torch.models import encdec as encdec_mod
 from repro_torch.models import rnnt as rnnt_mod
 from repro_torch.models import transformer as tfm
 from repro_torch.models.attention import prefix_lm_mask
+from repro_torch.sharding import fsdp
 
 Batch = Dict[str, torch.Tensor]
 
@@ -95,10 +96,13 @@ class RNNTBundle:
         if self.cfg.rnnt.loss_impl == "fused":
             ze, zp = rnnt_mod.joint_factors(params, self.cfg, batch["feats"],
                                             batch["tokens"])
-            return rnnt_loss_fused(ze, zp, params["joint"]["w_out"],
-                                   batch["tokens"], self.t_lens(batch),
-                                   batch["token_lens"],
-                                   vocab_chunk=self.cfg.rnnt.loss_vocab_chunk)
+            # the vocab projection and the loss: a unit on a mesh
+            return fsdp.run_unit(
+                lambda w, a, b: rnnt_loss_fused(
+                    a, b, w, batch["tokens"], self.t_lens(batch),
+                    batch["token_lens"],
+                    vocab_chunk=self.cfg.rnnt.loss_vocab_chunk),
+                params["joint"]["w_out"], ze, zp)
         logits = rnnt_mod.forward(params, self.cfg, batch["feats"],
                                   batch["tokens"])
         return rnnt_loss_from_logits(logits, batch["tokens"],
@@ -112,7 +116,8 @@ class RNNTBundle:
         return _weighted(self.per_example_loss(params, batch), batch)
 
     def head_weight(self, params) -> torch.Tensor:
-        return params["joint"]["w_out"]
+        return fsdp.gather(params["joint"]["w_out"])
+
 
     def serving_params(self, params):
         """The RNN-T computes in fp32 from its masters: served as they

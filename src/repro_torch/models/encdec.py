@@ -10,7 +10,9 @@ axis, ``enc_norm``, ``final_norm`` and ``embed.w`` (and ``lm_head.w``
 for an untied head).  The reference scans each stack; the port walks the
 layer axis with a Python loop (``transformer._unstack``).  Both remat
 each layer in training (``remat=True``, the default of ``encode`` and
-``decode_train``), the port with ``torch.utils.checkpoint``.
+``decode_train``), the port with ``torch.utils.checkpoint``
+(``sharding/fsdp.py:run_unit``: on a mesh's shards each layer is a unit
+whose weights are gathered inside its region).
 
 Numerics follow the reference as written, including where its paths
 differ (ROADMAP ED1-ED4):
@@ -35,7 +37,6 @@ from __future__ import annotations
 from typing import Dict, Optional
 
 import torch
-from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models import attention as attn
 from repro_torch.models import ffn as ffn_mod
@@ -43,6 +44,7 @@ from repro_torch.models.common import (compute_dtype, dense_init, embed_init,
                                        rms_norm, tree_leaves, tree_map)
 from repro_torch.models.transformer import (_cast_fp32, _stack, _unstack,
                                             cast_block_params, embed_tokens)
+from repro_torch.sharding import fsdp
 
 # the norm gammas a decode step reads in fp32 (ED1); attention's QK-norm
 # gammas sit in each attention dict
@@ -136,18 +138,6 @@ def serving_params(params, cfg) -> Dict:
     return out
 
 
-def _maybe_remat(fn, remat: bool):
-    """``fn`` (a layer: x, its params -> x) checkpointed when ``remat``
-    and autograd records (the reference's ``jax.checkpoint`` of each
-    layer body): the layer's forward runs again in the backward,
-    bitwise; no generator state is stashed (no layer draws random
-    numbers)."""
-    if not (remat and torch.is_grad_enabled()):
-        return fn
-    return lambda *args: checkpoint(fn, *args, use_reentrant=False,
-                                    preserve_rng_state=False)
-
-
 def encode(params, cfg, frames: torch.Tensor,
            remat: bool = True) -> torch.Tensor:
     """frames (B,T,d), the stub frontend's embeddings -> the encoder
@@ -162,9 +152,8 @@ def encode(params, cfg, frames: torch.Tensor,
         h2 = rms_norm(x, lp["ln2"], cfg.norm_eps)
         return x + ffn_mod.ffn_forward(lp["mlp"], h2, cfg.ffn_type)
 
-    run = _maybe_remat(layer, remat)
     for lp in _unstack(params["encoder"], cfg.n_enc_layers):
-        x = run(x, lp)
+        x = fsdp.run_unit(lambda p, xx: layer(xx, p), lp, x, remat=remat)
     return rms_norm(x, params["enc_norm"], cfg.norm_eps)
 
 
@@ -201,9 +190,10 @@ def decode_train(params, cfg, tokens: torch.Tensor, enc_out: torch.Tensor,
                             "ck": ck, "cv": cv})
         return x
 
-    run = _maybe_remat(layer, remat and not collect_cache)
     for lp in _unstack(params["decoder"], cfg.n_layers):
-        x = run(x, lp)
+        x = fsdp.run_unit(lambda p, xx: layer(xx, p), lp, x,
+                          remat=remat and not collect_cache)
+
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
     return x, (_stack(entries) if collect_cache else None)
 

@@ -24,6 +24,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.models.common import dense_init, embed_init
+from repro_torch.sharding import fsdp
 
 # ---------------------------------------------------------------------------
 # Recurrent cells
@@ -134,57 +135,84 @@ def _same_pad(n: int, k: int = 3, s: int = 2) -> Tuple[int, int]:
     return total // 2, total - total // 2
 
 
+def _conv(p, x):
+    """One CNN block: JAX ``SAME`` padding, a 3x3 stride-2 conv, ReLU."""
+    t_lo, t_hi = _same_pad(x.shape[2])
+    f_lo, f_hi = _same_pad(x.shape[3])
+    x = F.pad(x, (f_lo, f_hi, t_lo, t_hi))
+    # HWIO -> OIHW at the conv only
+    x = F.conv2d(x, p["w"].permute(3, 2, 0, 1), stride=2)
+    return torch.relu(x + p["b"][None, :, None, None])
+
+
+def _bilstm(p, x):
+    return torch.cat([lstm_scan(p["f"], x),
+                      lstm_scan(p["b"], x, reverse=True)], dim=-1)
+
+
+def _dnn(p, x):
+    x = torch.relu(x @ p["dnn0"]["w"] + p["dnn0"]["b"])
+    return torch.relu(x @ p["dnn1"]["w"] + p["dnn1"]["b"])
+
+
+def _predict(p, tokens):
+    # F.embedding, not indexing: its backward is bitwise repeatable on the
+    # CPU with several intra-op threads (F5)
+    emb = F.embedding(tokens.long(), p["pred_embed"]["w"])
+    emb = F.pad(emb, (0, 0, 1, 0))                        # start token = 0
+    return gru_scan(p["pred_gru"], emb)
+
+
 def encode(params, cfg, feats):
-    """feats: (B,T,F) -> (B, T//4, dnn_dim)."""
+    """feats: (B,T,F) -> (B, T//4, dnn_dim).  On a mesh's shards each
+    CNN block, each bi-LSTM layer and the DNN is a unit
+    (``sharding/fsdp.py``)."""
     r = cfg.rnnt
     x = feats[:, None]                                    # (B,1,T,F)
     for i in range(len(r.cnn_channels)):
-        w, b = params[f"conv{i}"]["w"], params[f"conv{i}"]["b"]
-        t_lo, t_hi = _same_pad(x.shape[2])
-        f_lo, f_hi = _same_pad(x.shape[3])
-        x = F.pad(x, (f_lo, f_hi, t_lo, t_hi))
-        # HWIO -> OIHW at the conv only
-        x = F.conv2d(x, w.permute(3, 2, 0, 1), stride=2)
-        x = torch.relu(x + b[None, :, None, None])
+        x = fsdp.run_unit(_conv, params[f"conv{i}"], x)
     B, C, T4, F4 = x.shape
     x = x.permute(0, 2, 3, 1).reshape(B, T4, F4 * C)     # NHWC flatten
     for i in range(r.lstm_layers):
-        f = lstm_scan(params[f"lstm{i}_f"], x)
-        bwd = lstm_scan(params[f"lstm{i}_b"], x, reverse=True)
-        x = torch.cat([f, bwd], dim=-1)
-    x = torch.relu(x @ params["dnn0"]["w"] + params["dnn0"]["b"])
-    x = torch.relu(x @ params["dnn1"]["w"] + params["dnn1"]["b"])
-    return x
+        x = fsdp.run_unit(_bilstm, {"f": params[f"lstm{i}_f"],
+                                    "b": params[f"lstm{i}_b"]}, x)
+    return fsdp.run_unit(_dnn, {"dnn0": params["dnn0"],
+                                "dnn1": params["dnn1"]}, x)
 
 
 def predict(params, cfg, tokens):
     """tokens: (B,U) -> (B, U+1, pred_hidden): position u conditions on
-    tokens[<u]; position 0 is the blank-start state."""
-    # F.embedding, not indexing: its backward is bitwise repeatable on the
-    # CPU with several intra-op threads (F5)
-    emb = F.embedding(tokens.long(), params["pred_embed"]["w"])
-    emb = F.pad(emb, (0, 0, 1, 0))                        # start token = 0
-    return gru_scan(params["pred_gru"], emb)
+    tokens[<u]; position 0 is the blank-start state.  A unit on a
+    mesh."""
+    return fsdp.run_unit(_predict, {"pred_embed": params["pred_embed"],
+                                    "pred_gru": params["pred_gru"]}, tokens)
+
+
+def _joint_in(params, enc, pred):
+    """(ze, zp): the joint's two input projections, a unit on a mesh."""
+    j = params["joint"]
+    return fsdp.run_unit(lambda p, e, q: (e @ p["w_enc"], q @ p["w_pred"]),
+                         {"w_enc": j["w_enc"], "w_pred": j["w_pred"]},
+                         enc, pred)
 
 
 def joint_factors(params, cfg, feats, tokens):
     """-> (ze (B,T',J), zp (B,U+1,J)), the factors of the fused loss."""
-    enc = encode(params, cfg, feats)
-    pred = predict(params, cfg, tokens)
-    ze = enc @ params["joint"]["w_enc"]
-    zp = pred @ params["joint"]["w_pred"]
-    return ze, zp
+    return _joint_in(params, encode(params, cfg, feats),
+                     predict(params, cfg, tokens))
 
 
 def joint_hidden(params, enc, pred):
     """(B,T,De),(B,U1,Dp) -> pre-vocab joint activations (B,T,U1,J)."""
-    ze = enc @ params["joint"]["w_enc"]
-    zp = pred @ params["joint"]["w_pred"]
+    ze, zp = _joint_in(params, enc, pred)
     return torch.tanh(ze[:, :, None, :] + zp[:, None, :, :])
 
 
+
 def joint_logits(params, z):
-    return z @ params["joint"]["w_out"]
+    return fsdp.run_unit(lambda j, zz: zz @ j["w_out"],
+                         {"w_out": params["joint"]["w_out"]}, z)
+
 
 
 def forward(params, cfg, feats, tokens):

@@ -46,7 +46,6 @@ from typing import Any, Dict, List, Optional
 
 import torch
 import torch.nn.functional as F
-from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import BLOCK_REC, BLOCK_RWKV
 from repro_torch.models import attention as attn
@@ -56,6 +55,7 @@ from repro_torch.models import rglru as rglru_mod
 from repro_torch.models import rwkv6 as rwkv_mod
 from repro_torch.models.common import (compute_dtype, dense_init, embed_init,
                                        rms_norm, tree_leaves, tree_map)
+from repro_torch.sharding import fsdp
 
 
 def _init_block(gen: torch.Generator, cfg, kind: str, device: torch.device,
@@ -256,22 +256,27 @@ def embed_tokens(params, cfg, tokens: torch.Tensor) -> torch.Tensor:
     """The token rows of ``embed.w``, gathered by ``F.embedding``: its
     backward sums a token's rows in a fixed order on the CPU whatever the
     intra-op threads, where indexing's backward (``index_put_``) does not
-    (F5)."""
-    x = F.embedding(tokens.long(), params["embed"]["w"]).to(
-        compute_dtype(cfg))
+    (F5).  A unit of its own on a mesh (``sharding/fsdp.py``)."""
+    x = fsdp.run_unit(lambda e, t: F.embedding(t.long(), e["w"]),
+                      params["embed"], tokens).to(compute_dtype(cfg))
     if cfg.embed_scale:
         x = x * torch.sqrt(torch.tensor(float(cfg.d_model))).to(x.dtype)
     return x
 
 
 def head_weight(params, cfg) -> torch.Tensor:
-    """(d, V) LM head; a tied head is ``embed.w`` viewed transposed."""
-    return (params["embed"]["w"].t() if cfg.tie_embeddings
-            else params["lm_head"]["w"])
+    """(d, V) LM head; a tied head is ``embed.w`` viewed transposed.
+    Gathered whole from a mesh's shards (``sharding/fsdp.py``)."""
+    return (fsdp.gather(params["embed"]["w"]).t() if cfg.tie_embeddings
+            else fsdp.gather(params["lm_head"]["w"]))
 
 
 def unembed(params, cfg, x: torch.Tensor) -> torch.Tensor:
-    return x @ head_weight(params, cfg).to(x.dtype)
+    """The logits; the head is a unit of its own on a mesh."""
+    head = ({"embed": params["embed"]} if cfg.tie_embeddings
+            else {"lm_head": params["lm_head"]})
+    return fsdp.run_unit(lambda p, h: h @ head_weight(p, cfg).to(h.dtype),
+                         head, x)
 
 
 def _unstack(tree: Any, n: int, dim: int = 0) -> List[Any]:
@@ -281,7 +286,7 @@ def _unstack(tree: Any, n: int, dim: int = 0) -> List[Any]:
     if isinstance(tree, dict):
         parts = {k: _unstack(v, n, dim) for k, v in tree.items()}
         return [{k: parts[k][i] for k in tree} for i in range(n)]
-    return list(torch.unbind(tree, dim))
+    return fsdp.unbind(tree, dim)
 
 
 def _stack(entries: List[Any]) -> Any:
@@ -310,7 +315,12 @@ def forward_hidden(params, cfg, x: torch.Tensor, *, positions=None,
     recompute is bitwise the first forward: loss and gradients are
     bitwise those without remat.  The tail layers are not checkpointed,
     as in the reference; a prefill (``collect_cache``) or a forward
-    without grad runs plain."""
+    without grad runs plain.
+
+    On a mesh's shards (``sharding/fsdp.py``) each group and each tail
+    layer is a unit: its weights are gathered inside its region, so the
+    recompute gathers them again and one group is whole at a time; with
+    autograd recording every unit is then a checkpoint region."""
     pattern = cfg.pattern
     n_groups = cfg.n_layers // len(pattern)
     lengths = None if positions is None else (positions >= 0).sum(dim=1)
@@ -337,14 +347,10 @@ def forward_hidden(params, cfg, x: torch.Tensor, *, positions=None,
         group_aux = []
         for g in range(n_groups):
             group = [layers[pos][g] for pos in range(len(pattern))]
-            if remat:
-                x, aux_g = checkpoint(
-                    lambda xx, gr=group: run_group(xx, gr)[:2], x,
-                    use_reentrant=False, preserve_rng_state=False)
-            else:
-                x, aux_g, ces = run_group(x, group)
-                for pos, ce in enumerate(ces):
-                    entries[pos].append(ce)
+            x, aux_g, ces = fsdp.run_unit(lambda gr, xx: run_group(xx, gr),
+                                          group, x, remat=remat)
+            for pos, ce in enumerate(ces):
+                entries[pos].append(ce)
             if aux_g is not None:
                 group_aux.append(aux_g)
         if group_aux:
@@ -352,8 +358,10 @@ def forward_hidden(params, cfg, x: torch.Tensor, *, positions=None,
     kinds = cfg.layer_kinds()
     tail = []
     for i, bp in enumerate(params["stack"]["tail"]):
-        x, aux, ce = block_forward(bp, cfg, kinds[n_groups * len(pattern) + i],
-                                   x, **kw)
+        kind = kinds[n_groups * len(pattern) + i]
+        x, aux, ce = fsdp.run_unit(
+            lambda p, xx, k=kind: block_forward(p, cfg, k, xx, **kw), bp, x)
+
         if aux is not None:
             aux_total = aux_total + aux
         tail.append(ce)

@@ -21,11 +21,20 @@ them (``models/common.py:keystr``).
 The reference's ``MeshSharder`` only places activations for its
 partitioner (``with_sharding_constraint``), and its ``kv_repeat`` does
 not change a number; the port computes data-parallel and places nothing
-inside the model, so neither has a counterpart here.  The engines read
-``batch_axes`` and keep params whole on every rank (``train/engine.py:
-MeshContext``); the param and cache specs are what per-layer gathers
-and tensor-parallel compute will cut by (ROADMAP queue 1, items 16 and
-17).
+inside the model, so neither has a counterpart here.
+
+Storage (the reference's ``NamedSharding`` layout of a leaf): a rank
+stores the block of a leaf that its mesh coordinate picks under the
+leaf's spec.  Each dim is split over the product of the axes its entry
+names, the first axis major (block ``j = c[a0] * n[a1] + c[a1]`` for
+axes ``(a0, a1)``); a ``None`` entry keeps the dim whole.
+:func:`shard_shape`, :func:`shard_slices`, :func:`shard` and
+:func:`unshard` compute it from a spec, the mesh's ``{axis: size}`` and
+a coordinate ``{axis: index}``, on numpy arrays or tensors alike;
+:func:`err_spec` is an error-feedback leaf's ``(pod, *param_spec)``.
+The engines store params, optimizer state and error-feedback state so
+(``train/engine.py:MeshContext``, ``sharding/fsdp.py`` for the gathers);
+tensor-parallel compute over ``model`` is ROADMAP item 16.
 """
 from __future__ import annotations
 
@@ -36,6 +45,7 @@ from typing import Dict, Mapping, Optional, Tuple
 from repro_torch.models.common import map_with_path
 
 Spec = Tuple
+Coord = Mapping[str, int]
 
 
 def mesh_sizes(mesh) -> Dict[str, int]:
@@ -60,6 +70,81 @@ def axis_tuple(ax) -> Tuple[str, ...]:
     if ax is None:
         return ()
     return (ax,) if isinstance(ax, str) else tuple(ax)
+
+
+def _entry_size(sizes: Mapping[str, int], ax) -> int:
+    return math.prod(int(sizes[a]) for a in axis_tuple(ax))
+
+
+def _entry_index(sizes: Mapping[str, int], coord: Coord, ax) -> int:
+    """The block of a dim that ``coord`` stores (first axis major)."""
+    j = 0
+    for a in axis_tuple(ax):
+        j = j * int(sizes[a]) + int(coord[a])
+    return j
+
+
+def shard_shape(spec: Spec, shape, sizes: Mapping[str, int]
+                ) -> Tuple[int, ...]:
+    """The shape of every rank's block of a leaf of ``shape``; a dim its
+    entry's axes do not divide is a ``ValueError`` (``param_spec`` never
+    names such an entry)."""
+    shape = tuple(int(s) for s in shape)
+    if len(spec) != len(shape):
+        raise ValueError(f"spec {spec} for a leaf of shape {shape}")
+    out = []
+    for dim, ax in zip(shape, spec):
+        n = _entry_size(sizes, ax)
+        if dim % n:
+            raise ValueError(f"dim {dim} does not split over {ax!r} "
+                             f"(size {n}) in spec {spec}")
+        out.append(dim // n)
+    return tuple(out)
+
+
+def shard_slices(spec: Spec, shape, sizes: Mapping[str, int],
+                 coord: Coord) -> Tuple[slice, ...]:
+    """The slice of the whole leaf that the rank at ``coord`` stores."""
+    blk = shard_shape(spec, shape, sizes)
+    return tuple(slice(_entry_index(sizes, coord, ax) * b,
+                       (_entry_index(sizes, coord, ax) + 1) * b)
+                 for b, ax in zip(blk, spec))
+
+
+def shard(leaf, spec: Spec, sizes: Mapping[str, int], coord: Coord):
+    """The rank at ``coord``'s block of ``leaf`` (a numpy array or a
+    tensor; a view of it)."""
+    return leaf[shard_slices(spec, tuple(leaf.shape), sizes, coord)]
+
+
+def unshard(shard_of, spec: Spec, shape, sizes: Mapping[str, int]):
+    """The whole leaf of ``shape`` from ``shard_of(coord)``, the block of
+    every coordinate over the axes ``spec`` names (numpy or torch, as
+    the blocks are)."""
+    shape = tuple(int(s) for s in shape)
+    names = sorted({a for ax in spec for a in axis_tuple(ax)})
+    out = None
+    for flat in range(math.prod(int(sizes[a]) for a in names)):
+        coord, rest = {}, flat
+        for a in reversed(names):
+            coord[a] = rest % int(sizes[a])
+            rest //= int(sizes[a])
+        blk = shard_of(coord)
+        if out is None:
+            if hasattr(blk, "new_empty"):
+                out = blk.new_empty(shape)
+            else:
+                import numpy as np
+                out = np.empty(shape, dtype=blk.dtype)
+        out[shard_slices(spec, shape, sizes, coord)] = blk
+    return out
+
+
+def err_spec(pod_axis: Optional[str], param_spec: Spec) -> Spec:
+    """An error-feedback leaf ``(n_pods, *shape)``: pod-local residuals
+    split like the param they track (the reference's ``err_shardings``,
+    ``P(pod, *param_fsdp_spec)``)."""
+    return (pod_axis,) + tuple(param_spec)
 
 
 class SpecBuilder:

@@ -19,10 +19,15 @@ by ``models/common.py:keystr`` without JAX, in JAX's flatten order (dict keys
 sorted).  Each array carries the sha256 of its C-order bytes.
 ``mesh_shape`` is the run's ``{axis: size}`` (null on one device) and
 ``compress_mode`` the pod axis's gradient compressor (null without a pod
-axis).  Arrays are stored whole: on a mesh rank 0 alone writes (params
-and optimizer state are whole on every rank; the per-pod error-feedback
-state is gathered under ``err`` as ``(n_pods, *shape)``), so a restore
-onto any mesh takes its pod's row (``train/engine.py:restore_sharding``).
+axis).  Arrays are stored whole: on a mesh each leaf of params and
+optimizer state is gathered from the ranks' shards, one leaf at a time
+(``train/engine.py:whole_state``), and rank 0 alone writes; the per-pod
+error-feedback state is gathered under ``err`` as ``(n_pods, *shape)``.
+So the files are mesh-free, bitwise a one-device save of the same
+state, and a restore onto any mesh cuts each rank's shard from each
+whole leaf (an ``err`` leaf after its pod's row;
+``train/engine.py:restore_sharding``).
+
 """
 from __future__ import annotations
 

@@ -14,15 +14,20 @@ tests ask for, it runs the same device-resident loop without a graph.
 
 With a ``mesh`` (``launch/mesh.py``: a ``DeviceMesh``, one process a
 rank) both engines train data-parallel (:class:`MeshContext`), through
-the one step of ``make_step_core``: every rank holds the whole params,
-optimizer state and its pod's error-feedback state; each rank computes
-the loss of its slice of the batch's examples, scaled so that the ranks'
-mean is the global weighted mean (ROADMAP hazard D1); the gradients are
-averaged over the data axes in fp32, and over a ``pod`` axis through
+the one step of ``make_step_core``: every rank stores its shard of the
+params, optimizer state and its pod's error-feedback state, laid out by
+each leaf's spec as the reference's ``state_shardings`` /
+``err_shardings`` lay them out (``sharding/specs.py``); each rank
+computes the loss of its slice of the batch's examples on weights
+gathered a unit at a time (``sharding/fsdp.py``), scaled so that the
+ranks' mean is the global weighted mean (ROADMAP hazard D1); each
+gathered weight's gradient is reduce-scattered into its shard in fp32
+and averaged over the data axes, then over a ``pod`` axis through
 ``train/compress.py:compressed_psum`` (``TrainConfig.compress_mode``,
 the reference's two-level ``data x pod`` step); every rank then clips by
-the norm of the whole averaged gradient (D5) and updates.  On the card
-the scan engine's captured graph holds these collectives (NCCL; D6).
+the norm of the whole averaged gradient, summed over the shards (D5,
+S3), and updates its shards.  On the card the scan engine's captured
+graph holds these collectives (NCCL; D6, S6).
 
 The non-finite guard (``TrainConfig.nonfinite_guard``) checks each
 step's loss and clipped gradient norm on the device and folds the result
@@ -32,6 +37,7 @@ were, and a guarded run on finite data is bitwise the unguarded one.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import math
 from typing import Dict, NamedTuple, Optional
@@ -43,7 +49,8 @@ from repro_torch.configs.base import TrainConfig
 from repro_torch.core.chunking import auto_vocab_chunk
 from repro_torch.data.pipeline import epoch_plan, subset_epoch_plan
 from repro_torch.models.api import build_model
-from repro_torch.models.common import tree_leaves, tree_map, tree_unflatten
+from repro_torch.models.common import (flatten_with_path, map_with_path,
+                                       tree_leaves, tree_map, tree_unflatten)
 from repro_torch.train.optim import (clip_by_global_norm, commit_,
                                      make_update_for, make_update_in_place,
                                      require_masters)
@@ -80,8 +87,12 @@ def make_step_core(bundle, cfg: TrainConfig, update=None, ctx=None):
     place); the metrics are the ranks' means; the clip reads the norm of
     the whole averaged gradient, the same on every rank, as does the
     guard, which gates every rank off the same step and leaves ``err``
-    bit for bit (D5).  A data group of one averages nothing, so at world
-    size 1 the step is the one-device step's arithmetic."""
+    bit for bit (D5).  ``params``, ``opt_state`` and ``err`` are this
+    rank's shards (``MeshContext.shard_tree``): the loss runs on weights
+    gathered a unit at a time, and autograd hands back each shard's
+    reduce-scattered gradient (``sharding/fsdp.py``).  A data group of
+    one averages nothing, so at world size 1 the step is the one-device
+    step's arithmetic."""
     opt_update = make_update_for(cfg)[1] if update is None else update
     guard = bool(cfg.nonfinite_guard)
 
@@ -92,7 +103,8 @@ def make_step_core(bundle, cfg: TrainConfig, update=None, ctx=None):
         if ctx is not None:
             batch = ctx.slice_batch(batch)
             scale = ctx.scale(batch)
-        with torch.enable_grad():
+        with ctx.gathering(live) if ctx is not None else contextlib.nullcontext(), \
+                torch.enable_grad():
             total, metrics = bundle.loss_fn(live, batch)
             if ctx is not None:
                 total = metrics["loss"] * scale + metrics["aux_loss"]
@@ -108,7 +120,9 @@ def make_step_core(bundle, cfg: TrainConfig, update=None, ctx=None):
                 grads, new_err = ctx.reduce_grads(grads, err)
                 metrics = ctx.mean_metrics(metrics, scale)
                 total = metrics["total_loss"]
-            grads, gnorm = clip_by_global_norm(grads, cfg.grad_clip)
+            grads, gnorm = clip_by_global_norm(
+                grads, cfg.grad_clip,
+                None if ctx is None else ctx.norm_groups(grads))
             ok = step_on
             if guard:
                 finite = torch.isfinite(total) & torch.isfinite(gnorm)
@@ -157,12 +171,17 @@ class MeshContext:
     """An engine's distribution on ``mesh``: this rank's slice of each
     batch and the step's collectives.
 
-    * Storage: every rank holds the whole params, optimizer state and
-      its pod's whole error-feedback state (replicated, as DDP does).
-      Shards gathered whole once a step, the only granularity there is
-      without per-layer gathers, would peak at the same memory and move
-      more; sharded storage pays with per-layer gathers (ROADMAP queue
-      1, item 17).  The mesh's ``SpecBuilder`` gives the batch axes.
+    * Storage: every rank stores its block of each leaf of params,
+      optimizer state and its pod's error-feedback state under the
+      leaf's spec (``SpecBuilder.param_spec``; ``sharding/specs.py``),
+      the reference's ``state_shardings`` / ``err_shardings``: each dim
+      split over the product of the axes its entry names, first axis
+      major, a dim they do not divide whole (S5).  Until tensor-parallel
+      compute (ROADMAP item 16) the ``model`` axis is cut and gathered
+      like the others.  ``shard_tree`` cuts a whole tree, ``whole_tree``
+      gathers one back leaf by leaf, ``gathering`` lets the models'
+      units gather a tree of shards (``sharding/fsdp.py``).  The mesh's
+      ``SpecBuilder`` gives the batch axes.
     * Compute: a batch's examples split into ``n_pods`` slices, pod-major
       (the reference's ``(pod, data)`` placement), and each pod slice
       over the spec's batch axes (``data``; every axis but pod and
@@ -211,6 +230,11 @@ class MeshContext:
                            else None)
         self.pod_group = (mesh.get_group(cfg.pod_axis) if pod_active
                           else None)
+        from repro_torch.sharding.fsdp import Store
+        self.store = Store(mesh, batch_axes if self.n_data > 1 else ())
+        #: a leaf's whole shape by its path in its tree (params, or an
+        #: optimizer state's), recorded as whole trees are cut
+        self._whole: Dict[str, tuple] = {}
         j = 0
         for a in batch_axes:
             j = j * self.shape[a] + self.coord[a]
@@ -229,6 +253,81 @@ class MeshContext:
                     f"groups of {g} tokens over its batch of {per_pod} "
                     f"examples; the data-parallel step cannot reproduce "
                     f"its grouping (grow the batch or drop the data axis)")
+
+    # -- storage -----------------------------------------------------------
+    def layout(self, path: str, shape):
+        """The storage of the leaf at ``path`` of whole ``shape``
+        (``sharding/fsdp.py:Layout``; None: whole on every rank)."""
+        return self.store.layout(self.spec.param_spec(path, shape), shape)
+
+    def _layout_of(self, path: str, leaf):
+        """The layout of ``leaf`` at ``path`` when it is a shard of a
+        recorded whole leaf, else None.  A leaf at ``[key]...<param
+        path>`` (an optimizer state's moment, a checkpoint tree's) mirrors
+        the param's whole shape."""
+        whole, at = None, path
+        while whole is None and at:
+            whole = self._whole.get(at)
+            at = at[at.find("]") + 1:] if "]" in at else ""
+        if whole is None:
+            return None
+        lay = self.layout(path, whole)
+        if lay is None or tuple(leaf.shape) != lay.blk:
+            return None
+        return lay
+
+    def cut(self, path: str, leaf):
+        """This rank's block of the whole ``leaf`` at ``path`` (a tensor
+        or an array; its shape recorded): a copy, so the whole can be
+        freed, or ``leaf`` itself where the block is all of it."""
+        whole = tuple(int(s) for s in leaf.shape)
+        self._whole[path] = whole
+        lay = self.layout(path, whole)
+        if lay is None or lay.blk == whole:
+            return leaf
+        block = leaf[lay.mine]
+        return block.clone() if isinstance(block, torch.Tensor) else \
+            np.array(block, copy=True)
+
+    def shard_tree(self, tree):
+        """A params-shaped tree (params, or an optimizer state that mirrors
+        them) as this rank's shards: a whole leaf is cut, a leaf that is
+        already a shard (of a whole shape recorded at its path) kept."""
+        def one(path, leaf):
+            if self._layout_of(path, leaf) is not None:
+                return leaf
+            return self.cut(path, leaf)
+        return map_with_path(one, tree)
+
+    def layouts(self, tree):
+        """Each leaf's layout in ``tree_leaves`` order (None: whole)."""
+        return [self._layout_of(p, l) for p, l in flatten_with_path(tree)]
+
+    def gathering(self, tree):
+        """A context in which the models' units gather ``tree``'s shards
+        (``sharding/fsdp.py:gathering``)."""
+        from repro_torch.sharding import fsdp
+        return fsdp.gathering((l, self._layout_of(p, l))
+                              for p, l in flatten_with_path(tree))
+
+    def whole_tree(self, tree, to_host: bool = False):
+        """The whole leaves of a tree of shards, gathered one leaf at a
+        time (a collective over each leaf's storage group); with
+        ``to_host`` each whole leaf is copied to the host at once (a
+        checkpoint's), so at most one leaf is whole on the device."""
+        from repro_torch.sharding.fsdp import gather_block
+
+        def one(path, leaf):
+            lay = self._layout_of(path, leaf)
+            with torch.no_grad():
+                out = leaf if lay is None else gather_block(lay, leaf)
+            return out.detach().cpu() if to_host else out
+        return map_with_path(one, tree)
+
+    def norm_groups(self, grads):
+        """The group to sum each leaf's squares over for the clip's
+        global norm: its storage group (S3), None for a whole leaf."""
+        return [None if l is None else l.group for l in self.layouts(grads)]
 
     # -- the step's collectives -------------------------------------------
     def slice_batch(self, batch):
@@ -281,16 +380,35 @@ class MeshContext:
 
     def reduce_grads(self, grads, err):
         """The data axes' fp32 mean, then the pod axis's compressed mean
-        -> (mean gradient tree, the pod's new error state)."""
+        -> (mean gradient tree, the pod's new error state).  A whole
+        leaf's gradient is all-reduced over the data axes; a shard's
+        came reduce-scattered over its storage group's data axes
+        (``sharding/fsdp.py``), so it is summed over the data axes its
+        spec does not name and divided by the data ranks here."""
+        import torch.distributed as dist
+
         from repro_torch.train.compress import _mean, compressed_psum
+        lays = self.layouts(grads)
         if self.n_data > 1:
-            leaves = tree_leaves(grads)
-            red = _mean(leaves, self.data_group, self.n_data, torch.float32)
-            grads = tree_unflatten(grads, red)
+            leaves = list(tree_leaves(grads))
+            whole = [i for i, lay in enumerate(lays) if lay is None]
+            if whole:
+                red = _mean([leaves[i] for i in whole], self.data_group,
+                            self.n_data, torch.float32)
+                for i, r in zip(whole, red):
+                    leaves[i] = r
+            for i, lay in enumerate(lays):
+                if lay is not None:
+                    g = leaves[i].to(torch.float32)
+                    if lay.rest is not None:
+                        dist.all_reduce(g, group=lay.rest)
+                    leaves[i] = g / self.n_data
+            grads = tree_unflatten(grads, leaves)
         if self.pod is None:
             return grads, err
         return compressed_psum(grads, self.pod_group, self.pod.mode, err,
-                               self.pod.k_frac)
+                               self.pod.k_frac, lays)
+
 
     def gather_pods(self, tree):
         """The ``(n_pods, *shape)`` stack of every pod's copy of a
@@ -453,19 +571,45 @@ class _MeshState:
                 old.copy_(new)
 
     def full_err(self):
-        """The whole ``(n_pods, *shape)`` error-feedback tree (a
-        collective over the pod axis), what a checkpoint holds under
-        ``err``."""
-        return self.ctx.gather_pods(self.compress_state)
+        """The whole ``(n_pods, *shape)`` error-feedback tree (collectives
+        over each leaf's storage group, then over the pod axis), what a
+        checkpoint holds under ``err``."""
+        return self.ctx.gather_pods(self.ctx.whole_tree(self.compress_state))
+
+    # -- sharded storage (identities without a mesh) ---------------------------
+    def shard_state(self, *trees):
+        """Whole params-shaped trees (params, optimizer state) as this
+        rank's shards (``MeshContext.shard_tree``); shards are kept."""
+        if self.ctx is None:
+            return trees if len(trees) > 1 else trees[0]
+        out = tuple(self.ctx.shard_tree(t) for t in trees)
+        return out if len(out) > 1 else out[0]
+
+    def gathering(self, params):
+        """A context in which the models gather ``params``' shards
+        unit by unit (selection rounds and validation on a mesh)."""
+        return contextlib.nullcontext() if self.ctx is None else self.ctx.gathering(params)
+
+    def whole_state(self, tree, to_host: bool = False):
+        """The whole leaves of a tree of shards (each gathered over its
+        storage group, one leaf at a time); the tree itself without a
+        mesh."""
+        return tree if self.ctx is None else self.ctx.whole_tree(tree,
+                                                                 to_host)
 
     def restore_sharding(self, path: str, arr):
-        """``checkpoint.restore(sharding_fn=...)``: this rank's part of a
-        whole restored array: an ``err`` leaf ``(n_pods, *shape)`` gives
-        its pod's residuals, any other leaf is whole on every rank.  A
+        """``checkpoint.restore(sharding_fn=...)``: this rank's block of a
+        whole restored array under its spec (the reference's elastic
+        restore, DESIGN.md §5): an ``err`` leaf ``(n_pods, *shape)``
+        first gives its pod's residuals, cut as the param it tracks.  A
         checkpoint of any mesh restores onto any other."""
-        if self.ctx is not None and "['err']" in path:
-            return np.asarray(arr)[self.ctx.coord[self.pod_axis]]
-        return arr
+        if self.ctx is None:
+            return arr
+        a = np.asarray(arr)
+        root, _, rest = path.partition("]")
+        if root == "['err'":
+            a = a[self.ctx.coord[self.pod_axis]]
+        return self.ctx.cut(rest, a)
 
     def barrier(self) -> None:
         if self.ctx is not None:
@@ -619,12 +763,15 @@ class EpochEngine(_MeshState):
         place.  ``train_with_selection`` adopts its fresh initial state,
         so a 3B model's fp32 weights are not held twice at its first
         epoch."""
-        self.params, self.opt_state = params, opt_state
+        self.params, self.opt_state = self.shard_state(params, opt_state)
 
     def _load(self, params, opt_state) -> None:
-        """Make the buffers hold ``params`` and ``opt_state``: copies at
-        the first run, leaf-by-leaf copies into them later (a restored or
+        """Make the buffers hold ``params`` and ``opt_state`` (on a mesh,
+        this rank's shards of them: a whole tree is cut): copies at the
+        first run, leaf-by-leaf copies into them later (a restored or
         re-initialised state), nothing when they are the buffers."""
+        if params is not self.params or opt_state is not self.opt_state:
+            params, opt_state = self.shard_state(params, opt_state)
         if self.params is None:
             own = lambda x: x.detach().to(self.device, copy=True)
             self.params = tree_map(own, params)
@@ -716,7 +863,7 @@ class EpochEngine(_MeshState):
         """Mean of the per-unit mean validation losses, on the device
         (with a mesh every rank validates every unit)."""
         n_val = int(self.val_units["tokens"].shape[0])
-        with torch.no_grad():
+        with torch.no_grad(), self.gathering(params):
             per_unit = [self.bundle.per_example_loss(
                 params, {k: v[i] for k, v in self.val_units.items()}).mean()
                 for i in range(n_val)]
@@ -864,7 +1011,9 @@ class HostEngine(_MeshState):
     def run_epoch(self, params, opt_state, lr, plan):
         """Every plan row, padding rows included (a row of ids -1 runs on
         the last unit with weight 0, as the reference's host loop runs
-        it) -> (params, opt_state, each row's loss)."""
+        it) -> (params, opt_state, each row's loss).  On a mesh whole
+        trees are cut into this rank's shards, which it returns."""
+        params, opt_state = self.shard_state(params, opt_state)
         losses, skipped = [], []
         for sel, w in zip(*plan):
             batch = {k: v[sel].reshape((-1,) + v.shape[2:])
@@ -884,8 +1033,9 @@ class HostEngine(_MeshState):
         if self.val_units is None:
             return float("nan")
         n_val = int(self.val_units["tokens"].shape[0])
-        with torch.no_grad():
+        with torch.no_grad(), self.gathering(params):
             return float(np.mean([
+
                 float(self.bundle.per_example_loss(
                     params, {k: v[i] for k, v in self.val_units.items()}
                 ).mean()) for i in range(n_val)]))

@@ -176,7 +176,10 @@ def train_with_selection(
     axis runs ``tc.compress_mode``), selection rounds take the sharded
     stage B over ``data_axis``, checkpoints hold whole arrays written by
     rank 0 (per-pod error-feedback state under ``err``) and restore onto
-    any mesh, and only rank 0 logs."""
+    any mesh, and only rank 0 logs.  Params and optimizer state are then
+    this rank's shards (``History.final_params`` too; the engine's
+    ``whole_state`` gathers them)."""
+
     if method not in METHODS:
         raise ValueError(f"unknown method {method!r}; one of {METHODS}")
     dev = resolve_device(device)
@@ -200,6 +203,9 @@ def train_with_selection(
     resident = (ResidentSelector(bundle, tc.pgm, proj, mesh=mesh,
                                  data_axis=data_axis, log_fn=log_fn)
                 if resident_selection and method == "pgm" else None)
+    # on a mesh this rank's shards (sharded storage): the optimizer state
+    # is made on them
+    params = eng.shard_state(params)
     opt_init, _ = make_update_for(tc)
     opt_state = opt_init(params)
     if is_scan:
@@ -316,11 +322,12 @@ def train_with_selection(
             # --- selection round ---
             if not use_full and (selection is None or _is_sel_epoch(epoch)):
                 t_sel = time.time()
-                new_sel = _select(method, bundle, params,
-                                  eng.units, tc, epoch, key_seed, proj,
-                                  eng.val_units, durations,
-                                  resident=resident, mesh=mesh,
-                                  data_axis=data_axis)
+                with eng.gathering(params):
+                    new_sel = _select(method, bundle, params,
+                                      eng.units, tc, epoch, key_seed, proj,
+                                      eng.val_units, durations,
+                                      resident=resident, mesh=mesh,
+                                      data_axis=data_axis)
                 oi = (overlap_index(selection.indices.cpu().numpy(),  # repro_torch: noqa[host-sync-loop] -- one read a selection round (the overlap index), not a step
                                     new_sel.indices.cpu().numpy())  # repro_torch: noqa[host-sync-loop] -- the same read, of the new round
                       if selection is not None else float("nan"))
@@ -447,8 +454,8 @@ def train_with_selection(
                     else:
                         key_seed = (key_seed * 1_000_003 + 7919
                                     + hist.rollbacks)
-                        params = bundle.init_params(
-                            torch.Generator().manual_seed(key_seed), dev)
+                        params = eng.shard_state(bundle.init_params(
+                            torch.Generator().manual_seed(key_seed), dev))
                         opt_state = opt_init(params)
                         if uses_err:
                             eng.set_compress_state(None)
@@ -480,7 +487,10 @@ def train_with_selection(
                                          if selection is not None else None)}
                 if preempted:
                     extra["preempted"] = True
-                tree = {"params": params, "opt": opt_state}
+                # whole leaves, gathered one at a time (collectives on a
+                # mesh) and copied to the host
+                tree = eng.whole_state({"params": params, "opt": opt_state},
+                                       to_host=True)
                 if uses_err:        # every pod's (a collective)
                     eng.init_compress_state_once(params)
                     tree["err"] = eng.full_err()

@@ -30,6 +30,9 @@ import torch_threads  # noqa: E402,F401  (one intra-op thread)
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.configs.base import ShapeConfig  # noqa: E402
 from repro_torch.launch import dryrun, roofline  # noqa: E402
+from repro_torch.models.api import build_model  # noqa: E402
+from repro_torch.models.common import flatten_with_path, tree_leaves  # noqa: E402
+from repro_torch.sharding.specs import SpecBuilder  # noqa: E402
 
 
 def test_a_full_size_cell_runs_without_allocating():
@@ -88,17 +91,34 @@ def test_a_mesh_cell_records_its_collective_schedule():
                                   mesh=mesh, device="cpu", verbose=False,
                                   optimizer="sgd", compress_mode=mode)
             for mode in ("none", "bf16")}
-    n_leaves = recs["none"]["memory"]["params"] // 4
+    # a rank stores its shards (sharded storage): the elements it holds,
+    # and those of the leaves whose spec names no axis (whole)
+    n_stored = recs["none"]["memory"]["params"] // 4
+    spec = SpecBuilder(mesh, mode="tp", pod_axis="pod")
+    params = build_model(get_config("starcoder2-3b-smoke")).init_params(
+        torch.Generator().manual_seed(0), torch.device("cpu"))
+    whole = [l.numel() for p, l in flatten_with_path(params)
+             if not any(spec.param_spec(p, l.shape))]
+    n_whole, n_cut = sum(whole), len(tree_leaves(params)) - len(whole)
     for mode, rec in recs.items():
         assert rec["status"] == "ok" and rec["rank_batch"] == 2
         ar = rec["collectives"]["all_reduce"]
         # the weight sums and the metrics over data and pod, the data
-        # axis's fp32 gradient mean, the pod axis's compressed mean
-        assert ar["count"] == 6
-        grad_bytes = n_leaves * 4 + n_leaves * (2 if mode == "bf16" else 4)
-        assert abs(ar["bytes"] - grad_bytes) < 64
+        # axis's fp32 mean of the whole leaves' gradients, the clip's sum
+        # of the shards' squares over their storage group, the pod axis's
+        # compressed mean of every gradient the rank stores
+        assert ar["count"] == 7
+        grad_bytes = n_whole * 4 + n_stored * (2 if mode == "bf16" else 4)
+        assert abs(ar["bytes"] - grad_bytes) < 64 + 4 * n_cut
         assert math.isclose(ar["wire_bytes"], ar["bytes"], rel_tol=1e-9)
+        # each sharded leaf's gathers (the forward's and the recompute's)
+        # and one fp32 reduce-scatter of its gradient into the shard
+        rs = rec["collectives"]["reduce_scatter_tensor"]
+        ag = rec["collectives"]["all_gather_into_tensor"]
+        assert rs["count"] > 0 and ag["count"] == 2 * rs["count"]
+        assert rs["bytes"] == 4 * (n_stored - n_whole)
     assert recs["bf16"]["wire_bytes"] < recs["none"]["wire_bytes"]
+
 
 
 def test_refusals_and_records_reach_the_table(tmp_path):

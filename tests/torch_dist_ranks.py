@@ -128,9 +128,10 @@ def guard_checks(rank, world, arch, units, run, sel, params):
     """On a ``(world,)`` data mesh with the guard on: a padding row
     leaves params and optimizer state bitwise (D5); a NaN weight in the
     last rank's examples gates every rank off the step, bitwise, with
-    its skip flagged on every rank; a live step moves the state.  Then
-    the ``ValueError`` of an MoE engine on the same units (D7), or
-    None."""
+    its skip flagged on every rank; a live step moves the state.  The
+    state held is the engine's: this rank's shards, which ``adopt`` cuts
+    from the whole trees (sharded storage).  Then the ``ValueError`` of
+    an MoE engine on the same units (D7), or None."""
     from repro_torch.configs import get_config
     from repro_torch.launch.mesh import make_mesh
     from repro_torch.models.api import build_model
@@ -143,17 +144,22 @@ def guard_checks(rank, world, arch, units, run, sel, params):
     p = t_tree(params)
     o = make_update_for(tc)[0](p)
     eng.adopt(p, o)
+    p, o = eng.params, eng.opt_state        # this rank's shards
     before = _snapshot((p, o))
+
     pad = (np.full((1, 1), -1, np.int32), np.zeros((1, 1), np.float32))
     _, _, losses = eng.run_epoch(p, o, tc.lr, pad)
     pad_held = _same(before, _snapshot((p, o))) and losses.tolist() == [0.0]
     bad = {k: np.array(v, copy=True) for k, v in units.items()}
     bad["weights"][0, -1] = np.nan      # the last example: the last rank's
     eng_bad = EpochEngine(bundle, tc, bad, batch_units=1, mesh=mesh)
-    eng_bad.adopt(p, o)
+    pb = t_tree(params)
+    eng_bad.adopt(pb, make_update_for(tc)[0](pb))
+    pb, ob = eng_bad.params, eng_bad.opt_state
     row = (np.zeros((1, 1), np.int32), np.ones((1, 1), np.float32))
-    eng_bad.run_epoch(p, o, tc.lr, row)
-    nan_held = _same(before, _snapshot((p, o)))
+    eng_bad.run_epoch(pb, ob, tc.lr, row)
+    nan_held = _same(before, _snapshot((pb, ob)))
+
     skipped = float(eng_bad.last_skipped[0])
     eng.run_epoch(p, o, tc.lr, row)
     moved = not _same(before, _snapshot((p, o)))
