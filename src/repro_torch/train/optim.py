@@ -180,6 +180,10 @@ def commit_(dst, new) -> None:
         d.copy_(n)
 
 
+#: elements of a leaf's piece in ``make_update_in_place`` (512 MB of fp32)
+IN_PLACE_PIECE = 1 << 27
+
+
 def make_update_in_place(cfg):
     """``update_(params, grads, state, lr[, step_on]) -> (params,
     state)``: the update of ``make_update_for(cfg)`` written into
@@ -187,22 +191,38 @@ def make_update_in_place(cfg):
     functional update on one leaf at a time (with that leaf's moments and
     the shared step counter) and commits the result before the next leaf:
     the bits are the functional update's, the tensors keep their
-    addresses, and at most one leaf's update exists twice at any moment.
-    The step counter is committed last, after every leaf has read it."""
+    addresses, and at most one leaf's update exists twice at any moment;
+    a leaf of more than ``IN_PLACE_PIECE`` elements is updated a piece of
+    its flat view at a time (its transients a piece's, not the leaf's:
+    a full-depth stacked leaf's are several GB).  The step counter is
+    committed last, after every leaf has read it."""
     _, update = make_update_for(cfg)
+
+    def pieces(ts):
+        """The leaves ``ts`` (one param's tensors) as aligned flat pieces,
+        or whole when one is not contiguous."""
+        n = ts[0].numel()
+        if n <= IN_PLACE_PIECE or not all(t.is_contiguous() for t in ts):
+            return [ts]
+        flat = [t.view(-1) for t in ts]
+        return [[f[a:a + IN_PLACE_PIECE] for f in flat]
+                for a in range(0, n, IN_PLACE_PIECE)]
 
     def update_(params, grads, state, lr, step_on=None):
         slots = {k: tree_leaves(v) for k, v in state.items() if k != "step"}
+        names = list(slots)
         new_step = None
         for i, (p, g) in enumerate(zip(tree_leaves(params),
                                        tree_leaves(grads))):
-            sub = {"step": state["step"],
-                   **{k: leaves[i] for k, leaves in slots.items()}}
-            new_p, new_s = update(p, g, sub, lr, step_on=step_on)
-            p.copy_(new_p)
-            for k, leaves in slots.items():
-                leaves[i].copy_(new_s[k])
-            new_step = new_s["step"]
+            for p_, g_, *ms in pieces([p, g] + [slots[k][i]
+                                                for k in names]):
+                sub = {"step": state["step"], **dict(zip(names, ms))}
+                new_p, new_s = update(p_, g_, sub, lr, step_on=step_on)
+                p_.copy_(new_p)
+                for k, m in zip(names, ms):
+                    m.copy_(new_s[k])
+                new_step = new_s["step"]
+
         if new_step is not None:
             state["step"].copy_(new_step)
         return params, state
