@@ -81,7 +81,8 @@ failure exits non-zero, and no phase catches an error and carries on:
    resumed: the remaining epoch's losses and round's subsets and weights
    bitwise those of phase 5's first run, its launches counted; then the
    newest checkpoint corrupted, and ``restore_latest_intact`` falls back
-   to the one before; (b) a guarded AdamW epoch with a NaN weight at step 5:
+   to the one before; (b) the first 8 steps of a guarded AdamW epoch with
+   a NaN weight at step 5:
    one step skipped, params and optimizer state bitwise unchanged across
    it; (c) the dense loss (``loss_impl="dense"``, no kernel) against the
    fused one on one full-width unit, per-example loss within 1e-4 and
@@ -101,20 +102,20 @@ failure exits non-zero, and no phase catches an error and carries on:
    3-epoch model emits only blanks) in the slot engine (streaming greedy
    transducer search) on 8 utterances, token for token against
    ``rnnt_greedy_reference`` on the card;
-9. main path, LM: the same loop on ``starcoder2-3b`` at full width and
-   depth (30 layers, d_model 3072, vocab 49152, bf16 compute, fp32 master
+9. main path, LM: the same loop on ``starcoder2-3b`` at full width and 8
+   of its 30 layers (d_model 3072, vocab 49152, bf16 compute, fp32 master
    weights) on a synthetic corpus of 512-token examples, with the peak of
    device memory;
 10. profile, LM: one training step of that model, as in 7;
 11. serving, LM: the same params (the training path's optimizer state
-   freed) served at full depth: ``generate`` on 2 prompts of 8,192
+   freed) served at the same depth: ``generate`` on 2 prompts of 8,192
    tokens, then ``SlotEngine`` with 4 slots on the launcher's 8
    requests of 4,136-7,581 tokens (5 through the band kernel, 3 through
    the kv-block flash branch), 32 new tokens each; every completion's
    first token against ``generate`` on its prompt alone; one decode scan
    and one prefill of the 2 x 8,192 prompts under the profiler;
-12. main path, RWKV: the same loop on ``rwkv6-3b`` at full width and
-   depth (32 layers, d_model 2560, 40 WKV heads of 64, vocab 65536, bf16
+12. main path, RWKV: the same loop on ``rwkv6-3b`` at full width and 8
+   of its 32 layers (d_model 2560, 40 WKV heads of 64, vocab 65536, bf16
    compute, fp32 master weights), with the peak of device memory;
 13. profile, RWKV: one training step of that model, as in 7;
 14. the scanned epoch engine (``engine="scan"``: one captured CUDA graph
@@ -207,7 +208,8 @@ failure exits non-zero, and no phase catches an error and carries on:
    ``mixtral-8x7b``'s prefill (2, 8192, 8, 4, 128, 4096) against SDPA;
 18. recurrent-state serving and the hybrid family (ROADMAP S10, RG1-RG5):
    (a) ``recurrentgemma-9b`` (26 RG-LRU and 12 local layers, 9.40B
-   params) and (b) ``rwkv6-3b`` at full width and depth served from bf16
+   params) at full depth and (b) ``rwkv6-3b`` at full width and 8 of its
+   32 layers served from bf16
    weights drawn on the card: ``generate`` on 2 x 8,192 (the band at
    head dim 256 once a local layer; the WKV forward once a time-mix
    layer) and ``SlotEngine`` (2 slots) on 4 requests whose lengths are
@@ -463,7 +465,13 @@ LM_RESIDENT_LAYERS = 6
 # phase 4's full-width LM and RWKV units (and the LM's serve agreement),
 # card against CPU: one layer, whose CPU side is the phase's cost
 AGREE_LAYERS = 1
-# serving: the agreement prompt, and the full-depth run's prompts
+# phases 9-13: starcoder2-3b and rwkv6-3b at full width and these many of
+# their 30 and 32 layers (at full depth the two paths, their profiles and
+# the LM's serving took 147.7 s of a 1,268 s run on an H100 80GB; phase
+# 20 trains starcoder2-3b at full depth, and 23c steps it on two ranks)
+MAIN_LM_LAYERS = 8
+MAIN_RWKV_LAYERS = 8
+# serving: the agreement prompt, and the main LM serving run's prompts
 SERVE_AGREE_S = 6144
 SERVE_AGREE_STEPS = 8
 SERVE_PROMPT = 8192
@@ -539,10 +547,13 @@ WKV_PAD = (2, SERVE_PROMPT, 40, 64, 64, (SERVE_PROMPT, 5000))
 # reference's padded prefill (pads through the recurrence, S10) must
 # miss: in bf16 0.25 (on an H100 80GB HBM3 at 700 W the two roundings put
 # 1,559 at 5.9e-2-7.6e-2 and the S10 fault at 1.26-2.96), and, for a
-# length that ends inside a chunk, at fp32 (TF32 off) at full depth too,
-# 1e-3, where only the summation order differs
+# length that ends inside a chunk, at fp32 (TF32 off) too, 1e-3, where
+# only the summation order differs.  rwkv6-3b is served at full width and
+# RWKV_SERVE_LAYERS of its 32 layers (its full depth took 25.8-43.1 s of
+# the script's time on an H100 80GB), recurrentgemma-9b at full depth
 RG_SLOT_LENS = (2500, 3300, 4100, 5000)
 RWKV_SLOT_LENS = (1088, 1559, 2496, 3008)
+RWKV_SERVE_LAYERS = 8
 RWKV_PAD_BARS = {"bfloat16": 0.25, "float32": 1e-3}
 HYBRID_SLOTS = 2
 HYBRID_NEW = 8
@@ -847,6 +858,9 @@ def rnnt_run_record(hist):
 # (the warm-start epoch and one round), held against that prefix of the
 # first run: a run's first epochs do not depend on how many follow
 REPEAT_EPOCHS = 2
+# phase 6b runs the first GUARD_ROWS steps of its guarded epoch of 16 (the
+# NaN at step 5 and two steps after it; the whole epoch took 22.3 s)
+GUARD_ROWS = 8
 
 
 def run_prefix(rec, epochs: int = REPEAT_EPOCHS):
@@ -1278,10 +1292,10 @@ def serve_rnnt(torch, np, bundle, params) -> None:
 
 
 def serve_lm(torch, bundle, params, dev, swa_op, other_ops):
-    """The full-depth serving run: ``generate`` on 2 prompts of
+    """The main LM serving run: ``generate`` on 2 prompts of
     SERVE_PROMPT, then the slot engine on the launcher's requests; the
-    band kernel's launches are counted over the two and must be 30 for
-    every prefill with S > window + 1024, and the slot pool is updated in
+    band kernel's launches are counted over the two and must be one a
+    layer for every prefill with S > window + 1024, and the slot pool is updated in
     place across the admits and decodes -> (launches, a summary)."""
     from repro_torch.analysis import contracts
     from repro_torch.launch.serve import make_requests
@@ -1518,7 +1532,7 @@ def reference_loop(torch, np, bundle, tc, units, val_units, val_corpus,
               f"back to step_{m['step']} ({fell[0][:90]}...)", flush=True)
     mark("6a preemption and resume")
 
-    # (b) the guard: one warm epoch with a NaN at step 5, run in three
+    # (b) the guard: a warm epoch's first rows with a NaN at step 5, in three
     # slices so the state around the poisoned step can be compared
     tc_g = dataclasses.replace(tc, optimizer="adamw", lr=0.05,
                                nonfinite_guard=True)
@@ -1529,7 +1543,7 @@ def reference_loop(torch, np, bundle, tc, units, val_units, val_corpus,
     t0 = time.time()
     skipped = 0
     states = [(params, opt)]
-    for rows in (slice(0, 5), slice(5, 6), slice(6, None)):
+    for rows in (slice(0, 5), slice(5, 6), slice(6, GUARD_ROWS)):
         p, o, losses = eng.run_epoch(*states[-1], tc_g.lr,
                                      (idx[rows], w[rows]))
         skipped += eng.last_n_skipped
@@ -1540,8 +1554,8 @@ def reference_loop(torch, np, bundle, tc, units, val_units, val_corpus,
                zip(tree_leaves(before), tree_leaves(after)))
     finite = all(bool(torch.isfinite(x).all()) for x in
                  tree_leaves(states[3]))
-    print(f"[6b] guarded AdamW epoch of {len(w)} steps with a NaN weight at "
-          f"step 5: {skipped} skipped; params and AdamW state (step, m, v) "
+    print(f"[6b] guarded AdamW, the first {GUARD_ROWS} steps of an epoch of "
+          f"{len(w)} with a NaN weight at step 5: {skipped} skipped; params and AdamW state (step, m, v) "
           f"bitwise unchanged across it: {held}; final state finite: "
           f"{finite} ({time.time() - t0:.1f} s)", flush=True)
     require(skipped == 1 and held and finite, "6b: the guard failed")
@@ -3458,8 +3472,10 @@ def padded_against_unpadded(torch, b, params, toks, bucket, dev, tag):
             f"within the bar {bar} ({ref}): the check cannot see S10")
 
 
-def hybrid_serve(torch, np, dev, arch, slot_lens, zero, read, gb, mark):
-    """Phase 18a/b for one arch at full width and depth, from bf16
+def hybrid_serve(torch, np, dev, arch, slot_lens, zero, read, gb, mark,
+                 layers=None):
+    """Phase 18a/b for one arch at full width and depth (or ``layers``
+    layers), from bf16
     weights drawn on the card: ``generate`` on 2 prompts of
     ``SERVE_PROMPT`` (rwkv6-3b's prefill through the WKV kernel, once a
     layer; recurrentgemma-9b's local layers through the band at head dim
@@ -3474,7 +3490,10 @@ def hybrid_serve(torch, np, dev, arch, slot_lens, zero, read, gb, mark):
     from repro_torch.models.common import tree_leaves
     from repro_torch.serve.engine import Request, SlotEngine, generate
 
-    cfg = get_config(arch)
+    full = get_config(arch)
+    cfg = dataclasses.replace(full, n_layers=layers or full.n_layers)
+    depth = ("depth" if cfg.n_layers == full.n_layers
+             else f"{cfg.n_layers} of {full.n_layers} layers")
     b = build_model(cfg)
     tag = "18a" if arch == "recurrentgemma-9b" else "18b"
     gc.collect()
@@ -3490,7 +3509,7 @@ def hybrid_serve(torch, np, dev, arch, slot_lens, zero, read, gb, mark):
     w_gb = sum(l.numel() * l.element_size()
                for l in tree_leaves(params)) / 1e9
     kinds = cfg.layer_kinds()
-    print(f"[{tag}] {arch} at full width and depth ({len(kinds)} layers: "
+    print(f"[{tag}] {arch} at full width and {depth} ({len(kinds)} layers: "
           + ", ".join(f"{kinds.count(k)} {k}" for k in sorted(set(kinds)))
           + f"; d_model {cfg.d_model}, vocab {cfg.vocab_size}): {n_par:,} "
           f"params ({cfg.n_params():,} by the reference's formula), "
@@ -3588,14 +3607,15 @@ def hybrid_serve(torch, np, dev, arch, slot_lens, zero, read, gb, mark):
             f"{tag}: the slot prefills launched {n_slot}, not {kernel} "
             f"{want} times")
     del eng, comps, toks, prompts
-    mark(f"{tag} {arch} served at full width and depth")
+    mark(f"{tag} {arch} served at full width and {depth}")
     return n_gen[kernel] + n_slot[kernel], b, params
 
 
 def hybrid_phase(torch, np, dev, mark):
     """Phase 18: recurrent-state serving and the hybrid family.  (a)
-    ``recurrentgemma-9b`` and (b) ``rwkv6-3b`` at full width and depth
-    served from bf16 weights drawn on the card (``hybrid_serve``), one
+    ``recurrentgemma-9b`` at full width and depth and (b) ``rwkv6-3b`` at
+    full width and ``RWKV_SERVE_LAYERS`` layers served from bf16 weights
+    drawn on the card (``hybrid_serve``), one
     ``recurrentgemma-9b`` prefill profiled (e); (c) ``recurrentgemma-9b``
     at full width and ``RG_TRAIN_LAYERS`` layers trained 2 epochs at S
     ``RG_TRAIN_SEQ``, past the band's start (its backward at head dim
@@ -3632,9 +3652,9 @@ def hybrid_phase(torch, np, dev, mark):
     torch.cuda.empty_cache()
     mark("18e recurrentgemma-9b prefill profiled")
 
-    # (b) rwkv6-3b at full width and depth
+    # (b) rwkv6-3b at full width, RWKV_SERVE_LAYERS layers
     n, b, params = hybrid_serve(torch, np, dev, "rwkv6-3b", RWKV_SLOT_LENS,
-                                zero, read, gb, mark)
+                                zero, read, gb, mark, RWKV_SERVE_LAYERS)
     out["serve-rwkv6-3b"] = {"rwkv6_wkv": n}
     del b, params
     gc.collect()
@@ -6077,8 +6097,8 @@ def main() -> None:
 
     mark("serving, RNN-T")
 
-    # -- 9. main path, LM: starcoder2-3b at full width and depth ---------
-    lm = build_model(lm_cfg)
+    # -- 9. main path, LM: starcoder2-3b at full width, MAIN_LM_LAYERS ---
+    lm = build_model(dataclasses.replace(lm_cfg, n_layers=MAIN_LM_LAYERS))
     n_lm = LM_N // UNIT_SIZE
     # lr 0.05, not the launcher's 0.5: from this random init (embedding
     # std 1, tied head) SGD at 0.5 raised the validation loss at full
@@ -6088,9 +6108,9 @@ def main() -> None:
                                       n_partitions=P_main, select_every=1,
                                       warm_start_epochs=1,
                                       val_matching=True))
-    print(f"[main lm] starcoder2-3b ({lm_cfg.n_params() / 1e9:.2f}B params, "
-          f"{lm_cfg.n_layers} layers, d_model {lm_cfg.d_model}, "
-          f"{lm_cfg.compute_dtype} compute, fp32 master weights) on {n_lm} "
+    print(f"[main lm] starcoder2-3b ({lm.cfg.n_params() / 1e9:.2f}B params, "
+          f"{lm.cfg.n_layers} of {lm_cfg.n_layers} layers, d_model "
+          f"{lm.cfg.d_model}, {lm.cfg.compute_dtype} compute, fp32 master weights) on {n_lm} "
           f"units of {UNIT_SIZE} x {LM_SEQ} tokens, "
           f"{lm_val['tokens'].shape[0] * UNIT_SIZE} validation examples, "
           f"{tc_lm.epochs} epochs, warm start 1, {P_main} partitions, "
@@ -6141,13 +6161,14 @@ def main() -> None:
 
     mark("profile, LM")
 
-    # -- 11. serving, LM: the same params at full depth ------------------
+    # -- 11. serving, LM: the same params ------------------------------
     lm_params = hist.final_params
     del hist
     gc.collect()
     torch.cuda.empty_cache()
-    print(f"[serve lm] starcoder2-3b at full width and depth "
-          f"({lm_cfg.n_layers} layers, window {lm_cfg.window}, {lm_cfg.compute_dtype} compute "
+    print(f"[serve lm] starcoder2-3b at full width, {lm.cfg.n_layers} of "
+          f"{lm_cfg.n_layers} layers (window {lm_cfg.window}, "
+          f"{lm_cfg.compute_dtype} compute "
           f"over the trained fp32 params; ring KV caches of "
           f"{lm_cfg.window} slots)", flush=True)
     swa_launches = serve_lm(torch, lm, lm_params, dev, swa_attn_op,
@@ -6157,13 +6178,14 @@ def main() -> None:
 
     mark("serving, LM")
 
-    # -- 12. main path, RWKV: rwkv6-3b at full width and depth -----------
+    # -- 12. main path, RWKV: rwkv6-3b at full width, MAIN_RWKV_LAYERS ---
     gc.collect()
     torch.cuda.empty_cache()
-    rw = build_model(rw_cfg)
+    rw = build_model(dataclasses.replace(rw_cfg, n_layers=MAIN_RWKV_LAYERS))
     n_rw = LM_N // UNIT_SIZE
-    print(f"[main rwkv] rwkv6-3b (n_params {rw_cfg.n_params():,} by the "
-          f"reference's formula, {rw_cfg.n_layers} layers, d_model "
+    print(f"[main rwkv] rwkv6-3b (n_params {rw.cfg.n_params():,} by the "
+          f"reference's formula, {rw.cfg.n_layers} of {rw_cfg.n_layers} "
+          f"layers, d_model "
           f"{rw_cfg.d_model}, {rw_cfg.n_heads} WKV heads of "
           f"{rw_cfg.rwkv_head_dim}, d_ff {rw_cfg.d_ff}, vocab "
           f"{rw_cfg.vocab_size}, {rw_cfg.compute_dtype} compute, fp32 master "
@@ -6261,7 +6283,7 @@ def main() -> None:
     moe = moe_phase(torch, np, dev, mark)
 
     # -- 18. recurrent-state serving and the hybrid family: recurrentgemma-9b
-    # and rwkv6-3b served at full width and depth, recurrentgemma-9b
+    # at full width and depth and rwkv6-3b at 8 layers, recurrentgemma-9b
     # trained at 3 layers, profiled ------------------------------------
     gc.collect()
     torch.cuda.empty_cache()
