@@ -114,8 +114,8 @@ failure exits non-zero, and no phase catches an error and carries on:
    the kv-block flash branch), 32 new tokens each; every completion's
    first token against ``generate`` on its prompt alone; one decode scan
    and one prefill of the 2 x 8,192 prompts under the profiler;
-12. main path, RWKV: the same loop on ``rwkv6-3b`` at full width and 8
-   of its 32 layers (d_model 2560, 40 WKV heads of 64, vocab 65536, bf16
+12. main path, RWKV: the same loop on ``rwkv6-3b`` at full width and
+   depth, 32 layers (d_model 2560, 40 WKV heads of 64, vocab 65536, bf16
    compute, fp32 master weights), with the peak of device memory;
 13. profile, RWKV: one training step of that model, as in 7;
 14. the scanned epoch engine (``engine="scan"``: one captured CUDA graph
@@ -305,8 +305,9 @@ failure exits non-zero, and no phase catches an error and carries on:
    collectives' route printed, S1): ``rnnt-crdnn``, then
    ``starcoder2-3b`` at full width, 2 layers, S 512, AdamW, 3 rows each,
    every loss and param bitwise one device summing each row's halves
-   (the clip not binding), each rank's peak beside that device's with
-   whole state, the LM's at least ``FSDP_SAVING_GB`` under it; (c)
+   (the clip not binding), each rank's peak beside the same rows on
+   the same engine with whole state in the rank's own process, the
+   LM's under it by at least half the state the shards remove; (c)
    ``starcoder2-3b`` at full depth, AdamW, one row on each of the two
    ranks: both peaks together under 80 GB, the step's wall time and the
    dry run's per-rank floor on a (2,) data mesh.
@@ -465,12 +466,10 @@ LM_RESIDENT_LAYERS = 6
 # phase 4's full-width LM and RWKV units (and the LM's serve agreement),
 # card against CPU: one layer, whose CPU side is the phase's cost
 AGREE_LAYERS = 1
-# phases 9-13: starcoder2-3b and rwkv6-3b at full width and these many of
-# their 30 and 32 layers (at full depth the two paths, their profiles and
-# the LM's serving took 147.7 s of a 1,268 s run on an H100 80GB; phase
-# 20 trains starcoder2-3b at full depth, and 23c steps it on two ranks)
+# phases 9-11: starcoder2-3b at full width and these many of its 30
+# layers (phase 20 trains it at full depth, and 23c steps it on two
+# ranks); phases 12-13 train and profile rwkv6-3b at its full depth
 MAIN_LM_LAYERS = 8
-MAIN_RWKV_LAYERS = 8
 # serving: the agreement prompt, and the main LM serving run's prompts
 SERVE_AGREE_S = 6144
 SERVE_AGREE_STEPS = 8
@@ -1533,7 +1532,8 @@ def reference_loop(torch, np, bundle, tc, units, val_units, val_corpus,
     mark("6a preemption and resume")
 
     # (b) the guard: a warm epoch's first rows with a NaN at step 5, in three
-    # slices so the state around the poisoned step can be compared
+    # slices so the state around the poisoned step can be compared (the
+    # engine updates its state in place: each slice's end is copied)
     tc_g = dataclasses.replace(tc, optimizer="adamw", lr=0.05,
                                nonfinite_guard=True)
     eng = HostEngine(bundle, tc_g, units, device=dev)
@@ -1542,12 +1542,12 @@ def reference_loop(torch, np, bundle, tc, units, val_units, val_corpus,
     idx, w = FaultPlan(nan_step=(0, 5)).poison_plan(0, eng.full_plan(0))
     t0 = time.time()
     skipped = 0
-    states = [(params, opt)]
+    state, states = (params, opt), [None]
     for rows in (slice(0, 5), slice(5, 6), slice(6, GUARD_ROWS)):
-        p, o, losses = eng.run_epoch(*states[-1], tc_g.lr,
-                                     (idx[rows], w[rows]))
+        p, o, losses = eng.run_epoch(*state, tc_g.lr, (idx[rows], w[rows]))
         skipped += eng.last_n_skipped
-        states.append((p, o))
+        state = (p, o)
+        states.append(tree_map(lambda x: x.clone(), state))
     torch.cuda.synchronize()
     before, after = states[1], states[2]
     held = all(bool(torch.equal(a, b)) for a, b in
@@ -5209,14 +5209,19 @@ def dist_phase(torch, np, dev, mark, bundle, tc, units, val_units,
 # epoch 0 of rnnt-crdnn, then of starcoder2-3b at full width,
 # DIST_LM_LAYERS layers, S 512, AdamW, the clip at FSDP_CLIP so it does
 # not bind: every row's loss and every param bitwise one device taking
-# each row in two halves (``halves_steps``), each rank's peak at least
-# FSDP_SAVING_GB under that device's with whole state.  (c): starcoder2-3b
-# at full depth, AdamW, one row a rank: both peaks together under the
-# card's 80 GB, beside the dry run's per-rank floor
+# each row in two halves (``halves_steps``).  Memory: each rank first runs
+# the same rows on the same engine with whole state (no mesh), then its
+# sharded run; the LM's sharded peak is held under the whole one by at
+# least FSDP_SAVING_SHARE of the state bytes (params, gradients, moments)
+# the shards remove, and by FSDP_SAVING_GB: replicated storage, which
+# removes none, fails it.  (c): starcoder2-3b at full depth, AdamW, one
+# row a rank: both peaks together under the card's 80 GB, beside the dry
+# run's per-rank floor
 FSDP_OPS = ("all_gather_into_tensor", "reduce_scatter_tensor")
 FSDP_ROWS = 3
 FSDP_CLIP = 1e9
 FSDP_SAVING_GB = 1.4
+FSDP_SAVING_SHARE = 0.5
 CARD_GB = 80.0
 
 
@@ -5267,35 +5272,36 @@ def seed_params(torch, bundle, dev, seed: int):
     return card_init(torch, bundle, dev, seed)
 
 
-def fsdp_steps(torch, bundle, tc, units, dev, mesh, rows, digest=True,
-               in_place=False):
-    """The seed's params cut into this rank's shards, then ``rows`` rows
-    of epoch 0 on the host engine -> {losses, digests of the whole
-    params gathered back, peak GB from the shards on, wall s}.
-    ``in_place``: the optimizer commits into the state's tensors, as the
-    scan engine's does (the host engine's functional update holds a
-    second copy of params and moments: 36 GB a rank at full depth)."""
-    from repro_torch.train.engine import HostEngine, make_step_core
-    from repro_torch.train.optim import make_update_for, make_update_in_place
+def fsdp_steps(torch, bundle, tc, units, dev, mesh, rows, digest=True):
+    """The seed's params (on ``mesh`` cut into this rank's shards; whole
+    without one) handed to the host engine with their optimizer state,
+    as the training loop hands them (``adopt``), then ``rows`` rows of
+    epoch 0 -> {losses, digests of the whole params gathered back, peak
+    GB from the state on, the state's GB (params, gradients, moments),
+    wall s}."""
+    from repro_torch.models.common import tree_leaves
+    from repro_torch.train.engine import HostEngine
+    from repro_torch.train.optim import make_update_for
 
     eng = HostEngine(bundle, tc, units, device=dev, mesh=mesh)
-    if in_place:
-        eng._step = make_step_core(eng.bundle, tc,
-                                   update=make_update_in_place(tc),
-                                   ctx=eng.ctx)
     p = eng.shard_state(seed_params(torch, bundle, dev, tc.seed))
     gc.collect()
     torch.cuda.empty_cache()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     o = make_update_for(tc)[0](p)
+    eng.adopt(p, o)
+    nbytes = lambda t: sum(x.numel() * x.element_size()  # noqa: E731
+                           for x in tree_leaves(t))
+    state_gb = (2 * nbytes(p) + nbytes(o)) / 1e9    # params, grads, moments
     idx, w = eng.full_plan(0)
     t0 = time.time()
     p, o, losses = eng.run_epoch(p, o, tc.lr, (idx[:rows], w[:rows]))
     torch.cuda.synchronize()
     out = {"losses": [float(x) for x in losses],
            "wall_s": time.time() - t0,
-           "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+           "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+           "state_gb": state_gb}
     del o
     if digest:
         out["digests"] = tree_digest(torch, eng.whole_state(p))
@@ -5307,8 +5313,9 @@ def fsdp_steps(torch, bundle, tc, units, dev, mesh, rows, digest=True,
 
 def fsdp_rank(rank: int, world: int, store_path: str, go_path: str):
     """Phase 23 (b) and (c), one rank of a (world,) data mesh over gloo on
-    the one card -> ({job: ``fsdp_steps``' result}, the lattice's
-    launches, the backend, the collectives' route)."""
+    the one card -> ({job: ``fsdp_steps``' result, job + "_whole": the
+    same rows with whole state and no mesh}, the lattice's launches in
+    the sharded RNN-T run, the backend, the collectives' route)."""
     if str(SRC) not in sys.path:
         sys.path.insert(0, str(SRC))
     import torch
@@ -5335,16 +5342,18 @@ def fsdp_rank(rank: int, world: int, store_path: str, go_path: str):
     # the one route there is: gloo's all_gather_into_tensor and
     # reduce_scatter_tensor on CUDA tensors (S1)
     route = f"{dist.get_backend()} on {dev.type} tensors"
-    rnnt_lattice_op.launches = 0
-    bundle, units, tc = fsdp_rnnt()
-    out = {"rnnt": fsdp_steps(torch, bundle, tc, units, dev, mesh,
-                              FSDP_ROWS)}
-    launches = rnnt_lattice_op.launches
-    bundle, units, tc = fsdp_lm(torch, DIST_LM_LAYERS)
-    out["lm"] = fsdp_steps(torch, bundle, tc, units, dev, mesh, FSDP_ROWS)
+    out = {}
+    for job, (bundle, units, tc) in (
+            ("rnnt", fsdp_rnnt()), ("lm", fsdp_lm(torch, DIST_LM_LAYERS))):
+        out[job + "_whole"] = fsdp_steps(torch, bundle, tc, units, dev,
+                                         None, FSDP_ROWS, digest=False)
+        rnnt_lattice_op.launches = 0
+        out[job] = fsdp_steps(torch, bundle, tc, units, dev, mesh, FSDP_ROWS)
+        if job == "rnnt":
+            launches = rnnt_lattice_op.launches
     bundle, units, tc = fsdp_lm(torch, get_config("starcoder2-3b").n_layers)
     out["lm_full"] = fsdp_steps(torch, bundle, tc, units, dev, mesh, 1,
-                                digest=False, in_place=True)
+                                digest=False)
 
     backend_name = dist.get_backend()
 
@@ -5375,15 +5384,10 @@ def fsdp_phase(torch, np, dev, mark):
         for job, (bundle, units, tc) in (
                 ("rnnt", fsdp_rnnt()),
                 ("lm", fsdp_lm(torch, DIST_LM_LAYERS))):
-            gc.collect()
-            torch.cuda.empty_cache()
-            torch.cuda.reset_peak_memory_stats()
             losses, p, o = halves_steps(
                 torch, bundle, tc, units, dev, FSDP_ROWS,
                 seed_params(torch, bundle, dev, tc.seed))
-            torch.cuda.synchronize()
-            ctrl[job] = {"losses": losses, "digests": tree_digest(torch, p),
-                         "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+            ctrl[job] = {"losses": losses, "digests": tree_digest(torch, p)}
             del p, o
         gc.collect()
         torch.cuda.empty_cache()
@@ -5405,7 +5409,11 @@ def fsdp_phase(torch, np, dev, mark):
             c = ctrl[job]
             same = [r[job]["losses"] == c["losses"]
                     and r[job]["digests"] == c["digests"] for r in (r0, r1)]
-            saving = [c["peak_gb"] - r[job]["peak_gb"] for r in (r0, r1)]
+            saving = [r[job + "_whole"]["peak_gb"] - r[job]["peak_gb"]
+                      for r in (r0, r1)]
+            removed = min(r[job + "_whole"]["state_gb"] - r[job]["state_gb"]
+                          for r in (r0, r1))
+            bar = max(FSDP_SAVING_GB, FSDP_SAVING_SHARE * removed)
             print(f"[23b] {what} on two ranks sharing the card over {be} "
                   f"(route {route}; host engine, eager, data = 2, sharded "
                   f"storage) against one device summing halves, "
@@ -5413,15 +5421,21 @@ def fsdp_phase(torch, np, dev, mark):
                   f" against {c['losses']}; losses and every param bitwise "
                   f"on each rank {same}; peak a rank "
                   f"{r0[job]['peak_gb']:.3f} / {r1[job]['peak_gb']:.3f} GB "
-                  f"against one device with whole state "
-                  f"{c['peak_gb']:.3f} GB ({saving[0]:.3f} / "
-                  f"{saving[1]:.3f} GB under it)", flush=True)
+                  f"against the same rows with whole state in each rank's "
+                  f"process {r0[job + '_whole']['peak_gb']:.3f} / "
+                  f"{r1[job + '_whole']['peak_gb']:.3f} GB ({saving[0]:.3f}"
+                  f" / {saving[1]:.3f} GB under it; state of params, "
+                  f"gradients and moments {r0[job + '_whole']['state_gb']:.3f}"
+                  f" GB whole, {r0[job]['state_gb']:.3f} / "
+                  f"{r1[job]['state_gb']:.3f} GB a rank"
+                  + (f"; bar {bar:.3f} GB" if job == "lm" else "")
+                  + ")", flush=True)
             require(all(same), f"23b {what}: the ranks are not bitwise one "
                                f"device summing halves")
             if job == "lm":
-                require(min(saving) >= FSDP_SAVING_GB,
-                        f"23b {what}: a rank's peak is not "
-                        f"{FSDP_SAVING_GB} GB under whole state's")
+                require(min(saving) >= bar,
+                        f"23b {what}: a rank's peak is not {bar:.3f} GB "
+                        f"under whole state's")
         m = floor["memory"]
         peaks = [r["lm_full"]["peak_gb"] for r in (r0, r1)]
         print(f"[23c] starcoder2-3b at full depth ({full_layers} layers), "
@@ -6178,10 +6192,10 @@ def main() -> None:
 
     mark("serving, LM")
 
-    # -- 12. main path, RWKV: rwkv6-3b at full width, MAIN_RWKV_LAYERS ---
+    # -- 12. main path, RWKV: rwkv6-3b at full width and depth -----------
     gc.collect()
     torch.cuda.empty_cache()
-    rw = build_model(dataclasses.replace(rw_cfg, n_layers=MAIN_RWKV_LAYERS))
+    rw = build_model(rw_cfg)
     n_rw = LM_N // UNIT_SIZE
     print(f"[main rwkv] rwkv6-3b (n_params {rw.cfg.n_params():,} by the "
           f"reference's formula, {rw.cfg.n_layers} of {rw_cfg.n_layers} "

@@ -18,7 +18,8 @@ Per cell it records, per rank:
     params excluded; under group remat only each group's inputs are
     saved), with the count of saved tensors that are a gathered weight
     or a cast or view of one (``saved_gathered``: 0, since each unit
-    gathers its weights inside its checkpoint region, hazard S2);
+    saves its weights as shards or gathers them inside its checkpoint
+    region, hazard S2);
     transient buffers (one unit's gathered weights among them) are not
     counted, so the total is a floor;
   * ``fits``: that floor within one 80 GB card.
@@ -64,6 +65,7 @@ from repro_torch.configs import SHAPES, cells, get_config, get_shape
 from repro_torch.configs.base import ShapeConfig, TrainConfig
 from repro_torch.launch.roofline import HBM_BYTES, model_flops, \
     step_model_flops
+from repro_torch.sharding.fsdp import gathered_node
 
 MESHES = {"none": {}, "single": {"data": 16, "model": 16},
           "multi": {"pod": 2, "data": 16, "model": 16}}
@@ -109,25 +111,6 @@ def _storage_key(t: torch.Tensor) -> int:
     return t.untyped_storage()._cdata
 
 
-#: autograd nodes that only cast or view a tensor
-_VIEWS = ("ToCopyBackward0", "TBackward0", "ViewBackward0",
-          "PermuteBackward0", "TransposeBackward0", "UnsafeViewBackward0")
-
-
-def _is_gathered(t: torch.Tensor) -> bool:
-    """Whether ``t`` is a weight gathered by ``sharding/fsdp.py`` or a
-    cast or view of one."""
-    fn = t.grad_fn
-    while fn is not None:
-        name = type(fn).__name__
-        if name == "GatherShardBackward":
-            return True
-        if name not in _VIEWS or not fn.next_functions:
-            return False
-        fn = fn.next_functions[0][0]
-    return False
-
-
 class saved_bytes:
     """``with saved_bytes(exclude) as s: ...``: the bytes of every
     storage autograd saves for the backward in the block, each storage
@@ -142,7 +125,7 @@ class saved_bytes:
         key = _storage_key(t)
         if key not in self.exclude and key not in self.seen:
             self.seen[key] = t.untyped_storage().nbytes()
-        self.gathered += _is_gathered(t)
+        self.gathered += gathered_node(t) is not None
         return t
 
     def __enter__(self):

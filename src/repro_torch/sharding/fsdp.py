@@ -16,12 +16,15 @@ the RNN-T's CNN blocks, LSTM layers, DNN, prediction network and joint;
 an encoder or decoder layer).  Inside :func:`gathering` of a tree of
 shards a unit gathers its leaves (:class:`GatherShard`,
 ``all_gather_into_tensor`` over the storage group) just before it runs,
-and they are dropped when it returns.  While autograd records, a unit is
-a checkpoint region (``torch.utils.checkpoint``, non-reentrant): the
-backward keeps the unit's inputs, not its gathered weights, and gathers
-them again to recompute it (ROADMAP hazard S2), so one unit is whole at
-a time.  Outside :func:`gathering` every call here is the identity, and
-a run on one device is unchanged.
+and they are dropped when it returns.  While autograd records, a tensor
+the unit saves for the backward that is a gathered weight, or a cast or
+view of the whole of one, is saved as its shard and gathered again when
+the backward unpacks it (``saved_tensors_hooks``, ROADMAP hazard S2), so
+no unit is recomputed; a unit with ``remat`` (the stacks' group remat)
+is a checkpoint region that gathers inside, so its recompute gathers
+again.  Either way one unit is whole at a time.  Outside
+:func:`gathering` every call here is the identity, and a run on one
+device is unchanged.
 
 ``GatherShard``'s backward reduce-scatters the whole gradient into the
 block (``reduce_scatter_tensor``, a sum in the weight's fp32): over the
@@ -37,12 +40,13 @@ all-reduced as before.
 
 Collectives: ``all_gather_into_tensor`` and ``reduce_scatter_tensor`` on
 every backend the port runs: NCCL on the card, gloo on the CPU and on
-the CUDA tensors of ranks that share a card (hazard S1: both calls were
-checked on the card by ``scripts/fsdp_collectives_probe.py``).
+the CUDA tensors of ranks that share a card (hazard S1: ``chip_smoke.py``
+phase 23b holds gloo's on the card bitwise against one device).
 """
 from __future__ import annotations
 
 import contextlib
+import math
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
@@ -203,7 +207,10 @@ class GatherShard(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, block, lay, reg, key):
-        ctx.lay, ctx.reg, ctx.key = lay, reg, key
+        # the block itself (a stored shard, alive anyway) to gather again
+        # for a saved tensor's unpack (``_SavedAsShards``)
+        ctx.lay, ctx.reg, ctx.key, ctx.block = lay, reg, key, block.detach()
+        ctx.whole, ctx.packed = {}, 0
         return gather_block(lay, block)
 
     @staticmethod
@@ -289,20 +296,94 @@ def unbind(t: torch.Tensor, dim: int = 0) -> List[torch.Tensor]:
     return parts
 
 
+#: autograd nodes that only cast or view a tensor
+_VIEWS = ("ToCopyBackward0", "TBackward0", "ViewBackward0",
+          "PermuteBackward0", "TransposeBackward0", "UnsafeViewBackward0")
+
+
+def gathered_node(t: torch.Tensor):
+    """The :class:`GatherShard` node whose output ``t`` is, or is a cast
+    or view of; None for any other tensor."""
+    fn = t.grad_fn
+    while fn is not None:
+        if type(fn).__name__ == "GatherShardBackward":
+            return fn
+        if type(fn).__name__ not in _VIEWS or not fn.next_functions:
+            return None
+        fn = fn.next_functions[0][0]
+    return None
+
+
+class _SavedAsShards:
+    """The saved-tensor hooks of a unit (S2): a tensor that is a gathered
+    weight, or a view of it, or a view of a cast of all of it (its
+    storage the whole leaf's size), is packed as its node's shard and its
+    view (size, stride, offset, dtype), and unpacked from the whole leaf
+    gathered again, once for all of the node's saved tensors; the gather
+    is dropped when the last is unpacked.  Any other tensor goes to the
+    hooks this unit runs inside (a dry run's count, a checkpoint), or is
+    kept as it is."""
+
+    def __init__(self):
+        top = torch._C._autograd._top_saved_tensors_default_hooks(False)
+        self.outer = top
+        self.hooks = torch.autograd.graph.saved_tensors_hooks(self.pack,
+                                                              self.unpack)
+
+    def pack(self, t):
+        node = gathered_node(t)
+        if node is not None and (t.untyped_storage().nbytes()
+                                 == t.element_size() * math.prod(
+                                     node.lay.shape)):
+            node.packed += 1
+            return (_SHARD, node, t.dtype, t.size(), t.stride(),
+                    t.storage_offset())
+        return (None, self.outer[0](t)) if self.outer else (None, t)
+
+    def unpack(self, packed):
+        if packed[0] is not _SHARD:
+            return self.outer[1](packed[1]) if self.outer else packed[1]
+        _, node, dtype, size, stride, offset = packed
+        whole = node.whole.get(dtype)
+        if whole is None:
+            with torch.no_grad():
+                whole = gather_block(node.lay, node.block).to(dtype)
+            node.whole[dtype] = whole
+        node.packed -= 1
+        if node.packed == 0:
+            node.whole = {}
+        return whole.as_strided(size, stride, offset)
+
+    def __enter__(self):
+        self.hooks.__enter__()
+        return self
+
+    def __exit__(self, *exc):
+        self.hooks.__exit__(*exc)
+
+
+_SHARD = object()          # the tag of a tensor packed as its shard
+
+
 def run_unit(fn, params, *args, remat: bool = False):
     """``fn(params, *args)``, one unit of compute.  With ``params``
-    holding shards, their whole leaves are gathered for ``fn`` and, while
-    autograd records, inside a checkpoint region (S2); ``remat`` makes it
-    a checkpoint region on one device too (the stacks' group remat).  No
-    unit draws random numbers, so no generator state is stashed (a stash
-    would read it inside a CUDA-graph capture) and the recompute is
-    bitwise the first forward."""
+    holding shards, their whole leaves are gathered for ``fn``; while
+    autograd records, its saved weights are kept as shards
+    (:class:`_SavedAsShards`, S2).  ``remat`` makes the unit a checkpoint
+    region, on one device too (the stacks' group remat): its weights are
+    gathered inside it, so the recompute gathers them again.  No unit
+    draws random numbers, so no generator state is stashed (a stash
+    would read it inside a CUDA-graph capture) and a recompute is bitwise
+    the first forward."""
     sharded = holds(params)
-    if not torch.is_grad_enabled() or not (sharded or remat):
-        return fn(gather(params) if sharded else params, *args)
-    if sharded:
-        body = lambda *a: fn(gather(params), *a)      # noqa: E731
-    else:
-        body = lambda *a: fn(params, *a)              # noqa: E731
-    return checkpoint(body, *args, use_reentrant=False,
-                      preserve_rng_state=False)
+    if remat and torch.is_grad_enabled():
+        body = (lambda *a: fn(gather(params), *a)) if sharded else \
+            (lambda *a: fn(params, *a))                 # noqa: E731
+        return checkpoint(body, *args, use_reentrant=False,
+                          preserve_rng_state=False)
+    if not sharded:
+        return fn(params, *args)
+    if not torch.is_grad_enabled():
+        return fn(gather(params), *args)
+    with _SavedAsShards():
+        return fn(gather(params), *args)

@@ -68,18 +68,24 @@ def _gathered(t: torch.Tensor, group) -> torch.Tensor:
 def _topk_mask(a: torch.Tensor, k: int, lay=None) -> torch.Tensor:
     """The entries of JAX's ``top_k(a, k)`` of the whole leaf (ties to the
     lower index) as a mask of ``a`` (flat): this rank's block of it on a
-    mesh (``lay``)."""
+    mesh (``lay``).  A storage group of one holds the whole leaf, which
+    takes the one-device route."""
+    if lay is not None and len(lay.parts) == 1:
+        lay = None
     kl = min(k, a.numel())
     cand = torch.topk(a, kl, sorted=False).values
-    if lay is not None:
-        cand = _gathered(cand, lay.group)
+    if lay is None:
+        kth = cand.min()
+        eq = a == kth
+        need = k - (a > kth).sum()
+        dt = torch.int32 if a.numel() < 2 ** 31 else torch.int64
+        return (a > kth) | (eq & (torch.cumsum(eq, 0, dtype=dt) <= need))
+    cand = _gathered(cand, lay.group)
     kth = torch.topk(cand, k, sorted=False).values.min()
     gt = a > kth
     eq = a == kth
     # every entry above the k-th is among some block's top kl
     need = k - (cand > kth).sum()
-    if lay is None:
-        return gt | (eq & (torch.cumsum(eq.to(torch.int64), 0) <= need))
     gidx = _flat_index(lay, a.device)
     tied = torch.where(eq, gidx, torch.iinfo(torch.int64).max)
     first = _gathered(torch.topk(tied, kl, largest=False,
@@ -89,7 +95,6 @@ def _topk_mask(a: torch.Tensor, k: int, lay=None) -> torch.Tensor:
     last = torch.sort(first).values.index_select(
         0, torch.clamp(need - 1, min=0).reshape(1))
     return gt | (eq & (gidx <= last) & (need > 0))
-
 
 
 def topk_compress(g, err, k_frac: float = 0.05, layouts=None):

@@ -40,6 +40,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import math
+import weakref
 from typing import Dict, NamedTuple, Optional
 
 import numpy as np
@@ -61,9 +62,9 @@ def make_step_core(bundle, cfg: TrainConfig, update=None, ctx=None):
     step_on=None, err=None) -> (params, opt_state, metrics)``.  Gradients
     come from autograd through the fused loss's analytic backward, and
     ``update`` (default: the functional ``optim.make_update_for(cfg)``
-    update, which leaves its inputs untouched) applies them;
-    ``EpochEngine`` passes ``optim.make_update_in_place(cfg)``, which
-    writes into the trees and returns them.  ``step_on`` (0-dim bool
+    update, which leaves its inputs untouched) applies them; both
+    engines pass ``optim.make_update_in_place(cfg)``, which writes into
+    the trees and returns them.  ``step_on`` (0-dim bool
     tensor) gates the update.
 
     With ``cfg.nonfinite_guard`` the step also gates on ``isfinite(loss)
@@ -954,7 +955,14 @@ class HostEngine(_MeshState):
     it so that a rolled-back run replays on other batch orders
     (``seed + 1_000_003 * plan_salt``).  With the guard on,
     ``last_skipped`` holds the last epoch's per-step skip flags and
-    ``last_n_skipped`` their count."""
+    ``last_n_skipped`` their count.
+
+    Aliasing: the optimizer commits into the state's tensors, as the
+    scan engine's does (the functional update would hold a second copy
+    of params and moments at every step).  ``run_epoch`` writes only
+    into tensors the engine owns: those it returned, cut into shards or
+    was handed (``adopt``); any other leaf it is given is copied first,
+    so the caller's tensors are never written unless handed over."""
 
     kind = "host"
 
@@ -985,7 +993,41 @@ class HostEngine(_MeshState):
         self.plan_salt = 0
         self.last_skipped: Optional[np.ndarray] = None
         self.last_n_skipped: Optional[int] = None
-        self._step = make_step_core(bundle, cfg, ctx=self.ctx)
+        self._step = make_step_core(bundle, cfg,
+                                    update=make_update_in_place(cfg),
+                                    ctx=self.ctx)
+        #: the leaves ``run_epoch`` may write into (id -> weak reference)
+        self._owned: Dict[int, weakref.ref] = {}
+
+    def adopt(self, params, opt_state) -> None:
+        """Hand the caller's state (on a mesh, its shards) to the engine
+        without a copy, the counterpart of the reference's donation: the
+        runs update it in place.  ``train_with_selection`` adopts its
+        fresh initial state, so a 3B model's weights and moments are not
+        held twice at its first epoch."""
+        self._own(params, opt_state)
+
+    def _own(self, *trees) -> None:
+        for tree in trees:
+            for l in tree_leaves(tree):
+                self._owned[id(l)] = weakref.ref(l)
+
+    def _writable(self, params, opt_state):
+        """This rank's shards of the state (``shard_state``: a whole tree
+        is cut into copies) as tensors the engine owns: a leaf given by
+        the caller that it neither returned nor was handed is copied."""
+        given = {id(l) for t in (params, opt_state) for l in tree_leaves(t)}
+        params, opt_state = self.shard_state(params, opt_state)
+
+        def mine(l):
+            if not isinstance(l, torch.Tensor) or id(l) not in given:
+                return l
+            ref = self._owned.get(id(l))
+            return l if ref is not None and ref() is l else l.clone()
+        out = tree_map(mine, params), tree_map(mine, opt_state)
+        self._owned = {}
+        self._own(*out)
+        return out
 
     def _plan_seed(self) -> int:
         return self.cfg.seed + 1_000_003 * self.plan_salt
@@ -1011,9 +1053,10 @@ class HostEngine(_MeshState):
     def run_epoch(self, params, opt_state, lr, plan):
         """Every plan row, padding rows included (a row of ids -1 runs on
         the last unit with weight 0, as the reference's host loop runs
-        it) -> (params, opt_state, each row's loss).  On a mesh whole
-        trees are cut into this rank's shards, which it returns."""
-        params, opt_state = self.shard_state(params, opt_state)
+        it) -> (params, opt_state, each row's loss), updated in place
+        (see the class's aliasing note).  On a mesh whole trees are cut
+        into this rank's shards, which it returns."""
+        params, opt_state = self._writable(params, opt_state)
         losses, skipped = [], []
         for sel, w in zip(*plan):
             batch = {k: v[sel].reshape((-1,) + v.shape[2:])
@@ -1035,7 +1078,6 @@ class HostEngine(_MeshState):
         n_val = int(self.val_units["tokens"].shape[0])
         with torch.no_grad(), self.gathering(params):
             return float(np.mean([
-
                 float(self.bundle.per_example_loss(
                     params, {k: v[i] for k, v in self.val_units.items()}
                 ).mean()) for i in range(n_val)]))

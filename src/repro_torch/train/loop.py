@@ -208,8 +208,7 @@ def train_with_selection(
     params = eng.shard_state(params)
     opt_init, _ = make_update_for(tc)
     opt_state = opt_init(params)
-    if is_scan:
-        eng.adopt(params, opt_state)
+    eng.adopt(params, opt_state)
     durations = torch.as_tensor(unit_durations(
         {k: np.asarray(v) for k, v in units.items()})).to(dev)
 

@@ -111,11 +111,16 @@ def test_a_mesh_cell_records_its_collective_schedule():
         grad_bytes = n_whole * 4 + n_stored * (2 if mode == "bf16" else 4)
         assert abs(ar["bytes"] - grad_bytes) < 64 + 4 * n_cut
         assert math.isclose(ar["wire_bytes"], ar["bytes"], rel_tol=1e-9)
-        # each sharded leaf's gathers (the forward's and the recompute's)
-        # and one fp32 reduce-scatter of its gradient into the shard
+        # each gathered leaf: one fp32 reduce-scatter of its gradient into
+        # the shard, a gather in the forward and one in the backward (a
+        # remat group's recompute); but the stack's two leaves whose spec
+        # splits the layer axis are gathered whole once, before the
+        # groups, and the tied embedding three times (the lookup, the
+        # head, and the head's saved weight unpacked; the lookup saves
+        # no weight)
         rs = rec["collectives"]["reduce_scatter_tensor"]
         ag = rec["collectives"]["all_gather_into_tensor"]
-        assert rs["count"] > 0 and ag["count"] == 2 * rs["count"]
+        assert rs["count"] > 0 and ag["count"] == 2 * rs["count"] - 2 + 1
         assert rs["bytes"] == 4 * (n_stored - n_whole)
     assert recs["bf16"]["wire_bytes"] < recs["none"]["wire_bytes"]
 

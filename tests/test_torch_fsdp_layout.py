@@ -202,3 +202,63 @@ def test_dry_run_stores_quarters_and_saves_no_gathered_weight(tmp_path):
         assert s.gathered == 1
     finally:
         dist.destroy_process_group()
+
+
+def test_a_unit_saves_its_gathered_weights_as_shards(tmp_path, monkeypatch):
+    """S2 outside remat (``fsdp.run_unit``): a unit's products save a
+    whole cast of its gathered weight, transposed and not; the hooks
+    keep the shard (the dry run's count, the outer hooks, sees the
+    unit's activations but no gathered weight), the backward gathers it
+    once for both saved uses and drops it after the last, and the
+    gradients are bitwise those of the same unit on the whole weight (a
+    one-rank gloo group)."""
+    import torch.distributed as dist
+
+    from repro_torch.launch.dryrun import saved_bytes
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.sharding import fsdp
+
+    gen = torch.Generator().manual_seed(0)
+    w0 = torch.randn((8, 4), generator=gen)
+    x0 = torch.randn((3, 4), dtype=torch.float64, generator=gen)
+
+    def unit(p, x):
+        wt = p["w"].t().to(torch.float64)
+        return torch.tanh(x @ wt) @ wt.t()
+
+    def grads(run):
+        w, x = w0.clone().requires_grad_(True), x0.clone().requires_grad_(True)
+        run(w, x)
+        return w.grad, x.grad
+
+    def plain(w, x):
+        unit({"w": w}, x).sum().backward()
+
+    nodes = []
+    unpack = fsdp._SavedAsShards.unpack
+
+    def seen(self, packed):
+        if packed[0] is fsdp._SHARD:
+            nodes.append(packed[1])
+        return unpack(self, packed)
+    monkeypatch.setattr(fsdp._SavedAsShards, "unpack", seen)
+    dist.init_process_group("gloo", rank=0, world_size=1,
+                            store=dist.FileStore(str(tmp_path / "s"), 1))
+    try:
+        lay = fsdp.Store(make_mesh((1,), ("data",), "cpu"),
+                         ("data",)).layout(("data", None), (8, 4))
+        counts = {}
+
+        def sharded(w, x):
+            with fsdp.gathering([(w, lay)]):
+                with saved_bytes() as s:
+                    y = fsdp.run_unit(unit, {"w": w}, x)
+                counts.update(gathered=s.gathered, saved=s.total)
+                y.sum().backward()
+        got, want = grads(sharded), grads(plain)
+    finally:
+        dist.destroy_process_group()
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    assert counts["gathered"] == 0 and counts["saved"] > 0
+    assert len(nodes) == 2 and nodes[0] is nodes[1]
+    assert nodes[0].packed == 0 and nodes[0].whole == {}
